@@ -1,0 +1,22 @@
+"""loltracer-tpu-torch: the PyTorch / CUDA port of `loltracer_tpu`.
+
+The JAX package `loltracer_tpu` is the reference; this package renders the
+same compiled `.lol` scenes on an NVIDIA H100 through a hand-written CUDA
+kernel (render/fused_fwd.py, csrc/fused_fwd.cuh), with a plain PyTorch
+version of the same pipeline beside it for CPU tensors. It imports torch
+and never jax.
+"""
+
+from loltracer_tpu_torch.config import RenderConfig
+from loltracer_tpu_torch.lol.parser import parse_scene, parse_scene_file
+from loltracer_tpu_torch.scene import Scene, build_scene
+
+__all__ = [
+    "RenderConfig",
+    "parse_scene",
+    "parse_scene_file",
+    "build_scene",
+    "Scene",
+]
+
+__version__ = "0.1.0"

@@ -1,0 +1,152 @@
+"""Command-line interface of the port (`loltracer_tpu/cli.py`: render, info).
+
+    python -m loltracer_tpu_torch.cli render examples/scene4.lol --size 1920x1080 -o out.png
+    python -m loltracer_tpu_torch.cli info examples/scene4.lol
+
+`render` goes through the fused CUDA kernel (render/cuda_renderer.py) on
+`--device cuda`, the default, and raises if CUDA is not available;
+`--device cpu` renders through the plain PyTorch version. The render flags
+are those of the JAX package's CLI.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+
+def _parse_size(s: str):
+    w, h = s.lower().split("x")
+    return int(w), int(h)
+
+
+def _build_cfg(args):
+    from loltracer_tpu_torch.config import RenderConfig
+
+    kw = {}
+    for field in (
+        "max_steps",
+        "epsilon",
+        "max_dist",
+        "shadow_steps",
+        "shadow_w",
+        "gamma",
+    ):
+        v = getattr(args, field, None)
+        if v is not None:
+            kw[field] = v
+    if getattr(args, "aa", False):
+        kw["antialias"] = True
+    sc = getattr(args, "step_clamp", None)
+    if sc is not None:
+        kw["step_clamp"] = None if sc <= 0 else sc
+    if getattr(args, "tan_fov", False):
+        kw["atan_fov"] = False
+    return RenderConfig(**kw)
+
+
+def _load_scene(path):
+    from loltracer_tpu_torch.lol import parse_scene_file
+    from loltracer_tpu_torch.scene import build_scene
+
+    if str(path).startswith("instanced:"):
+        raise NotImplementedError(
+            "instanced scenes are not ported to loltracer_tpu_torch yet "
+            "(ROADMAP.md, Queue 1: the instanced tier)"
+        )
+    return build_scene(parse_scene_file(path))
+
+
+def _add_render_flags(p):
+    p.add_argument("--size", default="640x480", help="WxH (default 640x480)")
+    p.add_argument("--aa", action="store_true", help="soft-coverage antialiasing")
+    p.add_argument(
+        "--step-clamp", type=float, default=None, dest="step_clamp",
+        help="instanced scenes: sphere-set step clamp (config.py "
+        "step_clamp; <=0 for exact; default exact)",
+    )
+    p.add_argument("--tan-fov", action="store_true",
+                   help="standard tan() pinhole instead of the reference's atan quirk")
+    p.add_argument("--max-steps", type=int, dest="max_steps")
+    p.add_argument("--epsilon", type=float)
+    p.add_argument("--max-dist", type=float, dest="max_dist")
+    p.add_argument("--shadow-steps", type=int, dest="shadow_steps")
+    p.add_argument("--shadow-w", type=float, dest="shadow_w")
+    p.add_argument("--gamma", type=float)
+
+
+def cmd_render(args):
+    import torch
+
+    from loltracer_tpu_torch.render.cuda_renderer import make_cuda_renderer
+    from loltracer_tpu_torch.utils.image import write_npy, write_png
+
+    w, h = _parse_size(args.size)
+    cfg = _build_cfg(args)
+    scene = _load_scene(args.scene)
+
+    t0 = time.perf_counter()
+    renderer = make_cuda_renderer(scene.structure, h, w, cfg, device=args.device)
+    img = renderer(scene.params)
+    if img.device.type == "cuda":
+        torch.cuda.synchronize(img.device)
+    img = img.cpu().numpy()
+    dt = time.perf_counter() - t0
+
+    out = args.output or "out.png"
+    if out.endswith(".npy"):
+        write_npy(out, img)
+    else:
+        write_png(out, img)
+    print(f"rendered {args.scene} {w}x{h} on {args.device} in {dt:.2f}s -> {out}")
+    return 0
+
+
+def cmd_info(args):
+    scene = _load_scene(args.scene)
+    st = scene.structure
+    print(json.dumps(
+        {
+            "materials": st.num_materials,
+            "lights": st.num_lights,
+            "objects": st.num_objects,
+            "spheres": st.num_spheres,
+            "boxes": st.num_boxes,
+            "planes": st.num_planes,
+            "smooth_unions": st.num_unions,
+            "object_exprs": [repr(o) for o in st.objects],
+        },
+        indent=2,
+    ))
+    return 0
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(prog="loltrace-torch")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("render", help="render a scene to PNG/NPY")
+    p.add_argument(
+        "scene", nargs="?", default="-",
+        help=".lol file; '-' or omitted reads stdin",
+    )
+    p.add_argument("-o", "--output")
+    p.add_argument(
+        "--device", choices=["cuda", "cpu"], default="cuda",
+        help="cuda: the fused CUDA kernel (default); cpu: the plain PyTorch version",
+    )
+    _add_render_flags(p)
+    p.set_defaults(fn=cmd_render)
+
+    p = sub.add_parser("info", help="parsed scene summary")
+    p.add_argument("scene", nargs="?", default="-")
+    p.set_defaults(fn=cmd_info)
+
+    args = parser.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,231 @@
+// lol_render_fused on Hopper: the fused forward render, one thread per ray.
+//
+// Replaces `loltracer_tpu/render/pallas_train.py: _train_fwd_kernel` with
+// residuals off (`make_fwd_call(..., with_residuals=False)`, the Pallas call
+// named `lol_render_fused`). Per pixel it runs the camera ray, the
+// sphere-trace march (with the closest-approach tracking of soft-coverage
+// AA when Cfg::antialias), the material at the last query point, per light
+// the shadow-origin offset and the soft-shadow march, tetrahedron normals,
+// Phong shading, the AA blend and gamma. Output is [H, W, 3] f32.
+//
+// What bounds it on this card: FP32 and SFU issue (sqrt and divide in every
+// SDF evaluation, up to 256 march steps plus 128 shadow steps per light)
+// and warp divergence, not bytes: it reads ~100 scene floats once per
+// thread and writes 12 B per ray. The TPU kernel marched (64, 128) tiles
+// until the tile's worst lane finished; here each thread leaves its loop
+// when its own ray is done, so a warp of 32 neighbouring pixels waits only
+// for its own worst ray, and finished warps free their slots for others.
+//
+// This file is not compiled on its own: render/cuda_scene.py emits, after
+// it, the per-structure `Cfg` and `Scene` types (the straight-line SDF of
+// the scene's structure, reading the scene's numbers from one packed f32
+// buffer at generated offsets) and the extern "C" entry point.
+//
+// Arithmetic matches the plain PyTorch version op for op: the build passes
+// --fmad=false, sums run ((x + y) + z), vectors are normalized by dividing
+// by sqrtf, and min/max/clamp propagate NaN like torch.minimum/maximum.
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace lol {
+
+// torch.minimum / torch.maximum semantics: NaN in either operand wins.
+__device__ __forceinline__ float jmin(float a, float b) {
+  return (a != a || a < b) ? a : b;
+}
+__device__ __forceinline__ float jmax(float a, float b) {
+  return (a != a || a > b) ? a : b;
+}
+__device__ __forceinline__ float jclip(float x, float lo, float hi) {
+  return jmin(jmax(x, lo), hi);
+}
+
+// Polynomial smooth-min, guarded at k == 0 (render/sdf.py smooth_min).
+__device__ __forceinline__ float smooth_min(float a, float b, float k) {
+  const bool zero_k = k == 0.f;
+  const float safe_k = zero_k ? 1.f : k;
+  float h = jclip(0.5f + 0.5f * (b - a) / safe_k, 0.f, 1.f);
+  if (zero_k) h = (b > a) ? 1.f : 0.f;
+  return (b + (a - b) * h) - k * h * (1.f - h);
+}
+
+__device__ __forceinline__ float dot3(float ax, float ay, float az, float bx,
+                                      float by, float bz) {
+  return ax * bx + ay * by + az * bz;
+}
+
+// v / sqrt(max(|v|^2, 1e-30)) (render/vecmath.py normalize).
+__device__ __forceinline__ void normalize3(float& x, float& y, float& z) {
+  const float n = sqrtf(jmax(dot3(x, y, z, x, y, z), 1e-30f));
+  x = x / n;
+  y = y / n;
+  z = z / n;
+}
+
+// Camera pack layout (render/camera.py camera_pack):
+// ro(3) right(3) up(3) fwd(3) half_w half_h pixel_rad row0.
+constexpr int kCamSize = 16;
+
+template <class Cfg, class Scene>
+__global__ void __launch_bounds__(256)
+    fused_fwd_kernel(const float* __restrict__ cam_in,
+                     const float* __restrict__ P, float* __restrict__ img,
+                     int height, int width) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= width || y >= height) return;
+
+  float cam[kCamSize];
+#pragma unroll
+  for (int i = 0; i < kCamSize; ++i) cam[i] = __ldg(cam_in + i);
+  const Scene scn(P);
+
+  // --- camera ray (camera.rays_from_pack) ------------------------------
+  const float ox = cam[0], oy = cam[1], oz = cam[2];
+  const float vx = ((float)x + 0.5f) / (float)width * 2.f - 1.f;
+  const float vy = 1.f - ((cam[15] + (float)y) + 0.5f) / (float)height * 2.f;
+  const float sx = vx * cam[12], sy = vy * cam[13];
+  float dx = cam[3] * sx + cam[6] * sy + cam[9];
+  float dy = cam[4] * sx + cam[7] * sy + cam[10];
+  float dz = cam[5] * sx + cam[8] * sy + cam[11];
+  normalize3(dx, dy, dz);
+
+  // --- march (march.py march) -------------------------------------------
+  float t = 0.f, t_query = 0.f, s_min = INFINITY, t_close = 0.f;
+  for (int step = 0; step < Cfg::max_steps; ++step) {
+    const float d = scn.dist(ox + t * dx, oy + t * dy, oz + t * dz);
+    const float new_t = t + d;
+    if (Cfg::antialias) {
+      const float s = d / (t > 0.f ? t : 1.f);
+      if (t > 0.f && s < s_min) {
+        s_min = s;
+        t_close = t;
+      }
+    }
+    t_query = t;
+    t = new_t;
+    if (d < Cfg::epsilon || new_t > Cfg::max_dist) break;
+  }
+  const bool hit = t < Cfg::max_dist;
+
+  // --- shading distance, material, coverage (march.py intersect_aa) -----
+  float t_sh, alpha = 1.f;
+  int mat;
+  if (Cfg::antialias) {
+    const float tc = hit ? t_query : t_close;
+    float f_close;
+    mat = scn.sdf_mat(ox + tc * dx, oy + tc * dy, oz + tc * dz, f_close);
+    if (!hit) {
+      const float s = f_close / (tc > 0.f ? tc : 1.f);
+      alpha = tc > 0.f ? jclip(1.f - s / cam[14], 0.f, 1.f) : 0.f;
+    }
+    t_sh = hit ? t : tc;
+  } else {
+    float unused;
+    mat = scn.sdf_mat(ox + t_query * dx, oy + t_query * dy, oz + t_query * dz,
+                      unused);
+    if (!hit) mat = 0;
+    t_sh = t;
+  }
+  const float px = ox + t_sh * dx, py = oy + t_sh * dy, pz = oz + t_sh * dz;
+
+  // --- tetrahedron normal (shading.py get_normal) -----------------------
+  const float h = t_sh * Cfg::normal_h_scale;
+  float nx = 0.f, ny = 0.f, nz = 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    // taps (1,-1,-1), (-1,-1,1), (-1,1,-1), (1,1,1)
+    const float kx = (k == 0 || k == 3) ? 1.f : -1.f;
+    const float ky = (k >= 2) ? 1.f : -1.f;
+    const float kz = (k == 1 || k == 3) ? 1.f : -1.f;
+    const float d = scn.dist(px + kx * h, py + ky * h, pz + kz * h);
+    nx = nx + kx * d;
+    ny = ny + ky * d;
+    nz = nz + kz * d;
+  }
+  normalize3(nx, ny, nz);
+
+  // --- Phong with per-light soft shadows (shading.py shade) -------------
+  const float shin = __ldg(P + Scene::kMatShininess + mat);
+  float dif[3], spec[3], amb[3], col[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    dif[c] = __ldg(P + Scene::kMatDiffuse + 3 * mat + c);
+    spec[c] = __ldg(P + Scene::kMatSpecular + 3 * mat + c);
+    amb[c] = __ldg(P + Scene::kMatAmbient + 3 * mat + c);
+    col[c] = 0.f;
+  }
+  float cx = cam[0] - px, cy = cam[1] - py, cz = cam[2] - pz;
+  normalize3(cx, cy, cz);
+
+#pragma unroll
+  for (int l = 0; l < Scene::kNumLights; ++l) {
+    const float* lp = P + Scene::kLightPoint + 3 * l;
+    const float tlx = __ldg(lp) - px, tly = __ldg(lp + 1) - py,
+                tlz = __ldg(lp + 2) - pz;
+    const float light_dist = sqrtf(dot3(tlx, tly, tlz, tlx, tly, tlz));
+    float lx = tlx, ly = tly, lz = tlz;
+    normalize3(lx, ly, lz);
+    const float sox = px + lx * Cfg::shadow_offset;
+    const float soy = py + ly * Cfg::shadow_offset;
+    const float soz = pz + lz * Cfg::shadow_offset;
+
+    // soft-shadow march (shading.py soft_shadow): the first step has t == 0
+    // and gives +/-inf; res < -1 is a hard shadow.
+    float res = 1.f, ts = 0.f;
+    for (int step = 0; step < Cfg::shadow_steps; ++step) {
+      const float d = scn.dist(sox + ts * lx, soy + ts * ly, soz + ts * lz);
+      const float val =
+          ts > 0.f ? Cfg::shadow_w * d / ts : (d < 0.f ? -INFINITY : INFINITY);
+      res = jmin(res, val);
+      ts = ts + d;
+      if (res < -1.f || ts > light_dist) break;
+    }
+    const float shadow = jmax(res, 0.f);
+
+    const float ndl = dot3(nx, ny, nz, lx, ly, lz);
+    const float diffuse_incidence = jclip(ndl, 0.f, 1.f);
+    const float w_diff = shadow * diffuse_incidence;
+    const float two_ldn = 2.f * dot3(lx, ly, lz, nx, ny, nz);
+    const float rx = nx * two_ldn - lx, ry = ny * two_ldn - ly,
+                rz = nz * two_ldn - lz;
+    const float base = jclip(dot3(rx, ry, rz, cx, cy, cz), 0.f, 1.f);
+    const float powv = base > 0.f ? powf(base, shin) : (shin == 0.f ? 1.f : 0.f);
+    const float w_spec = shadow * (diffuse_incidence * powv);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      col[c] = col[c] + __ldg(P + Scene::kLightDiffuse + 3 * l + c) * w_diff * dif[c];
+      col[c] = col[c] + __ldg(P + Scene::kLightSpecular + 3 * l + c) * w_spec * spec[c];
+    }
+  }
+
+  float* out = img + ((size_t)y * width + x) * 3;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float ambient = __ldg(P + Scene::kAmbientColor + c);
+    float v = jclip(col[c] + ambient * amb[c], 0.f, 1.f);
+    if (Cfg::antialias) {
+      // blend toward the background (material 0 ambient) in linear space
+      const float bg = jclip(ambient * __ldg(P + Scene::kMatAmbient + c), 0.f, 1.f);
+      v = alpha * v + (1.f - alpha) * bg;
+    }
+    out[c] = v > 0.f ? powf(v, Cfg::gamma) : 0.f;
+  }
+}
+
+constexpr int kBlockX = 32;
+constexpr int kBlockY = 8;
+
+template <class Cfg, class Scene>
+int launch_fused_fwd(const float* cam, const float* fields, float* img,
+                     int height, int width, cudaStream_t stream) {
+  const dim3 block(kBlockX, kBlockY);
+  const dim3 grid((width + kBlockX - 1) / kBlockX,
+                  (height + kBlockY - 1) / kBlockY);
+  fused_fwd_kernel<Cfg, Scene>
+      <<<grid, block, 0, stream>>>(cam, fields, img, height, width);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace lol

@@ -1,0 +1,78 @@
+"""Pinhole camera (`loltracer_tpu/render/camera.py` and
+`pallas_train.camera_pack`).
+
+Reproduces the reference's projection including its atan quirk: the view
+plane half-height is atan(fov/2), not tan(fov/2) (RenderConfig.atan_fov).
+The camera direction is renormalized here, as in the JAX package.
+
+All rays come from the 16-scalar camera pack, the kernel's camera input, so
+the plain version and the CUDA kernel build their rays from the same
+numbers with the same operations.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from loltracer_tpu_torch.config import RenderConfig
+from loltracer_tpu_torch.render.vecmath import cross, normalize, true_div
+from loltracer_tpu_torch.scene import SceneParams
+
+CAM_SIZE = 16  # ro(3) right(3) up(3) fwd(3) half_w half_h pixel_rad row0
+
+
+def camera_pack(
+    params: SceneParams, height: int, width: int, cfg: RenderConfig, row0=0.0
+) -> torch.Tensor:
+    """[16] f32 on the params' device: the camera-derived scalars the kernel
+    consumes. `row0` is the first image row the call renders."""
+    f32 = torch.float32
+    d = normalize(params.cam_direction.to(f32))
+    upg = torch.tensor([0.0, 1.0, 0.0], dtype=f32, device=d.device)
+    rt = normalize(cross(d, upg))
+    up = cross(rt, d)
+    half = params.cam_fov.to(f32) / 2.0
+    hh = torch.atan(half) if cfg.atan_fov else torch.tan(half)
+    hw = (width / height) * hh
+    pixel_rad = true_div(cfg.aa_width * hh, height)
+    tail = torch.stack([hw, hh, pixel_rad, torch.full_like(hh, float(row0))])
+    return torch.cat([params.cam_point.to(f32), rt, up, d, tail]).contiguous()
+
+
+def rays_from_pack(
+    cam: torch.Tensor, rows: torch.Tensor, height: int, width: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(ro [3], rd [R, W, 3]) for image rows cam[15] + rows. Pixel centers
+    map to NDC as ((x+.5)/W*2-1, 1-(y+.5)/H*2); the kernel computes the
+    same expressions per pixel."""
+    ro, rt, up, fw = cam[0:3], cam[3:6], cam[6:9], cam[9:12]
+    x = torch.arange(width, dtype=cam.dtype, device=cam.device)
+    y = cam[15] + rows.to(dtype=cam.dtype, device=cam.device)
+    vx = true_div(x + 0.5, width) * 2.0 - 1.0
+    vy = 1.0 - true_div(y + 0.5, height) * 2.0
+    rd = (
+        rt * (vx * cam[12])[None, :, None]
+        + up * (vy * cam[13])[:, None, None]
+        + fw
+    )
+    return ro, normalize(rd)
+
+
+def camera_rays_for_rows(
+    params: SceneParams, rows: torch.Tensor, height_px: int, width_px: int,
+    cfg: RenderConfig,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Ray grid for a subset of image rows. rows: [R] row indices. Returns
+    (ro [3], rd [R, W, 3])."""
+    cam = camera_pack(params, height_px, width_px, cfg)
+    return rays_from_pack(cam, rows, height_px, width_px)
+
+
+def camera_rays(
+    params: SceneParams, height_px: int, width_px: int, cfg: RenderConfig
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-image ray grid. Returns (ro [3], rd [H, W, 3]); aspect = W/H."""
+    rows = torch.arange(height_px)
+    return camera_rays_for_rows(params, rows, height_px, width_px, cfg)

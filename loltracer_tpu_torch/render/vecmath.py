@@ -1,0 +1,43 @@
+"""Small vector helpers over a trailing axis of 3 (`loltracer_tpu/render/vecmath.py`).
+
+Sums are written out component by component, ((x + y) + z), so that the
+CUDA kernel, which computes the same expressions on scalars, rounds exactly
+as this code does.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# Guard for normalizing near-zero vectors: the squared norm is clamped, so
+# exact zeros normalize to the zero vector (as in the JAX package).
+_EPS2 = 1e-30
+
+
+def dot(a, b):
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
+def normalize(v):
+    """v / sqrt(max(|v|^2, 1e-30)): a divide by the square root, never a
+    multiply by rsqrt, so rays are bitwise those of the JAX package."""
+    n2 = dot(v, v)[..., None]
+    return v / torch.sqrt(torch.clamp_min(n2, _EPS2))
+
+
+def cross(a, b):
+    return torch.stack(
+        [
+            a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+            a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+            a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0],
+        ],
+        dim=-1,
+    )
+
+
+def true_div(x, n):
+    """x / n for a Python number n, correctly rounded on every device. On
+    CUDA, torch divides by a Python scalar as a multiply by its reciprocal,
+    which rounds differently from the kernel's (and the CPU's) division."""
+    return x / torch.full_like(x, n)
