@@ -17,22 +17,57 @@ Phases, one line each:
    finite, in [0, 1], and match the plain version at 1920x1080 to the
    tolerance of phase 2;
 4. frame times at scene4 @1920x1080: the kernel (median of 10 warm frames)
-   and the plain version (median of 3), CUDA events.
+   and the plain version (median of 3), CUDA events;
+5. build the training kernels (lol_train_fwd, lol_train_bwd and its reduce)
+   for the four example structures with envelope shadows and for scene4
+   with antialiasing; all builds start together in phase 1, one nvcc each;
+   ptxas registers and spills of scene4's kernels;
+6. lol_train_fwd vs lol_render_fused and vs its plain version at 97x161 on
+   those five cases: the image bitwise equal to lol_render_fused's and
+   within the phase-2 rule of the plain one; hit and material equal and
+   t_sh, res, t* within 1e-4 * max(1, |x|) on all but max(2, 1e-4 *
+   pixels) pixels; the IFT denominator within rtol 1e-4 on hit pixels with
+   |den| > 1e-2;
+7. lol_train_fwd at the main path's shape, scene4 AA at 1920x1080, held
+   the same way as in phase 6; then lol_train_bwd vs its plain version on
+   the kernel's own residuals and a seeded cotangent, the five cases at
+   97x161 and scene4 AA at 1920x1080: every field within 1e-4 *
+   max|grad|, dcam within rtol 2e-3 (atol 1e-5 * max(1, max|dcam|)), and
+   two launches bitwise equal;
+8. the training path: `fit_scene` on scene4 @1920x1080 with antialiasing
+   and envelope shadows, sphere points trainable, 5 Adam steps, against the
+   port's render of scene4 with its sphere points moved; it must launch
+   both training kernels and lower the loss. Then one fwd+bwd step of
+   `make_training_renderer` timed (median of 10, CUDA events), its two
+   kernels timed apart, the plain versions (median of 3), peak memory.
 
-Then a JSON line with the kernel's launches, error and times, and last the
-line {"ok": true, "device": {...}}. Any failure raises: the traceback is
-printed, the exit code is not 0 and the last line is not printed. Without
-CUDA, or without the package beside this file, it fails the same way.
+Then a JSON line with each kernel's launches on its main path, error,
+times and bound, and last the line {"ok": true, "device": {...}}. Any
+failure raises: the traceback is printed, the exit code is not 0 and the
+last line is not printed. Without CUDA, or without the package beside this
+file, it fails the same way.
+
+A kernel's bound is the least time the card could take for its work: the
+larger of its bytes (inputs read once, outputs written once) over 3.35 TB/s
+and its FP32 operations over 67 TFLOP/s (H100 SXM data sheet). Operations
+are counted with an operation model (`sdf_ops` per SDF evaluation of the
+generated code, a fixed count per pixel for the rest) times the SDF
+evaluations this run's rays need, counted by the plain version's own march
+and shadow loops on the card (their `live` counts).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
+import re
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -40,6 +75,8 @@ EXAMPLES = ROOT / "examples"
 SCENES = ["scene.lol", "scene2.lol", "scene3.lol", "scene4.lol"]
 ATOL = 5e-5
 MAIN_W, MAIN_H = 1920, 1080
+HBM_BYTES_PER_MS = 3.35e12 / 1e3  # H100 SXM
+FP32_OPS_PER_MS = 67e12 / 1e3
 
 
 def require(cond: bool, msg: str) -> None:
@@ -79,6 +116,38 @@ def compare(kernel_img, plain_img, what: str):
     return max_err, over
 
 
+def check_residuals(k_res, p_res, what: str) -> str:
+    """Residual planes of lol_train_fwd vs its plain version: hit and
+    material equal and t_sh, res, t* within 1e-4 * max(1, |x|) on all but
+    max(2, 1e-4 * pixels) pixels; den within rtol 1e-4 on hit pixels with
+    |den| > 1e-2. Raises beyond; returns a summary."""
+    import torch
+
+    require(k_res.shape == p_res.shape, f"{what}: residual shapes differ")
+    pixels = k_res.shape[1] * k_res.shape[2]
+    allowed = max(2, int(1e-4 * pixels))
+    counts = []
+    for i in range(k_res.shape[0]):
+        a, b = k_res[i], p_res[i]
+        if i in (1, 2):
+            bad = a != b
+        elif i == 3:
+            live = (p_res[1] > 0.5) & (k_res[1] > 0.5) & (b.abs() > 1e-2)
+            rel = torch.where(live, (a - b).abs() / b.abs(), torch.zeros_like(b))
+            require(float(rel.max()) <= 1e-4,
+                    f"{what}: den beyond rtol 1e-4 on {int((rel > 1e-4).sum())} hit "
+                    f"pixels, max rel {float(rel.max()):.3g}")
+            counts.append(0)
+            continue
+        else:
+            bad = ~((a == b) | ((a - b).abs() <= 1e-4 * torch.clamp_min(b.abs(), 1.0)))
+        n = int(bad.sum())
+        require(n <= allowed, f"{what}: residual plane {i} differs on {n} pixels "
+                              f"(allowed {allowed})")
+        counts.append(n)
+    return "pixels over tolerance per plane " + str(counts)
+
+
 def time_ms(fn, reps: int) -> float:
     """Median of `reps` calls of fn, each timed with CUDA events."""
     import torch
@@ -95,7 +164,76 @@ def time_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def ptxas_lines(log: str):
+    """(kernel, "N registers, M bytes spill stores, K bytes spill loads")
+    per compiled entry function of an nvcc -Xptxas -v log."""
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = next(k for k in ("fused_fwd_kernel", "fused_bwd_kernel",
+                                    "bwd_reduce_kernel", m.group(1)) if k in m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spill = f"{m.group(1)} B spill stores, {m.group(2)} B spill loads"
+        m2 = re.search(r"Used (\d+) registers", line)
+        if m2 and name:
+            out.append(f"{name}: {m2.group(1)} registers, {spill}")
+            name = None
+    return out
+
+
+def sdf_ops(structure) -> int:
+    """FP32 operations of one SDF evaluation, counted on the generated code
+    (+ - * / sqrt abs min max and a compare-select each 1): sphere 10, box
+    23, plane 1, smooth-min 16 on top of its children, and n - 1 for the
+    min over objects."""
+    def node(n):
+        kind = n[0]
+        if kind == "smin":
+            return 16 + node(n[2]) + node(n[3])
+        return {"sphere": 10, "box": 23, "plane": 1}[kind]
+
+    return sum(node(n) for n in structure.objects) + len(structure.objects) - 1
+
+
+def profile_steps(step, n: int) -> str:
+    """Device time per step by kernel (torch.profiler, CUPTI), the wall
+    time per step on the host clock, and the device's idle share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        us = getattr(e, "self_cuda_time_total", 0) if us is None else us
+        rows.append((us / 1e3 / n, e.count // n, e.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    top = "; ".join(f"{ms:.4f} ms x{cnt} {key[:60]}" for ms, cnt, key in rows[:6])
+    return (f"wall {wall:.3f} ms/step, device busy {busy:.3f} ms/step in "
+            f"{sum(r[1] for r in rows)} kernels, idle {1 - busy / wall:.1%}; top: {top}")
+
+
+def bound(nbytes: float, ops: float):
+    """(bound_ms, bound_by): the larger of bytes / HBM rate and FP32
+    operations / FP32 peak."""
+    b, o = nbytes / HBM_BYTES_PER_MS, ops / FP32_OPS_PER_MS
+    return (b, "bytes") if b > o else (o, "operations")
+
+
 def main() -> int:
+    import numpy as np
     import torch
 
     require(
@@ -111,9 +249,11 @@ def main() -> int:
     from loltracer_tpu_torch import cli
     from loltracer_tpu_torch.config import RenderConfig
     from loltracer_tpu_torch.lol import parse_scene_file
-    from loltracer_tpu_torch.render import fused_fwd
+    from loltracer_tpu_torch.opt import fit_scene
+    from loltracer_tpu_torch.render import fused_fwd, fused_train
     from loltracer_tpu_torch.render.camera import camera_pack
-    from loltracer_tpu_torch.render.cuda_scene import pack_fields
+    from loltracer_tpu_torch.render.cuda_renderer import make_cuda_renderer
+    from loltracer_tpu_torch.render.cuda_scene import pack_fields, packed_size, unpack_fields
     from loltracer_tpu_torch.scene import build_scene
     from loltracer_tpu_torch.utils.image import image_to_u8, read_png
 
@@ -138,9 +278,19 @@ def main() -> int:
         ("scene2.lol", RenderConfig(max_steps=64, shadow_steps=32, gamma=1.0)),
     ]
 
+    env = RenderConfig(shadow_grad="envelope")
+    train_cases = [(n, env) for n in SCENES] + [
+        ("scene4.lol", RenderConfig(shadow_grad="envelope", antialias=True)),
+    ]
+
     # --- 1. build ------------------------------------------------------------
+    # every kernel of phases 1 and 5 starts building now, one nvcc each
     t0 = time.perf_counter()
-    built = [fused_fwd.library(scenes[n].structure, cfg) for n, cfg in cases]
+    pool = ThreadPoolExecutor(max_workers=len(cases) + len(train_cases))
+    train_built = [pool.submit(fused_train.library, scenes[n].structure, c)
+                   for n, c in train_cases]
+    built = [f.result() for f in
+             [pool.submit(fused_fwd.library, scenes[n].structure, c) for n, c in cases]]
     build_s = time.perf_counter() - t0
     regs = [l.split(":", 1)[-1].strip() for l in built[3].log.splitlines()
             if "registers" in l or "spill" in l]
@@ -204,16 +354,207 @@ def main() -> int:
           f"({rays / k_ms / 1e3:.1f} M rays/s), plain {p_ms:.1f} ms/frame "
           f"({rays / p_ms / 1e3:.2f} M rays/s), kernel {p_ms / k_ms:.0f}x faster")
 
-    print(json.dumps({"kernels": [{
-        "name": "lol_render_fused",
-        "route": "cuda",
-        "source": "loltracer_tpu_torch/csrc/fused_fwd.cuh",
-        "replaces": "loltracer_tpu/render/pallas_train.py:346",
-        "launches": main_launches,
-        "max_abs_err": main_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-    }]}))
+    # --- 5. build the training kernels ------------------------------------------
+    train_built = [f.result() for f in train_built]
+    pool.shutdown()
+    train_s = time.perf_counter() - t0
+    print(f"[5] build: {len(train_built)} training libraries (4 structures + scene4 AA) "
+          f"done {train_s:.1f} s after the builds started; scene4 ptxas: "
+          + " | ".join(ptxas_lines(train_built[3].log)))
+
+    # --- 6. lol_train_fwd vs lol_render_fused and the plain version -------------
+    residuals = {}
+    for name, c in train_cases:
+        s = scenes[name]
+        cam = camera_pack(s.params, h, w, c)
+        fields = pack_fields(s.structure, s.params)
+        k_img, k_res = fused_train.train_forward(s.structure, c, cam, fields, h, w)
+        f_img = fused_fwd.fused_forward(s.structure, c, cam, fields, h, w)
+        p_img, p_res = fused_train.train_forward_reference(s.structure, c, cam, fields, h, w)
+        torch.cuda.synchronize()
+        what = f"{name} antialias={c.antialias}"
+        require(torch.equal(k_img, f_img), f"{what}: lol_train_fwd image != lol_render_fused's")
+        err, over = compare(k_img, p_img, what)
+        res_over = check_residuals(k_res, p_res, what)
+        residuals[(name, c.antialias)] = (cam, fields, k_res)
+        print(f"[6] {what} {h}x{w}: image = lol_render_fused bitwise; vs plain max |diff| "
+              f"{err:.3g}, {over} px over {ATOL}; residual planes: {res_over}")
+
+    # --- 7. lol_train_bwd vs the plain version -------------------------------------
+    def check_bwd(s, c, cam, fields, res, hh, ww, what):
+        gen = np.random.default_rng(0)
+        ct = torch.from_numpy(gen.uniform(-1, 1, (hh, ww, 3)).astype(np.float32)).to(dev)
+        dcam, dfields = fused_train.train_backward(s.structure, c, cam, fields, res, ct)
+        dcam2, dfields2 = fused_train.train_backward(s.structure, c, cam, fields, res, ct)
+        pcam, pfields = fused_train.train_backward_reference(s.structure, c, cam, fields, res, ct)
+        torch.cuda.synchronize()
+        require(torch.equal(dcam, dcam2) and torch.equal(dfields, dfields2),
+                f"{what}: two lol_train_bwd launches differ")
+        require(bool(torch.isfinite(dcam).all() and torch.isfinite(dfields).all()),
+                f"{what}: non-finite gradients")
+        worst, worst_abs = 0.0, 0.0
+        for f, want in unpack_fields(s.structure, pfields).items():
+            got = unpack_fields(s.structure, dfields)[f]
+            if want.numel() == 0:
+                continue
+            scale = max(float(want.abs().max()), 1e-6)
+            err = float((got - want).abs().max())
+            worst, worst_abs = max(worst, err / scale), max(worst_abs, err)
+            require(err <= 1e-4 * scale, f"{what}: d{f} max |diff| {err:.3g} > 1e-4 * {scale:.3g}")
+        atol = 1e-5 * max(1.0, float(pcam.abs().max()))
+        cam_err = (dcam - pcam).abs()
+        require(bool((cam_err <= atol + 2e-3 * pcam.abs()).all()),
+                f"{what}: dcam {dcam.tolist()} vs plain {pcam.tolist()}")
+        return worst, worst_abs, float(cam_err.max()), ct
+
+    for name, c in train_cases:
+        cam, fields, res = residuals[(name, c.antialias)]
+        worst, _, cam_err, _ = check_bwd(scenes[name], c, cam, fields, res, h, w,
+                                      f"{name} antialias={c.antialias}")
+        print(f"[7] {name} antialias={c.antialias} {h}x{w}: fields max |diff| / max|grad| "
+              f"{worst:.3g}, dcam max |diff| {cam_err:.3g}; two launches bitwise equal")
+    c_aa = train_cases[-1][1]
+    cam4 = camera_pack(s4.params, MAIN_H, MAIN_W, c_aa)
+    fields4 = pack_fields(s4.structure, s4.params)
+    img4, res4 = fused_train.train_forward(s4.structure, c_aa, cam4, fields4, MAIN_H, MAIN_W)
+    f_img4 = fused_fwd.fused_forward(s4.structure, c_aa, cam4, fields4, MAIN_H, MAIN_W)
+    live_aa = {"march": [], "shadow": []}
+    p_img4, p_res4 = fused_train.train_forward_reference(
+        s4.structure, c_aa, cam4, fields4, MAIN_H, MAIN_W, live=live_aa)
+    torch.cuda.synchronize()
+    what = f"scene4 AA {MAIN_W}x{MAIN_H}"
+    require(tuple(img4.shape) == (MAIN_H, MAIN_W, 3), f"{what}: image shape {tuple(img4.shape)}")
+    require(torch.equal(img4, f_img4), f"{what}: lol_train_fwd image != lol_render_fused's")
+    fwd_err, over = compare(img4, p_img4, what)
+    res_over = check_residuals(res4, p_res4, what)
+    del f_img4, p_img4, p_res4
+    print(f"[7] lol_train_fwd {what}: image = lol_render_fused bitwise; vs plain max |diff| "
+          f"{fwd_err:.3g}, {over} px over {ATOL}; residual planes: {res_over}")
+    worst, bwd_err, cam_err, ct4 = check_bwd(s4, c_aa, cam4, fields4, res4, MAIN_H, MAIN_W,
+                                             "scene4 AA 1920x1080")
+    print(f"[7] scene4 AA {MAIN_W}x{MAIN_H}: fields max |diff| / max|grad| {worst:.3g}, "
+          f"max |diff| {bwd_err:.3g}, "
+          f"dcam max |diff| {cam_err:.3g}; two launches bitwise equal")
+
+    # --- 8. the training path ------------------------------------------------------
+    gen = np.random.default_rng(0)
+    moved = s4.params.sphere_point + torch.from_numpy(
+        gen.uniform(-0.1, 0.1, tuple(s4.params.sphere_point.shape)).astype(np.float32)).to(dev)
+    target = make_cuda_renderer(s4.structure, MAIN_H, MAIN_W, c_aa, device=dev)(
+        dataclasses.replace(s4.params, sphere_point=moved))
+    fused_fwd.launches = fused_train.launches_fwd = fused_train.launches_bwd = 0
+    fit = fit_scene(s4.structure, s4.params, target, steps=5, learning_rate=3e-2,
+                    trainable=("sphere_point",), cfg=c_aa, device=dev)
+    fwd_launches, bwd_launches = fused_train.launches_fwd, fused_train.launches_bwd
+    require(fwd_launches > 0 and bwd_launches > 0,
+            f"fit_scene launched lol_train_fwd {fwd_launches}, lol_train_bwd {bwd_launches} times")
+    losses = [float(v) for v in fit.losses]
+    require(all(map(math.isfinite, losses)), f"non-finite loss: {losses}")
+    require(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    print(f"[8] main path: fit_scene scene4 AA {MAIN_W}x{MAIN_H}, 5 Adam steps on "
+          f"sphere_point -> lol_train_fwd x{fwd_launches}, lol_train_bwd x{bwd_launches}; "
+          f"losses {losses}")
+
+    render = fused_train.make_training_renderer(s4.structure, MAIN_H, MAIN_W, c_aa, device=dev)
+    leaves = dataclasses.replace(
+        s4.params, sphere_point=s4.params.sphere_point.clone().requires_grad_(True))
+
+    def step():
+        loss = ((render(leaves) - target) ** 2).mean()
+        loss.backward()
+
+    def k1r():
+        fused_train.train_forward(s4.structure, c_aa, cam4, fields4, MAIN_H, MAIN_W)
+
+    def k2():
+        fused_train.train_backward(s4.structure, c_aa, cam4, fields4, res4, ct4)
+
+    def plain_fwd():
+        fused_train.train_forward_reference(s4.structure, c_aa, cam4, fields4, MAIN_H, MAIN_W)
+
+    def plain_bwd():
+        fused_train.train_backward_reference(s4.structure, c_aa, cam4, fields4, res4, ct4)
+
+    for _ in range(3):
+        step(), k1r(), k2()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = time_ms(step, 10)
+    peak = torch.cuda.max_memory_allocated()
+    k1r_ms, k2_ms = time_ms(k1r, 10), time_ms(k2, 10)
+    plain_fwd()
+    pf_ms = time_ms(plain_fwd, 3)
+    plain_bwd()
+    pb_ms = time_ms(plain_bwd, 3)
+    breakdown = profile_steps(step, 5)
+    print(f"[8] scene4 AA {MAIN_W}x{MAIN_H} on {card}: fwd+bwd step {step_ms:.3f} ms "
+          f"(peak {peak / 2**20:.0f} MiB allocated); lol_train_fwd {k1r_ms:.3f} ms, "
+          f"lol_train_bwd {k2_ms:.3f} ms; plain fwd {pf_ms:.1f} ms, plain bwd {pb_ms:.1f} ms")
+    print(f"[8] torch.profiler over 5 steps: {breakdown}")
+
+    # --- bounds from this run's data ------------------------------------------------
+    st = s4.structure
+    ops_eval = sdf_ops(st)
+    L, px4 = st.num_lights, MAIN_H * MAIN_W
+    small_bytes = 4 * (16 + packed_size(st))
+    cam_main = camera_pack(s4.params, MAIN_H, MAIN_W, cfg)  # phase 3's config
+    live_main = {"march": [], "shadow": []}
+    fused_train.train_forward_reference(st, cfg, cam_main, fields4, MAIN_H, MAIN_W,
+                                        live=live_main)
+    m_fwd, sh_fwd = sum(live_main["march"]), sum(live_main["shadow"])
+    m_aa, sh_aa = sum(live_aa["march"]), sum(live_aa["shadow"])
+    # Operation model, counted on csrc/fused_fwd.cuh and csrc/fused_bwd.cuh
+    # around E = sdf_ops per evaluation: per ray the camera ray 33, per
+    # march step E + 9 (+ 6 with AA), per shadow step E + 15 (+ 2 for t*),
+    # 4 normal taps E + 12 each and their normalize 10, the material
+    # lookup E + 10, Phong 70 per light, the output 30; the IFT denominator
+    # one SDF adjoint (3 E: its forward and reverse) + 15.
+    E, aa = ops_eval, 6
+
+    def fwd_ops(march, shadow, with_aa, residuals):
+        per_ray = 33 + 4 * (E + 12) + 10 + (E + 10) + 70 * L + 30
+        if residuals:
+            per_ray += 3 * E + 15
+        return (march * (E + 9 + (aa if with_aa else 0))
+                + shadow * (E + 15 + (2 if residuals else 0)) + px4 * per_ray)
+
+    k1_bound = bound(small_bytes + 12 * px4, fwd_ops(m_fwd, sh_fwd, False, False))
+    n_res = fused_train.num_residuals(st)
+    k1r_bound = bound(small_bytes + (12 + 4 * n_res) * px4, fwd_ops(m_aa, sh_aa, True, True))
+    hit = res4[1] > 0.5
+    live_fat = int((hit | (res4[0] > 0)).sum())
+    valid = sum(int(((res4[5 + 2 * l] > 0) & (res4[4 + 2 * l] > 0) & (res4[4 + 2 * l] < 1)).sum())
+                for l in range(L))
+    # K2 per pixel: forward (ray 33, 4 taps E + 12 and normalize 10, camera
+    # direction 13, Phong 60 per light, output 45) and reverse (110 per
+    # light, 4 tap adjoints 3 E + 10, normalize 20, ray 40); per pixel with
+    # a live f_at one more adjoint 3 E + 6, per valid penumbra 3 E + 20
+    k2_ops = (px4 * (33 + 4 * (E + 12) + 10 + 13 + 60 * L + 45
+                     + 110 * L + 4 * (3 * E + 10) + 20 + 40)
+              + live_fat * (3 * E + 6) + valid * (3 * E + 20))
+    k2_bound = bound(small_bytes * 2 + 4 * (n_res + 3) * px4, k2_ops)
+    print(f"[8] bounds: SDF evaluation {ops_eval} ops; scene4 march {m_fwd / px4:.1f} + "
+          f"shadow {sh_fwd / px4:.1f} evaluations per ray (AA: {m_aa / px4:.1f} + "
+          f"{sh_aa / px4:.1f}); lol_render_fused {k1_bound[0]:.4f} ms, lol_train_fwd "
+          f"{k1r_bound[0]:.4f} ms, lol_train_bwd {k2_bound[0]:.4f} ms, all by "
+          f"{k1_bound[1]} / {k1r_bound[1]} / {k2_bound[1]}")
+
+    def entry(name, source, replaces, launches, err, ms, plain, bnd):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+
+    print(json.dumps({"kernels": [
+        entry("lol_render_fused", "loltracer_tpu_torch/csrc/fused_fwd.cuh",
+              "loltracer_tpu/render/pallas_train.py:346", main_launches, main_err,
+              k_ms, p_ms, k1_bound),
+        entry("lol_train_fwd", "loltracer_tpu_torch/csrc/fused_fwd.cuh",
+              "loltracer_tpu/render/pallas_train.py:346", fwd_launches, fwd_err,
+              k1r_ms, pf_ms, k1r_bound),
+        entry("lol_train_bwd", "loltracer_tpu_torch/csrc/fused_bwd.cuh",
+              "loltracer_tpu/render/pallas_train.py:469", bwd_launches, bwd_err,
+              k2_ms, pb_ms, k2_bound),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))

@@ -2,9 +2,10 @@
 
 The JAX package `loltracer_tpu` is the reference; this package renders the
 same compiled `.lol` scenes on an NVIDIA H100 through a hand-written CUDA
-kernel (render/fused_fwd.py, csrc/fused_fwd.cuh), with a plain PyTorch
-version of the same pipeline beside it for CPU tensors. It imports torch
-and never jax.
+kernel (render/fused_fwd.py, csrc/fused_fwd.cuh), and differentiates them
+through a second one (render/fused_train.py, csrc/fused_bwd.cuh; opt/ fits
+scenes with Adam), with a plain PyTorch version of the same pipeline beside
+each kernel for CPU tensors. It imports torch and never jax.
 """
 
 from loltracer_tpu_torch.config import RenderConfig

@@ -1,12 +1,22 @@
-// lol_render_fused on Hopper: the fused forward render, one thread per ray.
+// lol_render_fused / lol_train_fwd on Hopper: the fused forward render, one
+// thread per ray.
 //
-// Replaces `loltracer_tpu/render/pallas_train.py: _train_fwd_kernel` with
-// residuals off (`make_fwd_call(..., with_residuals=False)`, the Pallas call
-// named `lol_render_fused`). Per pixel it runs the camera ray, the
-// sphere-trace march (with the closest-approach tracking of soft-coverage
-// AA when Cfg::antialias), the material at the last query point, per light
-// the shadow-origin offset and the soft-shadow march, tetrahedron normals,
+// Replaces `loltracer_tpu/render/pallas_train.py: _train_fwd_kernel`, with
+// residuals off (the Pallas call named `lol_render_fused`) and on
+// (`lol_train_fwd`). Per pixel it runs the camera ray, the sphere-trace
+// march (with the closest-approach tracking of soft-coverage AA when
+// Cfg::antialias), the material at the last query point, per light the
+// shadow-origin offset and the soft-shadow march, tetrahedron normals,
 // Phong shading, the AA blend and gamma. Output is [H, W, 3] f32.
+//
+// With Cfg::with_residuals it also writes the frozen numbers the backward
+// (csrc/fused_bwd.cuh) re-attaches to, planar [4 + 2L, H, W] as JAX lays
+// them out: t_sh, hit (1/0), material, the IFT denominator (the SDF's
+// derivative along the ray at the marched t, from the generated adjoint
+// Scene::dist_bwd, clamped away from zero) and per light the penumbra
+// minimum res and its first-wins argmin t*. All of it sits under
+// `if constexpr`, so the residuals-off instantiation does the same
+// arithmetic in the same order and its image is bitwise the same.
 //
 // What bounds it on this card: FP32 and SFU issue (sqrt and divide in every
 // SDF evaluation, up to 256 march steps plus 128 shadow steps per light)
@@ -25,7 +35,9 @@
 // --fmad=false, sums run ((x + y) + z), vectors are normalized by dividing
 // by sqrtf, and min/max/clamp propagate NaN like torch.minimum/maximum.
 
+#ifdef __CUDACC__
 #include <cuda_runtime.h>
+#endif
 #include <math.h>
 
 namespace lol {
@@ -67,19 +79,20 @@ __device__ __forceinline__ void normalize3(float& x, float& y, float& z) {
 // ro(3) right(3) up(3) fwd(3) half_w half_h pixel_rad row0.
 constexpr int kCamSize = 16;
 
-template <class Cfg, class Scene>
-__global__ void __launch_bounds__(256)
-    fused_fwd_kernel(const float* __restrict__ cam_in,
-                     const float* __restrict__ P, float* __restrict__ img,
-                     int height, int width) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= width || y >= height) return;
+// Guard of the IFT denominator (loltracer_tpu/render/march.py _MIN_DEN).
+constexpr float kMinDen = 1e-2f;
 
-  float cam[kCamSize];
-#pragma unroll
-  for (int i = 0; i < kCamSize; ++i) cam[i] = __ldg(cam_in + i);
-  const Scene scn(P);
+// One pixel (x, y) of the image, and with Cfg::with_residuals its residual
+// planes (res points at plane 0, pixel (0, 0); planes are H*W apart).
+template <class Cfg, class Scene>
+__device__ __forceinline__ void render_pixel(const float* cam, const Scene& scn,
+                                             const float* __restrict__ P, int x,
+                                             int y, int height, int width,
+                                             float* __restrict__ img,
+                                             float* __restrict__ res_out) {
+  [[maybe_unused]] const size_t plane = (size_t)height * width;
+  [[maybe_unused]] float* const rp =
+      Cfg::with_residuals ? res_out + ((size_t)y * width + x) : nullptr;
 
   // --- camera ray (camera.rays_from_pack) ------------------------------
   const float ox = cam[0], oy = cam[1], oz = cam[2];
@@ -109,6 +122,16 @@ __global__ void __launch_bounds__(256)
   }
   const bool hit = t < Cfg::max_dist;
 
+  if constexpr (Cfg::with_residuals) {
+    // IFT denominator: d/dt f(ro + t rd) at the marched t = grad f . rd
+    float gx, gy, gz;
+    scn.template dist_bwd<false>(ox + t * dx, oy + t * dy, oz + t * dz, 1.f, gx,
+                                 gy, gz, nullptr);
+    float den = dot3(gx, gy, gz, dx, dy, dz);
+    if (fabsf(den) < kMinDen) den = den < 0.f ? -kMinDen : kMinDen;
+    rp[3 * plane] = den;
+  }
+
   // --- shading distance, material, coverage (march.py intersect_aa) -----
   float t_sh, alpha = 1.f;
   int mat;
@@ -127,6 +150,11 @@ __global__ void __launch_bounds__(256)
                       unused);
     if (!hit) mat = 0;
     t_sh = t;
+  }
+  if constexpr (Cfg::with_residuals) {
+    rp[0] = t_sh;
+    rp[plane] = hit ? 1.f : 0.f;
+    rp[2 * plane] = (float)mat;
   }
   const float px = ox + t_sh * dx, py = oy + t_sh * dy, pz = oz + t_sh * dz;
 
@@ -173,14 +201,21 @@ __global__ void __launch_bounds__(256)
 
     // soft-shadow march (shading.py soft_shadow): the first step has t == 0
     // and gives +/-inf; res < -1 is a hard shadow.
-    float res = 1.f, ts = 0.f;
+    float res = 1.f, ts = 0.f, t_star = 0.f;
     for (int step = 0; step < Cfg::shadow_steps; ++step) {
       const float d = scn.dist(sox + ts * lx, soy + ts * ly, soz + ts * lz);
       const float val =
           ts > 0.f ? Cfg::shadow_w * d / ts : (d < 0.f ? -INFINITY : INFINITY);
+      if constexpr (Cfg::with_residuals) {
+        if (val < res) t_star = ts;  // first-wins argmin (NaN never wins)
+      }
       res = jmin(res, val);
       ts = ts + d;
       if (res < -1.f || ts > light_dist) break;
+    }
+    if constexpr (Cfg::with_residuals) {
+      rp[(4 + 2 * l) * plane] = res;
+      rp[(5 + 2 * l) * plane] = t_star;
     }
     const float shadow = jmax(res, 0.f);
 
@@ -217,15 +252,33 @@ __global__ void __launch_bounds__(256)
 constexpr int kBlockX = 32;
 constexpr int kBlockY = 8;
 
+#ifdef __CUDACC__
+template <class Cfg, class Scene>
+__global__ void __launch_bounds__(kBlockX * kBlockY)
+    fused_fwd_kernel(const float* __restrict__ cam_in,
+                     const float* __restrict__ P, float* __restrict__ img,
+                     float* __restrict__ res, int height, int width) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= width || y >= height) return;
+
+  float cam[kCamSize];
+#pragma unroll
+  for (int i = 0; i < kCamSize; ++i) cam[i] = __ldg(cam_in + i);
+  const Scene scn(P);
+  render_pixel<Cfg, Scene>(cam, scn, P, x, y, height, width, img, res);
+}
+
 template <class Cfg, class Scene>
 int launch_fused_fwd(const float* cam, const float* fields, float* img,
-                     int height, int width, cudaStream_t stream) {
+                     float* res, int height, int width, cudaStream_t stream) {
   const dim3 block(kBlockX, kBlockY);
   const dim3 grid((width + kBlockX - 1) / kBlockX,
                   (height + kBlockY - 1) / kBlockY);
   fused_fwd_kernel<Cfg, Scene>
-      <<<grid, block, 0, stream>>>(cam, fields, img, height, width);
+      <<<grid, block, 0, stream>>>(cam, fields, img, res, height, width);
   return (int)cudaGetLastError();
 }
+#endif  // __CUDACC__
 
 }  // namespace lol

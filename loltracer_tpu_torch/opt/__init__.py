@@ -1,0 +1,26 @@
+"""Inverse rendering: recover scene parameters from target images
+(`loltracer_tpu/opt`)."""
+
+from loltracer_tpu_torch.opt.inverse import (
+    APPEARANCE_FIELDS,
+    DEFAULT_TRAINABLE,
+    GEOMETRY_FIELDS,
+    FitResult,
+    default_project,
+    fit_scene,
+    masked_optimizer,
+    trainable_leaves,
+    trainable_mask,
+)
+
+__all__ = [
+    "APPEARANCE_FIELDS",
+    "DEFAULT_TRAINABLE",
+    "GEOMETRY_FIELDS",
+    "FitResult",
+    "default_project",
+    "fit_scene",
+    "masked_optimizer",
+    "trainable_leaves",
+    "trainable_mask",
+]

@@ -1,4 +1,4 @@
-"""Scene plumbing for the CUDA kernel (`loltracer_tpu/render/pallas_scene.py`).
+"""Scene plumbing for the CUDA kernels (`loltracer_tpu/render/pallas_scene.py`).
 
 The Pallas kernels unroll the static `SceneStructure` at trace time and read
 every scene number from SMEM. Here the same split becomes CUDA source text:
@@ -7,8 +7,16 @@ type — one straight-line distance function per top-level object (the
 counterpart of `ScalarScene.node_dist`/`dist_only`/`sdf`), reading scene
 numbers from ONE packed f32 buffer at generated offsets — and the `Cfg`
 constants (march and shadow step caps and tolerances, the counterpart of
-`march_loop`/`shadow_loop`'s closure over cfg), followed by the generic
-kernel body of `csrc/fused_fwd.cuh`.
+`march_loop`/`shadow_loop`'s closure over cfg), after the generic kernel
+body of `csrc/fused_fwd.cuh`.
+
+`generate_source(structure, cfg, residuals=True)` is the training source:
+the same forward body with `Cfg::with_residuals` set (`lol_train_fwd`), the
+backward body of `csrc/fused_bwd.cuh` (`lol_train_bwd` and its fixed-order
+reduce), and `Scene::dist_bwd`, the reverse-mode adjoint of the distance
+written object by object in the same straight-line style. The JAX kernels
+get that adjoint from `jax.vjp` inside the kernel; CUDA has no AD, so it is
+generated here.
 
 The source holds offsets, never scene values: the same structure with other
 numbers (a moved camera, an optimiser step) reuses the same built library.
@@ -138,7 +146,7 @@ def _f32(x: float) -> str:
     return float.hex(v) + "f"
 
 
-def _cfg_source(cfg: RenderConfig) -> str:
+def _cfg_source(cfg: RenderConfig, residuals: bool) -> str:
     if cfg.shadow_grad not in ("exact", "envelope"):
         raise ValueError(f"unknown shadow_grad {cfg.shadow_grad!r}")
     ints = {"max_steps": cfg.max_steps, "shadow_steps": cfg.shadow_steps}
@@ -156,6 +164,9 @@ def _cfg_source(cfg: RenderConfig) -> str:
     lines.append(
         f"  static constexpr bool antialias = {'true' if cfg.antialias else 'false'};"
     )
+    lines.append(
+        f"  static constexpr bool with_residuals = {'true' if residuals else 'false'};"
+    )
     lines.append("};")
     return "\n".join(lines)
 
@@ -164,14 +175,16 @@ class _NodeEmitter:
     """Emits one object's distance as straight-line statements over the
     geometry registers g[], in the operation order of render/sdf.py."""
 
-    def __init__(self, offsets: Dict[str, int]):
+    def __init__(self, offsets: Dict[str, int], prefix: str = ""):
         self.off = offsets
+        self.prefix = prefix
         self.lines: List[str] = []
         self.n = 0
+        self.children: Dict[str, Tuple[str, str]] = {}  # smin out -> (a, b)
 
     def _tmp(self) -> str:
         self.n += 1
-        return f"v{self.n}"
+        return f"{self.prefix}v{self.n}"
 
     def emit(self, node: Node) -> str:
         kind, off, out = node[0], self.off, self._tmp()
@@ -205,6 +218,7 @@ class _NodeEmitter:
         elif kind == "smin":
             _, k, a, b = node
             va, vb = self.emit(a), self.emit(b)
+            self.children[out] = (va, vb)
             self.lines.append(
                 f"const float {out} = smooth_min({va}, {vb}, g[{off['smooth_k'] + k}]);"
             )
@@ -213,7 +227,109 @@ class _NodeEmitter:
         return out
 
 
-def _scene_source(structure: SceneStructure) -> str:
+class _AdjointEmitter(_NodeEmitter):
+    """The forward statements of _NodeEmitter plus, per node, the reverse
+    statements that take the cotangent `g_<out>` of its value to the point
+    (gx, gy, gz) and, when `kParams`, to the geometry buffer's slots gP[].
+    `rev` is a stack: a parent's reverse runs before its children's."""
+
+    def __init__(self, offsets: Dict[str, int], prefix: str):
+        super().__init__(offsets, prefix)
+        self.rev: List[List[str]] = []
+
+    def emit(self, node: Node) -> str:
+        out = super().emit(node)
+        kind, off, g = node[0], self.off, f"g_{out}"
+        if kind == "sphere":
+            c, r = off["sphere_point"] + 3 * node[1], off["sphere_radius"] + node[1]
+            rev = [
+                f"const float {out}s = {g} / sqrtf({out}x * {out}x + {out}y * {out}y"
+                f" + {out}z * {out}z);",
+                f"const float {out}gx = {out}s * {out}x, {out}gy = {out}s * {out}y, "
+                f"{out}gz = {out}s * {out}z;",
+                f"gx += {out}gx; gy += {out}gy; gz += {out}gz;",
+                "if constexpr (kParams) {",
+                f"  gP[{c}] -= {out}gx; gP[{c + 1}] -= {out}gy; gP[{c + 2}] -= {out}gz;",
+                f"  gP[{r}] -= {g};",
+                "}",
+            ]
+        elif kind == "box":
+            c, h = off["box_point"] + 3 * node[1], off["box_half"] + 3 * node[1]
+            r = off["box_radius"] + node[1]
+            q = [f"{out}q{a}" for a in "xyz"]
+            o = [f"{out}o{a}" for a in "xyz"]
+            rev = [
+                f"const float {out}len = sqrtf({o[0]} * {o[0]} + {o[1]} * {o[1]} + "
+                f"{o[2]} * {o[2]});",
+                f"float {out}gq[3] = {{0.f, 0.f, 0.f}};",
+                f"if ({out}len > 0.f) {{",
+                f"  {out}gq[0] = {g} * ({o[0]} / {out}len);",
+                f"  {out}gq[1] = {g} * ({o[1]} / {out}len);",
+                f"  {out}gq[2] = {g} * ({o[2]} / {out}len);",
+                "}",
+                f"box_inside_bwd({q[0]}, {q[1]}, {q[2]}, {g}, {out}gq);",
+            ]
+            for i, a in enumerate("xyz"):
+                rev.append(
+                    f"{{ const float s = sgnf(p{a} - g[{c + i}]) * {out}gq[{i}]; g{a} += s;"
+                    f" if constexpr (kParams) {{ gP[{c + i}] -= s; gP[{h + i}] -= {out}gq[{i}]; }} }}"
+                )
+            rev.append(f"if constexpr (kParams) gP[{r}] -= {g};")
+        elif kind == "plane":
+            rev = [f"gy += {g};", f"if constexpr (kParams) gP[{off['plane_y'] + node[1]}] -= {g};"]
+        else:  # smin
+            va, vb = self.children[out]
+            k = off["smooth_k"] + node[1]
+            rev = [
+                f"float g_{va}, g_{vb}, {out}gk;",
+                f"smooth_min_bwd({va}, {vb}, g[{k}], {g}, g_{va}, g_{vb}, {out}gk);",
+                f"if constexpr (kParams) gP[{k}] += {out}gk;",
+            ]
+        self.rev.append(rev)
+        return out
+
+
+def _adjoint_source(structure: SceneStructure) -> str:
+    """`Scene::dist_bwd`: the distance at p and, for its cotangent gd, the
+    point gradient (gx, gy, gz) and, when kParams, the geometry gradient
+    added into gP[] (indexed like the packed buffer). The min over objects
+    passes gd to the smaller operand (a tie splits it, as torch.minimum
+    does); an object that gets no cotangent skips its reverse."""
+    off = field_offsets(structure)
+    fwd: List[str] = []
+    rev: List[str] = []
+    outs = []
+    for i, node in enumerate(structure.objects):
+        em = _AdjointEmitter(off, f"o{i}")
+        outs.append(em.emit(node))
+        fwd += em.lines
+        body = [s for block in reversed(em.rev) for s in block]
+        rev += [f"if (g_{outs[-1]} != 0.f) {{  // object {i + 1}: {node[0]}"]
+        rev += [f"  {s}" for s in body]
+        rev += ["}"]
+    mins = [outs[0]] + [f"m{i}" for i in range(1, len(outs))]
+    chain = [f"const float m{i} = jmin({mins[i - 1]}, {outs[i]});" for i in range(1, len(outs))]
+    back = [f"float g_{mins[-1]} = gd;"]
+    for i in range(len(outs) - 1, 0, -1):
+        back.append(f"float g_{mins[i - 1]}, g_{outs[i]};")
+        back.append(
+            f"min_bwd({mins[i - 1]}, {outs[i]}, g_{mins[i]}, g_{mins[i - 1]}, g_{outs[i]});"
+        )
+    lines = [
+        "  // reverse-mode adjoint of dist (generated object by object)",
+        "  template <bool kParams>",
+        "  __device__ __forceinline__ float dist_bwd(float px, float py, float pz, float gd,",
+        "                                            float& gx, float& gy, float& gz,",
+        "                                            float* __restrict__ gP) const {",
+    ]
+    lines += [f"    {s}" for s in fwd + chain]
+    lines += ["    gx = 0.f; gy = 0.f; gz = 0.f;"]
+    lines += [f"    {s}" for s in back + rev]
+    lines += [f"    return {mins[-1]};", "  }"]
+    return "\n".join(lines)
+
+
+def _scene_source(structure: SceneStructure, residuals: bool) -> str:
     require_compiled(structure)
     if not structure.objects:
         raise ValueError("a scene needs at least one object")
@@ -230,6 +346,8 @@ def _scene_source(structure: SceneStructure) -> str:
     lines = [
         "struct Scene {",
         f"  static constexpr int kNumLights = {structure.num_lights};",
+        f"  static constexpr int kNumMaterials = {structure.num_materials};",
+        f"  static constexpr int kNumFields = {packed_size(structure)};",
         f"  static constexpr int kMatShininess = {at('mat_shininess')};",
         f"  static constexpr int kMatDiffuse = {at('mat_diffuse')};",
         f"  static constexpr int kMatSpecular = {at('mat_specular')};",
@@ -282,36 +400,87 @@ def _scene_source(structure: SceneStructure) -> str:
         lines.append(
             f"    d = obj{i}(px, py, pz); if (d < dmin) {{ dmin = d; mat = {m}; }}"
         )
-    lines += ["    return mat;", "  }", "};"]
+    lines += ["    return mat;", "  }"]
+    if residuals:
+        lines += ["", _adjoint_source(structure)]
+    lines += ["};"]
     return "\n".join(lines)
 
 
 ENTRY = "lol_render_fused"
+TRAIN_FWD = "lol_train_fwd"
+TRAIN_BWD = "lol_train_bwd"
+TRAIN_REDUCE = "lol_train_bwd_reduce"
+TRAIN_BLOCKS = "lol_train_bwd_blocks"
+
+_FWD_ENTRY = f"""\
+extern "C" int {ENTRY}(const void* cam, const void* fields, void* img,
+                                int height, int width, void* stream) {{
+  return lol::launch_fused_fwd<lol_gen::Cfg, lol_gen::Scene>(
+      static_cast<const float*>(cam), static_cast<const float*>(fields),
+      static_cast<float*>(img), nullptr, height, width,
+      static_cast<cudaStream_t>(stream));
+}}"""
+
+_TRAIN_ENTRIES = f"""\
+extern "C" int {TRAIN_FWD}(const void* cam, const void* fields, void* img,
+                             void* res, int height, int width, void* stream) {{
+  return lol::launch_fused_fwd<lol_gen::Cfg, lol_gen::Scene>(
+      static_cast<const float*>(cam), static_cast<const float*>(fields),
+      static_cast<float*>(img), static_cast<float*>(res), height, width,
+      static_cast<cudaStream_t>(stream));
+}}
+
+extern "C" int {TRAIN_BLOCKS}(int height, int width) {{
+  return lol::bwd_num_blocks(height, width);
+}}
+
+extern "C" int {TRAIN_BWD}(const void* cam, const void* fields, const void* res,
+                             const void* ct, void* partials, int height, int width,
+                             void* stream) {{
+  return lol::launch_fused_bwd<lol_gen::Cfg, lol_gen::Scene>(
+      static_cast<const float*>(cam), static_cast<const float*>(fields),
+      static_cast<const float*>(res), static_cast<const float*>(ct),
+      static_cast<float*>(partials), height, width,
+      static_cast<cudaStream_t>(stream));
+}}
+
+extern "C" int {TRAIN_REDUCE}(const void* partials, int num_blocks, void* grads,
+                                    void* stream) {{
+  return lol::launch_bwd_reduce<lol_gen::Scene>(
+      static_cast<const float*>(partials), num_blocks, static_cast<float*>(grads),
+      static_cast<cudaStream_t>(stream));
+}}"""
 
 
-def generate_source(structure: SceneStructure, cfg: RenderConfig) -> str:
-    """The complete CUDA translation unit of the fused forward kernel for
-    this structure and config. Deterministic; holds no scene numbers."""
-    body = (CSRC / "fused_fwd.cuh").read_text()
+def generate_source(
+    structure: SceneStructure, cfg: RenderConfig, residuals: bool = False
+) -> str:
+    """The complete CUDA translation unit for this structure and config:
+    the fused forward (`lol_render_fused`), or with `residuals` the
+    training pair (`lol_train_fwd`, `lol_train_bwd` and its reduce).
+    Deterministic; holds no scene numbers. The device functions also
+    compile as host C++ (the kernels and entry points sit under
+    `__CUDACC__`), which the CPU tests use to check the generated SDF
+    adjoint."""
+    bodies = [(CSRC / "fused_fwd.cuh").read_text()]
+    if residuals:
+        bodies.append((CSRC / "fused_bwd.cuh").read_text())
     return "\n".join(
         [
             "// Generated by loltracer_tpu_torch.render.cuda_scene: the kernel",
-            "// body of csrc/fused_fwd.cuh, then this structure's Cfg and Scene.",
-            body,
+            "// bodies of csrc/, then this structure's Cfg and Scene.",
+            *bodies,
             "namespace lol_gen {",
             "using namespace lol;",
-            _cfg_source(cfg),
+            _cfg_source(cfg, residuals),
             "",
-            _scene_source(structure),
+            _scene_source(structure, residuals),
             "}  // namespace lol_gen",
             "",
-            f'extern "C" int {ENTRY}(const void* cam, const void* fields, void* img,',
-            "                                int height, int width, void* stream) {",
-            "  return lol::launch_fused_fwd<lol_gen::Cfg, lol_gen::Scene>(",
-            "      static_cast<const float*>(cam), static_cast<const float*>(fields),",
-            "      static_cast<float*>(img), height, width,",
-            "      static_cast<cudaStream_t>(stream));",
-            "}",
+            "#ifdef __CUDACC__",
+            _TRAIN_ENTRIES if residuals else _FWD_ENTRY,
+            "#endif  // __CUDACC__",
             "",
         ]
     )

@@ -1,0 +1,371 @@
+"""The fused training render: two hand-written CUDA kernels under a
+`torch.autograd.Function`, and their plain PyTorch versions
+(`loltracer_tpu/render/pallas_train.py`, the training half, `:75-775`).
+
+- `train_forward(structure, cfg, cam, fields, H, W) -> (img [H, W, 3],
+  res [R, H, W])`: the image and the frozen residual planes (t_sh, hit,
+  material, IFT denominator, then per light the penumbra minimum res and
+  its argmin t*; R = num_residuals). CUDA tensors launch `lol_train_fwd`
+  (csrc/fused_fwd.cuh with Cfg::with_residuals, the port of
+  `_train_fwd_kernel` with residuals on); CPU tensors take
+  `train_forward_reference`.
+- `train_backward(structure, cfg, cam, fields, res, ct [H, W, 3]) ->
+  (dcam [16], dfields [packed_size])`: the vector-Jacobian product of
+  `shade_from_frozen` at the residuals. CUDA tensors launch
+  `lol_train_bwd` and its fixed-order reduce (csrc/fused_bwd.cuh, the port
+  of `_train_bwd_kernel`); CPU tensors take `train_backward_reference`.
+- `make_training_renderer(structure, H, W, cfg, device) -> params -> img`,
+  differentiable in every SceneParams field: the camera pack and the packed
+  buffer are plain differentiable torch, so autograd chains dcam and
+  dfields back to the fields, as JAX's `render_bwd` chains through
+  `camera_pack`.
+
+A wrapper given CUDA tensors launches its kernel or raises; nothing falls
+back to the plain version or to the CPU. `launches_fwd` and `launches_bwd`
+count kernel launches (the reduce is part of the backward's one count).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
+
+from loltracer_tpu_torch import _build
+from loltracer_tpu_torch.config import DEFAULT_CONFIG, RenderConfig
+from loltracer_tpu_torch.render.backend import resolve_backend
+from loltracer_tpu_torch.render.camera import CAM_SIZE, camera_pack, rays_from_pack
+from loltracer_tpu_torch.render.cuda_scene import (
+    TRAIN_BLOCKS,
+    TRAIN_BWD,
+    TRAIN_FWD,
+    TRAIN_REDUCE,
+    generate_source,
+    pack_fields,
+    packed_size,
+    unpack_fields,
+)
+from loltracer_tpu_torch.render.fused_fwd import _check
+from loltracer_tpu_torch.render.march import march, ray_derivative
+from loltracer_tpu_torch.render.sdf import make_scene_sdf, make_scene_sdf_with_id
+from loltracer_tpu_torch.render.shading import (
+    envelope_reattach,
+    get_normal,
+    phong,
+    shadow_march,
+)
+from loltracer_tpu_torch.render.torch_renderer import gamma_encode
+from loltracer_tpu_torch.render.vecmath import clip, dot, maximum, normalize
+from loltracer_tpu_torch.scene import SceneParams, SceneStructure, params_to
+
+__all__ = [
+    "FusedTrainRender",
+    "launches_bwd",
+    "launches_fwd",
+    "make_training_renderer",
+    "num_residuals",
+    "shade_from_frozen",
+    "train_backward",
+    "train_backward_reference",
+    "train_forward",
+    "train_forward_reference",
+]
+
+launches_fwd = 0
+launches_bwd = 0
+
+
+def num_residuals(structure: SceneStructure) -> int:
+    """Residual planes: t_sh, hit, mat, den + (res, t*) per light."""
+    return 4 + 2 * structure.num_lights
+
+
+def _params_of(structure: SceneStructure, cam: torch.Tensor, fields: torch.Tensor):
+    """SceneParams views of the packed buffer; the camera position is
+    cam[0:3] (the rays come from the pack, so fov and direction are unused)."""
+    return SceneParams(
+        **unpack_fields(structure, fields),
+        cam_point=cam[0:3],
+        cam_direction=cam[9:12],
+        cam_fov=cam.new_zeros(()),
+    )
+
+
+def shade_from_frozen(
+    structure: SceneStructure,
+    cfg: RenderConfig,
+    cam: torch.Tensor,
+    fields: torch.Tensor,
+    res: torch.Tensor,
+    height: int,
+    width: int,
+) -> torch.Tensor:
+    """The differentiable re-attachment (`pallas_train._shade_from_frozen`):
+    the pipeline downstream of the frozen march and shadow marches, from the
+    camera pack, the packed buffer and the residual planes res [R, H, W].
+    Its value is the forward image [H, W, 3]; its gradient in (cam, fields)
+    is the IFT + Danskin + coverage estimator of the JAX package."""
+    params = _params_of(structure, cam, fields)
+    sdf = make_scene_sdf(structure)
+    t_sh, hit, den = res[0], res[1] > 0.5, res[3]
+    mat = res[2].to(torch.long)
+    mat = torch.where((mat >= 1) & (mat < structure.num_materials), mat, 0)
+    ro, rd = rays_from_pack(cam, torch.arange(height), height, width)
+
+    # one SDF evaluation at the frozen shading distance: the IFT numerator
+    # on hits (point differentiable), the coverage numerator on AA misses
+    # (point frozen)
+    p_h = ro + t_sh[..., None] * rd
+    f_at = sdf(params, torch.where(hit[..., None], p_h, p_h.detach()))
+    corr = torch.where(hit, -f_at / den, 0.0)
+    t_diff = t_sh + (corr - corr.detach())
+    alpha = None
+    t_shade = t_diff
+    if cfg.antialias:
+        safe_tc = torch.where(t_sh > 0, t_sh, 1.0)
+        s = f_at / safe_tc
+        edge = torch.where(t_sh > 0, clip(1.0 - s / cam[14], 0.0, 1.0), 0.0)
+        alpha = torch.where(hit, 1.0, edge)
+        t_shade = torch.where(hit, t_diff, t_sh)
+
+    p = ro + t_shade[..., None] * rd
+    n = get_normal(sdf, params, p, t_shade, cfg)
+
+    def shadow_of(li, shadow_ro, light_dir, light_dist):
+        res0, t_star = res[4 + 2 * li], res[5 + 2 * li]
+        r = envelope_reattach(sdf, params, shadow_ro, light_dir, res0, t_star, cfg)
+        return maximum(r, 0.0)
+
+    color = phong(structure, params, p, n, mat, shadow_of, cfg)
+    if alpha is not None:
+        bg = clip(params.ambient_color * params.mat_ambient[0], 0.0, 1.0)
+        color = alpha[..., None] * color + (1.0 - alpha[..., None]) * bg
+    return gamma_encode(color, cfg.gamma)
+
+
+def train_forward_reference(
+    structure: SceneStructure,
+    cfg: RenderConfig,
+    cam: torch.Tensor,
+    fields: torch.Tensor,
+    height: int,
+    width: int,
+    live: Optional[Dict[str, List[int]]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of lol_train_fwd on the tensors' device: the plain
+    march and shadow marches (with t*), the denominator by autograd, the
+    image from shade_from_frozen. Returns (img [H, W, 3], res [R, H, W]).
+    With `live` = {"march": [], "shadow": []}, the loops append their
+    live-ray counts per step there (march.march's `live`)."""
+    with torch.no_grad():
+        cam, fields = cam.detach(), fields.detach()
+        params = _params_of(structure, cam, fields)
+        sdf = make_scene_sdf(structure)
+        ro, rd = rays_from_pack(cam, torch.arange(height), height, width)
+        live = live or {}
+        m = march(sdf, params, ro, rd, cfg, live.get("march"))
+        hit = m.t < cfg.max_dist
+        if cfg.antialias:
+            t_q = torch.where(hit, m.t_query, m.t_close)
+            t_sh = torch.where(hit, m.t, t_q)
+            _, oid = make_scene_sdf_with_id(structure)(params, ro + t_q[..., None] * rd)
+        else:
+            t_sh = m.t
+            _, oid = make_scene_sdf_with_id(structure)(
+                params, ro + m.t_query[..., None] * rd
+            )
+            oid = torch.where(hit, oid, 0)
+        mat_ids = torch.tensor(structure.material_ids, device=oid.device)
+        planes = [t_sh, hit.to(t_sh.dtype), mat_ids[oid.long()].to(t_sh.dtype)]
+        planes.append(ray_derivative(sdf, params, ro, rd, m.t))
+        p = ro + t_sh[..., None] * rd
+        for li in range(structure.num_lights):
+            to_light = params.light_point[li] - p
+            light_dist = torch.sqrt(dot(to_light, to_light))
+            light_dir = normalize(to_light)
+            shadow_ro = p + light_dir * cfg.shadow_offset
+            planes += list(shadow_march(sdf, params, shadow_ro, light_dir, light_dist, cfg,
+                                        live.get("shadow")))
+        res = torch.stack(planes)
+        img = shade_from_frozen(structure, cfg, cam, fields, res, height, width)
+    return img, res
+
+
+def train_backward_reference(
+    structure: SceneStructure,
+    cfg: RenderConfig,
+    cam: torch.Tensor,
+    fields: torch.Tensor,
+    res: torch.Tensor,
+    ct: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of lol_train_bwd: torch.autograd.grad of
+    (shade_from_frozen(...) * ct).sum() in (cam, fields)."""
+    height, width = ct.shape[0], ct.shape[1]
+    with torch.enable_grad():
+        cam = cam.detach().requires_grad_(True)
+        fields = fields.detach().requires_grad_(True)
+        img = shade_from_frozen(structure, cfg, cam, fields, res.detach(), height, width)
+        dcam, dfields = torch.autograd.grad(
+            (img * ct.detach()).sum(), (cam, fields), allow_unused=True
+        )
+    dcam = torch.zeros_like(cam) if dcam is None else dcam
+    dfields = torch.zeros_like(fields) if dfields is None else dfields
+    return dcam.detach(), dfields.detach()
+
+
+@functools.lru_cache(maxsize=None)
+def library(structure: SceneStructure, cfg: RenderConfig) -> _build.Library:
+    """The built training kernels for this structure and config (compiled
+    at first use, then loaded from the build cache)."""
+    built = _build.build(generate_source(structure, cfg, residuals=True), "fused_train")
+    lib, ptr, i32 = built.lib, ctypes.c_void_p, ctypes.c_int
+    for name, args in (
+        (TRAIN_FWD, [ptr] * 4 + [i32] * 2 + [ptr]),
+        (TRAIN_BWD, [ptr] * 5 + [i32] * 2 + [ptr]),
+        (TRAIN_REDUCE, [ptr, i32, ptr, ptr]),
+        (TRAIN_BLOCKS, [i32, i32]),
+    ):
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    return built
+
+
+def _check_cuda_inputs(structure, cam, fields):
+    _check("cam", cam, (CAM_SIZE,))
+    _check("fields", fields, (packed_size(structure),))
+    if cam.device != fields.device:
+        raise ValueError(f"cam on {cam.device}, fields on {fields.device}")
+
+
+def train_forward(
+    structure: SceneStructure,
+    cfg: RenderConfig,
+    cam: torch.Tensor,
+    fields: torch.Tensor,
+    height: int,
+    width: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(img [H, W, 3], res [R, H, W]): lol_train_fwd for CUDA tensors, the
+    plain version for CPU tensors."""
+    if resolve_backend(cam, fields) == "torch":
+        return train_forward_reference(structure, cfg, cam, fields, height, width)
+    _check_cuda_inputs(structure, cam, fields)
+    if height <= 0 or width <= 0:
+        raise ValueError(f"bad image size {height}x{width}")
+    lib = library(structure, cfg).lib
+    img = torch.empty((height, width, 3), dtype=torch.float32, device=cam.device)
+    res = torch.empty(
+        (num_residuals(structure), height, width), dtype=torch.float32, device=cam.device
+    )
+    with torch.cuda.device(cam.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, TRAIN_FWD)(
+            cam.data_ptr(), fields.data_ptr(), img.data_ptr(), res.data_ptr(),
+            height, width, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"{TRAIN_FWD} launch failed: cudaError {rc}")
+    global launches_fwd
+    launches_fwd += 1
+    return img, res
+
+
+def train_backward(
+    structure: SceneStructure,
+    cfg: RenderConfig,
+    cam: torch.Tensor,
+    fields: torch.Tensor,
+    res: torch.Tensor,
+    ct: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dcam [16], dfields [packed_size]) at the residuals for the image
+    cotangent ct [H, W, 3]: lol_train_bwd + its reduce for CUDA tensors,
+    the plain version for CPU tensors."""
+    if resolve_backend(cam, fields, res, ct) == "torch":
+        return train_backward_reference(structure, cfg, cam, fields, res, ct)
+    _check_cuda_inputs(structure, cam, fields)
+    if ct.dim() != 3 or ct.shape[2] != 3 or min(ct.shape[:2]) <= 0:
+        raise ValueError(f"ct must be [H, W, 3], got {tuple(ct.shape)}")
+    height, width = ct.shape[0], ct.shape[1]
+    _check("ct", ct, (height, width, 3))
+    _check("res", res, (num_residuals(structure), height, width))
+    if not cam.device == fields.device == res.device == ct.device:
+        raise ValueError("cam, fields, res and ct must be on one device")
+    lib = library(structure, cfg).lib
+    n = CAM_SIZE + packed_size(structure)
+    blocks = getattr(lib, TRAIN_BLOCKS)(height, width)
+    partials = torch.empty((blocks, n), dtype=torch.float32, device=cam.device)
+    grads = torch.empty((n,), dtype=torch.float32, device=cam.device)
+    with torch.cuda.device(cam.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, TRAIN_BWD)(
+            cam.data_ptr(), fields.data_ptr(), res.data_ptr(), ct.data_ptr(),
+            partials.data_ptr(), height, width, stream,
+        )
+        if rc != 0:
+            raise RuntimeError(f"{TRAIN_BWD} launch failed: cudaError {rc}")
+        rc = getattr(lib, TRAIN_REDUCE)(partials.data_ptr(), blocks, grads.data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(f"{TRAIN_REDUCE} launch failed: cudaError {rc}")
+    global launches_bwd
+    launches_bwd += 1
+    return grads[:CAM_SIZE], grads[CAM_SIZE:]
+
+
+class FusedTrainRender(torch.autograd.Function):
+    """img = render(cam, fields): train_forward in forward, train_backward
+    in backward (the custom_vjp of pallas_train.make_training_renderer)."""
+
+    @staticmethod
+    def forward(ctx, cam, fields, structure, cfg, height, width):
+        img, res = train_forward(structure, cfg, cam, fields, height, width)
+        ctx.save_for_backward(cam, fields, res)
+        ctx.structure, ctx.cfg = structure, cfg
+        return img
+
+    @staticmethod
+    def backward(ctx, ct):
+        cam, fields, res = ctx.saved_tensors
+        dcam, dfields = train_backward(
+            ctx.structure, ctx.cfg, cam, fields, res, ct.contiguous()
+        )
+        return dcam, dfields, None, None, None, None
+
+
+def make_training_renderer(
+    structure: SceneStructure,
+    height: int,
+    width: int,
+    cfg: RenderConfig = DEFAULT_CONFIG,
+    device="cuda",
+) -> Callable[[SceneParams], torch.Tensor]:
+    """`params -> [H, W, 3] f32` through the fused training kernels,
+    differentiable in every SceneParams field. Requires a compiled
+    (non-instanced) structure and the envelope shadow estimator, as the JAX
+    package does. Raises if `device` is a CUDA device and CUDA is not
+    available: it never falls back to the CPU."""
+    if structure.instanced:
+        raise ValueError("fused training kernels require a compiled (non-instanced) scene")
+    if cfg.shadow_grad != "envelope":
+        raise ValueError(
+            "fused training kernels implement the envelope shadow estimator; "
+            f"got shadow_grad={cfg.shadow_grad!r}"
+        )
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "make_training_renderer: device 'cuda' requested but "
+            "torch.cuda.is_available() is false"
+        )
+
+    def renderer(params: SceneParams) -> torch.Tensor:
+        params = params_to(params, device=device, dtype=torch.float32)
+        cam = camera_pack(params, height, width, cfg)
+        fields = pack_fields(structure, params)
+        return FusedTrainRender.apply(cam, fields, structure, cfg, height, width)
+
+    return renderer

@@ -1,4 +1,4 @@
-"""Sphere-trace march (`loltracer_tpu/render/march.py`), forward values.
+"""Sphere-trace march (`loltracer_tpu/render/march.py`), differentiable.
 
 Up to `max_steps` iterations, each evaluating the scene SDF at
 p = ro + t*rd and accumulating t += d, stopping when d < epsilon or
@@ -6,18 +6,24 @@ t > max_dist; the hit id is the argmin id at the last query point (the
 pre-accumulation t), and id 0 (miss) when the final t >= max_dist.
 
 The loop is masked over the whole batch: done rays freeze, and the loop
-ends once every ray is done. The implicit-function-theorem re-attachment of
-the JAX package's `intersect_aa` changes gradients only, not values; it
-comes with the training renderer as a `torch.autograd.Function`.
+ends once every ray is done. It runs without autograd; `intersect_aa`
+re-attaches the gradient as the JAX package does: the implicit-function
+theorem at hits, t + (corr - corr.detach()) with corr = -f(p_hit)/den and
+den the SDF's derivative along the ray (computed without grad, clamped
+away from zero by MIN_DEN), and the soft-coverage alpha differentiable at
+the frozen closest approach. Values do not change.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from loltracer_tpu_torch.config import RenderConfig
+from loltracer_tpu_torch.render.vecmath import clip
+
+MIN_DEN = 1e-2  # grazing-hit guard of the IFT denominator (JAX march.py _MIN_DEN)
 
 
 class MarchResult(NamedTuple):
@@ -29,10 +35,14 @@ class MarchResult(NamedTuple):
     t_close: torch.Tensor  # t at which s_min was attained
 
 
-def march(sdf: Callable, params, ro, rd, cfg: RenderConfig) -> MarchResult:
+def march(
+    sdf: Callable, params, ro, rd, cfg: RenderConfig, live: Optional[List[int]] = None
+) -> MarchResult:
     """Masked march of rays ro [..., 3] (broadcastable) along unit rd
     [..., 3]; also tracks the angular closest approach min_i d_i/t_i for
-    soft-coverage antialiasing."""
+    soft-coverage antialiasing. If `live` is a list, the number of rays
+    still marching at each step (the SDF evaluations a thread-per-ray
+    kernel makes) is appended to it."""
     batch = torch.broadcast_shapes(ro.shape[:-1], rd.shape[:-1])
     kw = dict(dtype=rd.dtype, device=rd.device)
     t = torch.zeros(batch, **kw)
@@ -43,6 +53,8 @@ def march(sdf: Callable, params, ro, rd, cfg: RenderConfig) -> MarchResult:
     for _ in range(cfg.max_steps):
         if bool(done.all()):
             break
+        if live is not None:
+            live.append(int((~done).sum()))
         d = sdf(params, ro + t[..., None] * rd)
         new_t = t + d
         track = ~done & (t > 0)
@@ -56,6 +68,19 @@ def march(sdf: Callable, params, ro, rd, cfg: RenderConfig) -> MarchResult:
     return MarchResult(t, t_query, s_min, t_close)
 
 
+def ray_derivative(sdf: Callable, params, ro, rd, t):
+    """d/dt sdf(ro + t rd) at t, without grad to anything, clamped away from
+    zero to +/-MIN_DEN (the IFT denominator)."""
+    frozen = type(params)(**{f: v.detach() for f, v in vars(params).items()})
+    with torch.enable_grad():
+        tt = t.detach().requires_grad_(True)
+        f = sdf(frozen, ro.detach() + tt[..., None] * rd.detach())
+        (den,) = torch.autograd.grad(f.sum(), tt)
+    return torch.where(
+        den.abs() < MIN_DEN, torch.where(den < 0, -MIN_DEN, MIN_DEN), den
+    )
+
+
 def intersect_aa(
     sdf: Callable,
     sdf_with_id: Callable,
@@ -65,32 +90,45 @@ def intersect_aa(
     cfg: RenderConfig,
     pixel_rad=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Intersection with optional soft coverage; returns (t_shade, id_shade,
-    alpha, hit), the values of the JAX package's `intersect_aa`.
+    """Differentiable intersection with optional soft coverage; returns
+    (t_shade, id_shade, alpha, hit), as the JAX package's `intersect_aa`.
 
     With pixel_rad=None: the marched t and the argmin id at the last query
     point (0 on a miss), alpha == 1. With pixel_rad (the pixel's angular
     half-size): miss rays shade at their closest approach with that
     point's id, and blend by alpha = clamp(1 - s/pixel_rad, 0, 1) where
-    s = f(closest approach) / t.
+    s = f(closest approach) / t, differentiable in the scene at the frozen
+    point. Under torch.no_grad the re-attachment is skipped: its value is
+    the marched t.
     """
-    res = march(sdf, params, ro, rd, cfg)
+    with torch.no_grad():
+        res = march(sdf, params, ro, rd, cfg)
     t0 = res.t
     hit = t0 < cfg.max_dist
 
+    t_diff = t0
+    if torch.is_grad_enabled():
+        den = ray_derivative(sdf, params, ro, rd, t0)
+        fval = sdf(params, ro + t0[..., None] * rd)
+        corr = torch.where(hit, -fval / den, 0.0)
+        t_diff = t0 + (corr - corr.detach())
+
     if pixel_rad is None:
-        _, obj_id = sdf_with_id(params, ro + res.t_query[..., None] * rd)
+        with torch.no_grad():
+            _, obj_id = sdf_with_id(params, ro + res.t_query[..., None] * rd)
         obj_id = torch.where(hit, obj_id, 0)
-        return t0, obj_id, torch.ones_like(t0), hit
+        return t_diff, obj_id, torch.ones_like(t0), hit
 
     t_close = torch.where(hit, res.t_query, res.t_close)
     safe_tc = torch.where(t_close > 0, t_close, 1.0)
-    f_close, id_close = sdf_with_id(params, ro + t_close[..., None] * rd)
+    f_close, id_close = sdf_with_id(
+        params, ro.detach() + t_close[..., None] * rd.detach()
+    )
     s = f_close / safe_tc
     # rays that never tracked a closest approach (t_close == 0) stay alpha 0
     edge_alpha = torch.where(
-        t_close > 0, torch.clamp(1.0 - s / pixel_rad, 0.0, 1.0), 0.0
+        t_close > 0, clip(1.0 - s / pixel_rad, 0.0, 1.0), 0.0
     )
     alpha = torch.where(hit, 1.0, edge_alpha)
-    t_shade = torch.where(hit, t0, t_close)
-    return t_shade, id_close, alpha, hit
+    t_shade = torch.where(hit, t_diff, t_close)
+    return t_shade, id_close.detach(), alpha, hit

@@ -17,6 +17,7 @@ from typing import Callable, Dict, List
 
 import torch
 
+from loltracer_tpu_torch.render.vecmath import clip, maximum, minimum
 from loltracer_tpu_torch.scene import Node, SceneParams, SceneStructure, require_compiled
 
 
@@ -25,7 +26,7 @@ def smooth_min(a, b, k):
     hard min (the JAX package's jnp form; identical for k != 0)."""
     zero_k = k == 0.0
     safe_k = torch.where(zero_k, 1.0, k)
-    h = torch.clamp(0.5 + 0.5 * (b - a) / safe_k, 0.0, 1.0)
+    h = clip(0.5 + 0.5 * (b - a) / safe_k, 0.0, 1.0)
     h = torch.where(zero_k, torch.where(b > a, 1.0, 0.0), h)
     return (b + (a - b) * h) - k * h * (1.0 - h)
 
@@ -43,9 +44,9 @@ def _columns(structure: SceneStructure, params: SceneParams, p) -> Dict:
         qx = torch.abs(px - c[:, 0]) - half[:, 0]
         qy = torch.abs(py - c[:, 1]) - half[:, 1]
         qz = torch.abs(pz - c[:, 2]) - half[:, 2]
-        ox, oy, oz = (torch.clamp_min(q, 0.0) for q in (qx, qy, qz))
+        ox, oy, oz = (maximum(q, 0.0) for q in (qx, qy, qz))
         outside = torch.sqrt(ox * ox + oy * oy + oz * oz)
-        inside = torch.clamp_max(torch.maximum(qx, torch.maximum(qy, qz)), 0.0)
+        inside = minimum(torch.maximum(qx, torch.maximum(qy, qz)), 0.0)
         cols["box"] = outside + inside - params.box_radius
     if structure.num_planes:
         cols["plane"] = py - params.plane_y

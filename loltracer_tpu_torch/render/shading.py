@@ -1,52 +1,92 @@
 """Soft shadows, normals and Phong shading (`loltracer_tpu/render/shading.py`),
-forward values.
+differentiable.
 
 Soft shadows are iq-style with the reference's quirks kept: the shadow ray
 starts a full `shadow_offset` unit from the surface toward the light, the
 first iteration divides by t = 0 giving +/-inf (min(1, +inf) = 1, and -inf
 trips the res < -1 early-out into a hard 0), and the loop caps at
-`shadow_steps` with sharpness `shadow_w`. The "exact" and "envelope"
-shadow-gradient estimators of the JAX package give the same values.
+`shadow_steps` with sharpness `shadow_w`.
+
+The two shadow-gradient estimators of the JAX package give the same values:
+"exact" differentiates through the loop; "envelope" runs the loop frozen,
+records the first-wins argmin t* of the running minimum, and re-attaches the
+gradient with one differentiable SDF evaluation at t* (Danskin's theorem),
+only where t* > 0 and 0 < res < 1.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, List, Optional
 
 import torch
 
 from loltracer_tpu_torch.config import RenderConfig
-from loltracer_tpu_torch.render.vecmath import dot, normalize
+from loltracer_tpu_torch.render.vecmath import clip, dot, maximum, normalize
 from loltracer_tpu_torch.scene import SceneParams, SceneStructure
 
 _NORMAL_KS = ((1.0, -1.0, -1.0), (-1.0, -1.0, 1.0), (-1.0, 1.0, -1.0), (1.0, 1.0, 1.0))
 
 
-def soft_shadow(sdf: Callable, params, ro, rd, max_dist, cfg: RenderConfig):
-    """Penumbra factor max(res, 0) of the shadow march from the (already
-    offset) origin ro along rd, up to `max_dist` (the distance to the
-    light). The loop freezes done rays and ends once every ray is done."""
-    if cfg.shadow_grad not in ("exact", "envelope"):
-        raise ValueError(f"unknown shadow_grad {cfg.shadow_grad!r}")
+def shadow_march(
+    sdf: Callable, params, ro, rd, max_dist, cfg: RenderConfig,
+    live: Optional[List[int]] = None,
+):
+    """(res, t*) of the shadow march from the (already offset) origin ro
+    along rd, up to `max_dist` (the distance to the light): the running
+    minimum res of w*d/t and the t of its first-wins argmin (`val < res`,
+    so NaN never wins). The loop freezes done rays and ends once every ray
+    is done; run under autograd it is the "exact" estimator. If `live` is
+    a list, the number of rays still marching at each step is appended."""
     batch = torch.broadcast_shapes(ro.shape[:-1], rd.shape[:-1], max_dist.shape)
     kw = dict(dtype=rd.dtype, device=rd.device)
     inf = float("inf")
     res = torch.ones(batch, **kw)
     t = torch.zeros(batch, **kw)
+    t_star = torch.zeros(batch, **kw)
     done = torch.zeros(batch, dtype=torch.bool, device=rd.device)
     for _ in range(cfg.shadow_steps):
         if bool(done.all()):
             break
+        if live is not None:
+            live.append(int((~done).sum()))
         d = sdf(params, ro + t[..., None] * rd)
         safe_t = torch.where(t > 0, t, 1.0)
         # first iteration: w*d/0 -> +/-inf (d == 0 maps to +inf)
         val = torch.where(
             t > 0, cfg.shadow_w * d / safe_t, torch.where(d < 0, -inf, inf)
         )
+        better = ~done & (val < res)
         res = torch.where(done, res, torch.minimum(res, val))
+        t_star = torch.where(better, t.detach(), t_star)
         t = torch.where(done, t, t + d)
         done = done | (res < -1) | (t > max_dist)
-    return torch.clamp_min(res, 0.0)
+    return res, t_star
+
+
+def envelope_reattach(sdf: Callable, params, ro, rd, res0, t_star, cfg: RenderConfig):
+    """res0 with the envelope gradient attached: one differentiable SDF
+    evaluation at the frozen argmin t*, only for interior minima (t* > 0,
+    0 < res0 < 1). The value stays res0."""
+    valid = (t_star > 0) & (res0 > 0) & (res0 < 1)
+    safe_ts = torch.where(t_star > 0, t_star, 1.0)
+    d_star = sdf(params, ro + t_star[..., None] * rd)
+    val = cfg.shadow_w * d_star / safe_ts
+    return torch.where(valid, res0 + (val - val.detach()), res0)
+
+
+def soft_shadow(sdf: Callable, params, ro, rd, max_dist, cfg: RenderConfig):
+    """Penumbra factor max(res, 0) of the shadow march (shadow_march), with
+    the gradient of cfg.shadow_grad."""
+    if cfg.shadow_grad == "exact":
+        res, _ = shadow_march(sdf, params, ro, rd, max_dist, cfg)
+        return maximum(res, 0.0)
+    if cfg.shadow_grad != "envelope":
+        raise ValueError(f"unknown shadow_grad {cfg.shadow_grad!r}")
+    with torch.no_grad():
+        res, t_star = shadow_march(sdf, params, ro, rd, max_dist, cfg)
+    if torch.is_grad_enabled():
+        res = envelope_reattach(sdf, params, ro, rd, res, t_star, cfg)
+    return maximum(res, 0.0)
 
 
 def get_normal(sdf: Callable, params, p, dist, cfg: RenderConfig):
@@ -82,7 +122,25 @@ def shade(
     unit normals [..., 3]; obj_id: [...] (0 = miss -> material 0, the
     background material). Returns clamped linear RGB [..., 3]."""
     mat_ids = torch.tensor(structure.material_ids, dtype=torch.long, device=p.device)
-    mat = mat_ids[obj_id.long()]
+
+    def shadow_of(li, shadow_ro, light_dir, light_dist):
+        return soft_shadow(sdf, params, shadow_ro, light_dir, light_dist, cfg)
+
+    return phong(structure, params, p, n, mat_ids[obj_id.long()], shadow_of, cfg)
+
+
+def phong(
+    structure: SceneStructure,
+    params: SceneParams,
+    p,
+    n,
+    mat,
+    shadow_of: Callable,
+    cfg: RenderConfig,
+):
+    """The Phong sum of `shade` for material indices mat [...], with the
+    shadow factor of light li from `shadow_of(li, shadow_ro, light_dir,
+    light_dist)`. The camera position is params.cam_point."""
     shininess = params.mat_shininess[mat]
     diffuse = params.mat_diffuse[mat]
     specular = params.mat_specular[mat]
@@ -96,19 +154,19 @@ def shade(
         light_dir = normalize(to_light)
 
         shadow_ro = p + light_dir * cfg.shadow_offset
-        shadow = soft_shadow(sdf, params, shadow_ro, light_dir, light_dist, cfg)
+        shadow = shadow_of(li, shadow_ro, light_dir, light_dist)
 
-        diffuse_incidence = torch.clamp(dot(n, light_dir), 0.0, 1.0)
+        diffuse_incidence = clip(dot(n, light_dir), 0.0, 1.0)
         total = total + (
             params.light_diffuse[li] * (shadow * diffuse_incidence)[..., None] * diffuse
         )
 
         reflected = n * (2.0 * dot(light_dir, n))[..., None] - light_dir
-        base = torch.clamp(dot(reflected, camera_dir), 0.0, 1.0)
+        base = clip(dot(reflected, camera_dir), 0.0, 1.0)
         specular_incidence = diffuse_incidence * _safe_pow(base, shininess)
         total = total + (
             params.light_specular[li] * (shadow * specular_incidence)[..., None] * specular
         )
 
     total = total + params.ambient_color * ambient
-    return torch.clamp(total, 0.0, 1.0)
+    return clip(total, 0.0, 1.0)

@@ -5,6 +5,11 @@ march, tetrahedron normals, per-light soft shadows, Phong, optional
 soft-coverage AA, gamma — in batched torch ops. It runs on any device; it
 is the plain version that the fused CUDA kernel is held against
 (render/fused_fwd.py) and what CPU tensors render through.
+
+`render_image` is differentiable with the JAX package's estimators (the
+IFT at the frozen march, the coverage alpha, the shadow gradient of
+cfg.shadow_grad): autograd through it is the twin of `jax.grad` through
+the jnp renderer. `make_renderer` renders without autograd.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ from loltracer_tpu_torch.render.camera import camera_rays
 from loltracer_tpu_torch.render.march import intersect_aa
 from loltracer_tpu_torch.render.sdf import make_scene_sdf, make_scene_sdf_with_id
 from loltracer_tpu_torch.render.shading import get_normal, shade
-from loltracer_tpu_torch.render.vecmath import true_div
+from loltracer_tpu_torch.render.vecmath import clip, true_div
 from loltracer_tpu_torch.scene import SceneParams, SceneStructure
 
 
@@ -58,7 +63,7 @@ def render_rays(
     color = shade(structure, params, sdf, p, n, obj_id, cfg)
     if use_aa:
         # blend toward the background (material 0 ambient) in linear space
-        bg = torch.clamp(params.ambient_color * params.mat_ambient[0], 0.0, 1.0)
+        bg = clip(params.ambient_color * params.mat_ambient[0], 0.0, 1.0)
         color = alpha[..., None] * color + (1.0 - alpha[..., None]) * bg
     return gamma_encode(color, cfg.gamma)
 
@@ -70,7 +75,8 @@ def render_image(
     width: int,
     cfg: RenderConfig = DEFAULT_CONFIG,
 ):
-    """Render the full image: [H, W, 3] float32 in [0, 1]."""
+    """Render the full image: [H, W, 3] float32 in [0, 1], differentiable
+    in params."""
     ro, rd = camera_rays(params, height, width, cfg)
     pr = pixel_radius(params, height, cfg) if cfg.antialias else None
     return render_rays(structure, params, ro, rd, cfg, pixel_rad=pr)

@@ -36,6 +36,25 @@ def cross(a, b):
     )
 
 
+def maximum(x, lo: float):
+    """max(x, lo) with the gradient of torch.maximum / jnp.maximum: a tie
+    passes half the cotangent (torch.clamp_min would pass all of it)."""
+    return torch.maximum(x, torch.full_like(x, lo))
+
+
+def minimum(x, hi: float):
+    """min(x, hi), a tie passing half the cotangent (see maximum)."""
+    return torch.minimum(x, torch.full_like(x, hi))
+
+
+def clip(x, lo: float, hi: float):
+    """min(max(x, lo), hi): the JAX package's jnp.clip, values and gradient.
+    At a bound the gradient is half the cotangent, where torch.clamp passes
+    all of it; it matters where a clip sits on its bound for every pixel
+    (the AA background of a black material 0)."""
+    return minimum(maximum(x, lo), hi)
+
+
 def true_div(x, n):
     """x / n for a Python number n, correctly rounded on every device. On
     CUDA, torch divides by a Python scalar as a multiply by its reciprocal,

@@ -232,6 +232,13 @@ def params_from_numpy(d: Dict[str, np.ndarray], device="cpu") -> SceneParams:
     )
 
 
+def params_to_numpy(params: SceneParams) -> Dict[str, np.ndarray]:
+    """The inverse of params_from_numpy: {field: numpy copy}, detached and
+    on the CPU, dtypes kept. It carries gradients and fitted numbers back
+    out of the port, e.g. to compare with the JAX package."""
+    return {f: getattr(params, f).detach().cpu().numpy().copy() for f in FIELDS}
+
+
 def params_to(
     params: SceneParams, device=None, dtype: torch.dtype = None
 ) -> SceneParams:
