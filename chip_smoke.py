@@ -39,7 +39,25 @@ Phases, one line each:
    port's render of scene4 with its sphere points moved; it must launch
    both training kernels and lower the loss. Then one fwd+bwd step of
    `make_training_renderer` timed (median of 10, CUDA events), its two
-   kernels timed apart, the plain versions (median of 3), peak memory.
+   kernels timed apart, the plain versions (median of 3), peak memory;
+9. build lol_instanced_render (the instanced tier, started with the other
+   builds in phase 1) for clamp 2, exact, clamp 2 + AA and clamp 2 with
+   shadow clamp 8; ptxas registers and spills;
+10. lol_instanced_render vs its plain version at 97x161: instanced:10000 in
+   those four configs, and instanced:1 and instanced:300 (seed 9) at clamp
+   2, by the phase-2 rule;
+11. the main path: `loltracer_tpu_torch.cli render instanced:10000
+   --step-clamp 2 --size 1920x1080`, which must launch the kernel exactly
+   once; its image finite, in [0, 1], equal to the PNG, and within the
+   phase-2 rule of the plain version on three full-width 16-row bands (top,
+   middle, bottom), each rendered through the camera pack's row0; the plain
+   loops count SDF evaluations and, per evaluated point on those bands, the
+   spheres within its cut and the runs whose bounding ball reaches within
+   it;
+12. kernel frame times (median of 5 warm frames, CUDA events) at 1920x1080
+   and 3840x2160, device time (torch.profiler, in a process of its own:
+   `chip_smoke.py --profile-instanced`), the plain version's time on one
+   band, and the bound.
 
 Then a JSON line with each kernel's launches on its main path, error,
 times and bound, and last the line {"ok": true, "device": {...}}. Any
@@ -75,6 +93,8 @@ EXAMPLES = ROOT / "examples"
 SCENES = ["scene.lol", "scene2.lol", "scene3.lol", "scene4.lol"]
 ATOL = 5e-5
 MAIN_W, MAIN_H = 1920, 1080
+UHD_W, UHD_H = 3840, 2160
+BAND = 16  # rows of each 1080p band held against the plain version
 HBM_BYTES_PER_MS = 3.35e12 / 1e3  # H100 SXM
 FP32_OPS_PER_MS = 67e12 / 1e3
 
@@ -171,8 +191,9 @@ def ptxas_lines(log: str):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            name = next(k for k in ("fused_fwd_kernel", "fused_bwd_kernel",
-                                    "bwd_reduce_kernel", m.group(1)) if k in m.group(1))
+            name = next(k for k in ("instanced_fwd_kernel", "fused_fwd_kernel",
+                                    "fused_bwd_kernel", "bwd_reduce_kernel", m.group(1))
+                        if k in m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
             spill = f"{m.group(1)} B spill stores, {m.group(2)} B spill loads"
@@ -225,6 +246,48 @@ def profile_steps(step, n: int) -> str:
             f"{sum(r[1] for r in rows)} kernels, idle {1 - busy / wall:.1%}; top: {top}")
 
 
+def profile_instanced() -> int:
+    """`chip_smoke.py --profile-instanced`: torch.profiler over 3 frames of
+    lol_instanced_render (instanced:10000, clamp 2, MAIN_W x MAIN_H), one
+    line on stdout. Phase 12 runs it as a process of its own: a second
+    profiling session in one process reported no device events (torch 2.11
+    on an H100 machine)."""
+    import torch
+
+    require(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    sys.path.insert(0, str(ROOT))
+    from loltracer_tpu_torch.config import RenderConfig
+    from loltracer_tpu_torch.render import instanced_fwd
+    from loltracer_tpu_torch.render.camera import camera_pack
+    from loltracer_tpu_torch.render.cuda_scene import pack_fields
+    from loltracer_tpu_torch.render.instanced_pack import pack_instanced
+    from loltracer_tpu_torch.scenes import instanced_spheres
+
+    sc = instanced_spheres(n=10_000, device=torch.device("cuda", 0))
+    cfg = RenderConfig(step_clamp=2.0)
+    cam = camera_pack(sc.params, MAIN_H, MAIN_W, cfg)
+    fields, tab = pack_fields(sc.structure, sc.params), pack_instanced(sc.structure, sc.params)
+
+    def frame():
+        instanced_fwd.instanced_forward(sc.structure, cfg, cam, fields, tab, MAIN_H, MAIN_W)
+
+    frame()
+    print(profile_steps(frame, 3))
+    return 0
+
+
+def run_profile_instanced() -> str:
+    """profile_instanced's line, from a child process (it loads the kernel
+    the parent built from the build cache)."""
+    out = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--profile-instanced"],
+        capture_output=True, text=True, timeout=300,
+    )
+    require(out.returncode == 0,
+            f"the profiling process failed (rc {out.returncode}): {out.stderr[-2000:]}")
+    return out.stdout.strip().splitlines()[-1]
+
+
 def bound(nbytes: float, ops: float):
     """(bound_ms, bound_by): the larger of bytes / HBM rate and FP32
     operations / FP32 peak."""
@@ -250,7 +313,10 @@ def main() -> int:
     from loltracer_tpu_torch.config import RenderConfig
     from loltracer_tpu_torch.lol import parse_scene_file
     from loltracer_tpu_torch.opt import fit_scene
-    from loltracer_tpu_torch.render import fused_fwd, fused_train
+    from loltracer_tpu_torch.render import fused_fwd, fused_train, instanced_fwd
+    from loltracer_tpu_torch.render.instanced_pack import GROUP, pack_instanced, sphere_bbox
+    from loltracer_tpu_torch.render.sdf import bbox_cut
+    from loltracer_tpu_torch.scenes import instanced_spheres
     from loltracer_tpu_torch.render.camera import camera_pack
     from loltracer_tpu_torch.render.cuda_renderer import make_cuda_renderer
     from loltracer_tpu_torch.render.cuda_scene import pack_fields, packed_size, unpack_fields
@@ -283,12 +349,20 @@ def main() -> int:
         ("scene4.lol", RenderConfig(shadow_grad="envelope", antialias=True)),
     ]
 
+    inst = {n: instanced_spheres(n=n, seed=0 if n == 10_000 else 9, device=dev)
+            for n in (1, 300, 10_000)}
+    clamp2 = RenderConfig(step_clamp=2.0)
+    inst_cfgs = [clamp2, RenderConfig(), RenderConfig(step_clamp=2.0, antialias=True),
+                 RenderConfig(step_clamp=2.0, shadow_step_clamp=8.0)]
+
     # --- 1. build ------------------------------------------------------------
-    # every kernel of phases 1 and 5 starts building now, one nvcc each
+    # every kernel of phases 1, 5 and 9 starts building now, one nvcc each
     t0 = time.perf_counter()
-    pool = ThreadPoolExecutor(max_workers=len(cases) + len(train_cases))
+    pool = ThreadPoolExecutor(max_workers=len(cases) + len(train_cases) + len(inst_cfgs))
     train_built = [pool.submit(fused_train.library, scenes[n].structure, c)
                    for n, c in train_cases]
+    inst_built = [pool.submit(instanced_fwd.library, c, inst[10_000].structure)
+                  for c in inst_cfgs]
     built = [f.result() for f in
              [pool.submit(fused_fwd.library, scenes[n].structure, c) for n, c in cases]]
     build_s = time.perf_counter() - t0
@@ -539,6 +613,144 @@ def main() -> int:
           f"{k1r_bound[0]:.4f} ms, lol_train_bwd {k2_bound[0]:.4f} ms, all by "
           f"{k1_bound[1]} / {k1r_bound[1]} / {k2_bound[1]}")
 
+    # --- 9. build the instanced kernel -----------------------------------------------
+    inst_built = [f.result() for f in inst_built]
+    inst_s = time.perf_counter() - t0
+    print(f"[9] build: {len(inst_built)} lol_instanced_render libraries (clamp 2, exact, "
+          f"clamp 2 AA, shadow clamp 8) done {inst_s:.1f} s after the builds started; "
+          f"ptxas (clamp 2): " + " | ".join(ptxas_lines(inst_built[0].log)))
+
+    # --- 10. lol_instanced_render vs its plain version ------------------------------
+    def inst_inputs(scene, c, hh, ww, row0=0):
+        return (camera_pack(scene.params, hh, ww, c, row0=row0),
+                pack_fields(scene.structure, scene.params),
+                pack_instanced(scene.structure, scene.params))
+
+    inst_cases = [(10_000, c) for c in inst_cfgs] + [(1, clamp2), (300, clamp2)]
+    for n, c in inst_cases:
+        sc = inst[n]
+        cam, fields, tab = inst_inputs(sc, c, h, w)
+        k_img = instanced_fwd.instanced_forward(sc.structure, c, cam, fields, tab, h, w)
+        p_img = instanced_fwd.instanced_forward_reference(sc.structure, c, cam, fields, tab, h, w)
+        torch.cuda.synchronize()
+        what = (f"instanced:{n} step_clamp={c.step_clamp} shadow_step_clamp="
+                f"{c.shadow_step_clamp} antialias={c.antialias}")
+        err, over = compare(k_img, p_img, what)
+        print(f"[10] {what} {h}x{w}: max |diff| {err:.3g}, {over} px over {ATOL}")
+
+    # --- 11. main path: cli render instanced:10000 ------------------------------------
+    big = inst[10_000]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "out.png"
+        instanced_fwd.launches = 0
+        cli.main(["render", "instanced:10000", "--step-clamp", "2",
+                  "--size", f"{MAIN_W}x{MAIN_H}", "-o", str(out)])
+        inst_launches = instanced_fwd.launches
+        require(inst_launches == 1,
+                f"the main path launched lol_instanced_render {inst_launches} times, not once")
+        png = read_png(str(out))
+    cam, fields, tab = inst_inputs(big, clamp2, MAIN_H, MAIN_W)
+    k_img = instanced_fwd.instanced_forward(big.structure, clamp2, cam, fields, tab,
+                                            MAIN_H, MAIN_W)
+    torch.cuda.synchronize()
+    require(tuple(k_img.shape) == (MAIN_H, MAIN_W, 3), f"image shape {tuple(k_img.shape)}")
+    require(bool(torch.isfinite(k_img).all()), "non-finite pixels")
+    require(bool(((k_img >= 0) & (k_img <= 1)).all()), "image outside [0, 1]")
+    require((image_to_u8(k_img.cpu().numpy()) == png).all(),
+            "the CLI's PNG differs from the kernel's image")
+
+    # the plain version on three bands, counting SDF evaluations and, per
+    # evaluated point, the spheres within its cut (what an exact search
+    # must evaluate: the bound's work model)
+    lo, hi = sphere_bbox(big.params.sphere_point, big.params.sphere_radius)
+    near_total, runs_total = [0], [0]
+
+    def probe(pts):
+        # also the runs whose ball reaches within the cut: those the
+        # kernel's search may visit (at most; its bound only shrinks)
+        ctr, ball_r = tab.groups[:, :3], tab.groups[:, 3]
+        for i in range(0, pts.shape[0], 4096):
+            p = pts[i:i + 4096]
+            c = big.params.sphere_point
+            dx, dy, dz = (p[:, 0, None] - c[:, 0], p[:, 1, None] - c[:, 1],
+                          p[:, 2, None] - c[:, 2])
+            d = torch.sqrt((dx * dx + dy * dy) + dz * dz) - big.params.sphere_radius
+            cut = bbox_cut(lo, hi, p, 2.0)[:, None]
+            near_total[0] += int((d <= cut).sum())
+            runs_total[0] += int((torch.cdist(p, ctr) - ball_r <= cut).sum())
+
+    bands = {"top": 0, "middle": (MAIN_H - BAND) // 2, "bottom": MAIN_H - BAND}
+    live_inst = {"march": [], "shadow": [], "probe": probe}
+    inst_err, band_ms = 0.0, None
+    for name, r0 in bands.items():
+        bcam = camera_pack(big.params, MAIN_H, MAIN_W, clamp2, row0=r0)
+        t_band = time.perf_counter()
+        p_band = instanced_fwd.instanced_forward_reference(
+            big.structure, clamp2, bcam, fields, tab, BAND, MAIN_W, MAIN_H, live=live_inst)
+        torch.cuda.synchronize()
+        t_band = (time.perf_counter() - t_band) * 1e3
+        k_band = instanced_fwd.instanced_forward(big.structure, clamp2, bcam, fields, tab,
+                                                 BAND, MAIN_W, MAIN_H)
+        torch.cuda.synchronize()
+        require(torch.equal(k_band, k_img[r0:r0 + BAND]),
+                f"{name} band: the kernel's band launch differs from its frame's rows")
+        err, over = compare(k_img[r0:r0 + BAND], p_band, f"instanced:10000 {name} band")
+        inst_err = max(inst_err, err)
+        print(f"[11] {name} band (rows {r0}-{r0 + BAND - 1}): max |diff| {err:.3g}, {over} px "
+              f"over {ATOL}; plain {t_band:.0f} ms with counting")
+    band_px = BAND * MAIN_W * len(bands)
+    m_inst, sh_inst = sum(live_inst["march"]), sum(live_inst["shadow"])
+    evals = m_inst + sh_inst
+    print(f"[11] main path: cli render instanced:10000 --step-clamp 2 {MAIN_W}x{MAIN_H} -> "
+          f"{inst_launches} launch; PNG = kernel image; bands: march {m_inst / band_px:.1f} + "
+          f"shadow {sh_inst / band_px:.1f} SDF evaluations per ray, "
+          f"{near_total[0] / evals:.1f} spheres within the cut per evaluation, "
+          f"{runs_total[0] / evals:.1f} runs of {GROUP} whose ball reaches within it")
+
+    # --- 12. frame times -----------------------------------------------------------
+    def inst_kernel():
+        instanced_fwd.instanced_forward(big.structure, clamp2, cam, fields, tab, MAIN_H, MAIN_W)
+
+    cam_uhd, fields_uhd, tab_uhd = inst_inputs(big, clamp2, UHD_H, UHD_W)
+
+    def inst_kernel_uhd():
+        instanced_fwd.instanced_forward(big.structure, clamp2, cam_uhd, fields_uhd, tab_uhd,
+                                        UHD_H, UHD_W)
+
+    bcam = camera_pack(big.params, MAIN_H, MAIN_W, clamp2, row0=bands["middle"])
+
+    def inst_plain_band():
+        instanced_fwd.instanced_forward_reference(big.structure, clamp2, bcam, fields, tab,
+                                                  BAND, MAIN_W, MAIN_H)
+
+    inst_kernel(), inst_kernel_uhd()
+    inst_ms = time_ms(inst_kernel, 5)
+    uhd_ms = time_ms(inst_kernel_uhd, 5)
+    inst_plain_ms = time_ms(inst_plain_band, 1)
+    inst_profile = run_profile_instanced()
+    print(f"[12] instanced:10000 clamp 2 on {card}: kernel {inst_ms:.3f} ms/frame at "
+          f"{MAIN_W}x{MAIN_H} ({MAIN_W * MAIN_H / inst_ms / 1e3:.3f} M rays/s), "
+          f"{uhd_ms:.3f} ms/frame at {UHD_W}x{UHD_H} ({UHD_W * UHD_H / uhd_ms / 1e3:.3f} M "
+          f"rays/s); plain {inst_plain_ms:.1f} ms for one {BAND}-row band")
+    print(f"[12] torch.profiler over 3 frames at {MAIN_W}x{MAIN_H}: {inst_profile}")
+
+    # K5 work model (independent of the kernel's traversal): per evaluation
+    # 9 operations for each sphere within the cut of the point (counted on
+    # the bands by the plain version), 20 for the cut and 2 for the plane,
+    # plus the march step (9) or shadow step (15); per pixel K1's shading
+    # work (ray, normals, material, Phong, output) with its 5 evaluations
+    # counted at the cut and plane only. The bands' totals scale to the
+    # frame by pixels: a sample of 48 of 1080 rows.
+    inst_ops_bands = (9 * near_total[0] + 22 * evals + 9 * m_inst + 15 * sh_inst
+                      + band_px * (33 + 4 * 12 + 10 + 10 + 5 * 22 + 70 * big.structure.num_lights
+                                   + 30))
+    inst_ops = inst_ops_bands * (MAIN_W * MAIN_H) / band_px
+    inst_bytes = (4 * (16 + fields.numel() + tab.spheres.numel() + tab.ids.numel()
+                       + tab.groups.numel() + 6) + 12 * MAIN_W * MAIN_H)
+    k5_bound = bound(inst_bytes, inst_ops)
+    print(f"[12] bound: lol_instanced_render {k5_bound[0]:.4f} ms by {k5_bound[1]} "
+          f"({inst_ops:.4g} operations per 1080p frame, scaled from the bands)")
+
     def entry(name, source, replaces, launches, err, ms, plain, bnd):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
@@ -554,6 +766,10 @@ def main() -> int:
         entry("lol_train_bwd", "loltracer_tpu_torch/csrc/fused_bwd.cuh",
               "loltracer_tpu/render/pallas_train.py:469", bwd_launches, bwd_err,
               k2_ms, pb_ms, k2_bound),
+        dict(entry("lol_instanced_render", "loltracer_tpu_torch/csrc/instanced_scene.cuh",
+                   "loltracer_tpu/render/pallas_train.py:840", inst_launches, inst_err,
+                   inst_ms, inst_plain_ms, k5_bound),
+             plain_ms_rows=BAND),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
@@ -562,4 +778,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(profile_instanced() if sys.argv[1:] == ["--profile-instanced"] else main())

@@ -2,9 +2,12 @@
 
     python -m loltracer_tpu_torch.cli render examples/scene4.lol --size 1920x1080 -o out.png
     python -m loltracer_tpu_torch.cli info examples/scene4.lol
+    python -m loltracer_tpu_torch.cli render instanced:10000 --step-clamp 2 --size 1920x1080
 
-`render` goes through the fused CUDA kernel (render/cuda_renderer.py) on
-`--device cuda`, the default, and raises if CUDA is not available;
+`render` goes through the fused CUDA kernel (render/cuda_renderer.py;
+`instanced:N` is the procedural field of N spheres, scenes.py, rendered by
+lol_instanced_render) on `--device cuda`, the default, and raises if CUDA
+is not available;
 `--device cpu` renders through the plain PyTorch version. The render flags
 are those of the JAX package's CLI.
 """
@@ -52,10 +55,11 @@ def _load_scene(path):
     from loltracer_tpu_torch.scene import build_scene
 
     if str(path).startswith("instanced:"):
-        raise NotImplementedError(
-            "instanced scenes are not ported to loltracer_tpu_torch yet "
-            "(ROADMAP.md, Queue 1: the instanced tier)"
-        )
+        # procedural 10k+ primitive configuration, e.g. `instanced:10000`
+        # (BASELINE config 5; scenes.instanced_spheres)
+        from loltracer_tpu_torch.scenes import instanced_spheres
+
+        return instanced_spheres(n=int(str(path).split(":")[1]))
     return build_scene(parse_scene_file(path))
 
 

@@ -29,7 +29,9 @@
 // This file is not compiled on its own: render/cuda_scene.py emits, after
 // it, the per-structure `Cfg` and `Scene` types (the straight-line SDF of
 // the scene's structure, reading the scene's numbers from one packed f32
-// buffer at generated offsets) and the extern "C" entry point.
+// buffer at generated offsets) and the extern "C" entry point. For
+// instanced scenes the `Scene` is csrc/instanced_scene.cuh's traversal,
+// and `lol_instanced_render` launches render_pixel from there.
 //
 // Arithmetic matches the plain PyTorch version op for op: the build passes
 // --fmad=false, sums run ((x + y) + z), vectors are normalized by dividing
@@ -200,10 +202,12 @@ __device__ __forceinline__ void render_pixel(const float* cam, const Scene& scn,
     const float soz = pz + lz * Cfg::shadow_offset;
 
     // soft-shadow march (shading.py soft_shadow): the first step has t == 0
-    // and gives +/-inf; res < -1 is a hard shadow.
+    // and gives +/-inf; res < -1 is a hard shadow. Instanced scenes march
+    // shadows under their own step clamp (Scene::shadow_dist); a compiled
+    // Scene's shadow_dist is its dist.
     float res = 1.f, ts = 0.f, t_star = 0.f;
     for (int step = 0; step < Cfg::shadow_steps; ++step) {
-      const float d = scn.dist(sox + ts * lx, soy + ts * ly, soz + ts * lz);
+      const float d = scn.shadow_dist(sox + ts * lx, soy + ts * ly, soz + ts * lz);
       const float val =
           ts > 0.f ? Cfg::shadow_w * d / ts : (d < 0.f ? -INFINITY : INFINITY);
       if constexpr (Cfg::with_residuals) {

@@ -1,0 +1,246 @@
+// lol_instanced_render on Hopper: the fused forward render of an instanced
+// scene (10k+ spheres and a few planes), one thread per ray.
+//
+// Replaces `loltracer_tpu/render/pallas_train.py: _instanced_fwd_kernel`
+// with residuals off (the Pallas call named `lol_instanced_render`). The
+// pixel body is csrc/fused_fwd.cuh's `render_pixel`; this file supplies the
+// instanced `Scene` it runs on and the kernel that launches it.
+//
+// The scene's distance at p is, as in the plain version (render/sdf.py
+// `_make_instanced_sdf`): the min over spheres of |p - c| - r, under a step
+// clamp cut at max(clamp, distance to the sphere set's AABB), then merged
+// with the planes by a strict `<`. The march, the material lookup and the
+// normal taps take the primary clamp (Cfg::has_clamp, Cfg::clamp), the
+// shadow marches the shadow clamp (Cfg::has_shadow_clamp, ...).
+//
+// The search is exact and two-level. The spheres are Morton-sorted into runs
+// of kGroup (render/instanced_pack.py), each with a bounding ball: every
+// member's distance is >= |p - ctr| - R, and the least member distance is
+// <= |p - ctr| + S. The running bound `best` starts at the cut (at +inf when
+// exact, and then a first pass over the balls' S gives an upper bound u);
+// a run is evaluated when its lower bound is <= min(best, u) (non-strict: a
+// one-sphere run has R == -S up to the margins), sphere by sphere with the
+// plain version's expression. A skipped run's spheres are all > best, so the
+// min is the plain version's exactly; min is order-free, and the build uses
+// --fmad=false, so the two agree bitwise. `sdf_mat` tracks the winner's
+// original SoA index too, and a tie goes to the smaller one (first-wins,
+// as the plain version's blockwise argmin).
+//
+// What bounds it on this card: FP32 and SFU issue and divergence, as K1.
+// One evaluation costs a pass over the ~160 ball tests (in shared memory,
+// loaded once per block) plus the visited runs' spheres (read as float4
+// through the read-only path; within a warp the 8x4 neighbouring rays visit
+// mostly the same runs, so those loads are broadcasts). The TPU kernel's
+// windows, best-first pick loop, MXU bound expansion, scratch gathers and
+// shadow segment cull are TPU layout answers, value-exact all; none is
+// carried over (the last two are perf items in ROADMAP.md).
+//
+// The device functions also compile as host C++ (tests/test_torch_instanced_host.py);
+// the kernel and its launch sit under __CUDACC__.
+
+#include <climits>
+
+namespace lol {
+
+// The sphere tables of render/instanced_pack.py, on the device.
+struct InstancedTables {
+  const float4* __restrict__ spheres;  // [num_spheres] x y z r, Morton-sorted
+  const int2* __restrict__ ids;        // [num_spheres + planes] (SoA index, material)
+  const float4* __restrict__ groups;   // [num_groups][2] (cx cy cz R) (S 0 0 0)
+  const float* __restrict__ bbox;      // [6] lo, hi of the spheres' surfaces
+  int num_spheres;
+  int num_groups;
+};
+
+// L: the generated layout (offsets into the packed small-field buffer and
+// kGroup); C: the generated Cfg with the two clamps.
+template <class L, class C>
+struct InstancedScene {
+  static constexpr int kNumLights = L::kNumLights;
+  static constexpr int kNumMaterials = L::kNumMaterials;
+  static constexpr int kNumFields = L::kNumFields;
+  static constexpr int kMatShininess = L::kMatShininess;
+  static constexpr int kMatDiffuse = L::kMatDiffuse;
+  static constexpr int kMatSpecular = L::kMatSpecular;
+  static constexpr int kMatAmbient = L::kMatAmbient;
+  static constexpr int kAmbientColor = L::kAmbientColor;
+  static constexpr int kLightPoint = L::kLightPoint;
+  static constexpr int kLightDiffuse = L::kLightDiffuse;
+  static constexpr int kLightSpecular = L::kLightSpecular;
+  static constexpr int kNumPlanes = L::kNumPlanes;
+  static constexpr int kGroup = L::kGroup;
+
+  const float* P;
+  InstancedTables tab;
+  const float4* grp;  // the group table, staged in shared memory
+  float plane_y[kNumPlanes > 0 ? kNumPlanes : 1];
+
+  __device__ __forceinline__ InstancedScene(const float* __restrict__ P_,
+                                            const InstancedTables& t,
+                                            const float4* groups)
+      : P(P_), tab(t), grp(groups) {
+#pragma unroll
+    for (int k = 0; k < kNumPlanes; ++k) plane_y[k] = __ldg(P + L::kPlaneY + k);
+  }
+
+  // max(clamp, distance from p to the spheres' AABB) (render/sdf.py bbox_cut)
+  __device__ __forceinline__ float cut(float px, float py, float pz, float clamp) const {
+    const float* b = tab.bbox;
+    const float qx = jmax(jmax(__ldg(b) - px, px - __ldg(b + 3)), 0.f);
+    const float qy = jmax(jmax(__ldg(b + 1) - py, py - __ldg(b + 4)), 0.f);
+    const float qz = jmax(jmax(__ldg(b + 2) - pz, pz - __ldg(b + 5)), 0.f);
+    const float s = (qx * qx + qy * qy) + qz * qz;
+    const float d_bbox = s > 0.f ? sqrtf(s) : 0.f;
+    return jmax(d_bbox, clamp);
+  }
+
+  // min over runs of |p - ctr| + S: >= the least sphere distance
+  __device__ __forceinline__ float upper(float px, float py, float pz) const {
+    float u = INFINITY;
+    for (int g = 0; g < tab.num_groups; ++g) {
+      const float4 b = grp[2 * g];
+      const float dx = px - b.x, dy = py - b.y, dz = pz - b.z;
+      const float v = sqrtf((dx * dx + dy * dy) + dz * dz) + grp[2 * g + 1].x;
+      if (v < u) u = v;
+    }
+    return u;
+  }
+
+  __device__ __forceinline__ int run_end(int g) const {
+    const int e = g * kGroup + kGroup;
+    return e < tab.num_spheres ? e : tab.num_spheres;
+  }
+
+  // Whether run g can hold a sphere at distance <= gate.
+  __device__ __forceinline__ bool visit(int g, float px, float py, float pz,
+                                        float gate) const {
+    const float4 b = grp[2 * g];
+    const float dx = px - b.x, dy = py - b.y, dz = pz - b.z;
+    const float thr = gate + b.w;
+    return thr > 0.f && (dx * dx + dy * dy) + dz * dz <= thr * thr;
+  }
+
+  __device__ __forceinline__ float sphere_dist(int j, float px, float py, float pz) const {
+    const float4 s = __ldg(tab.spheres + j);
+    const float dx = px - s.x, dy = py - s.y, dz = pz - s.z;
+    return sqrtf((dx * dx + dy * dy) + dz * dz) - s.w;
+  }
+
+  // min(min over spheres, cut) and the planes, for one clamp
+  template <bool kHasClamp>
+  __device__ __forceinline__ float dist_under(float px, float py, float pz,
+                                              float clamp) const {
+    float best = kHasClamp ? cut(px, py, pz, clamp) : INFINITY;
+    const float u = kHasClamp ? INFINITY : upper(px, py, pz);
+    for (int g = 0; g < tab.num_groups; ++g) {
+      if (!visit(g, px, py, pz, u < best ? u : best)) continue;
+      const int end = run_end(g);
+      for (int j = g * kGroup; j < end; ++j) {
+        const float d = sphere_dist(j, px, py, pz);
+        if (d < best) best = d;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kNumPlanes; ++k) {
+      const float dp = py - plane_y[k];
+      if (dp < best) best = dp;
+    }
+    return best;
+  }
+
+  __device__ __forceinline__ float dist(float px, float py, float pz) const {
+    return dist_under<C::has_clamp>(px, py, pz, C::clamp);
+  }
+
+  __device__ __forceinline__ float shadow_dist(float px, float py, float pz) const {
+    return dist_under<C::has_shadow_clamp>(px, py, pz, C::shadow_clamp);
+  }
+
+  // (material, distance): the material of the UNCLAMPED first-wins argmin
+  // over spheres, the distance under the primary clamp, then the planes by
+  // a strict `<` against that clamped distance (render/sdf.py).
+  __device__ __forceinline__ int sdf_mat(float px, float py, float pz,
+                                         float& dmin) const {
+    float best = INFINITY;
+    int best_idx = INT_MAX, best_row = -1;
+    const float u = upper(px, py, pz);
+    for (int g = 0; g < tab.num_groups; ++g) {
+      if (!visit(g, px, py, pz, u < best ? u : best)) continue;
+      const int end = run_end(g);
+      for (int j = g * kGroup; j < end; ++j) {
+        const float d = sphere_dist(j, px, py, pz);
+        if (d <= best) {
+          const int idx = __ldg(&tab.ids[j].x);
+          if (d < best || idx < best_idx) {
+            best = d;
+            best_idx = idx;
+            best_row = j;
+          }
+        }
+      }
+    }
+    int mat = best_row >= 0 ? __ldg(&tab.ids[best_row].y) : 0;
+    float d = best;
+    if (C::has_clamp) d = jmin(d, cut(px, py, pz, C::clamp));
+    for (int k = 0; k < kNumPlanes; ++k) {
+      const float dp = py - plane_y[k];
+      if (dp < d) {
+        d = dp;
+        mat = __ldg(&tab.ids[tab.num_spheres + k].y);
+      }
+    }
+    dmin = d;
+    return mat;
+  }
+};
+
+// Threads per block: 8 x 16, so that a warp is an 8 x 4 tile of pixels
+// whose rays stay close and visit mostly the same runs.
+constexpr int kInstBlockX = 8;
+constexpr int kInstBlockY = 16;
+
+#ifdef __CUDACC__
+template <class Cfg, class Scene>
+__global__ void __launch_bounds__(kInstBlockX * kInstBlockY)
+    instanced_fwd_kernel(const float* __restrict__ cam_in,
+                         const float* __restrict__ P, InstancedTables tab,
+                         float* __restrict__ img, int height, int full_height,
+                         int width) {
+  extern __shared__ float4 s_groups[];
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  for (int i = tid; i < 2 * tab.num_groups; i += blockDim.x * blockDim.y)
+    s_groups[i] = tab.groups[i];
+  __syncthreads();
+
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= width || y >= height) return;
+  float cam[kCamSize];
+#pragma unroll
+  for (int i = 0; i < kCamSize; ++i) cam[i] = __ldg(cam_in + i);
+  const Scene scn(P, tab, s_groups);
+  // rows y of the launch are image rows cam[15] + y of full_height
+  render_pixel<Cfg, Scene>(cam, scn, P, x, y, full_height, width, img, nullptr);
+}
+
+template <class Cfg, class Scene>
+int launch_instanced_fwd(const float* cam, const float* fields,
+                         const InstancedTables& tab, float* img, int height,
+                         int full_height, int width, cudaStream_t stream) {
+  const int smem = 2 * tab.num_groups * (int)sizeof(float4);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        instanced_fwd_kernel<Cfg, Scene>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 block(kInstBlockX, kInstBlockY);
+  const dim3 grid((width + kInstBlockX - 1) / kInstBlockX,
+                  (height + kInstBlockY - 1) / kInstBlockY);
+  instanced_fwd_kernel<Cfg, Scene>
+      <<<grid, block, smem, stream>>>(cam, fields, tab, img, height, full_height, width);
+  return (int)cudaGetLastError();
+}
+#endif  // __CUDACC__
+
+}  // namespace lol

@@ -5,6 +5,10 @@
 built in torch on `device`, then one call of `fused_forward` renders the
 whole image — the CUDA kernel on a CUDA device, its plain version on the
 CPU. There is no tile padding or crop: the kernel masks the ragged edge.
+
+Instanced structures go to `make_instanced_renderer`: per call the sphere
+tables are packed once (render/instanced_pack.py) and `instanced_forward`
+renders the whole image in one launch (`pallas_train.make_instanced_renderer`).
 """
 
 from __future__ import annotations
@@ -17,7 +21,20 @@ from loltracer_tpu_torch.config import DEFAULT_CONFIG, RenderConfig
 from loltracer_tpu_torch.render.camera import camera_pack
 from loltracer_tpu_torch.render.cuda_scene import pack_fields
 from loltracer_tpu_torch.render.fused_fwd import fused_forward
-from loltracer_tpu_torch.scene import SceneParams, SceneStructure, params_to, require_compiled
+from loltracer_tpu_torch.render.instanced_fwd import instanced_forward
+from loltracer_tpu_torch.render.instanced_pack import pack_instanced
+from loltracer_tpu_torch.scene import SceneParams, SceneStructure, params_to, require_instanced
+
+
+def _device(device, who: str) -> torch.device:
+    """`device` as a torch.device; raises for CUDA without CUDA: nothing
+    falls back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{who}: device 'cuda' requested but torch.cuda.is_available() is false"
+        )
+    return device
 
 
 def make_cuda_renderer(
@@ -27,21 +44,41 @@ def make_cuda_renderer(
     cfg: RenderConfig = DEFAULT_CONFIG,
     device="cuda",
 ) -> Callable[[SceneParams], torch.Tensor]:
-    """Compile-once renderer for compiled (non-instanced) scenes. Raises if
-    `device` is a CUDA device and CUDA is not available: it never falls
-    back to the CPU."""
-    require_compiled(structure)
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "make_cuda_renderer: device 'cuda' requested but "
-            "torch.cuda.is_available() is false"
-        )
+    """Compile-once renderer; instanced structures go to
+    make_instanced_renderer. Raises if `device` is a CUDA device and CUDA
+    is not available: it never falls back to the CPU."""
+    if structure.instanced:
+        return make_instanced_renderer(structure, height, width, cfg, device)
+    device = _device(device, "make_cuda_renderer")
 
     def renderer(params: SceneParams) -> torch.Tensor:
         params = params_to(params, device=device, dtype=torch.float32)
         cam = camera_pack(params, height, width, cfg)
         fields = pack_fields(structure, params)
         return fused_forward(structure, cfg, cam, fields, height, width)
+
+    return renderer
+
+
+def make_instanced_renderer(
+    structure: SceneStructure,
+    height: int,
+    width: int,
+    cfg: RenderConfig = DEFAULT_CONFIG,
+    device="cuda",
+) -> Callable[[SceneParams], torch.Tensor]:
+    """`params -> [H, W, 3] f32` for an instanced structure: the tables are
+    packed once per call, then one launch of lol_instanced_render on a
+    CUDA device (its plain version on the CPU). Raises for CUDA without
+    CUDA."""
+    require_instanced(structure)
+    device = _device(device, "make_instanced_renderer")
+
+    def renderer(params: SceneParams) -> torch.Tensor:
+        params = params_to(params, device=device, dtype=torch.float32)
+        cam = camera_pack(params, height, width, cfg)
+        fields = pack_fields(structure, params)
+        tables = pack_instanced(structure, params)
+        return instanced_forward(structure, cfg, cam, fields, tables, height, width)
 
     return renderer

@@ -22,6 +22,15 @@ The source holds offsets, never scene values: the same structure with other
 numbers (a moved camera, an optimiser step) reuses the same built library.
 `pack_fields` builds that buffer from `SceneParams`; `unpack_fields` reads it
 back for the plain PyTorch version.
+
+`generate_instanced_source(structure, cfg)` is the instanced tier's source
+(`lol_instanced_render`): the forward body, the traversal of
+csrc/instanced_scene.cuh, and a generated layout and Cfg with both step
+clamps. For instanced structures the buffer holds the small fields only
+(`pallas_train.instanced_small_fields`): the sphere SoA goes to the kernel
+as the tables of render/instanced_pack.py. The source depends on neither
+the sphere count nor the material ids, so `instanced:300` and
+`instanced:10000` share one library.
 """
 
 from __future__ import annotations
@@ -34,7 +43,14 @@ import numpy as np
 import torch
 
 from loltracer_tpu_torch.config import RenderConfig
-from loltracer_tpu_torch.scene import Node, SceneParams, SceneStructure, require_compiled
+from loltracer_tpu_torch.render.instanced_pack import GROUP
+from loltracer_tpu_torch.scene import (
+    Node,
+    SceneParams,
+    SceneStructure,
+    require_compiled,
+    require_instanced,
+)
 
 # All scene-parameter fields the kernel reads, in packing order. Geometry
 # comes first, so the SDF's numbers are one contiguous prefix of the buffer.
@@ -57,6 +73,9 @@ PARAM_FIELDS = [
 ]
 
 GEOM_FIELDS = PARAM_FIELDS[:7]
+
+# The sphere SoA of an instanced structure: not in the packed buffer.
+SPHERE_FIELDS = ("sphere_point", "sphere_radius")
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 
@@ -90,10 +109,19 @@ def field_shape(structure: SceneStructure, field: str) -> Tuple[int, ...]:
     }[field]
 
 
+def packed_fields(structure: SceneStructure) -> List[str]:
+    """The fields in the packed buffer, in order: every active field, less
+    the sphere SoA for instanced structures."""
+    fields = active_fields(structure)
+    if structure.instanced:
+        fields = [f for f in fields if f not in SPHERE_FIELDS]
+    return fields
+
+
 def field_offsets(structure: SceneStructure) -> Dict[str, int]:
-    """Offset of each active field in the packed buffer."""
+    """Offset of each packed field in the buffer."""
     offsets, pos = {}, 0
-    for f in active_fields(structure):
+    for f in packed_fields(structure):
         offsets[f] = pos
         pos += math.prod(field_shape(structure, f))
     return offsets
@@ -101,14 +129,14 @@ def field_offsets(structure: SceneStructure) -> Dict[str, int]:
 
 def packed_size(structure: SceneStructure) -> int:
     """Length of the packed buffer."""
-    return sum(math.prod(field_shape(structure, f)) for f in active_fields(structure))
+    return sum(math.prod(field_shape(structure, f)) for f in packed_fields(structure))
 
 
 def pack_fields(structure: SceneStructure, params: SceneParams) -> torch.Tensor:
-    """The kernel's scene buffer: every active field flattened, f32, in
+    """The kernel's scene buffer: every packed field flattened, f32, in
     PARAM_FIELDS order, on the params' device."""
     parts = []
-    for f in active_fields(structure):
+    for f in packed_fields(structure):
         v = getattr(params, f)
         if tuple(v.shape) != field_shape(structure, f):
             raise ValueError(
@@ -122,7 +150,8 @@ def unpack_fields(
     structure: SceneStructure, fields: torch.Tensor
 ) -> Dict[str, torch.Tensor]:
     """Inverse of pack_fields: {field: view of the buffer} for every param
-    field (inactive ones empty); the camera fields are not in the buffer."""
+    field (the others zeros of their shape); the camera fields are not in
+    the buffer."""
     offsets = field_offsets(structure)
     out = {}
     for f in PARAM_FIELDS:
@@ -146,7 +175,7 @@ def _f32(x: float) -> str:
     return float.hex(v) + "f"
 
 
-def _cfg_source(cfg: RenderConfig, residuals: bool) -> str:
+def _cfg_source(cfg: RenderConfig, residuals: bool, instanced: bool = False) -> str:
     if cfg.shadow_grad not in ("exact", "envelope"):
         raise ValueError(f"unknown shadow_grad {cfg.shadow_grad!r}")
     ints = {"max_steps": cfg.max_steps, "shadow_steps": cfg.shadow_steps}
@@ -167,6 +196,12 @@ def _cfg_source(cfg: RenderConfig, residuals: bool) -> str:
     lines.append(
         f"  static constexpr bool with_residuals = {'true' if residuals else 'false'};"
     )
+    if instanced:
+        for name, clamp in (("clamp", cfg.step_clamp),
+                            ("shadow_clamp", cfg.effective_shadow_clamp())):
+            has = "true" if clamp is not None else "false"
+            lines.append(f"  static constexpr bool has_{name} = {has};")
+            lines.append(f"  static constexpr float {name} = {_f32(clamp or 0.0)};")
     lines.append("};")
     return "\n".join(lines)
 
@@ -388,6 +423,11 @@ def _scene_source(structure: SceneStructure, residuals: bool) -> str:
         "    return d;",
         "  }",
         "",
+        "  // the shadow marches' distance: the same scene (no step clamp here)",
+        "  __device__ __forceinline__ float shadow_dist(float px, float py, float pz) const {",
+        "    return dist(px, py, pz);",
+        "  }",
+        "",
         "  // (material, distance): strict-< first-wins argmin over objects",
         "  __device__ __forceinline__ int sdf_mat(float px, float py, float pz,",
         "                                         float& dmin) const {",
@@ -407,7 +447,38 @@ def _scene_source(structure: SceneStructure, residuals: bool) -> str:
     return "\n".join(lines)
 
 
+def _layout_source(structure: SceneStructure) -> str:
+    """The instanced Scene's layout: offsets of the small fields in the
+    packed buffer and the run length of the sphere tables."""
+    off = field_offsets(structure)
+
+    def at(field):
+        return off.get(field, 0)  # absent fields are never read
+
+    consts = {
+        "kNumLights": structure.num_lights,
+        "kNumMaterials": structure.num_materials,
+        "kNumFields": packed_size(structure),
+        "kNumPlanes": structure.num_planes,
+        "kGroup": GROUP,
+        "kPlaneY": at("plane_y"),
+        "kMatShininess": at("mat_shininess"),
+        "kMatDiffuse": at("mat_diffuse"),
+        "kMatSpecular": at("mat_specular"),
+        "kMatAmbient": at("mat_ambient"),
+        "kAmbientColor": at("ambient_color"),
+        "kLightPoint": at("light_point"),
+        "kLightDiffuse": at("light_diffuse"),
+        "kLightSpecular": at("light_specular"),
+    }
+    lines = ["struct Layout {"]
+    lines += [f"  static constexpr int {k} = {v};" for k, v in consts.items()]
+    lines += ["};", "using Scene = InstancedScene<Layout, Cfg>;"]
+    return "\n".join(lines)
+
+
 ENTRY = "lol_render_fused"
+INSTANCED_ENTRY = "lol_instanced_render"
 TRAIN_FWD = "lol_train_fwd"
 TRAIN_BWD = "lol_train_bwd"
 TRAIN_REDUCE = "lol_train_bwd_reduce"
@@ -451,6 +522,53 @@ extern "C" int {TRAIN_REDUCE}(const void* partials, int num_blocks, void* grads,
       static_cast<const float*>(partials), num_blocks, static_cast<float*>(grads),
       static_cast<cudaStream_t>(stream));
 }}"""
+
+
+_INSTANCED_ENTRY = f"""\
+extern "C" int {INSTANCED_ENTRY}(const void* cam, const void* fields, const void* spheres,
+                                    const void* ids, const void* groups, const void* bbox,
+                                    int num_spheres, int num_groups, void* img,
+                                    int height, int full_height, int width,
+                                    void* stream) {{
+  const lol::InstancedTables tab{{
+      static_cast<const float4*>(spheres), static_cast<const int2*>(ids),
+      static_cast<const float4*>(groups), static_cast<const float*>(bbox),
+      num_spheres, num_groups}};
+  return lol::launch_instanced_fwd<lol_gen::Cfg, lol_gen::Scene>(
+      static_cast<const float*>(cam), static_cast<const float*>(fields), tab,
+      static_cast<float*>(img), height, full_height, width,
+      static_cast<cudaStream_t>(stream));
+}}"""
+
+
+def generate_instanced_source(structure: SceneStructure, cfg: RenderConfig) -> str:
+    """The CUDA translation unit of `lol_instanced_render` for this
+    instanced structure and config: csrc/fused_fwd.cuh, then
+    csrc/instanced_scene.cuh, then the Cfg (both clamps) and the layout.
+    Deterministic; holds no scene numbers, no sphere count and no material
+    ids. The device functions also compile as host C++."""
+    require_instanced(structure)
+    if not structure.num_spheres:
+        raise ValueError("an instanced scene needs at least one sphere")
+    return "\n".join(
+        [
+            "// Generated by loltracer_tpu_torch.render.cuda_scene: the kernel",
+            "// bodies of csrc/, then this instanced structure's Cfg and layout.",
+            (CSRC / "fused_fwd.cuh").read_text(),
+            (CSRC / "instanced_scene.cuh").read_text(),
+            "namespace lol_gen {",
+            "using namespace lol;",
+            _cfg_source(cfg, residuals=False, instanced=True),
+            "",
+            _layout_source(structure),
+            "}  // namespace lol_gen",
+            "",
+            "#ifdef __CUDACC__",
+            _INSTANCED_ENTRY,
+            "#endif  // __CUDACC__",
+            "",
+        ]
+    )
 
 
 def generate_source(

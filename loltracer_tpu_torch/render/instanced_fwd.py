@@ -1,0 +1,162 @@
+"""The fused forward render of instanced scenes: the hand-written CUDA
+kernel and its plain PyTorch version (`loltracer_tpu/render/pallas_train.py`
+`_instanced_fwd_kernel`, residuals off).
+
+`instanced_forward(structure, cfg, cam, fields, tables, height, width)`
+renders [H, W, 3] f32 from the camera pack (`camera.camera_pack`), the
+packed small fields (`cuda_scene.pack_fields`: materials, lights, ambient,
+planes) and the sphere tables (`instanced_pack.pack_instanced`). With
+`full_height`, it renders a band: the `height` rows from the pack's row0
+on, of an image `full_height` rows tall.
+
+- CUDA tensors launch `lol_instanced_render` (csrc/fused_fwd.cuh's pixel
+  body over csrc/instanced_scene.cuh's exact two-level traversal, one
+  thread per ray), built at first use for the config; the source does not
+  depend on the sphere count. A failed build or launch raises; nothing
+  falls back.
+- CPU tensors go to `instanced_forward_reference`, the plain version: the
+  torch renderer (render/torch_renderer.py) on the spheres read back out of
+  the tables in SoA order.
+
+`launches` counts kernel launches; the plain version never adds to it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict, Optional
+
+import torch
+
+from loltracer_tpu_torch import _build
+from loltracer_tpu_torch.config import RenderConfig
+from loltracer_tpu_torch.render.backend import resolve_backend
+from loltracer_tpu_torch.render.camera import CAM_SIZE, rays_from_pack
+from loltracer_tpu_torch.render.cuda_scene import (
+    INSTANCED_ENTRY,
+    generate_instanced_source,
+    packed_size,
+    unpack_fields,
+)
+from loltracer_tpu_torch.render.fused_fwd import _check
+from loltracer_tpu_torch.render.instanced_pack import GROUP, InstancedTables
+from loltracer_tpu_torch.render.torch_renderer import render_rays
+from loltracer_tpu_torch.scene import SceneParams, SceneStructure, require_instanced
+
+__all__ = [
+    "instanced_forward",
+    "instanced_forward_reference",
+    "launches",
+    "library",
+]
+
+launches = 0
+
+
+def instanced_forward_reference(
+    structure: SceneStructure,
+    cfg: RenderConfig,
+    cam: torch.Tensor,
+    fields: torch.Tensor,
+    tables: InstancedTables,
+    height: int,
+    width: int,
+    full_height: Optional[int] = None,
+    live: Optional[Dict] = None,
+) -> torch.Tensor:
+    """The plain PyTorch version of the kernel, on the tensors' device:
+    `torch_renderer.render_rays` over the rays of rows cam[15] +
+    0..height-1 of an image of `full_height` rows (default `height`), and
+    the spheres of the tables put back in SoA order. Returns [height, W, 3]
+    f32. `live` is handed to render_rays (its loops' live-ray counts)."""
+    unpacked = unpack_fields(structure, fields)
+    order = tables.ids[: structure.num_spheres, 0].long()
+    pos = torch.empty_like(tables.spheres[:, :3])
+    rad = torch.empty_like(tables.spheres[:, 3])
+    pos[order] = tables.spheres[:, :3]
+    rad[order] = tables.spheres[:, 3]
+    unpacked.update(sphere_point=pos, sphere_radius=rad)
+    params = SceneParams(
+        **unpacked,
+        cam_point=cam[0:3],
+        cam_direction=cam[9:12],
+        cam_fov=cam.new_zeros(()),  # unused: the rays come from the pack
+    )
+    ro, rd = rays_from_pack(cam, torch.arange(height), full_height or height, width)
+    with torch.no_grad():
+        return render_rays(
+            structure, params, ro, rd, cfg,
+            pixel_rad=cam[14] if cfg.antialias else None, live=live,
+        )
+
+
+@functools.lru_cache(maxsize=None)
+def library(cfg: RenderConfig, structure: SceneStructure) -> _build.Library:
+    """The built kernel for this config and structure (compiled at first
+    use, then loaded from the build cache). Structures that differ only in
+    their sphere count or material ids share one source, hence one build."""
+    built = _build.build(generate_instanced_source(structure, cfg), "instanced_fwd")
+    fn = getattr(built.lib, INSTANCED_ENTRY)
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return built
+
+
+def _check_tables(structure: SceneStructure, tables: InstancedTables, device) -> None:
+    ns, ng = structure.num_spheres, -(-structure.num_spheres // GROUP)
+    want = {
+        "spheres": ((ns, 4), torch.float32),
+        "ids": ((ns + structure.num_planes, 2), torch.int32),
+        "groups": ((ng, 8), torch.float32),
+        "bbox": ((6,), torch.float32),
+    }
+    for name, (shape, dtype) in want.items():
+        t = getattr(tables, name)
+        if t.device != device or t.dtype != dtype or not t.is_contiguous() \
+                or tuple(t.shape) != shape:
+            raise ValueError(
+                f"tables.{name}: want contiguous {dtype} {shape} on {device}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+
+
+def instanced_forward(
+    structure: SceneStructure,
+    cfg: RenderConfig,
+    cam: torch.Tensor,
+    fields: torch.Tensor,
+    tables: InstancedTables,
+    height: int,
+    width: int,
+    full_height: Optional[int] = None,
+) -> torch.Tensor:
+    """Render [height, W, 3] f32: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors (render/backend.py)."""
+    require_instanced(structure)
+    full_height = full_height or height
+    if resolve_backend(cam, fields, *tables) == "torch":
+        return instanced_forward_reference(
+            structure, cfg, cam, fields, tables, height, width, full_height
+        )
+    _check("cam", cam, (CAM_SIZE,))
+    _check("fields", fields, (packed_size(structure),))
+    _check_tables(structure, tables, cam.device)
+    if cam.device != fields.device:
+        raise ValueError(f"cam on {cam.device}, fields on {fields.device}")
+    if height <= 0 or width <= 0 or full_height < height:
+        raise ValueError(f"bad image size {height}x{width} of {full_height} rows")
+    fn = getattr(library(cfg, structure).lib, INSTANCED_ENTRY)
+    img = torch.empty((height, width, 3), dtype=torch.float32, device=cam.device)
+    with torch.cuda.device(cam.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(cam.data_ptr(), fields.data_ptr(), tables.spheres.data_ptr(),
+                tables.ids.data_ptr(), tables.groups.data_ptr(), tables.bbox.data_ptr(),
+                tables.spheres.shape[0], tables.groups.shape[0], img.data_ptr(),
+                height, full_height, width, stream)
+    if rc != 0:
+        raise RuntimeError(f"{INSTANCED_ENTRY} launch failed: cudaError {rc}")
+    global launches
+    launches += 1
+    return img

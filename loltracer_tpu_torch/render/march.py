@@ -16,7 +16,7 @@ the frozen closest approach. Values do not change.
 
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -36,13 +36,15 @@ class MarchResult(NamedTuple):
 
 
 def march(
-    sdf: Callable, params, ro, rd, cfg: RenderConfig, live: Optional[List[int]] = None
+    sdf: Callable, params, ro, rd, cfg: RenderConfig, live: Optional[List[int]] = None,
+    probe: Optional[Callable] = None,
 ) -> MarchResult:
     """Masked march of rays ro [..., 3] (broadcastable) along unit rd
     [..., 3]; also tracks the angular closest approach min_i d_i/t_i for
     soft-coverage antialiasing. If `live` is a list, the number of rays
     still marching at each step (the SDF evaluations a thread-per-ray
-    kernel makes) is appended to it."""
+    kernel makes) is appended to it; `probe`, if given, is called at each
+    step with the points [n, 3] of those rays."""
     batch = torch.broadcast_shapes(ro.shape[:-1], rd.shape[:-1])
     kw = dict(dtype=rd.dtype, device=rd.device)
     t = torch.zeros(batch, **kw)
@@ -55,7 +57,10 @@ def march(
             break
         if live is not None:
             live.append(int((~done).sum()))
-        d = sdf(params, ro + t[..., None] * rd)
+        p = ro + t[..., None] * rd
+        if probe is not None:
+            probe(p[~done])
+        d = sdf(params, p)
         new_t = t + d
         track = ~done & (t > 0)
         s = d / torch.where(t > 0, t, 1.0)
@@ -89,6 +94,7 @@ def intersect_aa(
     rd,
     cfg: RenderConfig,
     pixel_rad=None,
+    live: Optional[Dict] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Differentiable intersection with optional soft coverage; returns
     (t_shade, id_shade, alpha, hit), as the JAX package's `intersect_aa`.
@@ -99,10 +105,12 @@ def intersect_aa(
     point's id, and blend by alpha = clamp(1 - s/pixel_rad, 0, 1) where
     s = f(closest approach) / t, differentiable in the scene at the frozen
     point. Under torch.no_grad the re-attachment is skipped: its value is
-    the marched t.
+    the marched t. `live` ({"march": list, "probe": callable}, both
+    optional) is handed to the march.
     """
+    live = live or {}
     with torch.no_grad():
-        res = march(sdf, params, ro, rd, cfg)
+        res = march(sdf, params, ro, rd, cfg, live.get("march"), live.get("probe"))
     t0 = res.t
     hit = t0 < cfg.max_dist
 

@@ -8,17 +8,23 @@ object (strict `<`, the reference's naive-backend tie rule).
 
 Every distance is written out component by component in the order the CUDA
 kernel's generated code uses (render/cuda_scene.py), so the two round alike.
-Only compiled (non-instanced) structures are ported so far.
+
+Instanced structures (10k+ spheres) take `_make_instanced_sdf`, the twin of
+the JAX package's: a running min and first-wins argmin over blocks of
+`structure.instanced_block` spheres, so the memory peak is [..., block]
+rather than [..., Ns]; under a step clamp the sphere set's distance is cut
+at max(clamp, distance to the sphere set's AABB); then the planes.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import torch
 
+from loltracer_tpu_torch.render.instanced_pack import sphere_bbox
 from loltracer_tpu_torch.render.vecmath import clip, maximum, minimum
-from loltracer_tpu_torch.scene import Node, SceneParams, SceneStructure, require_compiled
+from loltracer_tpu_torch.scene import Node, SceneParams, SceneStructure, require_instanced
 
 
 def smooth_min(a, b, k):
@@ -66,10 +72,15 @@ def _object_dists(structure: SceneStructure, params: SceneParams, p) -> List:
     return [eval_node(node) for node in structure.objects]
 
 
-def make_scene_sdf(structure: SceneStructure) -> Callable:
+def make_scene_sdf(
+    structure: SceneStructure, step_clamp: Optional[float] = None
+) -> Callable:
     """`sdf(params, p[..., 3]) -> dist[...]`: the min over objects, NaN
-    propagating like jnp.min."""
-    require_compiled(structure)
+    propagating like jnp.min. `step_clamp` applies to instanced structures
+    only (config.py step_clamp) and is ignored for compiled ones."""
+    if structure.instanced:
+        inner = _make_instanced_sdf(structure, step_clamp)
+        return lambda params, p: inner(params, p)[0]
 
     def sdf(params: SceneParams, p):
         dists = _object_dists(structure, params, p)
@@ -81,10 +92,15 @@ def make_scene_sdf(structure: SceneStructure) -> Callable:
     return sdf
 
 
-def make_scene_sdf_with_id(structure: SceneStructure) -> Callable:
+def make_scene_sdf_with_id(
+    structure: SceneStructure, step_clamp: Optional[float] = None
+) -> Callable:
     """`sdf(params, p[..., 3]) -> (dist[...], id[...] int32)`: ids are
-    1-based file-order object positions, first-wins on ties (strict <)."""
-    require_compiled(structure)
+    1-based file-order object positions, first-wins on ties (strict <). For
+    instanced structures the id is the UNCLAMPED argmin even under
+    `step_clamp`, while the distance is clamped."""
+    if structure.instanced:
+        return _make_instanced_sdf(structure, step_clamp)
 
     def sdf(params: SceneParams, p):
         dists = _object_dists(structure, params, p)
@@ -95,5 +111,60 @@ def make_scene_sdf_with_id(structure: SceneStructure) -> Callable:
             dist = torch.where(closer, d, dist)
             oid = torch.where(closer, i + 1, oid)
         return dist, oid
+
+    return sdf
+
+
+def bbox_cut(lo, hi, p, step_clamp: float):
+    """max(step_clamp, distance from p [..., 3] to the box [lo, hi]): a
+    lower bound of every sphere distance outside the box, so clamped
+    marching escapes empty space at full stride. The square root is taken
+    only where the distance is not 0 (the JAX package's NaN-safe form)."""
+    q = maximum(torch.maximum(lo - p, p - hi), 0.0)
+    s = (q[..., 0] * q[..., 0] + q[..., 1] * q[..., 1]) + q[..., 2] * q[..., 2]
+    d_bbox = torch.where(s > 0, torch.sqrt(torch.where(s > 0, s, 1.0)), 0.0)
+    return maximum(d_bbox, step_clamp)
+
+
+def _make_instanced_sdf(
+    structure: SceneStructure, step_clamp: Optional[float] = None
+) -> Callable:
+    """`sdf(params, p[..., 3]) -> (dist, id)` for an instanced structure
+    (`loltracer_tpu/render/sdf.py` `_make_instanced_sdf`): a running min
+    and argmin over blocks of the sphere SoA, the last block padded with
+    sentinel spheres of radius -1e30 that never win; within a block the
+    first minimum wins and across blocks a strict `<`, so ties go to the
+    smaller SoA index. The cut applies to the sphere set only, before the
+    plane merge, and leaves the id alone."""
+    require_instanced(structure)
+    block = structure.instanced_block
+    ns = structure.num_spheres
+
+    def sdf(params: SceneParams, p):
+        batch = p.shape[:-1]
+        dmin = torch.full(batch, float("inf"), dtype=p.dtype, device=p.device)
+        imin = torch.zeros(batch, dtype=torch.int32, device=p.device)
+        px, py, pz = p[..., 0, None], p[..., 1, None], p[..., 2, None]
+        if ns:
+            pad = -ns % block
+            pos = torch.cat([params.sphere_point, params.sphere_point.new_zeros((pad, 3))])
+            rad = torch.cat([params.sphere_radius, params.sphere_radius.new_full((pad,), -1e30)])
+            for start in range(0, ns + pad, block):
+                c, r = pos[start : start + block], rad[start : start + block]
+                dx, dy, dz = px - c[:, 0], py - c[:, 1], pz - c[:, 2]
+                dist = torch.sqrt((dx * dx + dy * dy) + dz * dz) - r
+                bd, bi = torch.min(dist, dim=-1)
+                closer = bd < dmin
+                dmin = torch.where(closer, bd, dmin)
+                imin = torch.where(closer, (bi + (start + 1)).to(torch.int32), imin)
+            if step_clamp is not None:
+                lo, hi = sphere_bbox(params.sphere_point, params.sphere_radius)
+                dmin = torch.minimum(dmin, bbox_cut(lo, hi, p, step_clamp))
+        if structure.num_planes:
+            bd, bi = torch.min(py - params.plane_y, dim=-1)
+            closer = bd < dmin
+            dmin = torch.where(closer, bd, dmin)
+            imin = torch.where(closer, (bi + (ns + 1)).to(torch.int32), imin)
+        return dmin, imin
 
     return sdf

@@ -16,7 +16,7 @@ only where t* > 0 and 0 < res < 1.
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -29,14 +29,15 @@ _NORMAL_KS = ((1.0, -1.0, -1.0), (-1.0, -1.0, 1.0), (-1.0, 1.0, -1.0), (1.0, 1.0
 
 def shadow_march(
     sdf: Callable, params, ro, rd, max_dist, cfg: RenderConfig,
-    live: Optional[List[int]] = None,
+    live: Optional[List[int]] = None, probe: Optional[Callable] = None,
 ):
     """(res, t*) of the shadow march from the (already offset) origin ro
     along rd, up to `max_dist` (the distance to the light): the running
     minimum res of w*d/t and the t of its first-wins argmin (`val < res`,
     so NaN never wins). The loop freezes done rays and ends once every ray
     is done; run under autograd it is the "exact" estimator. If `live` is
-    a list, the number of rays still marching at each step is appended."""
+    a list, the number of rays still marching at each step is appended;
+    `probe`, if given, is called at each step with those rays' points."""
     batch = torch.broadcast_shapes(ro.shape[:-1], rd.shape[:-1], max_dist.shape)
     kw = dict(dtype=rd.dtype, device=rd.device)
     inf = float("inf")
@@ -49,7 +50,10 @@ def shadow_march(
             break
         if live is not None:
             live.append(int((~done).sum()))
-        d = sdf(params, ro + t[..., None] * rd)
+        p = ro + t[..., None] * rd
+        if probe is not None:
+            probe(p[~done])
+        d = sdf(params, p)
         safe_t = torch.where(t > 0, t, 1.0)
         # first iteration: w*d/0 -> +/-inf (d == 0 maps to +inf)
         val = torch.where(
@@ -74,16 +78,21 @@ def envelope_reattach(sdf: Callable, params, ro, rd, res0, t_star, cfg: RenderCo
     return torch.where(valid, res0 + (val - val.detach()), res0)
 
 
-def soft_shadow(sdf: Callable, params, ro, rd, max_dist, cfg: RenderConfig):
+def soft_shadow(
+    sdf: Callable, params, ro, rd, max_dist, cfg: RenderConfig, live: Optional[Dict] = None
+):
     """Penumbra factor max(res, 0) of the shadow march (shadow_march), with
-    the gradient of cfg.shadow_grad."""
+    the gradient of cfg.shadow_grad. `live` ({"shadow": list, "probe":
+    callable}, both optional) is handed to the march."""
+    live = live or {}
+    counts = (live.get("shadow"), live.get("probe"))
     if cfg.shadow_grad == "exact":
-        res, _ = shadow_march(sdf, params, ro, rd, max_dist, cfg)
+        res, _ = shadow_march(sdf, params, ro, rd, max_dist, cfg, *counts)
         return maximum(res, 0.0)
     if cfg.shadow_grad != "envelope":
         raise ValueError(f"unknown shadow_grad {cfg.shadow_grad!r}")
     with torch.no_grad():
-        res, t_star = shadow_march(sdf, params, ro, rd, max_dist, cfg)
+        res, t_star = shadow_march(sdf, params, ro, rd, max_dist, cfg, *counts)
     if torch.is_grad_enabled():
         res = envelope_reattach(sdf, params, ro, rd, res, t_star, cfg)
     return maximum(res, 0.0)
@@ -117,14 +126,16 @@ def shade(
     n,
     obj_id,
     cfg: RenderConfig,
+    live: Optional[Dict] = None,
 ):
     """Phong shading with per-light soft shadows. p: points [..., 3]; n:
     unit normals [..., 3]; obj_id: [...] (0 = miss -> material 0, the
-    background material). Returns clamped linear RGB [..., 3]."""
+    background material). Returns clamped linear RGB [..., 3]. `live` is
+    handed to each light's soft_shadow."""
     mat_ids = torch.tensor(structure.material_ids, dtype=torch.long, device=p.device)
 
     def shadow_of(li, shadow_ro, light_dir, light_dist):
-        return soft_shadow(sdf, params, shadow_ro, light_dir, light_dist, cfg)
+        return soft_shadow(sdf, params, shadow_ro, light_dir, light_dist, cfg, live)
 
     return phong(structure, params, p, n, mat_ids[obj_id.long()], shadow_of, cfg)
 

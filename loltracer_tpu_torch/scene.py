@@ -54,8 +54,10 @@ class SceneStructure:
     # material_ids[id] = material index for hit id; material_ids[0] = 0, the
     # background material.
     material_ids: Tuple[int, ...]
-    # Instanced mode (10k+ spheres): `objects` is empty and the scene is every
-    # sphere followed by every plane. Not supported by the port yet.
+    # Instanced mode (10k+ spheres, scenes.instanced_spheres): `objects` is
+    # empty and the scene is every sphere followed by every plane; object ids
+    # are 1 + the sphere's SoA index, then ns + 1 + the plane's. The plain
+    # SDF walks the spheres in blocks of `instanced_block`.
     instanced: bool = False
     instanced_block: int = 512
 
@@ -67,11 +69,26 @@ class SceneStructure:
 
 
 def require_compiled(structure: SceneStructure) -> None:
-    """Raise for instanced structures, which the port does not render yet."""
+    """Raise for instanced structures where a path has only the compiled
+    tier (the per-structure generated SDF, the training kernels)."""
     if structure.instanced:
         raise NotImplementedError(
-            "instanced structures are not ported to loltracer_tpu_torch yet "
-            "(ROADMAP.md, Queue 1: the instanced tier)"
+            "this path takes compiled structures only; instanced structures "
+            "render through render/instanced_fwd.py"
+        )
+
+
+def require_instanced(structure: SceneStructure) -> None:
+    """Raise unless `structure` is an instanced scene of spheres and planes.
+    The instanced tier evaluates only those two primitive types; a box or a
+    smooth union in an instanced structure would be dropped without a word
+    (as the JAX package's instanced SDF drops it), so it is refused here."""
+    if not structure.instanced:
+        raise ValueError("expected an instanced structure")
+    if structure.num_boxes or structure.num_unions:
+        raise ValueError(
+            f"instanced structures hold spheres and planes only; this one has "
+            f"{structure.num_boxes} boxes and {structure.num_unions} smooth unions"
         )
 
 

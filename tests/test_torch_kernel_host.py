@@ -150,5 +150,6 @@ def test_cli_render_cpu_and_info(examples, examples_dir, tmp_path, capsys):
     assert fused_fwd.launches == 0
     cli.main(["info", str(examples_dir / "scene4.lol")])
     assert '"spheres": 5' in capsys.readouterr().out
-    with pytest.raises(NotImplementedError):
-        cli.main(["info", "instanced:100"])
+    cli.main(["info", "instanced:100"])
+    out = capsys.readouterr().out
+    assert '"spheres": 100' in out and '"objects": 101' in out
