@@ -57,7 +57,29 @@ Phases, one line each:
 12. kernel frame times (median of 5 warm frames, CUDA events) at 1920x1080
    and 3840x2160, device time (torch.profiler, in a process of its own:
    `chip_smoke.py --profile-instanced`), the plain version's time on one
-   band, and the bound.
+   band, and the bound;
+13. build lol_instanced_fwd and lol_instanced_bwd (the instanced training
+   pair, started with the other builds in phase 1) for clamp 2, exact and
+   clamp 2 + AA with envelope shadows; ptxas registers and spills;
+14. at 97x161, instanced:10000 in those three configs and instanced:300
+   and :1 at clamp 2: lol_instanced_fwd's image bitwise
+   lol_instanced_render's, its residual planes by the phase-6 rule against
+   the plain version; lol_instanced_bwd vs the plain version on the
+   kernel's residuals and a seeded cotangent by the phase-7 rule, the
+   sphere table (x y z r per sorted row) included, and two launches
+   bitwise equal;
+15. the main path: `fit_scene` on instanced:10000 @1920x1080, clamp 2,
+   envelope shadows, sphere points trainable, 3 Adam steps against K5's
+   render with the spheres moved: one launch of each kernel per step, and
+   the loss falls. Then both kernels against the plain version on three
+   full-width 16-row bands through the camera pack's row0 (the bands'
+   launches bitwise the frame's rows), and lol_instanced_bwd's full-frame
+   launch against the plain version run on every 16-row band of the frame
+   and summed, by the phase-7 rule;
+16. one fwd+bwd step of `make_instanced_training_renderer` timed (median of
+   5, CUDA events), its two kernels timed apart, device time
+   (`chip_smoke.py --profile-instanced-train`, a process of its own), peak
+   memory, the plain versions on one band, and the bounds.
 
 Then a JSON line with each kernel's launches on its main path, error,
 times and bound, and last the line {"ok": true, "device": {...}}. Any
@@ -191,8 +213,11 @@ def ptxas_lines(log: str):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            name = next(k for k in ("instanced_fwd_kernel", "fused_fwd_kernel",
-                                    "fused_bwd_kernel", "bwd_reduce_kernel", m.group(1))
+            name = next(k for k in ("instanced_fwd_kernel", "instanced_bwd_kernel",
+                                    "fused_fwd_kernel", "fused_bwd_kernel",
+                                    "bwd_reduce_kernel", "rec_count_kernel",
+                                    "rec_scan_kernel", "rec_place_kernel",
+                                    "rec_sum_kernel", m.group(1))
                         if k in m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
@@ -246,12 +271,14 @@ def profile_steps(step, n: int) -> str:
             f"{sum(r[1] for r in rows)} kernels, idle {1 - busy / wall:.1%}; top: {top}")
 
 
-def profile_instanced() -> int:
-    """`chip_smoke.py --profile-instanced`: torch.profiler over 3 frames of
-    lol_instanced_render (instanced:10000, clamp 2, MAIN_W x MAIN_H), one
-    line on stdout. Phase 12 runs it as a process of its own: a second
-    profiling session in one process reported no device events (torch 2.11
-    on an H100 machine)."""
+def profile_instanced(train: bool) -> int:
+    """`chip_smoke.py --profile-instanced` / `--profile-instanced-train`:
+    torch.profiler over 3 frames of lol_instanced_render, or 3 fwd+bwd
+    steps of make_instanced_training_renderer with envelope shadows
+    (instanced:10000, clamp 2, MAIN_W x MAIN_H), one line on stdout.
+    Phases 12 and 16 run it as a process of its own: a second profiling
+    session in one process reported no device events (torch 2.11 on an
+    H100 machine)."""
     import torch
 
     require(torch.cuda.is_available(), "torch.cuda.is_available() is false")
@@ -261,26 +288,37 @@ def profile_instanced() -> int:
     from loltracer_tpu_torch.render.camera import camera_pack
     from loltracer_tpu_torch.render.cuda_scene import pack_fields
     from loltracer_tpu_torch.render.instanced_pack import pack_instanced
+    from loltracer_tpu_torch.render.instanced_train import make_instanced_training_renderer
     from loltracer_tpu_torch.scenes import instanced_spheres
 
     sc = instanced_spheres(n=10_000, device=torch.device("cuda", 0))
-    cfg = RenderConfig(step_clamp=2.0)
-    cam = camera_pack(sc.params, MAIN_H, MAIN_W, cfg)
-    fields, tab = pack_fields(sc.structure, sc.params), pack_instanced(sc.structure, sc.params)
+    if train:
+        cfg = RenderConfig(step_clamp=2.0, shadow_grad="envelope")
+        render = make_instanced_training_renderer(sc.structure, MAIN_H, MAIN_W, cfg,
+                                                  device=torch.device("cuda", 0))
+        leaves = dataclasses.replace(
+            sc.params, sphere_point=sc.params.sphere_point.clone().requires_grad_(True))
 
-    def frame():
-        instanced_fwd.instanced_forward(sc.structure, cfg, cam, fields, tab, MAIN_H, MAIN_W)
+        def frame():
+            ((render(leaves) - 0.5) ** 2).mean().backward()
+    else:
+        cfg = RenderConfig(step_clamp=2.0)
+        cam = camera_pack(sc.params, MAIN_H, MAIN_W, cfg)
+        fields, tab = pack_fields(sc.structure, sc.params), pack_instanced(sc.structure, sc.params)
+
+        def frame():
+            instanced_fwd.instanced_forward(sc.structure, cfg, cam, fields, tab, MAIN_H, MAIN_W)
 
     frame()
     print(profile_steps(frame, 3))
     return 0
 
 
-def run_profile_instanced() -> str:
-    """profile_instanced's line, from a child process (it loads the kernel
-    the parent built from the build cache)."""
+def run_profile(flag: str) -> str:
+    """profile_instanced's line, from a child process run with `flag` (it
+    loads the kernels the parent built from the build cache)."""
     out = subprocess.run(
-        [sys.executable, str(Path(__file__).resolve()), "--profile-instanced"],
+        [sys.executable, str(Path(__file__).resolve()), flag],
         capture_output=True, text=True, timeout=300,
     )
     require(out.returncode == 0,
@@ -313,7 +351,7 @@ def main() -> int:
     from loltracer_tpu_torch.config import RenderConfig
     from loltracer_tpu_torch.lol import parse_scene_file
     from loltracer_tpu_torch.opt import fit_scene
-    from loltracer_tpu_torch.render import fused_fwd, fused_train, instanced_fwd
+    from loltracer_tpu_torch.render import fused_fwd, fused_train, instanced_fwd, instanced_train
     from loltracer_tpu_torch.render.instanced_pack import GROUP, pack_instanced, sphere_bbox
     from loltracer_tpu_torch.render.sdf import bbox_cut
     from loltracer_tpu_torch.scenes import instanced_spheres
@@ -354,11 +392,17 @@ def main() -> int:
     clamp2 = RenderConfig(step_clamp=2.0)
     inst_cfgs = [clamp2, RenderConfig(), RenderConfig(step_clamp=2.0, antialias=True),
                  RenderConfig(step_clamp=2.0, shadow_step_clamp=8.0)]
+    clamp2_env = RenderConfig(step_clamp=2.0, shadow_grad="envelope")
+    inst_train_cfgs = [clamp2_env, RenderConfig(shadow_grad="envelope"),
+                       RenderConfig(step_clamp=2.0, antialias=True, shadow_grad="envelope")]
 
     # --- 1. build ------------------------------------------------------------
-    # every kernel of phases 1, 5 and 9 starts building now, one nvcc each
+    # every kernel of phases 1, 5, 9 and 13 starts building now, one nvcc each
     t0 = time.perf_counter()
-    pool = ThreadPoolExecutor(max_workers=len(cases) + len(train_cases) + len(inst_cfgs))
+    pool = ThreadPoolExecutor(
+        max_workers=len(cases) + len(train_cases) + len(inst_cfgs) + len(inst_train_cfgs))
+    inst_train_built = [pool.submit(instanced_train.library, c, inst[10_000].structure)
+                        for c in inst_train_cfgs]
     train_built = [pool.submit(fused_train.library, scenes[n].structure, c)
                    for n, c in train_cases]
     inst_built = [pool.submit(instanced_fwd.library, c, inst[10_000].structure)
@@ -430,7 +474,6 @@ def main() -> int:
 
     # --- 5. build the training kernels ------------------------------------------
     train_built = [f.result() for f in train_built]
-    pool.shutdown()
     train_s = time.perf_counter() - t0
     print(f"[5] build: {len(train_built)} training libraries (4 structures + scene4 AA) "
           f"done {train_s:.1f} s after the builds started; scene4 ptxas: "
@@ -727,7 +770,7 @@ def main() -> int:
     inst_ms = time_ms(inst_kernel, 5)
     uhd_ms = time_ms(inst_kernel_uhd, 5)
     inst_plain_ms = time_ms(inst_plain_band, 1)
-    inst_profile = run_profile_instanced()
+    inst_profile = run_profile("--profile-instanced")
     print(f"[12] instanced:10000 clamp 2 on {card}: kernel {inst_ms:.3f} ms/frame at "
           f"{MAIN_W}x{MAIN_H} ({MAIN_W * MAIN_H / inst_ms / 1e3:.3f} M rays/s), "
           f"{uhd_ms:.3f} ms/frame at {UHD_W}x{UHD_H} ({UHD_W * UHD_H / uhd_ms / 1e3:.3f} M "
@@ -751,6 +794,217 @@ def main() -> int:
     print(f"[12] bound: lol_instanced_render {k5_bound[0]:.4f} ms by {k5_bound[1]} "
           f"({inst_ops:.4g} operations per 1080p frame, scaled from the bands)")
 
+    # --- 13. build the instanced training kernels ------------------------------------
+    inst_train_built = [f.result() for f in inst_train_built]
+    pool.shutdown()
+    it_s = time.perf_counter() - t0
+    print(f"[13] build: {len(inst_train_built)} lol_instanced_fwd + lol_instanced_bwd "
+          f"libraries (clamp 2, exact, clamp 2 AA; envelope) done {it_s:.1f} s after the "
+          f"builds started; ptxas (clamp 2): " + " | ".join(ptxas_lines(inst_train_built[0].log)))
+
+    # --- 14. lol_instanced_fwd / lol_instanced_bwd vs the plain versions --------------
+    def check_inst_bwd(sc, c, cam, fields, tab, res, hh, full_h, what, ref_rows=None):
+        # ref_rows: run the plain version on bands of that many rows (the
+        # pack's row0 moved down by each band's offset) and add their
+        # gradients up: the VJP is a sum over pixels
+        gen = np.random.default_rng(0)
+        ct = torch.from_numpy(gen.uniform(-1, 1, (hh, res.shape[2], 3)).astype(np.float32)).to(dev)
+        got = instanced_train.instanced_train_backward(sc.structure, c, cam, fields, tab, res,
+                                                       ct, full_h)
+        again = instanced_train.instanced_train_backward(sc.structure, c, cam, fields, tab, res,
+                                                         ct, full_h)
+        want, step = None, ref_rows or hh
+        for r in range(0, hh, step):
+            rcam = cam.clone()
+            rcam[15] += r
+            part = instanced_train.instanced_train_backward_reference(
+                sc.structure, c, rcam, fields, tab, res[:, r:r + step], ct[r:r + step], full_h)
+            want = part if want is None else tuple(a + b for a, b in zip(want, part))
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"{what}: two lol_instanced_bwd launches differ")
+        require(all(bool(torch.isfinite(g).all()) for g in got), f"{what}: non-finite gradients")
+        pairs = [(f, unpack_fields(sc.structure, got[1])[f], v)
+                 for f, v in unpack_fields(sc.structure, want[1]).items()]
+        pairs.append(("sphere table", got[2], want[2]))
+        worst, worst_abs = 0.0, 0.0
+        for f, g, v in pairs:
+            if v.numel() == 0:
+                continue
+            scale = max(float(v.abs().max()), 1e-6)
+            err = float((g - v).abs().max())
+            worst, worst_abs = max(worst, err / scale), max(worst_abs, err)
+            require(err <= 1e-4 * scale, f"{what}: d{f} max |diff| {err:.3g} > 1e-4 * {scale:.3g}")
+        dcam, pcam = got[0], want[0]
+        cam_err = (dcam - pcam).abs()
+        atol = 1e-5 * max(1.0, float(pcam.abs().max()))
+        require(bool((cam_err <= atol + 2e-3 * pcam.abs()).all()),
+                f"{what}: dcam {dcam.tolist()} vs plain {pcam.tolist()}")
+        return worst, worst_abs, float(cam_err.max())
+
+    it_cases = [(10_000, c) for c in inst_train_cfgs] + [(300, clamp2_env), (1, clamp2_env)]
+    for n, c in it_cases:
+        sc = inst[n]
+        cam, fields, tab = inst_inputs(sc, c, h, w)
+        k_img, k_res = instanced_train.instanced_train_forward(sc.structure, c, cam, fields, tab,
+                                                               h, w)
+        f_img = instanced_fwd.instanced_forward(sc.structure, c, cam, fields, tab, h, w)
+        p_img, p_res = instanced_train.instanced_train_forward_reference(
+            sc.structure, c, cam, fields, tab, h, w)
+        torch.cuda.synchronize()
+        what = f"instanced:{n} step_clamp={c.step_clamp} antialias={c.antialias}"
+        require(torch.equal(k_img, f_img),
+                f"{what}: lol_instanced_fwd image != lol_instanced_render's")
+        err, over = compare(k_img, p_img, what)
+        res_over = check_residuals(k_res, p_res, what)
+        worst, _, cam_err = check_inst_bwd(sc, c, cam, fields, tab, k_res, h, h, what)
+        print(f"[14] {what} {h}x{w}: image = lol_instanced_render bitwise; vs plain max |diff| "
+              f"{err:.3g}, {over} px over {ATOL}; residual planes: {res_over}; "
+              f"lol_instanced_bwd fields and sphere table max |diff| / max|grad| {worst:.3g}, "
+              f"dcam max |diff| {cam_err:.3g}; two launches bitwise equal")
+
+    # --- 15. main path: fit_scene on instanced:10000 ------------------------------------
+    st10 = big.structure
+    gen = np.random.default_rng(0)
+    moved = big.params.sphere_point + torch.from_numpy(
+        gen.uniform(-0.2, 0.2, tuple(big.params.sphere_point.shape)).astype(np.float32)).to(dev)
+    it_target = make_cuda_renderer(st10, MAIN_H, MAIN_W, clamp2_env, device=dev)(
+        dataclasses.replace(big.params, sphere_point=moved))
+    fit_steps = 3
+    instanced_train.launches_fwd = instanced_train.launches_bwd = 0
+    it_fit = fit_scene(st10, big.params, it_target, steps=fit_steps, learning_rate=1e-2,
+                       trainable=("sphere_point",), cfg=clamp2_env, device=dev)
+    it_fwd_launches, it_bwd_launches = instanced_train.launches_fwd, instanced_train.launches_bwd
+    require(it_fwd_launches == fit_steps and it_bwd_launches == fit_steps,
+            f"fit_scene ({fit_steps} steps) launched lol_instanced_fwd {it_fwd_launches}, "
+            f"lol_instanced_bwd {it_bwd_launches} times")
+    it_losses = [float(v) for v in it_fit.losses]
+    require(all(map(math.isfinite, it_losses)), f"non-finite loss: {it_losses}")
+    require(it_losses[-1] < it_losses[0], f"the loss did not fall: {it_losses}")
+    print(f"[15] main path: fit_scene instanced:10000 clamp 2 envelope {MAIN_W}x{MAIN_H}, "
+          f"{fit_steps} Adam steps on sphere_point -> lol_instanced_fwd x{it_fwd_launches}, "
+          f"lol_instanced_bwd x{it_bwd_launches}; losses {it_losses}")
+
+    cam_it, fields_it, tab_it = inst_inputs(big, clamp2_env, MAIN_H, MAIN_W)
+    img_it, res_it = instanced_train.instanced_train_forward(st10, clamp2_env, cam_it, fields_it,
+                                                             tab_it, MAIN_H, MAIN_W)
+    it_fwd_err, it_bwd_err = 0.0, 0.0
+    for name, r0 in bands.items():
+        bcam = camera_pack(big.params, MAIN_H, MAIN_W, clamp2_env, row0=r0)
+        k_band, k_bres = instanced_train.instanced_train_forward(
+            st10, clamp2_env, bcam, fields_it, tab_it, BAND, MAIN_W, MAIN_H)
+        p_band, p_bres = instanced_train.instanced_train_forward_reference(
+            st10, clamp2_env, bcam, fields_it, tab_it, BAND, MAIN_W, MAIN_H)
+        torch.cuda.synchronize()
+        what = f"instanced:10000 training {name} band"
+        require(torch.equal(k_band, img_it[r0:r0 + BAND])
+                and torch.equal(k_bres, res_it[:, r0:r0 + BAND]),
+                f"{what}: the band launch differs from its frame's rows")
+        err, over = compare(k_band, p_band, what)
+        res_over = check_residuals(k_bres, p_bres, what)
+        worst, werr, cam_err = check_inst_bwd(big, clamp2_env, bcam, fields_it, tab_it, k_bres,
+                                              BAND, MAIN_H, what)
+        it_fwd_err, it_bwd_err = max(it_fwd_err, err), max(it_bwd_err, werr)
+        print(f"[15] {name} band (rows {r0}-{r0 + BAND - 1}): lol_instanced_fwd = frame rows "
+              f"bitwise, vs plain max |diff| {err:.3g}, {over} px over; residual planes: "
+              f"{res_over}; lol_instanced_bwd max |diff| / max|grad| {worst:.3g} (max |diff| "
+              f"{werr:.3g}), dcam max |diff| {cam_err:.3g}; two launches bitwise equal")
+    # lol_instanced_bwd at the main path's shape: one launch over the whole
+    # frame (its reduce and scatter sum across all of it), the plain version
+    # band by band on the same residuals and cotangent
+    t_full = time.perf_counter()
+    worst, werr, cam_err = check_inst_bwd(big, clamp2_env, cam_it, fields_it, tab_it, res_it,
+                                          MAIN_H, MAIN_H, "instanced:10000 training full frame",
+                                          ref_rows=BAND)
+    it_bwd_err = max(it_bwd_err, werr)
+    print(f"[15] full frame {MAIN_W}x{MAIN_H}: lol_instanced_bwd vs the plain version summed "
+          f"over {-(-MAIN_H // BAND)} bands of {BAND} rows: max |diff| / max|grad| {worst:.3g} "
+          f"(max |diff| {werr:.3g}), dcam max |diff| {cam_err:.3g}; two launches bitwise equal "
+          f"({time.perf_counter() - t_full:.1f} s)")
+
+    # --- 16. the instanced training step: times, memory, bounds ----------------------
+    it_render = instanced_train.make_instanced_training_renderer(st10, MAIN_H, MAIN_W,
+                                                                 clamp2_env, device=dev)
+    it_leaves = dataclasses.replace(
+        big.params, sphere_point=big.params.sphere_point.clone().requires_grad_(True))
+
+    def it_step():
+        loss = ((it_render(it_leaves) - it_target) ** 2).mean()
+        loss.backward()
+
+    ct_it = torch.from_numpy(np.random.default_rng(0).uniform(
+        -1e-3, 1e-3, (MAIN_H, MAIN_W, 3)).astype(np.float32)).to(dev)
+
+    def k5r():
+        instanced_train.instanced_train_forward(st10, clamp2_env, cam_it, fields_it, tab_it,
+                                                MAIN_H, MAIN_W)
+
+    def k6():
+        instanced_train.instanced_train_backward(st10, clamp2_env, cam_it, fields_it, tab_it,
+                                                 res_it, ct_it)
+
+    bcam = camera_pack(big.params, MAIN_H, MAIN_W, clamp2_env, row0=bands["middle"])
+    _, bres = instanced_train.instanced_train_forward(st10, clamp2_env, bcam, fields_it, tab_it,
+                                                      BAND, MAIN_W, MAIN_H)
+    ct_band = ct_it[:BAND]
+
+    def it_plain_fwd():
+        instanced_train.instanced_train_forward_reference(
+            st10, clamp2_env, bcam, fields_it, tab_it, BAND, MAIN_W, MAIN_H)
+
+    def it_plain_bwd():
+        instanced_train.instanced_train_backward_reference(
+            st10, clamp2_env, bcam, fields_it, tab_it, bres, ct_band, MAIN_H)
+
+    it_step(), k6()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    it_step_ms = time_ms(it_step, 5)
+    it_peak = torch.cuda.max_memory_allocated()
+    k5r_ms, k6_ms = time_ms(k5r, 5), time_ms(k6, 5)
+    it_pf_ms, it_pb_ms = time_ms(it_plain_fwd, 1), time_ms(it_plain_bwd, 1)
+    it_profile = run_profile("--profile-instanced-train")
+    print(f"[16] instanced:10000 clamp 2 envelope {MAIN_W}x{MAIN_H} on {card}: fwd+bwd step "
+          f"{it_step_ms:.3f} ms (peak {it_peak / 2**20:.0f} MiB allocated); lol_instanced_fwd "
+          f"{k5r_ms:.3f} ms, lol_instanced_bwd {k6_ms:.3f} ms; plain fwd {it_pf_ms:.1f} ms, "
+          f"plain bwd {it_pb_ms:.1f} ms for one {BAND}-row band")
+    print(f"[16] torch.profiler over 3 steps: {it_profile}")
+
+    # Bounds on K5's work model (phase 12): an evaluation costs 9 operations
+    # per sphere within the cut (the bands' average) + 22, its adjoint 15
+    # more. lol_instanced_fwd: K5's work + one adjoint evaluation per pixel
+    # (the IFT denominator) + the residual planes' bytes. lol_instanced_bwd:
+    # the evaluations its data needs (4 taps per pixel, the numerator where
+    # hit or AA-missed, the Danskin term per valid penumbra) at that cost,
+    # K2's reverse arithmetic per pixel (phase 8's model without the SDF),
+    # and the bytes of its inputs (camera, fields, tables, residuals,
+    # cotangent) and outputs (grads, sphere table). The record buffer is the
+    # scatter's intermediate, not the function's: its traffic (20 B per
+    # slot, written and read once) is printed beside the bound, not in it.
+    px_main = MAIN_W * MAIN_H
+    e_inst = 9 * near_total[0] / evals + 22
+    n_res_i = instanced_train.num_residuals(st10)
+    k5r_bound = bound(inst_bytes + 4 * n_res_i * px_main, inst_ops + px_main * (e_inst + 15))
+    Li = st10.num_lights
+    hit_it = res_it[1] > 0.5
+    fat_it = int((hit_it | (res_it[0] > 0)).sum())
+    valid_it = sum(int(((res_it[5 + 2 * l] > 0) & (res_it[4 + 2 * l] > 0)
+                        & (res_it[4 + 2 * l] < 1)).sum()) for l in range(Li))
+    k6_evals = 4 * px_main + fat_it + valid_it
+    k6_ops = (k6_evals * (e_inst + 15)
+              + px_main * (33 + 4 * 12 + 10 + 13 + 60 * Li + 45 + 110 * Li + 4 * 10 + 20 + 40))
+    sites = instanced_train.num_sites(st10)
+    k6_bytes = ((inst_bytes - 12 * px_main) + 4 * (n_res_i + 3) * px_main
+                + 4 * (16 + fields_it.numel() + 4 * st10.num_spheres))
+    k6_bound = bound(k6_bytes, k6_ops)
+    rec_bytes = 2 * 20 * sites * px_main
+    print(f"[16] bounds: lol_instanced_fwd {k5r_bound[0]:.4f} ms by {k5r_bound[1]}; "
+          f"lol_instanced_bwd {k6_bound[0]:.4f} ms by {k6_bound[1]} ({k6_evals / px_main:.2f} "
+          f"adjoint evaluations per pixel at {e_inst:.1f} operations, {k6_ops:.4g} operations, "
+          f"{k6_bytes / 1e6:.1f} MB); its record buffer moves {rec_bytes / 1e6:.1f} MB more "
+          f"({rec_bytes / HBM_BYTES_PER_MS:.4f} ms at {HBM_BYTES_PER_MS / 1e9:.2f} TB/s), "
+          f"not counted in the bound")
+
     def entry(name, source, replaces, launches, err, ms, plain, bnd):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
@@ -770,6 +1024,14 @@ def main() -> int:
                    "loltracer_tpu/render/pallas_train.py:840", inst_launches, inst_err,
                    inst_ms, inst_plain_ms, k5_bound),
              plain_ms_rows=BAND),
+        dict(entry("lol_instanced_fwd", "loltracer_tpu_torch/csrc/instanced_scene.cuh",
+                   "loltracer_tpu/render/pallas_train.py:840", it_fwd_launches, it_fwd_err,
+                   k5r_ms, it_pf_ms, k5r_bound),
+             plain_ms_rows=BAND),
+        dict(entry("lol_instanced_bwd", "loltracer_tpu_torch/csrc/instanced_bwd.cuh",
+                   "loltracer_tpu/render/pallas_train.py:1314", it_bwd_launches, it_bwd_err,
+                   k6_ms, it_pb_ms, k6_bound),
+             plain_ms_rows=BAND),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
@@ -778,4 +1040,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(profile_instanced() if sys.argv[1:] == ["--profile-instanced"] else main())
+    if sys.argv[1:] in (["--profile-instanced"], ["--profile-instanced-train"]):
+        sys.exit(profile_instanced(train=sys.argv[1].endswith("-train")))
+    sys.exit(main())

@@ -4,8 +4,11 @@ The JAX package `loltracer_tpu` is the reference; this package renders the
 same compiled `.lol` scenes on an NVIDIA H100 through a hand-written CUDA
 kernel (render/fused_fwd.py, csrc/fused_fwd.cuh), and differentiates them
 through a second one (render/fused_train.py, csrc/fused_bwd.cuh; opt/ fits
-scenes with Adam), with a plain PyTorch version of the same pipeline beside
-each kernel for CPU tensors. It imports torch and never jax.
+scenes with Adam); instanced scenes of 10k+ spheres render and train through
+their own pair (render/instanced_fwd.py, render/instanced_train.py,
+csrc/instanced_scene.cuh, csrc/instanced_bwd.cuh). A plain PyTorch version
+of the same pipeline sits beside each kernel for CPU tensors. It imports
+torch and never jax.
 """
 
 from loltracer_tpu_torch.config import RenderConfig

@@ -462,6 +462,31 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// The block's sum of acc[0..N) over its kThreads threads, in a fixed order
+// (warp shuffles, then the warps in order through shared memory), written
+// to the block's row of partials [num_blocks, N]. Every thread calls it.
+template <int N, int kThreads>
+__device__ __forceinline__ void block_partials(const float* acc,
+                                               float* __restrict__ partials) {
+  constexpr int kWarps = kThreads / 32;
+  __shared__ float warp_part[kWarps][N];
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const float v = warp_sum(acc[j]);
+    if (lane == 0) warp_part[warp][j] = v;
+  }
+  __syncthreads();
+  float* row = partials + (size_t)(blockIdx.y * gridDim.x + blockIdx.x) * N;
+  for (int j = tid; j < N; j += kThreads) {
+    float s = warp_part[0][j];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) s += warp_part[w][j];
+    row[j] = s;
+  }
+}
+
 template <class Cfg, class Scene>
 __global__ void __launch_bounds__(kBwdThreads)
     fused_bwd_kernel(const float* __restrict__ cam_in,
@@ -469,7 +494,6 @@ __global__ void __launch_bounds__(kBwdThreads)
                      const float* __restrict__ ct, float* __restrict__ partials,
                      int height, int width) {
   constexpr int N = kCamSize + Scene::kNumFields;
-  __shared__ float warp_part[kBwdWarps][N];
   float acc[N];
 #pragma unroll
   for (int j = 0; j < N; ++j) acc[j] = 0.f;
@@ -485,22 +509,7 @@ __global__ void __launch_bounds__(kBwdThreads)
     pixel_bwd<Cfg, Scene>(cam, scn, P, x, y, height, width, res + pix,
                           (size_t)height * width, ct + 3 * pix, acc);
   }
-
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    const float v = warp_sum(acc[j]);
-    if (lane == 0) warp_part[warp][j] = v;
-  }
-  __syncthreads();
-  float* row = partials + (size_t)(blockIdx.y * gridDim.x + blockIdx.x) * N;
-  for (int j = tid; j < N; j += kBwdThreads) {
-    float s = warp_part[0][j];
-#pragma unroll
-    for (int w = 1; w < kBwdWarps; ++w) s += warp_part[w][j];
-    row[j] = s;
-  }
+  block_partials<N, kBwdThreads>(acc, partials);
 }
 
 // grads[j] = sum over blocks of partials[:, j]: one block per column, each

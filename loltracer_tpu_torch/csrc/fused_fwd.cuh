@@ -31,7 +31,8 @@
 // the scene's structure, reading the scene's numbers from one packed f32
 // buffer at generated offsets) and the extern "C" entry point. For
 // instanced scenes the `Scene` is csrc/instanced_scene.cuh's traversal,
-// and `lol_instanced_render` launches render_pixel from there.
+// and `lol_instanced_render` / `lol_instanced_fwd` launch render_pixel
+// from there.
 //
 // Arithmetic matches the plain PyTorch version op for op: the build passes
 // --fmad=false, sums run ((x + y) + z), vectors are normalized by dividing
@@ -85,14 +86,15 @@ constexpr int kCamSize = 16;
 constexpr float kMinDen = 1e-2f;
 
 // One pixel (x, y) of the image, and with Cfg::with_residuals its residual
-// planes (res points at plane 0, pixel (0, 0); planes are H*W apart).
+// planes (res_out points at plane 0, pixel (0, 0); planes are `plane`
+// floats apart: the launch's rows times W).
 template <class Cfg, class Scene>
 __device__ __forceinline__ void render_pixel(const float* cam, const Scene& scn,
                                              const float* __restrict__ P, int x,
                                              int y, int height, int width,
                                              float* __restrict__ img,
-                                             float* __restrict__ res_out) {
-  [[maybe_unused]] const size_t plane = (size_t)height * width;
+                                             float* __restrict__ res_out,
+                                             size_t plane) {
   [[maybe_unused]] float* const rp =
       Cfg::with_residuals ? res_out + ((size_t)y * width + x) : nullptr;
 
@@ -270,7 +272,8 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
 #pragma unroll
   for (int i = 0; i < kCamSize; ++i) cam[i] = __ldg(cam_in + i);
   const Scene scn(P);
-  render_pixel<Cfg, Scene>(cam, scn, P, x, y, height, width, img, res);
+  render_pixel<Cfg, Scene>(cam, scn, P, x, y, height, width, img, res,
+                           (size_t)height * width);
 }
 
 template <class Cfg, class Scene>

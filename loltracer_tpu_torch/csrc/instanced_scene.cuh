@@ -1,10 +1,14 @@
-// lol_instanced_render on Hopper: the fused forward render of an instanced
-// scene (10k+ spheres and a few planes), one thread per ray.
+// lol_instanced_render / lol_instanced_fwd on Hopper: the fused forward
+// render of an instanced scene (10k+ spheres and a few planes), one thread
+// per ray.
 //
 // Replaces `loltracer_tpu/render/pallas_train.py: _instanced_fwd_kernel`
-// with residuals off (the Pallas call named `lol_instanced_render`). The
-// pixel body is csrc/fused_fwd.cuh's `render_pixel`; this file supplies the
-// instanced `Scene` it runs on and the kernel that launches it.
+// with residuals off (the Pallas call named `lol_instanced_render`) and on
+// (`lol_instanced_fwd`). The pixel body is csrc/fused_fwd.cuh's
+// `render_pixel`; this file supplies the instanced `Scene` it runs on and
+// the kernel that launches it. With residuals, the IFT denominator is the
+// winner's normal . rd from `dist_bwd` (pallas_train.py:947-967), and the
+// image stays bitwise the residuals-off kernel's.
 //
 // The scene's distance at p is, as in the plain version (render/sdf.py
 // `_make_instanced_sdf`): the min over spheres of |p - c| - r, under a step
@@ -35,6 +39,15 @@
 // shadow segment cull are TPU layout answers, value-exact all; none is
 // carried over (the last two are perf items in ROADMAP.md).
 //
+// The adjoint `dist_bwd` (the training backward, csrc/instanced_bwd.cuh)
+// has the signature of the generated compiled `Scene::dist_bwd`, so that
+// `render_pixel` and `pixel_bwd` run on this Scene unchanged. It is the
+// gradient of the primary-clamp distance as K6 defines it
+// (pallas_train.py `_compose_track`, `_RecordingDist`): the winner's unit
+// normal when a sphere wins, 0 when the cut wins (raw > cut: the cut is
+// frozen), (0, 1, 0) when a plane wins (strict <). The sphere term goes to
+// a RecordSink, one slot per call per pixel, for the deterministic scatter.
+//
 // The device functions also compile as host C++ (tests/test_torch_instanced_host.py);
 // the kernel and its launch sit under __CUDACC__.
 
@@ -50,6 +63,35 @@ struct InstancedTables {
   const float* __restrict__ bbox;      // [6] lo, hi of the spheres' surfaces
   int num_spheres;
   int num_groups;
+};
+
+// The sphere-table records of one pixel's SDF adjoint calls: slot s of
+// pixel p is entry s * stride + p of rows (the winning sorted row, -1 for
+// none) and vals (d/d(x, y, z, r) of that row). Each dist_bwd<true> call
+// takes the next slot; close() marks the slots no call took.
+struct RecordSink {
+  int* __restrict__ rows;
+  float4* __restrict__ vals;
+  size_t stride;
+  size_t pix;
+  int site;
+
+  __device__ __forceinline__ void put(int row, float gx, float gy, float gz, float gr) {
+    const size_t i = (size_t)site++ * stride + pix;
+    rows[i] = row;
+    if (row >= 0) {
+      float4 v;
+      v.x = gx;
+      v.y = gy;
+      v.z = gz;
+      v.w = gr;
+      vals[i] = v;
+    }
+  }
+
+  __device__ __forceinline__ void close(int sites) {
+    for (; site < sites; ++site) rows[(size_t)site * stride + pix] = -1;
+  }
 };
 
 // L: the generated layout (offsets into the packed small-field buffer and
@@ -73,12 +115,14 @@ struct InstancedScene {
   const float* P;
   InstancedTables tab;
   const float4* grp;  // the group table, staged in shared memory
+  RecordSink* sink;   // where dist_bwd<true> records; none in the forward
   float plane_y[kNumPlanes > 0 ? kNumPlanes : 1];
 
   __device__ __forceinline__ InstancedScene(const float* __restrict__ P_,
                                             const InstancedTables& t,
-                                            const float4* groups)
-      : P(P_), tab(t), grp(groups) {
+                                            const float4* groups,
+                                            RecordSink* records = nullptr)
+      : P(P_), tab(t), grp(groups), sink(records) {
 #pragma unroll
     for (int k = 0; k < kNumPlanes; ++k) plane_y[k] = __ldg(P + L::kPlaneY + k);
   }
@@ -156,14 +200,13 @@ struct InstancedScene {
     return dist_under<C::has_shadow_clamp>(px, py, pz, C::shadow_clamp);
   }
 
-  // (material, distance): the material of the UNCLAMPED first-wins argmin
-  // over spheres, the distance under the primary clamp, then the planes by
-  // a strict `<` against that clamped distance (render/sdf.py).
-  __device__ __forceinline__ int sdf_mat(float px, float py, float pz,
-                                         float& dmin) const {
-    float best = INFINITY;
+  // The first-wins argmin over the spheres at distance <= best (best on
+  // entry: a bound, INFINITY for none): its sorted row, -1 if no sphere is
+  // that near, with best set to its distance. A tie goes to the smaller
+  // SoA index.
+  __device__ __forceinline__ int winner(float px, float py, float pz, float& best) const {
     int best_idx = INT_MAX, best_row = -1;
-    const float u = upper(px, py, pz);
+    const float u = best < INFINITY ? INFINITY : upper(px, py, pz);
     for (int g = 0; g < tab.num_groups; ++g) {
       if (!visit(g, px, py, pz, u < best ? u : best)) continue;
       const int end = run_end(g);
@@ -179,6 +222,16 @@ struct InstancedScene {
         }
       }
     }
+    return best_row;
+  }
+
+  // (material, distance): the material of the UNCLAMPED first-wins argmin
+  // over spheres, the distance under the primary clamp, then the planes by
+  // a strict `<` against that clamped distance (render/sdf.py).
+  __device__ __forceinline__ int sdf_mat(float px, float py, float pz,
+                                         float& dmin) const {
+    float best = INFINITY;
+    const int best_row = winner(px, py, pz, best);
     int mat = best_row >= 0 ? __ldg(&tab.ids[best_row].y) : 0;
     float d = best;
     if (C::has_clamp) d = jmin(d, cut(px, py, pz, C::clamp));
@@ -192,6 +245,52 @@ struct InstancedScene {
     dmin = d;
     return mat;
   }
+
+  // The primary-clamp distance at p and, for its cotangent gd, the point
+  // gradient (gx, gy, gz); with kAccum, -gd to the winning plane's plane_y
+  // in gP and the winning sphere's term (-gd n, -gd) for (x, y, z, r) to
+  // the sink (row -1 when no sphere wins or gd is 0). Under a clamp the
+  // search starts at the cut, so a sphere wins only at raw <= cut.
+  template <bool kAccum>
+  __device__ __forceinline__ float dist_bwd(float px, float py, float pz, float gd,
+                                            float& gx, float& gy, float& gz,
+                                            float* __restrict__ gP) const {
+    float d = C::has_clamp ? cut(px, py, pz, C::clamp) : INFINITY;
+    const int row = winner(px, py, pz, d);
+    int plane = -1;
+#pragma unroll
+    for (int k = 0; k < kNumPlanes; ++k) {
+      const float dp = py - plane_y[k];
+      if (dp < d) {
+        d = dp;
+        plane = k;
+      }
+    }
+    gx = 0.f;
+    gy = 0.f;
+    gz = 0.f;
+    int rec = -1;
+    if (plane >= 0) {
+      gy = gd;
+      if constexpr (kAccum) {
+#pragma unroll
+        for (int k = 0; k < kNumPlanes; ++k)
+          if (k == plane) gP[L::kPlaneY + k] -= gd;
+      }
+    } else if (row >= 0) {
+      const float4 s = __ldg(tab.spheres + row);
+      const float dx = px - s.x, dy = py - s.y, dz = pz - s.z;
+      const float sc = gd / sqrtf((dx * dx + dy * dy) + dz * dz);
+      gx = sc * dx;
+      gy = sc * dy;
+      gz = sc * dz;
+      rec = row;
+    }
+    if constexpr (kAccum) {
+      if (sink) sink->put(gd != 0.f ? rec : -1, -gx, -gy, -gz, -gd);
+    }
+    return d;
+  }
 };
 
 // Threads per block: 8 x 16, so that a warp is an 8 x 4 tile of pixels
@@ -204,8 +303,8 @@ template <class Cfg, class Scene>
 __global__ void __launch_bounds__(kInstBlockX * kInstBlockY)
     instanced_fwd_kernel(const float* __restrict__ cam_in,
                          const float* __restrict__ P, InstancedTables tab,
-                         float* __restrict__ img, int height, int full_height,
-                         int width) {
+                         float* __restrict__ img, float* __restrict__ res,
+                         int height, int full_height, int width) {
   extern __shared__ float4 s_groups[];
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   for (int i = tid; i < 2 * tab.num_groups; i += blockDim.x * blockDim.y)
@@ -219,14 +318,17 @@ __global__ void __launch_bounds__(kInstBlockX * kInstBlockY)
 #pragma unroll
   for (int i = 0; i < kCamSize; ++i) cam[i] = __ldg(cam_in + i);
   const Scene scn(P, tab, s_groups);
-  // rows y of the launch are image rows cam[15] + y of full_height
-  render_pixel<Cfg, Scene>(cam, scn, P, x, y, full_height, width, img, nullptr);
+  // rows y of the launch are image rows cam[15] + y of full_height; the
+  // residual planes are the launch's rows
+  render_pixel<Cfg, Scene>(cam, scn, P, x, y, full_height, width, img, res,
+                           (size_t)height * width);
 }
 
 template <class Cfg, class Scene>
 int launch_instanced_fwd(const float* cam, const float* fields,
-                         const InstancedTables& tab, float* img, int height,
-                         int full_height, int width, cudaStream_t stream) {
+                         const InstancedTables& tab, float* img, float* res,
+                         int height, int full_height, int width,
+                         cudaStream_t stream) {
   const int smem = 2 * tab.num_groups * (int)sizeof(float4);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -238,7 +340,8 @@ int launch_instanced_fwd(const float* cam, const float* fields,
   const dim3 grid((width + kInstBlockX - 1) / kInstBlockX,
                   (height + kInstBlockY - 1) / kInstBlockY);
   instanced_fwd_kernel<Cfg, Scene>
-      <<<grid, block, smem, stream>>>(cam, fields, tab, img, height, full_height, width);
+      <<<grid, block, smem, stream>>>(cam, fields, tab, img, res, height, full_height,
+                                      width);
   return (int)cudaGetLastError();
 }
 #endif  // __CUDACC__

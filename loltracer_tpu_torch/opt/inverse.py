@@ -1,10 +1,11 @@
 """Inverse rendering by gradient descent on the scene parameters
 (`loltracer_tpu/opt/inverse.py`), on `torch.optim.Adam`.
 
-`fit_scene` renders through the fused training kernels
-(render/fused_train.make_training_renderer) when cfg.shadow_grad is
-"envelope", as the JAX package does (parallel/sharded.py
-`_fused_row_renderer`). Any other estimator takes the JAX package's jnp
+`fit_scene` renders through the fused training kernels when
+cfg.shadow_grad is "envelope", as the JAX package does (parallel/sharded.py
+`_fused_row_renderer`): render/fused_train.make_training_renderer for
+compiled structures, render/instanced_train.make_instanced_training_renderer
+for instanced ones. Any other estimator takes the JAX package's jnp
 path, whose frozen march and shadow march run the Pallas value kernels
 K3 / K4 on a TPU; those are not ported yet (ROADMAP.md, Queue 2 item 3),
 so on CUDA it raises, and on the CPU it takes the differentiable plain
@@ -27,6 +28,7 @@ import torch
 
 from loltracer_tpu_torch.config import DEFAULT_CONFIG, RenderConfig
 from loltracer_tpu_torch.render.fused_train import make_training_renderer
+from loltracer_tpu_torch.render.instanced_train import make_instanced_training_renderer
 from loltracer_tpu_torch.render.torch_renderer import render_image
 from loltracer_tpu_torch.scene import FIELDS, SceneParams, SceneStructure, params_to
 
@@ -165,7 +167,8 @@ def fit_scene(
     target = torch.as_tensor(target).to(device=device, dtype=torch.float32)
     height, width = int(target.shape[0]), int(target.shape[1])
     if cfg.shadow_grad == "envelope":
-        render = make_training_renderer(structure, height, width, cfg, device=device)
+        make = make_instanced_training_renderer if structure.instanced else make_training_renderer
+        render = make(structure, height, width, cfg, device=device)
     else:
         def render(p):
             return render_image(structure, p, height, width, cfg)

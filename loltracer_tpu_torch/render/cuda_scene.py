@@ -30,7 +30,11 @@ clamps. For instanced structures the buffer holds the small fields only
 (`pallas_train.instanced_small_fields`): the sphere SoA goes to the kernel
 as the tables of render/instanced_pack.py. The source depends on neither
 the sphere count nor the material ids, so `instanced:300` and
-`instanced:10000` share one library.
+`instanced:10000` share one library. With `residuals=True` it is the
+instanced training source: the forward with residuals (`lol_instanced_fwd`)
+and the backward of csrc/instanced_bwd.cuh (`lol_instanced_bwd`, with its
+reduce and scatter launches), whose SDF adjoint is the traversal's own
+`InstancedScene::dist_bwd`, not a generated one.
 """
 
 from __future__ import annotations
@@ -479,6 +483,10 @@ def _layout_source(structure: SceneStructure) -> str:
 
 ENTRY = "lol_render_fused"
 INSTANCED_ENTRY = "lol_instanced_render"
+INSTANCED_FWD = "lol_instanced_fwd"
+INSTANCED_BWD = "lol_instanced_bwd"
+INSTANCED_BLOCKS = "lol_instanced_bwd_blocks"
+INSTANCED_CHUNKS = "lol_instanced_rec_chunks"
 TRAIN_FWD = "lol_train_fwd"
 TRAIN_BWD = "lol_train_bwd"
 TRAIN_REDUCE = "lol_train_bwd_reduce"
@@ -524,47 +532,93 @@ extern "C" int {TRAIN_REDUCE}(const void* partials, int num_blocks, void* grads,
 }}"""
 
 
+_TABLES = """\
+  const lol::InstancedTables tab{
+      static_cast<const float4*>(spheres), static_cast<const int2*>(ids),
+      static_cast<const float4*>(groups), static_cast<const float*>(bbox),
+      num_spheres, num_groups};"""
+
 _INSTANCED_ENTRY = f"""\
 extern "C" int {INSTANCED_ENTRY}(const void* cam, const void* fields, const void* spheres,
                                     const void* ids, const void* groups, const void* bbox,
                                     int num_spheres, int num_groups, void* img,
                                     int height, int full_height, int width,
                                     void* stream) {{
-  const lol::InstancedTables tab{{
-      static_cast<const float4*>(spheres), static_cast<const int2*>(ids),
-      static_cast<const float4*>(groups), static_cast<const float*>(bbox),
-      num_spheres, num_groups}};
+{_TABLES}
   return lol::launch_instanced_fwd<lol_gen::Cfg, lol_gen::Scene>(
       static_cast<const float*>(cam), static_cast<const float*>(fields), tab,
-      static_cast<float*>(img), height, full_height, width,
+      static_cast<float*>(img), nullptr, height, full_height, width,
+      static_cast<cudaStream_t>(stream));
+}}"""
+
+_INSTANCED_TRAIN_ENTRIES = f"""\
+extern "C" int {INSTANCED_FWD}(const void* cam, const void* fields, const void* spheres,
+                                 const void* ids, const void* groups, const void* bbox,
+                                 int num_spheres, int num_groups, void* img, void* res,
+                                 int height, int full_height, int width, void* stream) {{
+{_TABLES}
+  return lol::launch_instanced_fwd<lol_gen::Cfg, lol_gen::Scene>(
+      static_cast<const float*>(cam), static_cast<const float*>(fields), tab,
+      static_cast<float*>(img), static_cast<float*>(res), height, full_height, width,
+      static_cast<cudaStream_t>(stream));
+}}
+
+extern "C" int {INSTANCED_BLOCKS}(int height, int width) {{
+  return lol::inst_bwd_num_blocks(height, width);
+}}
+
+extern "C" int {INSTANCED_CHUNKS}(long long records) {{
+  return lol::rec_num_chunks(records);
+}}
+
+extern "C" int {INSTANCED_BWD}(const void* cam, const void* fields, const void* spheres,
+                                 const void* ids, const void* groups, const void* bbox,
+                                 int num_spheres, int num_groups, const void* res,
+                                 const void* ct, void* partials, void* grads, void* rec_rows,
+                                 void* rec_vals, void* hist, void* start, void* count,
+                                 void* order, void* dsph, int height, int full_height,
+                                 int width, void* stream) {{
+{_TABLES}
+  return lol::launch_instanced_bwd<lol_gen::Cfg, lol_gen::Scene>(
+      static_cast<const float*>(cam), static_cast<const float*>(fields), tab,
+      static_cast<const float*>(res), static_cast<const float*>(ct),
+      static_cast<float*>(partials), static_cast<float*>(grads),
+      static_cast<int*>(rec_rows), static_cast<float4*>(rec_vals), static_cast<int*>(hist),
+      static_cast<int*>(start), static_cast<int*>(count), static_cast<int*>(order),
+      static_cast<float4*>(dsph), height, full_height, width,
       static_cast<cudaStream_t>(stream));
 }}"""
 
 
-def generate_instanced_source(structure: SceneStructure, cfg: RenderConfig) -> str:
+def generate_instanced_source(
+    structure: SceneStructure, cfg: RenderConfig, residuals: bool = False
+) -> str:
     """The CUDA translation unit of `lol_instanced_render` for this
     instanced structure and config: csrc/fused_fwd.cuh, then
     csrc/instanced_scene.cuh, then the Cfg (both clamps) and the layout.
-    Deterministic; holds no scene numbers, no sphere count and no material
-    ids. The device functions also compile as host C++."""
+    With `residuals`, the training pair instead: `lol_instanced_fwd` and
+    `lol_instanced_bwd` (csrc/fused_bwd.cuh and csrc/instanced_bwd.cuh
+    join the bodies). Deterministic; holds no scene numbers, no sphere count
+    and no material ids. The device functions also compile as host C++."""
     require_instanced(structure)
     if not structure.num_spheres:
         raise ValueError("an instanced scene needs at least one sphere")
+    bodies = (["fused_fwd.cuh", "fused_bwd.cuh", "instanced_scene.cuh", "instanced_bwd.cuh"]
+              if residuals else ["fused_fwd.cuh", "instanced_scene.cuh"])
     return "\n".join(
         [
             "// Generated by loltracer_tpu_torch.render.cuda_scene: the kernel",
             "// bodies of csrc/, then this instanced structure's Cfg and layout.",
-            (CSRC / "fused_fwd.cuh").read_text(),
-            (CSRC / "instanced_scene.cuh").read_text(),
+            *[(CSRC / b).read_text() for b in bodies],
             "namespace lol_gen {",
             "using namespace lol;",
-            _cfg_source(cfg, residuals=False, instanced=True),
+            _cfg_source(cfg, residuals=residuals, instanced=True),
             "",
             _layout_source(structure),
             "}  // namespace lol_gen",
             "",
             "#ifdef __CUDACC__",
-            _INSTANCED_ENTRY,
+            _INSTANCED_TRAIN_ENTRIES if residuals else _INSTANCED_ENTRY,
             "#endif  // __CUDACC__",
             "",
         ]

@@ -108,11 +108,26 @@ def shade_from_frozen(
     Its value is the forward image [H, W, 3]; its gradient in (cam, fields)
     is the IFT + Danskin + coverage estimator of the JAX package."""
     params = _params_of(structure, cam, fields)
-    sdf = make_scene_sdf(structure)
+    return reattach(structure, cfg, cam, params, make_scene_sdf(structure), res, height)
+
+
+def reattach(
+    structure: SceneStructure,
+    cfg: RenderConfig,
+    cam: torch.Tensor,
+    params: SceneParams,
+    sdf: Callable,
+    res: torch.Tensor,
+    full_height: int,
+) -> torch.Tensor:
+    """shade_from_frozen's pipeline over the SDF `sdf` at every site, for
+    the rows cam[15] + 0..R-1 of an image of `full_height` rows (res [N, R,
+    W]); params.cam_point is the camera position. Returns [R, W, 3]."""
+    height, width = res.shape[1], res.shape[2]
     t_sh, hit, den = res[0], res[1] > 0.5, res[3]
     mat = res[2].to(torch.long)
     mat = torch.where((mat >= 1) & (mat < structure.num_materials), mat, 0)
-    ro, rd = rays_from_pack(cam, torch.arange(height), height, width)
+    ro, rd = rays_from_pack(cam, torch.arange(height), full_height, width)
 
     # one SDF evaluation at the frozen shading distance: the IFT numerator
     # on hits (point differentiable), the coverage numerator on AA misses
@@ -164,33 +179,52 @@ def train_forward_reference(
         params = _params_of(structure, cam, fields)
         sdf = make_scene_sdf(structure)
         ro, rd = rays_from_pack(cam, torch.arange(height), height, width)
-        live = live or {}
-        m = march(sdf, params, ro, rd, cfg, live.get("march"))
-        hit = m.t < cfg.max_dist
-        if cfg.antialias:
-            t_q = torch.where(hit, m.t_query, m.t_close)
-            t_sh = torch.where(hit, m.t, t_q)
-            _, oid = make_scene_sdf_with_id(structure)(params, ro + t_q[..., None] * rd)
-        else:
-            t_sh = m.t
-            _, oid = make_scene_sdf_with_id(structure)(
-                params, ro + m.t_query[..., None] * rd
-            )
-            oid = torch.where(hit, oid, 0)
-        mat_ids = torch.tensor(structure.material_ids, device=oid.device)
-        planes = [t_sh, hit.to(t_sh.dtype), mat_ids[oid.long()].to(t_sh.dtype)]
-        planes.append(ray_derivative(sdf, params, ro, rd, m.t))
-        p = ro + t_sh[..., None] * rd
-        for li in range(structure.num_lights):
-            to_light = params.light_point[li] - p
-            light_dist = torch.sqrt(dot(to_light, to_light))
-            light_dir = normalize(to_light)
-            shadow_ro = p + light_dir * cfg.shadow_offset
-            planes += list(shadow_march(sdf, params, shadow_ro, light_dir, light_dist, cfg,
-                                        live.get("shadow")))
-        res = torch.stack(planes)
+        res = residual_planes(structure, cfg, params, ro, rd, sdf, sdf, sdf,
+                              make_scene_sdf_with_id(structure), live)
         img = shade_from_frozen(structure, cfg, cam, fields, res, height, width)
     return img, res
+
+
+def residual_planes(
+    structure: SceneStructure,
+    cfg: RenderConfig,
+    params: SceneParams,
+    ro: torch.Tensor,
+    rd: torch.Tensor,
+    sdf: Callable,
+    shadow_sdf: Callable,
+    den_sdf: Callable,
+    sdf_id: Callable,
+    live: Optional[Dict[str, List[int]]] = None,
+) -> torch.Tensor:
+    """The residual planes [R, H, W] of the rays (ro, rd [H, W, 3]): the
+    march over `sdf`, the material of `sdf_id`'s argmin at the query point,
+    the IFT denominator by autograd of `den_sdf`, and per light the shadow
+    march over `shadow_sdf` (res, t*). With `live` = {"march": [],
+    "shadow": []}, the loops append their live-ray counts per step there."""
+    live = live or {}
+    m = march(sdf, params, ro, rd, cfg, live.get("march"))
+    hit = m.t < cfg.max_dist
+    if cfg.antialias:
+        t_q = torch.where(hit, m.t_query, m.t_close)
+        t_sh = torch.where(hit, m.t, t_q)
+        _, oid = sdf_id(params, ro + t_q[..., None] * rd)
+    else:
+        t_sh = m.t
+        _, oid = sdf_id(params, ro + m.t_query[..., None] * rd)
+        oid = torch.where(hit, oid, 0)
+    mat_ids = torch.tensor(structure.material_ids, device=oid.device)
+    planes = [t_sh, hit.to(t_sh.dtype), mat_ids[oid.long()].to(t_sh.dtype)]
+    planes.append(ray_derivative(den_sdf, params, ro, rd, m.t))
+    p = ro + t_sh[..., None] * rd
+    for li in range(structure.num_lights):
+        to_light = params.light_point[li] - p
+        light_dist = torch.sqrt(dot(to_light, to_light))
+        light_dir = normalize(to_light)
+        shadow_ro = p + light_dir * cfg.shadow_offset
+        planes += list(shadow_march(shadow_sdf, params, shadow_ro, light_dir, light_dist, cfg,
+                                    live.get("shadow")))
+    return torch.stack(planes)
 
 
 def train_backward_reference(
@@ -349,7 +383,10 @@ def make_training_renderer(
     package does. Raises if `device` is a CUDA device and CUDA is not
     available: it never falls back to the CPU."""
     if structure.instanced:
-        raise ValueError("fused training kernels require a compiled (non-instanced) scene")
+        raise ValueError(
+            "fused training kernels require a compiled (non-instanced) scene; instanced "
+            "scenes train through instanced_train.make_instanced_training_renderer"
+        )
     if cfg.shadow_grad != "envelope":
         raise ValueError(
             "fused training kernels implement the envelope shadow estimator; "

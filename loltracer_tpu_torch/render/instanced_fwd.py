@@ -40,7 +40,7 @@ from loltracer_tpu_torch.render.cuda_scene import (
     unpack_fields,
 )
 from loltracer_tpu_torch.render.fused_fwd import _check
-from loltracer_tpu_torch.render.instanced_pack import GROUP, InstancedTables
+from loltracer_tpu_torch.render.instanced_pack import GROUP, InstancedTables, soa_spheres
 from loltracer_tpu_torch.render.torch_renderer import render_rays
 from loltracer_tpu_torch.scene import SceneParams, SceneStructure, require_instanced
 
@@ -71,11 +71,7 @@ def instanced_forward_reference(
     the spheres of the tables put back in SoA order. Returns [height, W, 3]
     f32. `live` is handed to render_rays (its loops' live-ray counts)."""
     unpacked = unpack_fields(structure, fields)
-    order = tables.ids[: structure.num_spheres, 0].long()
-    pos = torch.empty_like(tables.spheres[:, :3])
-    rad = torch.empty_like(tables.spheres[:, 3])
-    pos[order] = tables.spheres[:, :3]
-    rad[order] = tables.spheres[:, 3]
+    pos, rad = soa_spheres(structure, tables)
     unpacked.update(sphere_point=pos, sphere_radius=rad)
     params = SceneParams(
         **unpacked,

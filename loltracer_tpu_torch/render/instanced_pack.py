@@ -12,6 +12,11 @@ SoA index, so that ties still go to the smaller index, and its material.
 `pack_instanced(structure, params)` builds every table on the params'
 device in plain torch; the plain SDF (render/sdf.py) takes its AABB from
 `sphere_bbox`, the same function, so both versions cut at the same box.
+The sphere table is a gather of the SoA through the Morton order, so
+autograd takes its gradient (lol_instanced_bwd's, per sorted row) back to
+`sphere_point` / `sphere_radius` in SoA order, as JAX's `render_bwd` does
+(`pallas_train.py:1612-1623`); the run bounds and the AABB are search
+structures, built from detached values.
 """
 
 from __future__ import annotations
@@ -120,7 +125,7 @@ def pack_instanced(structure: SceneStructure, params: SceneParams) -> InstancedT
         )
     if ns == 0:
         raise ValueError("an instanced scene needs at least one sphere")
-    order = pack_order(pos)
+    order = pack_order(pos.detach())
     pos, rad = pos[order], rad[order]
     mats = torch.tensor(structure.material_ids[1:], dtype=torch.int32, device=pos.device)
     planes = torch.arange(ns, ns + structure.num_planes, dtype=torch.int32, device=pos.device)
@@ -128,10 +133,21 @@ def pack_instanced(structure: SceneStructure, params: SceneParams) -> InstancedT
         torch.stack([order.to(torch.int32), mats[order]], dim=1),
         torch.stack([planes, mats[ns:]], dim=1),
     ])
-    lo, hi = sphere_bbox(pos, rad)
+    lo, hi = sphere_bbox(pos.detach(), rad.detach())
     return InstancedTables(
         spheres=torch.cat([pos, rad[:, None]], dim=1).contiguous(),
         ids=ids.contiguous(),
-        groups=group_bounds(pos, rad).contiguous(),
+        groups=group_bounds(pos.detach(), rad.detach()).contiguous(),
         bbox=torch.cat([lo, hi]).contiguous(),
     )
+
+
+def soa_spheres(structure: SceneStructure, tables: InstancedTables):
+    """(sphere_point [Ns, 3], sphere_radius [Ns]) in SoA order, read back
+    out of the tables by a gather through the inverse of the Morton order
+    (differentiable in tables.spheres)."""
+    order = tables.ids[: structure.num_spheres, 0].long()
+    inverse = torch.empty_like(order)
+    inverse[order] = torch.arange(order.numel(), device=order.device)
+    soa = tables.spheres[inverse]
+    return soa[:, :3], soa[:, 3]

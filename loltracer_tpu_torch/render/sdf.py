@@ -126,42 +126,49 @@ def bbox_cut(lo, hi, p, step_clamp: float):
     return maximum(d_bbox, step_clamp)
 
 
+def sphere_argmin(structure: SceneStructure, params: SceneParams, p):
+    """(dist, id) over the spheres of an instanced structure only: a
+    running min and argmin over blocks of `structure.instanced_block`
+    spheres, the last block padded with sentinel spheres of radius -1e30
+    that never win; within a block the first minimum wins and across blocks
+    a strict `<`, so ties go to the smaller SoA index. id is 1-based."""
+    block = structure.instanced_block
+    ns = structure.num_spheres
+    batch = p.shape[:-1]
+    dmin = torch.full(batch, float("inf"), dtype=p.dtype, device=p.device)
+    imin = torch.zeros(batch, dtype=torch.int32, device=p.device)
+    px, py, pz = p[..., 0, None], p[..., 1, None], p[..., 2, None]
+    pad = -ns % block
+    pos = torch.cat([params.sphere_point, params.sphere_point.new_zeros((pad, 3))])
+    rad = torch.cat([params.sphere_radius, params.sphere_radius.new_full((pad,), -1e30)])
+    for start in range(0, ns + pad, block):
+        c, r = pos[start : start + block], rad[start : start + block]
+        dx, dy, dz = px - c[:, 0], py - c[:, 1], pz - c[:, 2]
+        dist = torch.sqrt((dx * dx + dy * dy) + dz * dz) - r
+        bd, bi = torch.min(dist, dim=-1)
+        closer = bd < dmin
+        dmin = torch.where(closer, bd, dmin)
+        imin = torch.where(closer, (bi + (start + 1)).to(torch.int32), imin)
+    return dmin, imin
+
+
 def _make_instanced_sdf(
     structure: SceneStructure, step_clamp: Optional[float] = None
 ) -> Callable:
     """`sdf(params, p[..., 3]) -> (dist, id)` for an instanced structure
-    (`loltracer_tpu/render/sdf.py` `_make_instanced_sdf`): a running min
-    and argmin over blocks of the sphere SoA, the last block padded with
-    sentinel spheres of radius -1e30 that never win; within a block the
-    first minimum wins and across blocks a strict `<`, so ties go to the
-    smaller SoA index. The cut applies to the sphere set only, before the
-    plane merge, and leaves the id alone."""
+    (`loltracer_tpu/render/sdf.py` `_make_instanced_sdf`): sphere_argmin,
+    then under a step clamp the cut, which applies to the sphere set only,
+    before the plane merge, and leaves the id alone; then the planes."""
     require_instanced(structure)
-    block = structure.instanced_block
     ns = structure.num_spheres
 
     def sdf(params: SceneParams, p):
-        batch = p.shape[:-1]
-        dmin = torch.full(batch, float("inf"), dtype=p.dtype, device=p.device)
-        imin = torch.zeros(batch, dtype=torch.int32, device=p.device)
-        px, py, pz = p[..., 0, None], p[..., 1, None], p[..., 2, None]
-        if ns:
-            pad = -ns % block
-            pos = torch.cat([params.sphere_point, params.sphere_point.new_zeros((pad, 3))])
-            rad = torch.cat([params.sphere_radius, params.sphere_radius.new_full((pad,), -1e30)])
-            for start in range(0, ns + pad, block):
-                c, r = pos[start : start + block], rad[start : start + block]
-                dx, dy, dz = px - c[:, 0], py - c[:, 1], pz - c[:, 2]
-                dist = torch.sqrt((dx * dx + dy * dy) + dz * dz) - r
-                bd, bi = torch.min(dist, dim=-1)
-                closer = bd < dmin
-                dmin = torch.where(closer, bd, dmin)
-                imin = torch.where(closer, (bi + (start + 1)).to(torch.int32), imin)
-            if step_clamp is not None:
-                lo, hi = sphere_bbox(params.sphere_point, params.sphere_radius)
-                dmin = torch.minimum(dmin, bbox_cut(lo, hi, p, step_clamp))
+        dmin, imin = sphere_argmin(structure, params, p)
+        if ns and step_clamp is not None:
+            lo, hi = sphere_bbox(params.sphere_point, params.sphere_radius)
+            dmin = torch.minimum(dmin, bbox_cut(lo, hi, p, step_clamp))
         if structure.num_planes:
-            bd, bi = torch.min(py - params.plane_y, dim=-1)
+            bd, bi = torch.min(p[..., 1, None] - params.plane_y, dim=-1)
             closer = bd < dmin
             dmin = torch.where(closer, bd, dmin)
             imin = torch.where(closer, (bi + (ns + 1)).to(torch.int32), imin)

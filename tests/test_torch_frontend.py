@@ -10,6 +10,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import loltracer_tpu as jlt
 from loltracer_tpu.config import RenderConfig as JaxRenderConfig
@@ -25,6 +26,8 @@ from loltracer_tpu_torch.scene import (
     params_to,
 )
 from loltracer_tpu_torch.utils import image as timage
+
+torch.set_num_threads(1)  # one intra-op thread per pytest worker
 
 SCENES = ["scene.lol", "scene2.lol", "scene3.lol", "scene4.lol"]
 ROOT = Path(__file__).resolve().parent.parent

@@ -39,6 +39,8 @@ from loltracer_tpu_torch.render.torch_renderer import render_image, render_image
 from loltracer_tpu_torch.scene import FIELDS
 from loltracer_tpu_torch.scenes import instanced_spheres
 
+torch.set_num_threads(1)  # one intra-op thread per pytest worker
+
 H, W = 36, 64  # tests/test_instanced_fused.py's size
 N, SEED = 300, 9
 

@@ -1,15 +1,20 @@
-"""Host side of the port's instanced kernel (`lol_instanced_render`), on a
-machine without CUDA:
+"""Host side of the port's instanced kernels (`lol_instanced_render`, and
+for training `lol_instanced_fwd` / `lol_instanced_bwd`), on a machine
+without CUDA:
 
-- the generated source: deterministic, and one text for every sphere count
+- the generated sources: deterministic, and one text for every sphere count
   and seed (no scene number, no sphere count, no material table in it);
 - the instanced `Scene` of csrc/instanced_scene.cuh and `render_pixel` over
   it, compiled for the host with g++ through a small shim, against a
   brute-force min and first-wins argmin over every sphere: this is where
   the exactness of the bound-guided search is checked without a card;
+- its adjoint `InstancedScene::dist_bwd` and the record sink against torch
+  autograd of the plain training SDF (winner normal, cut, plane, ties), and
+  `render_pixel` with residuals and `pixel_bwd` over it, the records summed
+  per row in record order, against the plain versions;
 - the wrappers' device rules and the CLI on `instanced:N`.
 
-The kernel itself runs only on the card (chip_smoke.py)."""
+The kernels themselves run only on the card (chip_smoke.py)."""
 
 import ctypes
 import dataclasses
@@ -23,7 +28,7 @@ import torch
 
 from loltracer_tpu_torch import cli
 from loltracer_tpu_torch.config import RenderConfig
-from loltracer_tpu_torch.render import instanced_fwd
+from loltracer_tpu_torch.render import instanced_fwd, instanced_train
 from loltracer_tpu_torch.render.camera import camera_pack
 from loltracer_tpu_torch.render.cuda_renderer import make_cuda_renderer, make_instanced_renderer
 from loltracer_tpu_torch.render.cuda_scene import (
@@ -32,9 +37,13 @@ from loltracer_tpu_torch.render.cuda_scene import (
     generate_source,
     pack_fields,
 )
-from loltracer_tpu_torch.render.instanced_pack import pack_instanced
+from loltracer_tpu_torch.render.camera import CAM_SIZE
+from loltracer_tpu_torch.render.cuda_scene import packed_size, unpack_fields
+from loltracer_tpu_torch.render.instanced_pack import pack_instanced, soa_spheres
 from loltracer_tpu_torch.scenes import instanced_spheres
 from loltracer_tpu_torch.utils.image import image_to_u8, read_png
+
+torch.set_num_threads(1)  # one intra-op thread per pytest worker
 
 CLAMPED = RenderConfig(step_clamp=2.0, shadow_step_clamp=8.0)
 EXACT = RenderConfig()
@@ -67,6 +76,18 @@ def test_instanced_source_is_one_text_for_every_count_and_seed():
     assert "lol_instanced_render" in entries and "lol_render_fused" not in entries
     assert src != generate_instanced_source(a.structure, EXACT)
     assert src != generate_instanced_source(a.structure, cfg.replace(shadow_step_clamp=8.0))
+    train = generate_instanced_source(a.structure, cfg, residuals=True)
+    assert train == generate_instanced_source(b.structure, cfg, residuals=True)
+    for text in ("300", "10000", "299", "9999"):
+        assert text not in train.split("namespace lol_gen {", 1)[1]
+    entries = train.rsplit("#ifdef __CUDACC__", 1)[1]
+    for name in ("lol_instanced_fwd", "lol_instanced_bwd", "lol_instanced_bwd_blocks",
+                 "lol_instanced_rec_chunks"):
+        assert f"int {name}(" in entries
+    assert "lol_instanced_render" not in entries
+    assert "with_residuals = true;" in train and "with_residuals = false;" in src
+    assert (CSRC / "instanced_bwd.cuh").read_text() in train
+    assert (CSRC / "instanced_bwd.cuh").read_text() not in src
 
 
 def test_instanced_structures_are_checked():
@@ -122,17 +143,74 @@ extern "C" void host_render(const float* cam, const float* P, const float* s, co
   const Scene scn(P, tables(s, ids, g, bbox, ns, ng), reinterpret_cast<const float4*>(g));
   for (int y = 0; y < height; ++y)
     for (int x = 0; x < width; ++x)
-      lol::render_pixel<Cfg, Scene>(cam, scn, P, x, y, height, width, img, nullptr);
+      lol::render_pixel<Cfg, Scene>(cam, scn, P, x, y, height, width, img, nullptr, 0);
 }
 """
 
 
-def _host_library(structure, cfg, tmp_path):
+_HOST_TRAIN_ENTRIES = r"""
+constexpr int kN = lol::kCamSize + Scene::kNumFields;
+constexpr int kSites = 1 + 4 + Scene::kNumLights;
+
+// per point: dist_bwd<true>'s value and point gradient (rows of 4); its
+// plane gradient into gP; its record in slot (0, i) of a sink of stride n
+extern "C" void host_dist_bwd(const float* P, const float* s, const int* ids, const float* g,
+                              const float* bbox, int ns, int ng, const float* pts,
+                              const float* gd, int n, float* out, float* gP, int* rows,
+                              float* vals) {
+  for (int i = 0; i < n; ++i) {
+    lol::RecordSink sink{rows, reinterpret_cast<float4*>(vals), (size_t)n, (size_t)i, 0};
+    const Scene scn(P, tables(s, ids, g, bbox, ns, ng), reinterpret_cast<const float4*>(g),
+                    &sink);
+    const float* p = pts + 3 * i;
+    float gx, gy, gz;
+    out[4 * i] = scn.template dist_bwd<true>(p[0], p[1], p[2], gd[i], gx, gy, gz, gP);
+    out[4 * i + 1] = gx; out[4 * i + 2] = gy; out[4 * i + 3] = gz;
+    if (scn.dist(p[0], p[1], p[2]) != out[4 * i]) out[4 * i] = NAN;
+  }
+}
+
+extern "C" void host_train_fwd(const float* cam, const float* P, const float* s, const int* ids,
+                               const float* g, const float* bbox, int ns, int ng, float* img,
+                               float* res, int height, int width) {
+  const Scene scn(P, tables(s, ids, g, bbox, ns, ng), reinterpret_cast<const float4*>(g));
+  for (int y = 0; y < height; ++y)
+    for (int x = 0; x < width; ++x)
+      lol::render_pixel<Cfg, Scene>(cam, scn, P, x, y, height, width, img, res,
+                                    (size_t)height * width);
+}
+
+// the per-pixel part of lol_instanced_bwd: grads summed over pixels, the
+// records [kSites][pixels] written as the kernel writes them
+extern "C" void host_train_bwd(const float* cam, const float* P, const float* s, const int* ids,
+                               const float* g, const float* bbox, int ns, int ng,
+                               const float* res, const float* ct, double* grads, int* rows,
+                               float* vals, int height, int width) {
+  const size_t pixels = (size_t)height * width;
+  for (int y = 0; y < height; ++y)
+    for (int x = 0; x < width; ++x) {
+      float acc[kN] = {};
+      const size_t pix = (size_t)y * width + x;
+      lol::RecordSink sink{rows, reinterpret_cast<float4*>(vals), pixels, pix, 0};
+      const Scene scn(P, tables(s, ids, g, bbox, ns, ng), reinterpret_cast<const float4*>(g),
+                      &sink);
+      lol::pixel_bwd<Cfg, Scene>(cam, scn, P, x, y, height, width, res + pix, pixels,
+                                 ct + 3 * pix, acc);
+      sink.close(kSites);
+      for (int j = 0; j < kN; ++j) grads[j] += acc[j];
+    }
+}
+"""
+
+
+def _host_library(structure, cfg, tmp_path, residuals=False):
     """The instanced source's device functions built for the host (g++,
-    IEEE arithmetic without contraction, as nvcc's --fmad=false)."""
+    IEEE arithmetic without contraction, as nvcc's --fmad=false); with
+    `residuals`, the training source and its entry points."""
     if shutil.which("g++") is None:
         pytest.skip("g++ is not installed: the host build of the generated CUDA source needs it")
-    text = _SHIM + generate_instanced_source(structure, cfg) + _HOST_ENTRIES
+    text = (_SHIM + generate_instanced_source(structure, cfg, residuals=residuals)
+            + _HOST_ENTRIES + (_HOST_TRAIN_ENTRIES if residuals else ""))
     # one file name per source: dlopen returns a library already loaded
     # from the same path
     stem = "instanced_host_" + hashlib.sha256(text.encode()).hexdigest()[:16]
@@ -242,6 +320,141 @@ def test_host_built_render_pixel_matches_plain_version(tied, cfg, tmp_path):
     ).numpy()
     np.testing.assert_allclose(img, ref, atol=5e-5, rtol=0)
     assert img.std() > 0.01
+
+
+ENV_CLAMPED = RenderConfig(step_clamp=2.0, shadow_grad="envelope")
+
+
+def _scatter(rows, vals, ns):
+    """The records' sum per sorted row in increasing record index (the
+    kernel's deterministic scatter), in float64."""
+    out = np.zeros((ns, 4), np.float64)
+    for i in np.flatnonzero(rows >= 0):
+        out[rows[i]] += vals[i]
+    return out
+
+
+@pytest.mark.parametrize("cfg", [ENV_CLAMPED, RenderConfig(shadow_grad="envelope")],
+                         ids=["clamp2", "exact"])
+def test_host_built_dist_bwd_matches_autograd(tied, cfg, tmp_path):
+    """InstancedScene::dist_bwd<true> and its record at the seeded points vs
+    torch autograd of the plain training SDF (instanced_train.make_train_sdf)
+    in the point, plane_y and the sphere table: its value is Scene::dist's
+    bitwise; where a sphere wins the point gradient is gd times its unit
+    normal and the record holds (-gd n, -gd) on its sorted row; where the
+    cut wins, 0 and no record; where the plane wins, (0, gd, 0), -gd to
+    plane_y and no record. The tied copy (sphere 200 of 17) never takes a
+    gradient: ties go to the smaller SoA index in both versions."""
+    st, params = tied.structure, tied.params
+    pts = _points(tied)
+    n = len(pts)
+    gd = np.random.default_rng(1).uniform(-1.0, 1.0, n).astype(np.float32)
+    lib = _host_library(st, cfg, tmp_path, residuals=True)
+    keep, args = _table_args(st, params)
+    out = np.zeros((n, 4), np.float32)
+    g_fields = np.zeros(packed_size(st), np.float32)
+    rows = np.full(n, -7, np.int32)
+    vals = np.zeros((n, 4), np.float32)
+    lib.host_dist_bwd(*args, _ptr(pts), _ptr(gd), n, _ptr(out), _ptr(g_fields), _ptr(rows),
+                      _ptr(vals))
+    assert np.isfinite(out[:, 0]).all()
+
+    tab = pack_instanced(st, params)
+    fields = pack_fields(st, params).requires_grad_(True)
+    spheres = tab.spheres.clone().requires_grad_(True)
+    p = torch.from_numpy(pts).requires_grad_(True)
+    pos, rad = soa_spheres(st, tab._replace(spheres=spheres))
+    tp = dataclasses.replace(params, sphere_point=pos, sphere_radius=rad,
+                             plane_y=unpack_fields(st, fields)["plane_y"])
+    d = instanced_train.make_train_sdf(st, cfg.step_clamp)(tp, p)
+    gp, gf, gs = torch.autograd.grad((d * torch.from_numpy(gd)).sum(), (p, fields, spheres))
+    np.testing.assert_allclose(out[:, 0], d.detach().numpy(), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(out[:, 1:], gp.numpy(), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(g_fields, gf.numpy(), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(_scatter(rows, vals, st.num_spheres), gs.numpy(), atol=1e-5,
+                               rtol=0)
+    assert set(np.unique(rows)) <= set(range(-1, st.num_spheres))
+
+    sphere = rows >= 0
+    plane = (rows == -1) & (out[:, 2] != 0)
+    cut = (rows == -1) & ~plane
+    np.testing.assert_allclose(np.linalg.norm(out[sphere, 1:], axis=1), np.abs(gd[sphere]),
+                               rtol=1e-5)
+    np.testing.assert_array_equal(vals[sphere, 3], -gd[sphere])
+    np.testing.assert_array_equal(out[plane, 2], gd[plane])
+    assert (out[plane][:, [1, 3]] == 0).all() and (out[cut, 1:] == 0).all()
+    assert sphere.sum() > 100 and plane.sum() > 10
+    if cfg.step_clamp is not None:
+        assert cut.sum() > 100
+    else:
+        assert cut.sum() == 0
+    ids = tab.ids.numpy()[:, 0]
+    tie_rows = rows[sphere & (np.abs(pts - params.sphere_point[17].numpy()).max(1) < 1.5)]
+    assert (ids[tie_rows] == 17).sum() > 20 and (ids[rows[sphere]] != 200).all()
+
+
+@pytest.mark.parametrize(
+    "cfg", [ENV_CLAMPED, RenderConfig(step_clamp=2.0, antialias=True, shadow_grad="envelope")],
+    ids=["clamp2", "clamp2-aa"])
+def test_host_built_training_pixels_match_plain_versions(cfg, tmp_path):
+    """render_pixel with residuals and pixel_bwd over the instanced Scene,
+    per pixel on the host, vs instanced_train_forward_reference /
+    instanced_train_backward_reference at 12x16 (instanced:300, seed 9):
+    the image within 5e-5 and bitwise lol_instanced_render's host build,
+    the residual planes as chip_smoke.py holds them; dcam rtol 2e-3, every
+    field and the sphere table (records summed per row in record order)
+    within 1e-4 * max|grad|."""
+    scene = instanced_spheres(n=300, seed=9)
+    st = scene.structure
+    h, w = 12, 16
+    lib = _host_library(st, cfg, tmp_path, residuals=True)
+    cam_t = camera_pack(scene.params, h, w, cfg)
+    fields_t = pack_fields(st, scene.params)
+    tab = pack_instanced(st, scene.params)
+    keep, args = _table_args(st, scene.params)
+    cam = cam_t.numpy()
+    img = np.zeros((h, w, 3), np.float32)
+    res = np.zeros((instanced_train.num_residuals(st), h, w), np.float32)
+    lib.host_train_fwd(_ptr(cam), *args, _ptr(img), _ptr(res), h, w)
+    img0 = np.zeros_like(img)
+    _host_library(st, cfg, tmp_path).host_render(_ptr(cam), *args, _ptr(img0), h, w)
+    np.testing.assert_array_equal(img, img0)
+    img_p, res_p = instanced_train.instanced_train_forward_reference(
+        st, cfg, cam_t, fields_t, tab, h, w)
+    np.testing.assert_allclose(img, img_p.numpy(), atol=5e-5, rtol=0)
+    res_p = res_p.numpy()
+    assert (res[1:3] != res_p[1:3]).sum() <= 2
+    with np.errstate(invalid="ignore"):  # inf - inf: a hard shadow's first step
+        close = (res == res_p) | (np.abs(res - res_p) <= 1e-4 * np.maximum(1.0, np.abs(res_p)))
+    for plane in [0] + list(range(4, res.shape[0])):
+        assert (~close[plane]).sum() <= 2, plane
+    live = (res_p[1] > 0.5) & (np.abs(res_p[3]) > 1e-2)
+    assert live.sum() > 20
+    np.testing.assert_allclose(res[3][live], res_p[3][live], rtol=1e-4)
+
+    ct = np.random.default_rng(0).uniform(-1, 1, (h, w, 3)).astype(np.float32)
+    grads = np.zeros(CAM_SIZE + packed_size(st), np.float64)
+    sites = instanced_train.num_sites(st)
+    rows = np.full(sites * h * w, -7, np.int32)
+    vals = np.zeros((sites * h * w, 4), np.float32)
+    lib.host_train_bwd(_ptr(cam), *args, _ptr(res), _ptr(ct), _ptr(grads), _ptr(rows),
+                       _ptr(vals), h, w)
+    assert (rows >= -1).all() and (rows >= 0).sum() > 20
+    dcam, dfields, dsph = instanced_train.instanced_train_backward_reference(
+        st, cfg, cam_t, fields_t, tab, torch.from_numpy(res), torch.from_numpy(ct))
+    dcam = dcam.numpy()
+    np.testing.assert_allclose(
+        grads[:CAM_SIZE], dcam, rtol=2e-3, atol=1e-5 * max(1.0, np.abs(dcam).max()))
+    ours = unpack_fields(st, torch.from_numpy(grads[CAM_SIZE:]))
+    for f, want in list(unpack_fields(st, dfields).items()) + [
+            ("sphere table", dsph)]:
+        got = _scatter(rows, vals, st.num_spheres) if f == "sphere table" else ours[f].numpy()
+        want = want.numpy()
+        if want.size == 0:
+            continue
+        scale = max(np.abs(want).max(), 1e-6)
+        np.testing.assert_allclose(got, want, atol=1e-4 * scale, rtol=0, err_msg=f)
+    assert np.abs(dsph.numpy()).max() > 0
 
 
 # --- the wrappers' device rules and the CLI --------------------------------------

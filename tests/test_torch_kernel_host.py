@@ -26,6 +26,8 @@ from loltracer_tpu_torch.render.torch_renderer import make_renderer
 from loltracer_tpu_torch.scene import build_scene
 from loltracer_tpu_torch.utils.image import image_to_u8, read_png
 
+torch.set_num_threads(1)  # one intra-op thread per pytest worker
+
 SCENES = ["scene.lol", "scene2.lol", "scene3.lol", "scene4.lol"]
 
 # One structure (a sphere, a rounded box, a smooth union, a plane, two

@@ -34,6 +34,8 @@ from loltracer_tpu_torch.render.march import march
 from loltracer_tpu_torch.render.sdf import make_scene_sdf, make_scene_sdf_with_id
 from loltracer_tpu_torch.scene import build_scene
 
+torch.set_num_threads(1)  # one intra-op thread per pytest worker
+
 SCENES = ["scene.lol", "scene2.lol", "scene3.lol", "scene4.lol"]
 H, W = 16, 128  # tests/test_pallas.py's size
 

@@ -41,6 +41,8 @@ from loltracer_tpu_torch.scene import FIELDS, SceneParams, build_scene, params_t
 
 from _penumbra import penumbra_pixels
 
+torch.set_num_threads(1)  # one intra-op thread per pytest worker
+
 SCENES = ["scene.lol", "scene2.lol", "scene3.lol", "scene4.lol"]
 H, W = 16, 144  # tests/test_train.py's size: a width that is not a multiple of 128
 CFG = RenderConfig(shadow_grad="envelope")

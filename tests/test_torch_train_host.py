@@ -42,6 +42,8 @@ from loltracer_tpu_torch.scene import FIELDS, SceneParams, build_scene, params_t
 
 from test_torch_kernel_host import _f32, _numbers, _structured
 
+torch.set_num_threads(1)  # one intra-op thread per pytest worker
+
 SCENES = ["scene.lol", "scene2.lol", "scene3.lol", "scene4.lol"]
 CFG = RenderConfig(shadow_grad="envelope")
 CFG_AA = dataclasses.replace(CFG, antialias=True)
@@ -122,7 +124,8 @@ extern "C" void host_train_fwd(const float* cam, const float* P, float* img, flo
   const Scene scn(P);
   for (int y = 0; y < height; ++y)
     for (int x = 0; x < width; ++x)
-      lol::render_pixel<Cfg, Scene>(cam, scn, P, x, y, height, width, img, res);
+      lol::render_pixel<Cfg, Scene>(cam, scn, P, x, y, height, width, img, res,
+                                    (size_t)height * width);
 }
 
 extern "C" void host_train_bwd(const float* cam, const float* P, const float* res,
