@@ -79,13 +79,52 @@ Phases, one line each:
 16. one fwd+bwd step of `make_instanced_training_renderer` timed (median of
    5, CUDA events), its two kernels timed apart, device time
    (`chip_smoke.py --profile-instanced-train`, a process of its own), peak
-   memory, the plain versions on one band, and the bounds.
+   memory, the plain versions on one band, and the bounds;
+17. build the value march kernels (K3 `lol_march` and K4 `lol_shadow_march`
+   for the four examples; `lol_march_instanced` and
+   `lol_shadow_march_instanced` for clamp 2, exact and shadow clamp 8; all
+   started with the other builds in phase 1); ptxas registers and spills;
+18. at 97x161, K3 vs its plain version (`march_values_reference`) on the
+   camera rays and K4 vs its plain version (`shadow_values_reference`) on
+   the real shadow rays of each light: the four examples, scene4 AA,
+   instanced:10000 at clamp 2, exact and shadow clamp 8, instanced:300 and
+   :1 at clamp 2; bitwise expected, else within atol/rtol 1e-4 on all but
+   max(2, 1e-4 * rays);
+19. main path A: `loltracer_tpu_torch.cli fit examples/scene4.lol --target
+   T.npy --steps 3 -o ...` (AA, exact shadows; sphere points trainable,
+   lr 3e-2) against scene4 with its sphere points moved, rendered by
+   lol_render_fused at 1920x1080: exactly one K3 launch per step and one
+   for `-o`, no K4; the three losses fall; peak memory;
+20. main path B: `render_image` of scene4 @1920x1080 with AA and envelope
+   shadows under autograd: one K3 and two K4 launches; the image within
+   the phase-2 rule of lol_render_fused's; MSE gradients, the penumbra band
+   masked out of the loss (tests/_penumbra.py), within 2e-2 * max|grad|
+   per field of make_training_renderer's (K1r/K2). Then path A's step
+   (median of 2) and path B's (median of 3) timed; K3 and K4 at path B's
+   rays held against their plain versions and timed (median of 10; plain
+   median of 2), their bounds from the plain loops' live counts;
+21. main path C: `render_image_banded` of instanced:10000, clamp 2, envelope
+   @1920x1080 in 16-row bands without autograd: 68 lol_march_instanced and
+   136 lol_shadow_march_instanced launches, the image within the phase-2
+   rule of lol_instanced_render's; fwd+bwd of three 16-row bands (each the
+   banded renderer's band body, `render_rays` over that band's rays)
+   against K5r/K6 on the same band by phase 20's gradient rule; `fit_scene`
+   on instanced:300 @97x161 with exact shadows, 2 steps, one K3 launch per
+   band forward and one per band recompute; the instanced kernels held and
+   timed on the middle band (median of 5; plain once), their bounds; device
+   time by kernel (`chip_smoke.py --profile-march`, a process of its own)
+   over 3 path B steps and 3 rounds of the four march kernels, and one path
+   B step's peak memory by allocating line.
 
 Then a JSON line with each kernel's launches on its main path, error,
 times and bound, and last the line {"ok": true, "device": {...}}. Any
 failure raises: the traceback is printed, the exit code is not 0 and the
 last line is not printed. Without CUDA, or without the package beside this
 file, it fails the same way.
+
+The march kernels' launches in the `kernels` line are those of their main
+paths: lol_march in path A, lol_shadow_march in path B, the instanced pair
+in path C's frame.
 
 A kernel's bound is the least time the card could take for its work: the
 larger of its bytes (inputs read once, outputs written once) over 3.35 TB/s
@@ -98,7 +137,9 @@ and shadow loops on the card (their `live` counts).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import re
@@ -212,7 +253,10 @@ def ptxas_lines(log: str):
     out, name = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m:
+        if m and "march" in m.group(1):  # K3 / K4: march_kernel<kShadow, ...>
+            name = ("lol_shadow_march" if "ILb1E" in m.group(1) else "lol_march") + (
+                "_instanced" if "instanced" in m.group(1) else "")
+        elif m:
             name = next(k for k in ("instanced_fwd_kernel", "instanced_bwd_kernel",
                                     "fused_fwd_kernel", "fused_bwd_kernel",
                                     "bwd_reduce_kernel", "rec_count_kernel",
@@ -314,6 +358,91 @@ def profile_instanced(train: bool) -> int:
     return 0
 
 
+def peak_breakdown(fn) -> str:
+    """fn() run under the CUDA allocator's history: the bytes alive at the
+    peak of its allocations, by the innermost frame of the port (or of
+    torch.autograd's backward) that allocated them, largest first."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.memory._record_memory_history(max_entries=2_000_000, stacks="python")
+    fn()
+    torch.cuda.synchronize()
+    trace = torch.cuda.memory._snapshot()["device_traces"][0]
+    torch.cuda.memory._record_memory_history(enabled=None)
+    live, cur, peak, at_peak = {}, 0, 0, {}
+    for ev in trace:
+        if ev["action"] == "alloc":
+            live[ev["addr"]] = ev
+            cur += ev["size"]
+            if cur > peak:
+                peak, at_peak = cur, dict(live)
+        elif ev["action"] == "free_requested" and ev["addr"] in live:
+            cur -= live.pop(ev["addr"])["size"]
+    sites = {}
+    for ev in at_peak.values():
+        frame = next((f"{Path(f['filename']).name}:{f['line']}" for f in ev.get("frames", [])
+                      if "loltracer_tpu_torch" in f["filename"]), "autograd / other")
+        sites[frame] = sites.get(frame, 0) + ev["size"]
+    top = sorted(sites.items(), key=lambda kv: -kv[1])[:6]
+    return (f"peak {peak / 2**20:.0f} MiB allocated in the call: "
+            + "; ".join(f"{k} {v / 2**20:.0f} MiB" for k, v in top))
+
+
+def profile_march() -> int:
+    """`chip_smoke.py --profile-march`: torch.profiler over 3 fwd+bwd steps
+    of path B (render_image, scene4 AA envelope, MAIN_W x MAIN_H), and over
+    3 rounds of the four march kernels alone (lol_march and
+    lol_shadow_march for light 0 on path B's rays; lol_march_instanced and
+    lol_shadow_march_instanced for light 0 on the middle 16-row band of
+    instanced:10000 at clamp 2); then one path B step under the allocator's
+    history (peak_breakdown). One line on stdout, the three joined by
+    " || "."""
+    import torch
+
+    require(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    sys.path.insert(0, str(ROOT))
+    from loltracer_tpu_torch.config import RenderConfig
+    from loltracer_tpu_torch.lol import parse_scene_file
+    from loltracer_tpu_torch.render import march_kernels as mk
+    from loltracer_tpu_torch.render.camera import camera_rays, camera_rays_for_rows
+    from loltracer_tpu_torch.render.torch_renderer import render_image
+    from loltracer_tpu_torch.scene import build_scene
+    from loltracer_tpu_torch.scenes import instanced_spheres
+
+    dev = torch.device("cuda", 0)
+    s4 = build_scene(parse_scene_file(str(EXAMPLES / "scene4.lol")), device=dev)
+    b_cfg = RenderConfig(antialias=True, shadow_grad="envelope")
+    leaves = grad_leaves(s4.params)
+
+    def step():
+        ((render_image(s4.structure, leaves, MAIN_H, MAIN_W, b_cfg) - 0.5) ** 2).mean().backward()
+
+    ro4, rd4 = camera_rays(s4.params, MAIN_H, MAIN_W, b_cfg)
+    scene4 = mk.pack_march_scene(s4.structure, s4.params)
+    m4 = mk.march_values(s4.structure, b_cfg, ro4, rd4, scene4)
+    t_sh = torch.where(m4.t < b_cfg.max_dist, m4.t, m4.t_close)
+    so4, ld4, dist4 = shadow_rays(s4.params, ro4, rd4, t_sh, b_cfg)[0]
+    big = instanced_spheres(n=10_000, device=dev)
+    c_cfg = RenderConfig(step_clamp=2.0, shadow_grad="envelope")
+    r0 = (MAIN_H - BAND) // 2
+    ro, rd = camera_rays_for_rows(big.params, torch.arange(r0, r0 + BAND), MAIN_H, MAIN_W, c_cfg)
+    scene = mk.pack_march_scene(big.structure, big.params)
+    t = mk.march_values(big.structure, c_cfg, ro, rd, scene).t
+    so, ld, dist = shadow_rays(big.params, ro, rd, t, c_cfg)[0]
+
+    def band():
+        mk.march_values(s4.structure, b_cfg, ro4, rd4, scene4)
+        mk.shadow_values(s4.structure, b_cfg, so4, ld4, dist4, scene4)
+        mk.march_values(big.structure, c_cfg, ro, rd, scene)
+        mk.shadow_values(big.structure, c_cfg, so, ld, dist, scene)
+
+    step(), band()
+    print(profile_steps(step, 3) + " || " + profile_steps(band, 3) + " || "
+          + peak_breakdown(step))
+    return 0
+
+
 def run_profile(flag: str) -> str:
     """profile_instanced's line, from a child process run with `flag` (it
     loads the kernels the parent built from the build cache)."""
@@ -331,6 +460,452 @@ def bound(nbytes: float, ops: float):
     operations / FP32 peak."""
     b, o = nbytes / HBM_BYTES_PER_MS, ops / FP32_OPS_PER_MS
     return (b, "bytes") if b > o else (o, "operations")
+
+
+def entry(name, source, replaces, launches, err, ms, plain, bnd):
+    """One kernel's object of the `kernels` line."""
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+
+
+def penumbra_keep(res, num_lights: int):
+    """[H, W, 1] f32 from residual planes [4 + 2L, H, W]: 0 on the penumbra
+    band of tests/_penumbra.py (res in (-0.2, 1) for some light, dilated
+    by one pixel), where the envelope gradient hangs on near-tied argmins,
+    1 elsewhere."""
+    import torch
+
+    pen = torch.zeros(res.shape[1:], dtype=torch.bool, device=res.device)
+    for li in range(num_lights):
+        r = res[4 + 2 * li]
+        pen |= (r > -0.2) & (r < 1.0)
+    pen = torch.nn.functional.max_pool2d(pen[None, None].float(), 3, stride=1, padding=1)[0, 0]
+    return (pen == 0).float()[..., None]
+
+
+def check_values(got, want, what: str):
+    """A march kernel's planes vs its plain version's: bitwise expected;
+    else within atol/rtol 1e-4 (infinities equal) on all but max(2, 1e-4 *
+    rays). Raises beyond; returns (max |diff| where finite, rays not
+    bitwise equal)."""
+    import torch
+
+    worst, differ = 0.0, 0
+    for i, (a, b) in enumerate(zip(got, want)):
+        require(a.shape == b.shape, f"{what}: plane {i} shapes differ")
+        same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+        fin = torch.isfinite(a) & torch.isfinite(b)
+        diff = torch.where(fin, (a - b).abs(), torch.zeros_like(a))
+        bad = ~(same | (fin & (diff <= 1e-4 + 1e-4 * b.abs())))
+        allowed = max(2, int(1e-4 * a.numel()))
+        require(int(bad.sum()) <= allowed,
+                f"{what}: plane {i} off on {int(bad.sum())} rays (allowed {allowed}), "
+                f"max |diff| {float(diff.max()):.3g}")
+        worst, differ = max(worst, float(diff.max())), differ + int((~same).sum())
+    return worst, differ
+
+
+def shadow_rays(params, ro, rd, t_sh, cfg):
+    """Per light, the rays shading.phong hands the shadow march from the
+    shading points at t_sh: (origin, direction, distance to the light)."""
+    import torch
+
+    from loltracer_tpu_torch.render.vecmath import dot, normalize
+
+    p = ro + t_sh[..., None] * rd
+    out = []
+    for li in range(params.light_point.shape[0]):
+        to_light = params.light_point[li] - p
+        light_dir = normalize(to_light)
+        out.append(tuple(x.contiguous() for x in (
+            p + light_dir * cfg.shadow_offset, light_dir, torch.sqrt(dot(to_light, to_light)))))
+    return out
+
+
+def grad_leaves(params):
+    """Fresh leaf copies of every field of params, each requiring grad."""
+    from loltracer_tpu_torch.scene import FIELDS, SceneParams
+
+    return SceneParams(**{f: getattr(params, f).detach().clone().requires_grad_(True)
+                          for f in FIELDS})
+
+
+def check_grads(got, want, what: str) -> float:
+    """Per field, |got - want| <= 2e-2 * max(max|want|, 1e-6) (the
+    fused-vs-jnp gradient rule of tests/test_train.py:127-136); returns
+    the worst max |diff| / max|want|."""
+    import torch
+
+    from loltracer_tpu_torch.scene import FIELDS
+
+    worst = 0.0
+    for f in FIELDS:
+        a, b = getattr(got, f).grad, getattr(want, f).grad
+        if b is None or b.numel() == 0:
+            continue
+        a = torch.zeros_like(b) if a is None else a
+        require(bool(a.isfinite().all()), f"{what}: d{f} non-finite")
+        scale = max(float(b.abs().max()), 1e-6)
+        err = float((a - b).abs().max())
+        require(err <= 2e-2 * scale, f"{what}: d{f} max |diff| {err:.3g} > 2e-2 * {scale:.3g}")
+        worst = max(worst, err / scale)
+    return worst
+
+
+def march_phases(dev, card, scenes, inst, march_built, t0, e_inst, it_target):
+    """Phases 17-21: the value march kernels K3 / K4 and the three paths
+    that run them (module docstring). Returns their four `kernels`
+    entries."""
+    import numpy as np
+    import torch
+
+    from loltracer_tpu_torch import cli
+    from loltracer_tpu_torch.config import RenderConfig
+    from loltracer_tpu_torch.opt import fit_scene
+    from loltracer_tpu_torch.render import fused_fwd, fused_train, instanced_fwd, instanced_train
+    from loltracer_tpu_torch.render import march_kernels as mk
+    from loltracer_tpu_torch.render.camera import camera_pack, camera_rays, camera_rays_for_rows
+    from loltracer_tpu_torch.render.cuda_renderer import make_cuda_renderer
+    from loltracer_tpu_torch.render.cuda_scene import pack_fields, packed_size
+    from loltracer_tpu_torch.render.instanced_pack import pack_instanced
+    from loltracer_tpu_torch.render.torch_renderer import (
+        render_image,
+        render_image_banded,
+        render_rays,
+    )
+    from loltracer_tpu_torch.utils.image import read_png
+
+    def reset_counts():
+        for k in mk.launches:
+            mk.launches[k] = 0
+        fused_fwd.launches = instanced_fwd.launches = 0
+        fused_train.launches_fwd = fused_train.launches_bwd = 0
+        instanced_train.launches_fwd = instanced_train.launches_bwd = 0
+
+    def counts():
+        return {k: v for k, v in mk.launches.items() if v}
+
+    clamp2 = RenderConfig(step_clamp=2.0)
+
+    # --- 17. build ----------------------------------------------------------------
+    built = [f.result() for f in march_built]
+    print(f"[17] build: {len(built)} march libraries (lol_march + lol_shadow_march for the 4 "
+          f"examples; lol_march_instanced + lol_shadow_march_instanced for clamp 2, exact, "
+          f"shadow clamp 8) done {time.perf_counter() - t0:.1f} s after the builds started; "
+          f"ptxas scene4: " + " | ".join(ptxas_lines(built[3].log))
+          + "; instanced clamp 2: " + " | ".join(ptxas_lines(built[4].log)))
+
+    # --- 18. K3 / K4 vs their plain versions at 97x161 ---------------------------------
+    h, w = 97, 161
+    cases = ([(n, scenes[n], RenderConfig()) for n in SCENES]
+             + [("scene4.lol AA", scenes["scene4.lol"], RenderConfig(antialias=True))]
+             + [(f"instanced:10000 {tag}", inst[10_000], c) for tag, c in (
+                 ("clamp 2", clamp2), ("exact", RenderConfig()),
+                 ("shadow clamp 8", RenderConfig(step_clamp=2.0, shadow_step_clamp=8.0)))]
+             + [(f"instanced:{n} clamp 2", inst[n], clamp2) for n in (300, 1)])
+    errs = {name: 0.0 for name in mk.launches}
+    for what, sc, c in cases:
+        k3_name = "lol_march_instanced" if sc.structure.instanced else "lol_march"
+        k4_name = k3_name.replace("march", "shadow_march", 1)
+        scene = mk.pack_march_scene(sc.structure, sc.params)
+        ro, rd = camera_rays(sc.params, h, w, c)
+        got = mk.march_values(sc.structure, c, ro, rd, scene)
+        want = mk.march_values_reference(sc.structure, c, ro, rd, scene)
+        torch.cuda.synchronize()
+        err, differ = check_values(got, want, f"{what} {k3_name}")
+        errs[k3_name] = max(errs[k3_name], err)
+        line = [f"K3 max |diff| {err:.3g}, {differ} values not bitwise"]
+        hit = got.t < c.max_dist
+        t_sh = torch.where(hit, got.t, got.t_close) if c.antialias else got.t
+        for li, (so, ld, dist) in enumerate(shadow_rays(sc.params, ro, rd, t_sh, c)):
+            got_s = mk.shadow_values(sc.structure, c, so, ld, dist, scene)
+            want_s = mk.shadow_values_reference(sc.structure, c, so, ld, dist, scene)
+            torch.cuda.synchronize()
+            err, differ = check_values(got_s, want_s, f"{what} {k4_name} light {li}")
+            errs[k4_name] = max(errs[k4_name], err)
+            line.append(f"K4 light {li} max |diff| {err:.3g}, {differ} not bitwise")
+        print(f"[18] {what} {h}x{w}: " + "; ".join(line))
+
+    # --- 19. path A: cli fit, exact shadows -----------------------------------------
+    s4 = scenes["scene4.lol"]
+    st4 = s4.structure
+    a_cfg = RenderConfig(antialias=True)  # cli fit's: --aa on by default, exact shadows
+    moved = s4.params.sphere_point + torch.from_numpy(np.random.default_rng(0).uniform(
+        -0.1, 0.1, tuple(s4.params.sphere_point.shape)).astype(np.float32)).to(dev)
+    target = make_cuda_renderer(st4, MAIN_H, MAIN_W, a_cfg, device=dev)(
+        dataclasses.replace(s4.params, sphere_point=moved))
+    fit_steps = 3
+    with tempfile.TemporaryDirectory() as tmp:
+        tgt, out = Path(tmp) / "target.npy", Path(tmp) / "fit.png"
+        np.save(tgt, target.cpu().numpy())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        a_base = torch.cuda.memory_allocated()
+        reset_counts()
+        printed = io.StringIO()
+        t_fit = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            cli.main(["fit", str(EXAMPLES / "scene4.lol"), "--target", str(tgt), "--steps",
+                      str(fit_steps), "--trainable", "sphere_point", "--lr", "3e-2",
+                      "-o", str(out)])
+        torch.cuda.synchronize()
+        t_fit = time.perf_counter() - t_fit
+        a_peak = torch.cuda.max_memory_allocated() - a_base
+        a_counts = counts()
+        other = (fused_fwd.launches, fused_train.launches_fwd, fused_train.launches_bwd)
+        png = read_png(str(out))
+    a_losses = [float(v) for v in re.findall(r"^\[fit\] step \d+ loss (\S+)$",
+                                             printed.getvalue(), re.M)]
+    require(a_counts == {"lol_march": fit_steps + 1},
+            f"cli fit ({fit_steps} steps and -o) launched {a_counts}, not lol_march "
+            f"{fit_steps + 1} times and nothing else")
+    require(other == (0, 0, 0), f"cli fit launched a fused kernel: {other}")
+    require(len(a_losses) == fit_steps and all(map(math.isfinite, a_losses)),
+            f"cli fit printed losses {a_losses}")
+    require(all(a > b for a, b in zip(a_losses, a_losses[1:])), f"the loss did not fall: {a_losses}")
+    require(png.shape == (MAIN_H, MAIN_W, 3), f"fitted render {png.shape}")
+    print(f"[19] main path A: cli fit scene4 {MAIN_W}x{MAIN_H} (AA, exact shadows, "
+          f"{fit_steps} Adam steps on sphere_point, -o) -> {a_counts}; losses {a_losses}; "
+          f"{t_fit:.1f} s with the -o render; peak {a_peak / 2**20:.0f} MiB allocated above the "
+          f"{a_base / 2**20:.0f} MiB live before it")
+
+    a_leaves = grad_leaves(s4.params)
+
+    def step_a():
+        ((render_image(st4, a_leaves, MAIN_H, MAIN_W, a_cfg) - target) ** 2).mean().backward()
+
+    step_a()
+    a_step_ms = time_ms(step_a, 2)
+
+    # --- 20. path B: render_image with envelope shadows under autograd -------------------
+    b_cfg = RenderConfig(antialias=True, shadow_grad="envelope")
+    cam_b, fields_b = camera_pack(s4.params, MAIN_H, MAIN_W, b_cfg), pack_fields(st4, s4.params)
+    k1_img = fused_fwd.fused_forward(st4, b_cfg, cam_b, fields_b, MAIN_H, MAIN_W)
+    _, res_b = fused_train.train_forward(st4, b_cfg, cam_b, fields_b, MAIN_H, MAIN_W)
+    keep_b = penumbra_keep(res_b, st4.num_lights)
+    b_leaves, k_leaves = grad_leaves(s4.params), grad_leaves(s4.params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    b_base = torch.cuda.memory_allocated()
+    reset_counts()
+    img_b = render_image(st4, b_leaves, MAIN_H, MAIN_W, b_cfg)
+    (keep_b * (img_b - target) ** 2).mean().backward()
+    torch.cuda.synchronize()
+    b_peak, b_counts = torch.cuda.max_memory_allocated() - b_base, counts()
+    require(b_counts == {"lol_march": 1, "lol_shadow_march": 2},
+            f"path B launched {b_counts}, not lol_march once and lol_shadow_march twice")
+    b_err, b_over = compare(img_b.detach(), k1_img, "path B image vs lol_render_fused")
+    render_k = fused_train.make_training_renderer(st4, MAIN_H, MAIN_W, b_cfg, device=dev)
+    (keep_b * (render_k(k_leaves) - target) ** 2).mean().backward()
+    b_worst = check_grads(b_leaves, k_leaves, "path B gradients vs lol_train_fwd/bwd")
+    print(f"[20] main path B: render_image scene4 {MAIN_W}x{MAIN_H} AA envelope under "
+          f"autograd -> {b_counts}; image vs lol_render_fused max |diff| {b_err:.3g}, "
+          f"{b_over} px over {ATOL}; MSE gradients ({float(keep_b.mean()):.1%} of pixels "
+          f"outside the penumbra band) vs lol_train_fwd/bwd: worst field max |diff| / "
+          f"max|grad| {b_worst:.3g}; peak {b_peak / 2**20:.0f} MiB allocated above the "
+          f"{b_base / 2**20:.0f} MiB live before it")
+
+    def step_b():
+        img = render_image(st4, b_leaves, MAIN_H, MAIN_W, b_cfg)
+        (keep_b * (img - target) ** 2).mean().backward()
+
+    b_step_ms = time_ms(step_b, 3)
+
+    # K3 and K4 at the main shape (path B's rays), held and timed
+    ro, rd = camera_rays(s4.params, MAIN_H, MAIN_W, b_cfg)
+    scene_b = mk.pack_march_scene(st4, s4.params)
+    live = {"march": [], "shadow": []}
+    k3 = mk.march_values(st4, b_cfg, ro, rd, scene_b)
+    p3 = mk.march_values_reference(st4, b_cfg, ro, rd, scene_b, live["march"])
+    torch.cuda.synchronize()
+    err, _ = check_values(k3, p3, "lol_march 1080p")
+    errs["lol_march"] = max(errs["lol_march"], err)
+    t_sh = torch.where(k3.t < b_cfg.max_dist, k3.t, k3.t_close)
+    so, ld, dist = shadow_rays(s4.params, ro, rd, t_sh, b_cfg)[0]
+    k4 = mk.shadow_values(st4, b_cfg, so, ld, dist, scene_b)
+    p4 = mk.shadow_values_reference(st4, b_cfg, so, ld, dist, scene_b, live["shadow"])
+    torch.cuda.synchronize()
+    err, _ = check_values(k4, p4, "lol_shadow_march 1080p light 0")
+    errs["lol_shadow_march"] = max(errs["lol_shadow_march"], err)
+    k3_ms = time_ms(lambda: mk.march_values(st4, b_cfg, ro, rd, scene_b), 10)
+    k4_ms = time_ms(lambda: mk.shadow_values(st4, b_cfg, so, ld, dist, scene_b), 10)
+    p3_ms = time_ms(lambda: mk.march_values_reference(st4, b_cfg, ro, rd, scene_b), 2)
+    p4_ms = time_ms(lambda: mk.shadow_values_reference(st4, b_cfg, so, ld, dist, scene_b), 2)
+    # Operation model (csrc/march.cuh over the generated Scene): per march
+    # step E + 15 (the step and the closest-approach tracking), per shadow
+    # step E + 17 (the penumbra value and its argmin), E = sdf_ops; bytes:
+    # K3 reads 12 B and writes 16 B per ray, K4 reads 28 B and writes 8 B
+    E, rays = sdf_ops(st4), MAIN_W * MAIN_H
+    small = 4 * (3 + packed_size(st4))
+    k3_bound = bound(small + 28 * rays, sum(live["march"]) * (E + 15))
+    k4_bound = bound(small + 36 * rays, sum(live["shadow"]) * (E + 17))
+    print(f"[20] scene4 AA {MAIN_W}x{MAIN_H} on {card}: path A step (exact) {a_step_ms:.1f} ms, "
+          f"path B fwd+bwd (envelope) {b_step_ms:.1f} ms; lol_march {k3_ms:.4f} ms (plain "
+          f"{p3_ms:.1f} ms, bound {k3_bound[0]:.4f} ms by {k3_bound[1]}, "
+          f"{sum(live['march']) / rays:.1f} evaluations per ray), lol_shadow_march light 0 "
+          f"{k4_ms:.4f} ms (plain {p4_ms:.1f} ms, bound {k4_bound[0]:.4f} ms by {k4_bound[1]}, "
+          f"{sum(live['shadow']) / rays:.1f} evaluations per ray); max |diff| vs plain here "
+          f"and in phase 18: lol_march {errs['lol_march']:.3g}, lol_shadow_march "
+          f"{errs['lol_shadow_march']:.3g}")
+    del a_leaves, b_leaves, k_leaves, img_b, k3, p3, k4, p4
+
+    # --- 21. path C: render_image_banded over instanced:10000 ---------------------------
+    big = inst[10_000]
+    st10 = big.structure
+    c_cfg = RenderConfig(step_clamp=2.0, shadow_grad="envelope")
+    cam_c, fields_c = camera_pack(big.params, MAIN_H, MAIN_W, c_cfg), pack_fields(st10, big.params)
+    tab_c = pack_instanced(st10, big.params)
+    k5_img = instanced_fwd.instanced_forward(st10, c_cfg, cam_c, fields_c, tab_c, MAIN_H, MAIN_W)
+    torch.cuda.synchronize()
+    reset_counts()
+    t_frame = time.perf_counter()
+    with torch.no_grad():
+        c_img = render_image_banded(st10, big.params, MAIN_H, MAIN_W, c_cfg, band_rows=BAND)
+    torch.cuda.synchronize()
+    c_frame_ms = (time.perf_counter() - t_frame) * 1e3
+    c_counts = counts()
+    n_bands = -(-MAIN_H // BAND)
+    require(c_counts == {"lol_march_instanced": n_bands, "lol_shadow_march_instanced":
+                         n_bands * st10.num_lights},
+            f"path C's frame launched {c_counts}, not {n_bands} lol_march_instanced and "
+            f"{n_bands * st10.num_lights} lol_shadow_march_instanced")
+    c_err, c_over = compare(c_img, k5_img, "path C frame vs lol_instanced_render")
+    print(f"[21] main path C: render_image_banded instanced:10000 clamp 2 envelope "
+          f"{MAIN_W}x{MAIN_H}, {BAND}-row bands, no autograd -> {c_counts}; vs "
+          f"lol_instanced_render max |diff| {c_err:.3g}, {c_over} px over {ATOL}; "
+          f"{c_frame_ms:.0f} ms")
+    del c_img
+
+    scene_c = mk.pack_march_scene(st10, big.params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    c_base = torch.cuda.memory_allocated()
+    c_worst, c_band_s = 0.0, []
+    for name, r0 in {"top": 0, "middle": (MAIN_H - BAND) // 2, "bottom": MAIN_H - BAND}.items():
+        want = grad_leaves(big.params)
+        bcam = camera_pack(want, MAIN_H, MAIN_W, c_cfg, row0=r0)
+        bfields, btab = pack_fields(st10, want), pack_instanced(st10, want)
+        det = type(btab)(*(t.detach() for t in btab))
+        kimg, kres = instanced_train.instanced_train_forward(
+            st10, c_cfg, bcam.detach(), bfields.detach(), det, BAND, MAIN_W, MAIN_H)
+        keep = penumbra_keep(kres, st10.num_lights)
+        tgt = it_target[r0:r0 + BAND]
+        ct = (2.0 / kimg.numel()) * keep * (kimg - tgt)
+        dcam, dfields, dsph = instanced_train.instanced_train_backward(
+            st10, c_cfg, bcam.detach(), bfields.detach(), det, kres, ct.contiguous(), MAIN_H)
+        torch.autograd.backward([bcam, bfields, btab.spheres], [dcam, dfields, dsph])
+
+        got = grad_leaves(big.params)
+        reset_counts()
+        t_band = time.perf_counter()
+        ro, rd = camera_rays_for_rows(got, torch.arange(r0, r0 + BAND), MAIN_H, MAIN_W, c_cfg)
+        img = render_rays(st10, got, ro, rd, c_cfg, march_scene=scene_c)
+        (keep * (img - tgt) ** 2).mean().backward()
+        torch.cuda.synchronize()
+        c_band_s.append(time.perf_counter() - t_band)
+        band_counts = counts()
+        require(band_counts == {"lol_march_instanced": 1,
+                                "lol_shadow_march_instanced": st10.num_lights},
+                f"{name} band fwd+bwd launched {band_counts}")
+        err, over = compare(img.detach(), k5_img[r0:r0 + BAND], f"path C {name} band image")
+        worst = check_grads(got, want, f"path C {name} band gradients vs lol_instanced_fwd/bwd")
+        c_worst = max(c_worst, worst)
+        print(f"[21] {name} band (rows {r0}-{r0 + BAND - 1}) fwd+bwd -> {band_counts}; image vs "
+              f"lol_instanced_render max |diff| {err:.3g}, {over} px over; gradients "
+              f"({float(keep.mean()):.1%} of pixels outside the penumbra band) vs "
+              f"lol_instanced_fwd/bwd: worst field max |diff| / max|grad| {worst:.3g}; "
+              f"{c_band_s[-1]:.2f} s")
+    c_peak = torch.cuda.max_memory_allocated() - c_base
+
+    # fit_scene with exact shadows on an instanced structure: 16-row bands,
+    # each checkpointed, so K3 runs once per band forward and once more in
+    # the backward's recompute
+    s300 = inst[300]
+    moved = s300.params.sphere_point + torch.from_numpy(np.random.default_rng(1).uniform(
+        -0.2, 0.2, tuple(s300.params.sphere_point.shape)).astype(np.float32)).to(dev)
+    tgt300 = make_cuda_renderer(s300.structure, h, w, clamp2, device=dev)(
+        dataclasses.replace(s300.params, sphere_point=moved))
+    reset_counts()
+    fit300 = fit_scene(s300.structure, s300.params, tgt300, steps=2, learning_rate=1e-2,
+                       trainable=("sphere_point",), cfg=clamp2, device=dev)
+    f_counts, bands300 = counts(), -(-h // 16)
+    require(f_counts == {"lol_march_instanced": 2 * 2 * bands300},
+            f"fit_scene instanced:300 exact (2 steps, {bands300} bands) launched {f_counts}")
+    require(bool(np.isfinite(fit300.losses).all()), f"non-finite losses {fit300.losses}")
+    print(f"[21] fit_scene instanced:300 clamp 2 exact shadows {h}x{w}, 2 Adam steps -> "
+          f"{f_counts}; losses {[float(v) for v in fit300.losses]}")
+
+    # the instanced kernels at the main shape (the middle band), held and timed
+    r0 = (MAIN_H - BAND) // 2
+    ro, rd = camera_rays_for_rows(big.params, torch.arange(r0, r0 + BAND), MAIN_H, MAIN_W, c_cfg)
+    live = {"march": [], "shadow": []}
+    k3 = mk.march_values(st10, c_cfg, ro, rd, scene_c)
+    p3 = mk.march_values_reference(st10, c_cfg, ro, rd, scene_c, live["march"])
+    torch.cuda.synchronize()
+    err, _ = check_values(k3, p3, "lol_march_instanced middle band")
+    errs["lol_march_instanced"] = max(errs["lol_march_instanced"], err)
+    so, ld, dist = shadow_rays(big.params, ro, rd, k3.t, c_cfg)[0]
+    k4 = mk.shadow_values(st10, c_cfg, so, ld, dist, scene_c)
+    p4 = mk.shadow_values_reference(st10, c_cfg, so, ld, dist, scene_c, live["shadow"])
+    torch.cuda.synchronize()
+    err, _ = check_values(k4, p4, "lol_shadow_march_instanced middle band light 0")
+    errs["lol_shadow_march_instanced"] = max(errs["lol_shadow_march_instanced"], err)
+    k3i_ms = time_ms(lambda: mk.march_values(st10, c_cfg, ro, rd, scene_c), 5)
+    k4i_ms = time_ms(lambda: mk.shadow_values(st10, c_cfg, so, ld, dist, scene_c), 5)
+    p3i_ms = time_ms(lambda: mk.march_values_reference(st10, c_cfg, ro, rd, scene_c), 1)
+    p4i_ms = time_ms(lambda: mk.shadow_values_reference(st10, c_cfg, so, ld, dist, scene_c), 1)
+    # per evaluation e_inst operations (phase 16's model: 9 per sphere
+    # within the cut, counted on the bands, + 22), plus the step's 15 / 17
+    band_rays = BAND * MAIN_W
+    tables = 4 * sum(t.numel() for t in scene_c.tables) + 4 * (3 + fields_c.numel())
+    k3i_bound = bound(tables + 28 * band_rays, sum(live["march"]) * (e_inst + 15))
+    k4i_bound = bound(tables + 36 * band_rays, sum(live["shadow"]) * (e_inst + 17))
+    print(f"[21] instanced:10000 clamp 2 on {card}: path C frame {c_frame_ms:.0f} ms (no "
+          f"autograd), three bands fwd+bwd {sum(c_band_s):.1f} s (peak {c_peak / 2**20:.0f} MiB "
+          f"allocated above the {c_base / 2**20:.0f} MiB live before them); per {BAND}-row band: lol_march_instanced {k3i_ms:.3f} ms (plain "
+          f"{p3i_ms:.0f} ms, bound {k3i_bound[0]:.4f} ms by {k3i_bound[1]}, "
+          f"{sum(live['march']) / band_rays:.1f} evaluations per ray), "
+          f"lol_shadow_march_instanced light 0 {k4i_ms:.3f} ms (plain {p4i_ms:.0f} ms, bound "
+          f"{k4i_bound[0]:.4f} ms by {k4i_bound[1]}, {sum(live['shadow']) / band_rays:.1f} "
+          f"evaluations per ray); max |diff| vs plain here and in phase 18: "
+          f"{errs['lol_march_instanced']:.3g} / {errs['lol_shadow_march_instanced']:.3g}")
+
+    # the same kernel over the whole frame in one launch: what a 16-row
+    # band's 240 blocks of 128 threads leave of the card
+    ro_f, rd_f = camera_rays(big.params, MAIN_H, MAIN_W, c_cfg)
+    mk.march_values(st10, c_cfg, ro_f, rd_f, scene_c)
+    k3f_ms = time_ms(lambda: mk.march_values(st10, c_cfg, ro_f, rd_f, scene_c), 3)
+    print(f"[21] lol_march_instanced over the whole {MAIN_W}x{MAIN_H} frame in one launch: "
+          f"{k3f_ms:.3f} ms, {k3f_ms / n_bands:.3f} ms per {BAND} rows (a band launch: "
+          f"{k3i_ms:.3f} ms)")
+
+    march_profile = run_profile("--profile-march").split(" || ")
+    print(f"[21] torch.profiler (`chip_smoke.py --profile-march`) over 3 path B steps: "
+          f"{march_profile[0]}")
+    print(f"[21] torch.profiler over 3 rounds of the four march kernels (K3, K4 light 0 at "
+          f"path B's rays; the instanced pair on the middle band): {march_profile[1]}")
+    print(f"[21] one path B step in a process of its own, under the allocator's history: "
+          f"{march_profile[2]}")
+
+    return [
+        entry("lol_march", "loltracer_tpu_torch/csrc/march.cuh",
+              "loltracer_tpu/render/pallas_march.py:94", a_counts["lol_march"], errs["lol_march"],
+              k3_ms, p3_ms, k3_bound),
+        entry("lol_shadow_march", "loltracer_tpu_torch/csrc/march.cuh",
+              "loltracer_tpu/render/pallas_march.py:111", b_counts["lol_shadow_march"],
+              errs["lol_shadow_march"],
+              k4_ms, p4_ms, k4_bound),
+        dict(entry("lol_march_instanced", "loltracer_tpu_torch/csrc/march.cuh",
+                   "loltracer_tpu/render/pallas_march.py:94",
+                   c_counts["lol_march_instanced"], errs["lol_march_instanced"], k3i_ms, p3i_ms,
+                   k3i_bound), plain_ms_rows=BAND, ms_rows=BAND),
+        dict(entry("lol_shadow_march_instanced", "loltracer_tpu_torch/csrc/march.cuh",
+                   "loltracer_tpu/render/pallas_march.py:111",
+                   c_counts["lol_shadow_march_instanced"], errs["lol_shadow_march_instanced"],
+                   k4i_ms,
+                   p4i_ms, k4i_bound), plain_ms_rows=BAND, ms_rows=BAND),
+    ]
 
 
 def main() -> int:
@@ -352,6 +927,7 @@ def main() -> int:
     from loltracer_tpu_torch.lol import parse_scene_file
     from loltracer_tpu_torch.opt import fit_scene
     from loltracer_tpu_torch.render import fused_fwd, fused_train, instanced_fwd, instanced_train
+    from loltracer_tpu_torch.render import march_kernels
     from loltracer_tpu_torch.render.instanced_pack import GROUP, pack_instanced, sphere_bbox
     from loltracer_tpu_torch.render.sdf import bbox_cut
     from loltracer_tpu_torch.scenes import instanced_spheres
@@ -399,8 +975,15 @@ def main() -> int:
     # --- 1. build ------------------------------------------------------------
     # every kernel of phases 1, 5, 9 and 13 starts building now, one nvcc each
     t0 = time.perf_counter()
-    pool = ThreadPoolExecutor(
-        max_workers=len(cases) + len(train_cases) + len(inst_cfgs) + len(inst_train_cfgs))
+    # the march kernels (phase 17): one library per structure for the four
+    # examples (AA and the estimator are not compiled in), per clamp for
+    # instanced structures (one text for every sphere count)
+    march_libs = [(scenes[n].structure, RenderConfig()) for n in SCENES] + [
+        (inst[10_000].structure, c) for c in (clamp2, RenderConfig(),
+                                              RenderConfig(step_clamp=2.0, shadow_step_clamp=8.0))]
+    pool = ThreadPoolExecutor(max_workers=len(cases) + len(train_cases) + len(inst_cfgs)
+                              + len(inst_train_cfgs) + len(march_libs))
+    march_built = [pool.submit(march_kernels.library, st, c) for st, c in march_libs]
     inst_train_built = [pool.submit(instanced_train.library, c, inst[10_000].structure)
                         for c in inst_train_cfgs]
     train_built = [pool.submit(fused_train.library, scenes[n].structure, c)
@@ -1005,10 +1588,7 @@ def main() -> int:
           f"({rec_bytes / HBM_BYTES_PER_MS:.4f} ms at {HBM_BYTES_PER_MS / 1e9:.2f} TB/s), "
           f"not counted in the bound")
 
-    def entry(name, source, replaces, launches, err, ms, plain, bnd):
-        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+    march_entries = march_phases(dev, card, scenes, inst, march_built, t0, e_inst, it_target)
 
     print(json.dumps({"kernels": [
         entry("lol_render_fused", "loltracer_tpu_torch/csrc/fused_fwd.cuh",
@@ -1032,6 +1612,7 @@ def main() -> int:
                    "loltracer_tpu/render/pallas_train.py:1314", it_bwd_launches, it_bwd_err,
                    k6_ms, it_pb_ms, k6_bound),
              plain_ms_rows=BAND),
+        *march_entries,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
@@ -1042,4 +1623,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:] in (["--profile-instanced"], ["--profile-instanced-train"]):
         sys.exit(profile_instanced(train=sys.argv[1].endswith("-train")))
+    if sys.argv[1:] == ["--profile-march"]:
+        sys.exit(profile_march())
     sys.exit(main())

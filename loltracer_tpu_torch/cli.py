@@ -1,15 +1,21 @@
-"""Command-line interface of the port (`loltracer_tpu/cli.py`: render, info).
+"""Command-line interface of the port (`loltracer_tpu/cli.py`: render, fit,
+info).
 
     python -m loltracer_tpu_torch.cli render examples/scene4.lol --size 1920x1080 -o out.png
     python -m loltracer_tpu_torch.cli info examples/scene4.lol
     python -m loltracer_tpu_torch.cli render instanced:10000 --step-clamp 2 --size 1920x1080
+    python -m loltracer_tpu_torch.cli fit examples/scene4.lol --target t.npy --steps 3 -o fit.png
 
-`render` goes through the fused CUDA kernel (render/cuda_renderer.py;
-`instanced:N` is the procedural field of N spheres, scenes.py, rendered by
-lol_instanced_render) on `--device cuda`, the default, and raises if CUDA
-is not available;
-`--device cpu` renders through the plain PyTorch version. The render flags
-are those of the JAX package's CLI.
+`render --backend pallas` (the default) goes through the fused CUDA kernel
+(render/cuda_renderer.py; `instanced:N` is the procedural field of N
+spheres, scenes.py, rendered by lol_instanced_render); `--backend jnp`
+through the differentiable renderer (render/torch_renderer.py), whose
+marches run the march kernels K3 / K4 on CUDA. `--device cuda` is the
+default and raises if CUDA is not available; `--device cpu` renders
+through the plain PyTorch versions. `fit` is the JAX package's: inverse
+rendering toward a target image (.png or .npy) with antialiasing on by
+default, through opt.fit_scene. The render flags are those of the JAX
+package's CLI.
 """
 
 from __future__ import annotations
@@ -81,10 +87,18 @@ def _add_render_flags(p):
     p.add_argument("--gamma", type=float)
 
 
+def _add_device_flag(p):
+    p.add_argument(
+        "--device", choices=["cuda", "cpu"], default="cuda",
+        help="cuda: the CUDA kernels (default); cpu: the plain PyTorch versions",
+    )
+
+
 def cmd_render(args):
     import torch
 
     from loltracer_tpu_torch.render.cuda_renderer import make_cuda_renderer
+    from loltracer_tpu_torch.render.torch_renderer import make_renderer
     from loltracer_tpu_torch.utils.image import write_npy, write_png
 
     w, h = _parse_size(args.size)
@@ -92,8 +106,11 @@ def cmd_render(args):
     scene = _load_scene(args.scene)
 
     t0 = time.perf_counter()
-    renderer = make_cuda_renderer(scene.structure, h, w, cfg, device=args.device)
-    img = renderer(scene.params)
+    if args.backend == "jnp":
+        img = make_renderer(scene.structure, h, w, cfg, device=args.device)(scene.params)
+    else:
+        renderer = make_cuda_renderer(scene.structure, h, w, cfg, device=args.device)
+        img = renderer(scene.params)
     if img.device.type == "cuda":
         torch.cuda.synchronize(img.device)
     img = img.cpu().numpy()
@@ -105,6 +122,43 @@ def cmd_render(args):
     else:
         write_png(out, img)
     print(f"rendered {args.scene} {w}x{h} on {args.device} in {dt:.2f}s -> {out}")
+    return 0
+
+
+def cmd_fit(args):
+    import numpy as np
+
+    from loltracer_tpu_torch.opt import fit_scene
+    from loltracer_tpu_torch.render.torch_renderer import make_renderer
+    from loltracer_tpu_torch.utils.image import read_png, write_png
+
+    scene = _load_scene(args.scene)
+    cfg = _build_cfg(args)
+    if args.target.endswith(".npy"):
+        target = np.load(args.target)
+    else:
+        target = read_png(args.target).astype(np.float32) / 255.0
+
+    trainable = tuple(args.trainable.split(",")) if args.trainable else None
+    kw = {} if trainable is None else {"trainable": trainable}
+    result = fit_scene(
+        scene.structure,
+        scene.params,
+        target,
+        steps=args.steps,
+        learning_rate=args.lr,
+        cfg=cfg,
+        checkpoint_path=args.checkpoint,
+        device=args.device,
+        log_every=max(1, args.steps // 20),
+        **kw,
+    )
+    print(f"final loss: {result.losses[-1]:.6g}")
+    if args.output:
+        h, w = target.shape[:2]
+        img = make_renderer(scene.structure, h, w, cfg, device=args.device)(result.params)
+        write_png(args.output, img.cpu().numpy())
+        print(f"fitted render -> {args.output}")
     return 0
 
 
@@ -138,11 +192,25 @@ def main(argv=None):
     )
     p.add_argument("-o", "--output")
     p.add_argument(
-        "--device", choices=["cuda", "cpu"], default="cuda",
-        help="cuda: the fused CUDA kernel (default); cpu: the plain PyTorch version",
+        "--backend", choices=["pallas", "jnp"], default="pallas",
+        help="pallas: the fused CUDA kernel (default); jnp: the differentiable "
+        "renderer (march kernels K3 / K4 on CUDA)",
     )
+    _add_device_flag(p)
     _add_render_flags(p)
     p.set_defaults(fn=cmd_render)
+
+    p = sub.add_parser("fit", help="inverse rendering toward a target image")
+    p.add_argument("scene")
+    p.add_argument("--target", required=True, help="target image (.png/.npy)")
+    p.add_argument("--steps", type=int, default=200)
+    p.add_argument("--lr", type=float, default=1e-2)
+    p.add_argument("--trainable", help="comma-separated param fields")
+    p.add_argument("--checkpoint")
+    p.add_argument("-o", "--output", help="write fitted render")
+    _add_device_flag(p)
+    _add_render_flags(p)
+    p.set_defaults(fn=cmd_fit, aa=True)
 
     p = sub.add_parser("info", help="parsed scene summary")
     p.add_argument("scene", nargs="?", default="-")

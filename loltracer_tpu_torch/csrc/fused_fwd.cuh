@@ -32,7 +32,9 @@
 // buffer at generated offsets) and the extern "C" entry point. For
 // instanced scenes the `Scene` is csrc/instanced_scene.cuh's traversal,
 // and `lol_instanced_render` / `lol_instanced_fwd` launch render_pixel
-// from there.
+// from there. The march and shadow loops (`march_ray`, `shadow_ray`) are
+// also the value march kernels' (csrc/march.cuh), as the JAX package's
+// `march_loop` / `shadow_loop` serve its fused and value kernels alike.
 //
 // Arithmetic matches the plain PyTorch version op for op: the build passes
 // --fmad=false, sums run ((x + y) + z), vectors are normalized by dividing
@@ -85,6 +87,62 @@ constexpr int kCamSize = 16;
 // Guard of the IFT denominator (loltracer_tpu/render/march.py _MIN_DEN).
 constexpr float kMinDen = 1e-2f;
 
+// The sphere-trace march of one ray from o along unit d (march.py march):
+// the final t, the t of the last SDF evaluation, and with kTrackAA the
+// angular closest approach min d/t over steps at t > 0 (first wins) and its
+// t. The `break` is the plain loop's done-freezing for this ray. K1 and K5
+// call it with kTrackAA = Cfg::antialias, the value march kernel K3
+// (csrc/march.cuh) always tracks.
+template <class Cfg, bool kTrackAA, class Scene>
+__device__ __forceinline__ void march_ray(const Scene& scn, float ox, float oy, float oz,
+                                          float dx, float dy, float dz, float& t,
+                                          float& t_query, float& s_min, float& t_close) {
+  t = 0.f;
+  t_query = 0.f;
+  s_min = INFINITY;
+  t_close = 0.f;
+  for (int step = 0; step < Cfg::max_steps; ++step) {
+    const float d = scn.dist(ox + t * dx, oy + t * dy, oz + t * dz);
+    const float new_t = t + d;
+    if (kTrackAA) {
+      const float s = d / (t > 0.f ? t : 1.f);
+      if (t > 0.f && s < s_min) {
+        s_min = s;
+        t_close = t;
+      }
+    }
+    t_query = t;
+    t = new_t;
+    if (d < Cfg::epsilon || new_t > Cfg::max_dist) break;
+  }
+}
+
+// The soft-shadow march of one ray (shading.py shadow_march) from the
+// already offset origin so along the unit light direction l, up to
+// max_dist: returns the penumbra minimum res and sets t_star to its
+// first-wins argmin (`val < res`, NaN never wins). The first step has
+// t == 0 and gives +/-inf; res < -1 is a hard shadow. Instanced scenes
+// march shadows under their own step clamp (Scene::shadow_dist); a
+// compiled Scene's shadow_dist is its dist. K1 and K5 (which drop t_star
+// without residuals) and K4 call it.
+template <class Cfg, class Scene>
+__device__ __forceinline__ float shadow_ray(const Scene& scn, float sox, float soy, float soz,
+                                            float lx, float ly, float lz, float max_dist,
+                                            float& t_star) {
+  float res = 1.f, ts = 0.f;
+  t_star = 0.f;
+  for (int step = 0; step < Cfg::shadow_steps; ++step) {
+    const float d = scn.shadow_dist(sox + ts * lx, soy + ts * ly, soz + ts * lz);
+    const float val =
+        ts > 0.f ? Cfg::shadow_w * d / ts : (d < 0.f ? -INFINITY : INFINITY);
+    if (val < res) t_star = ts;
+    res = jmin(res, val);
+    ts = ts + d;
+    if (res < -1.f || ts > max_dist) break;
+  }
+  return res;
+}
+
 // One pixel (x, y) of the image, and with Cfg::with_residuals its residual
 // planes (res_out points at plane 0, pixel (0, 0); planes are `plane`
 // floats apart: the launch's rows times W).
@@ -109,21 +167,8 @@ __device__ __forceinline__ void render_pixel(const float* cam, const Scene& scn,
   normalize3(dx, dy, dz);
 
   // --- march (march.py march) -------------------------------------------
-  float t = 0.f, t_query = 0.f, s_min = INFINITY, t_close = 0.f;
-  for (int step = 0; step < Cfg::max_steps; ++step) {
-    const float d = scn.dist(ox + t * dx, oy + t * dy, oz + t * dz);
-    const float new_t = t + d;
-    if (Cfg::antialias) {
-      const float s = d / (t > 0.f ? t : 1.f);
-      if (t > 0.f && s < s_min) {
-        s_min = s;
-        t_close = t;
-      }
-    }
-    t_query = t;
-    t = new_t;
-    if (d < Cfg::epsilon || new_t > Cfg::max_dist) break;
-  }
+  float t, t_query, s_min, t_close;
+  march_ray<Cfg, Cfg::antialias>(scn, ox, oy, oz, dx, dy, dz, t, t_query, s_min, t_close);
   const bool hit = t < Cfg::max_dist;
 
   if constexpr (Cfg::with_residuals) {
@@ -203,22 +248,9 @@ __device__ __forceinline__ void render_pixel(const float* cam, const Scene& scn,
     const float soy = py + ly * Cfg::shadow_offset;
     const float soz = pz + lz * Cfg::shadow_offset;
 
-    // soft-shadow march (shading.py soft_shadow): the first step has t == 0
-    // and gives +/-inf; res < -1 is a hard shadow. Instanced scenes march
-    // shadows under their own step clamp (Scene::shadow_dist); a compiled
-    // Scene's shadow_dist is its dist.
-    float res = 1.f, ts = 0.f, t_star = 0.f;
-    for (int step = 0; step < Cfg::shadow_steps; ++step) {
-      const float d = scn.shadow_dist(sox + ts * lx, soy + ts * ly, soz + ts * lz);
-      const float val =
-          ts > 0.f ? Cfg::shadow_w * d / ts : (d < 0.f ? -INFINITY : INFINITY);
-      if constexpr (Cfg::with_residuals) {
-        if (val < res) t_star = ts;  // first-wins argmin (NaN never wins)
-      }
-      res = jmin(res, val);
-      ts = ts + d;
-      if (res < -1.f || ts > light_dist) break;
-    }
+    // soft-shadow march (shading.py soft_shadow)
+    float t_star;
+    const float res = shadow_ray<Cfg>(scn, sox, soy, soz, lx, ly, lz, light_dist, t_star);
     if constexpr (Cfg::with_residuals) {
       rp[(4 + 2 * l) * plane] = res;
       rp[(5 + 2 * l) * plane] = t_star;

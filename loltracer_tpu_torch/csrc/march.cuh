@@ -1,0 +1,156 @@
+// lol_march / lol_shadow_march (compiled scenes) and lol_march_instanced /
+// lol_shadow_march_instanced (instanced scenes) on Hopper: the value-only
+// march kernels of the differentiable renderer, one thread per ray.
+//
+// Replace `loltracer_tpu/render/pallas_march.py: _march_kernel` (K3, the
+// Pallas calls `lol_march` and `lol_march_instanced`) and `_shadow_kernel`
+// (K4, `lol_shadow_march` and `lol_shadow_march_instanced`). The
+// differentiable renderer freezes both marches and re-attaches gradients
+// outside them (the IFT at the hit, the coverage alpha, Danskin's term at
+// t*), so these are pure value functions of (scene, rays):
+//
+// - K3: per ray from ro (one origin, or one per ray) along rd, the march of
+//   csrc/fused_fwd.cuh `march_ray`, always tracking the closest approach
+//   (the Pallas kernel passes track_aa=True whatever cfg.antialias is):
+//   t, t_query, s_min, t_close as four planes [4, n].
+// - K4: per ray from so along ld up to max_dist, `shadow_ray`: res and its
+//   first-wins argmin t* as two planes [2, n]. The TPU kernel's segment
+//   cull (cfg.shadow_cull) is value-exact and speed only; like K1 and K5,
+//   K4 leaves it out (ROADMAP.md perf queue).
+//
+// The loops are K1's and K5's own (`march_ray`, `shadow_ray`), so a ray
+// marched here and inside render_pixel takes the same steps, and each
+// thread's `break` is the plain loops' done-freezing for its ray. Instanced
+// scenes run `InstancedScene::dist` (the primary step clamp) in K3 and
+// `shadow_dist` (the shadow clamp) in K4.
+//
+// Layout: ray i of n lies at row i / width, column i % width of the
+// caller's [rows, width] batch (the last batch dimension is the width), and
+// a block covers a 2-D tile of it, as K1 (32 x 8) and K5 (8 x 16) do, so a
+// warp marches neighbouring pixels; a batch of one row takes 1-D blocks.
+// The ragged edge is masked; nothing is padded. The TPU's (8, 128) tiles,
+// lane-packed 16x32 patches and edge padding are not carried over.
+//
+// What bounds them on this card: FP32 and SFU issue in the SDF and warp
+// divergence, as K1 and K5; bytes are small (K3 reads 12 B and writes 16 B
+// per ray, K4 28 B and 8 B). Each thread leaves its loop when its own ray
+// is done, so a warp waits only for its own worst ray; instanced blocks
+// keep the run balls in shared memory, loaded once per block.
+//
+// This file follows csrc/fused_fwd.cuh and csrc/instanced_scene.cuh in
+// the source render/cuda_scene.py generates (`generate_march_source`); the
+// per-ray functions also compile as host C++ (tests/test_torch_march_host.py).
+
+namespace lol {
+
+// One launch's rays. ro is [3] with ro_stride 0 (one origin) or [n, 3]
+// with ro_stride 3; rd is [n, 3]; max_dist [n] (K4 only); out [4, n] (K3)
+// or [2, n] (K4).
+struct MarchArgs {
+  const float* __restrict__ ro;
+  int ro_stride;
+  const float* __restrict__ rd;
+  const float* __restrict__ max_dist;
+  float* __restrict__ out;
+};
+
+// K3's work for ray i of n.
+template <class Cfg, class Scene>
+__device__ __forceinline__ void march_at(const Scene& scn, const MarchArgs& a, size_t i,
+                                         size_t n) {
+  const float* o = a.ro + (size_t)a.ro_stride * i;
+  const float* d = a.rd + 3 * i;
+  float t, t_query, s_min, t_close;
+  march_ray<Cfg, true>(scn, __ldg(o), __ldg(o + 1), __ldg(o + 2), __ldg(d), __ldg(d + 1),
+                       __ldg(d + 2), t, t_query, s_min, t_close);
+  a.out[i] = t;
+  a.out[n + i] = t_query;
+  a.out[2 * n + i] = s_min;
+  a.out[3 * n + i] = t_close;
+}
+
+// K4's work for ray i of n.
+template <class Cfg, class Scene>
+__device__ __forceinline__ void shadow_at(const Scene& scn, const MarchArgs& a, size_t i,
+                                          size_t n) {
+  const float* o = a.ro + (size_t)a.ro_stride * i;
+  const float* d = a.rd + 3 * i;
+  float t_star;
+  a.out[i] = shadow_ray<Cfg>(scn, __ldg(o), __ldg(o + 1), __ldg(o + 2), __ldg(d),
+                             __ldg(d + 1), __ldg(d + 2), __ldg(a.max_dist + i), t_star);
+  a.out[n + i] = t_star;
+}
+
+template <bool kShadow, class Cfg, class Scene>
+__device__ __forceinline__ void value_at(const Scene& scn, const MarchArgs& a, size_t i,
+                                         size_t n) {
+  if constexpr (kShadow) {
+    shadow_at<Cfg>(scn, a, i, n);
+  } else {
+    march_at<Cfg>(scn, a, i, n);
+  }
+}
+
+#ifdef __CUDACC__
+// A [rows, width] batch in blocks of bx x by threads; a single row in 1-D
+// blocks of bx * by.
+inline void march_grid(int rows, int width, int bx, int by, dim3& grid, dim3& block) {
+  block = rows == 1 ? dim3(bx * by, 1) : dim3(bx, by);
+  grid = dim3((width + block.x - 1) / block.x, (rows + block.y - 1) / block.y);
+}
+
+template <bool kShadow, class Cfg, class Scene>
+__global__ void __launch_bounds__(kBlockX * kBlockY)
+    march_kernel(const float* __restrict__ P, MarchArgs a, int rows, int width) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= width || y >= rows) return;
+  const Scene scn(P);
+  value_at<kShadow, Cfg>(scn, a, (size_t)y * width + x, (size_t)rows * width);
+}
+
+template <bool kShadow, class Cfg, class Scene>
+int launch_march(const float* P, const MarchArgs& a, int rows, int width,
+                 cudaStream_t stream) {
+  dim3 grid, block;
+  march_grid(rows, width, kBlockX, kBlockY, grid, block);
+  march_kernel<kShadow, Cfg, Scene><<<grid, block, 0, stream>>>(P, a, rows, width);
+  return (int)cudaGetLastError();
+}
+
+template <bool kShadow, class Cfg, class Scene>
+__global__ void __launch_bounds__(kInstBlockX * kInstBlockY)
+    march_instanced_kernel(const float* __restrict__ P, InstancedTables tab, MarchArgs a,
+                           int rows, int width) {
+  extern __shared__ float4 s_groups[];
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  for (int i = tid; i < 2 * tab.num_groups; i += blockDim.x * blockDim.y)
+    s_groups[i] = tab.groups[i];
+  __syncthreads();
+
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= width || y >= rows) return;
+  const Scene scn(P, tab, s_groups);
+  value_at<kShadow, Cfg>(scn, a, (size_t)y * width + x, (size_t)rows * width);
+}
+
+template <bool kShadow, class Cfg, class Scene>
+int launch_march_instanced(const float* P, const InstancedTables& tab, const MarchArgs& a,
+                           int rows, int width, cudaStream_t stream) {
+  const int smem = 2 * tab.num_groups * (int)sizeof(float4);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        march_instanced_kernel<kShadow, Cfg, Scene>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  dim3 grid, block;
+  march_grid(rows, width, kInstBlockX, kInstBlockY, grid, block);
+  march_instanced_kernel<kShadow, Cfg, Scene>
+      <<<grid, block, smem, stream>>>(P, tab, a, rows, width);
+  return (int)cudaGetLastError();
+}
+#endif  // __CUDACC__
+
+}  // namespace lol

@@ -5,11 +5,12 @@
 cfg.shadow_grad is "envelope", as the JAX package does (parallel/sharded.py
 `_fused_row_renderer`): render/fused_train.make_training_renderer for
 compiled structures, render/instanced_train.make_instanced_training_renderer
-for instanced ones. Any other estimator takes the JAX package's jnp
-path, whose frozen march and shadow march run the Pallas value kernels
-K3 / K4 on a TPU; those are not ported yet (ROADMAP.md, Queue 2 item 3),
-so on CUDA it raises, and on the CPU it takes the differentiable plain
-renderer.
+for instanced ones. Any other estimator takes the JAX package's jnp path
+(`_jnp_row_renderer`): the differentiable renderer
+render/torch_renderer.py, `render_image` for compiled structures and
+`render_image_banded` in 16-row bands for instanced ones, whose frozen
+march runs the march kernel K3 on CUDA (render/march_kernels.py) and the
+plain loop on the CPU.
 `optax.adam` and `torch.optim.Adam` share their defaults (betas 0.9 /
 0.999, eps 1e-8) and their update rule.
 
@@ -27,9 +28,10 @@ import numpy as np
 import torch
 
 from loltracer_tpu_torch.config import DEFAULT_CONFIG, RenderConfig
+from loltracer_tpu_torch.render.backend import resolve_device
 from loltracer_tpu_torch.render.fused_train import make_training_renderer
 from loltracer_tpu_torch.render.instanced_train import make_instanced_training_renderer
-from loltracer_tpu_torch.render.torch_renderer import render_image
+from loltracer_tpu_torch.render.torch_renderer import render_image, render_image_banded
 from loltracer_tpu_torch.scene import FIELDS, SceneParams, SceneStructure, params_to
 
 # Parameter families it usually makes sense to optimize; the camera is
@@ -135,14 +137,15 @@ def fit_scene(
     project: Optional[Callable[[SceneParams], SceneParams]] = default_project,
     checkpoint_path: Optional[str] = None,
     device="cuda",
+    log_every: int = 0,
 ) -> FitResult:
     """Adam-fit the scene to a target image [H, W, 3] (gamma-encoded, as
     the renderers output) on one device, loss mean((img - target)**2).
     Returns the fitted params (detached, on `device`) and the loss before
     each step. Raises if `device` is a CUDA device and CUDA is not
-    available (it never falls back to the CPU), or if it is a CUDA device
-    and cfg.shadow_grad is not "envelope" (the march kernels of that path
-    are not ported yet)."""
+    available (it never falls back to the CPU). With `log_every`, prints
+    `[fit] step i loss l` every that many steps and at the last, as the
+    JAX package's fit_scene."""
     if mesh is not None:
         raise NotImplementedError(
             "fit_scene: sharding over a mesh is not ported yet (ROADMAP.md, "
@@ -153,22 +156,15 @@ def fit_scene(
             "fit_scene: checkpoints are not ported yet (ROADMAP.md, Queue 1 "
             "item 2)"
         )
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "fit_scene: device 'cuda' requested but torch.cuda.is_available() is false"
-        )
-    if device.type == "cuda" and cfg.shadow_grad != "envelope":
-        raise NotImplementedError(
-            f"fit_scene: shadow_grad={cfg.shadow_grad!r} on CUDA needs the march "
-            "kernels K3 / K4, not ported yet (ROADMAP.md, Queue 2 item 3); use "
-            "shadow_grad='envelope' or device='cpu'"
-        )
+    device = resolve_device(device, "fit_scene")
     target = torch.as_tensor(target).to(device=device, dtype=torch.float32)
     height, width = int(target.shape[0]), int(target.shape[1])
     if cfg.shadow_grad == "envelope":
         make = make_instanced_training_renderer if structure.instanced else make_training_renderer
         render = make(structure, height, width, cfg, device=device)
+    elif structure.instanced:
+        def render(p):
+            return render_image_banded(structure, p, height, width, cfg, band_rows=16)
     else:
         def render(p):
             return render_image(structure, p, height, width, cfg)
@@ -176,7 +172,7 @@ def fit_scene(
     params = trainable_leaves(params_to(params, device=device, dtype=torch.float32), trainable)
     optimizer = masked_optimizer(params, trainable, lr=learning_rate)
     losses = []
-    for _ in range(steps):
+    for i in range(steps):
         optimizer.zero_grad(set_to_none=True)
         loss = ((render(params) - target) ** 2).mean()
         loss.backward()
@@ -187,5 +183,7 @@ def fit_scene(
                 for f in FIELDS:
                     getattr(params, f).copy_(getattr(projected, f))
         losses.append(loss.item())
+        if log_every and (i % log_every == 0 or i == steps - 1):
+            print(f"[fit] step {i} loss {losses[-1]:.6g}")
     fitted = SceneParams(**{f: getattr(params, f).detach() for f in FIELDS})
     return FitResult(params=fitted, losses=np.asarray(losses))

@@ -18,23 +18,13 @@ from typing import Callable
 import torch
 
 from loltracer_tpu_torch.config import DEFAULT_CONFIG, RenderConfig
+from loltracer_tpu_torch.render.backend import resolve_device
 from loltracer_tpu_torch.render.camera import camera_pack
 from loltracer_tpu_torch.render.cuda_scene import pack_fields
 from loltracer_tpu_torch.render.fused_fwd import fused_forward
 from loltracer_tpu_torch.render.instanced_fwd import instanced_forward
 from loltracer_tpu_torch.render.instanced_pack import pack_instanced
 from loltracer_tpu_torch.scene import SceneParams, SceneStructure, params_to, require_instanced
-
-
-def _device(device, who: str) -> torch.device:
-    """`device` as a torch.device; raises for CUDA without CUDA: nothing
-    falls back to the CPU."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"{who}: device 'cuda' requested but torch.cuda.is_available() is false"
-        )
-    return device
 
 
 def make_cuda_renderer(
@@ -49,7 +39,7 @@ def make_cuda_renderer(
     is not available: it never falls back to the CPU."""
     if structure.instanced:
         return make_instanced_renderer(structure, height, width, cfg, device)
-    device = _device(device, "make_cuda_renderer")
+    device = resolve_device(device, "make_cuda_renderer")
 
     def renderer(params: SceneParams) -> torch.Tensor:
         params = params_to(params, device=device, dtype=torch.float32)
@@ -72,7 +62,7 @@ def make_instanced_renderer(
     CUDA device (its plain version on the CPU). Raises for CUDA without
     CUDA."""
     require_instanced(structure)
-    device = _device(device, "make_instanced_renderer")
+    device = resolve_device(device, "make_instanced_renderer")
 
     def renderer(params: SceneParams) -> torch.Tensor:
         params = params_to(params, device=device, dtype=torch.float32)

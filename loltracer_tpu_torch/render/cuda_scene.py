@@ -35,6 +35,11 @@ instanced training source: the forward with residuals (`lol_instanced_fwd`)
 and the backward of csrc/instanced_bwd.cuh (`lol_instanced_bwd`, with its
 reduce and scatter launches), whose SDF adjoint is the traversal's own
 `InstancedScene::dist_bwd`, not a generated one.
+
+`generate_march_source(structure, cfg)` is the source of the value march
+kernels K3 and K4 (csrc/march.cuh) on the compiled `Scene` or, for an
+instanced structure, on the `InstancedScene`: one library per structure
+and config holds both.
 """
 
 from __future__ import annotations
@@ -619,6 +624,98 @@ def generate_instanced_source(
             "",
             "#ifdef __CUDACC__",
             _INSTANCED_TRAIN_ENTRIES if residuals else _INSTANCED_ENTRY,
+            "#endif  // __CUDACC__",
+            "",
+        ]
+    )
+
+
+MARCH = "lol_march"
+SHADOW_MARCH = "lol_shadow_march"
+MARCH_INSTANCED = "lol_march_instanced"
+SHADOW_MARCH_INSTANCED = "lol_shadow_march_instanced"
+
+_MARCH_ARGS = """\
+  const lol::MarchArgs a{static_cast<const float*>(ro), ro_stride,
+                         static_cast<const float*>(rd), static_cast<const float*>(max_dist),
+                         static_cast<float*>(out)};"""
+
+_MARCH_ENTRIES = f"""\
+extern "C" int {MARCH}(const void* ro, int ro_stride, const void* rd, const void* fields,
+                          void* out, int rows, int width, void* stream) {{
+  const void* max_dist = nullptr;
+{_MARCH_ARGS}
+  return lol::launch_march<false, lol_gen::Cfg, lol_gen::Scene>(
+      static_cast<const float*>(fields), a, rows, width, static_cast<cudaStream_t>(stream));
+}}
+
+extern "C" int {SHADOW_MARCH}(const void* ro, int ro_stride, const void* rd,
+                                 const void* max_dist, const void* fields, void* out, int rows,
+                                 int width, void* stream) {{
+{_MARCH_ARGS}
+  return lol::launch_march<true, lol_gen::Cfg, lol_gen::Scene>(
+      static_cast<const float*>(fields), a, rows, width, static_cast<cudaStream_t>(stream));
+}}"""
+
+_MARCH_INSTANCED_ENTRIES = f"""\
+extern "C" int {MARCH_INSTANCED}(const void* ro, int ro_stride, const void* rd,
+                                    const void* fields, const void* spheres, const void* ids,
+                                    const void* groups, const void* bbox, int num_spheres,
+                                    int num_groups, void* out, int rows, int width,
+                                    void* stream) {{
+  const void* max_dist = nullptr;
+{_MARCH_ARGS}
+{_TABLES}
+  return lol::launch_march_instanced<false, lol_gen::Cfg, lol_gen::Scene>(
+      static_cast<const float*>(fields), tab, a, rows, width,
+      static_cast<cudaStream_t>(stream));
+}}
+
+extern "C" int {SHADOW_MARCH_INSTANCED}(const void* ro, int ro_stride, const void* rd,
+                                           const void* max_dist, const void* fields,
+                                           const void* spheres, const void* ids,
+                                           const void* groups, const void* bbox,
+                                           int num_spheres, int num_groups, void* out,
+                                           int rows, int width, void* stream) {{
+{_MARCH_ARGS}
+{_TABLES}
+  return lol::launch_march_instanced<true, lol_gen::Cfg, lol_gen::Scene>(
+      static_cast<const float*>(fields), tab, a, rows, width,
+      static_cast<cudaStream_t>(stream));
+}}"""
+
+
+def generate_march_source(structure: SceneStructure, cfg: RenderConfig) -> str:
+    """The CUDA translation unit of the value march kernels K3 and K4 for
+    this structure and config: csrc/fused_fwd.cuh (whose `march_ray` and
+    `shadow_ray` they run), csrc/instanced_scene.cuh, csrc/march.cuh, then
+    the Cfg and the compiled `Scene` (entries `lol_march`,
+    `lol_shadow_march`) or, for an instanced structure, the layout of the
+    `InstancedScene` (`lol_march_instanced`, `lol_shadow_march_instanced`;
+    one text for every sphere count). Deterministic; holds no scene
+    numbers. The device functions also compile as host C++."""
+    if structure.instanced:
+        require_instanced(structure)
+        if not structure.num_spheres:
+            raise ValueError("an instanced scene needs at least one sphere")
+        scene, entries = _layout_source(structure), _MARCH_INSTANCED_ENTRIES
+    else:
+        scene, entries = _scene_source(structure, residuals=False), _MARCH_ENTRIES
+    bodies = ["fused_fwd.cuh", "instanced_scene.cuh", "march.cuh"]
+    return "\n".join(
+        [
+            "// Generated by loltracer_tpu_torch.render.cuda_scene: the kernel",
+            "// bodies of csrc/, then this structure's Cfg and Scene.",
+            *[(CSRC / b).read_text() for b in bodies],
+            "namespace lol_gen {",
+            "using namespace lol;",
+            _cfg_source(cfg, residuals=False, instanced=structure.instanced),
+            "",
+            scene,
+            "}  // namespace lol_gen",
+            "",
+            "#ifdef __CUDACC__",
+            entries,
             "#endif  // __CUDACC__",
             "",
         ]

@@ -60,7 +60,8 @@ def fused_forward_reference(
 ) -> torch.Tensor:
     """The plain PyTorch version of the kernel, on the tensors' device:
     `torch_renderer.render_rays` over the camera pack's rays and the
-    buffer's numbers. Returns [H, W, 3] f32."""
+    buffer's numbers, its marches pinned to the plain loops
+    (march_backend "jnp": no kernel runs in it). Returns [H, W, 3] f32."""
     unpacked = unpack_fields(structure, fields)
     params = SceneParams(
         **unpacked,
@@ -71,7 +72,7 @@ def fused_forward_reference(
     ro, rd = rays_from_pack(cam, torch.arange(height), height, width)
     with torch.no_grad():
         return render_rays(
-            structure, params, ro, rd, cfg,
+            structure, params, ro, rd, cfg.replace(march_backend="jnp"),
             pixel_rad=cam[14] if cfg.antialias else None,
         )
 

@@ -35,7 +35,7 @@ import torch
 
 from loltracer_tpu_torch import _build
 from loltracer_tpu_torch.config import DEFAULT_CONFIG, RenderConfig
-from loltracer_tpu_torch.render.backend import resolve_backend
+from loltracer_tpu_torch.render.backend import resolve_backend, resolve_device
 from loltracer_tpu_torch.render.camera import CAM_SIZE, camera_pack, rays_from_pack
 from loltracer_tpu_torch.render.cuda_scene import (
     TRAIN_BLOCKS,
@@ -392,12 +392,7 @@ def make_training_renderer(
             "fused training kernels implement the envelope shadow estimator; "
             f"got shadow_grad={cfg.shadow_grad!r}"
         )
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "make_training_renderer: device 'cuda' requested but "
-            "torch.cuda.is_available() is false"
-        )
+    device = resolve_device(device, "make_training_renderer")
 
     def renderer(params: SceneParams) -> torch.Tensor:
         params = params_to(params, device=device, dtype=torch.float32)

@@ -68,8 +68,10 @@ def instanced_forward_reference(
     """The plain PyTorch version of the kernel, on the tensors' device:
     `torch_renderer.render_rays` over the rays of rows cam[15] +
     0..height-1 of an image of `full_height` rows (default `height`), and
-    the spheres of the tables put back in SoA order. Returns [height, W, 3]
-    f32. `live` is handed to render_rays (its loops' live-ray counts)."""
+    the spheres of the tables put back in SoA order, its marches pinned
+    to the plain loops (march_backend "jnp": no kernel runs in it).
+    Returns [height, W, 3] f32. `live` is handed to render_rays (its
+    loops' live-ray counts)."""
     unpacked = unpack_fields(structure, fields)
     pos, rad = soa_spheres(structure, tables)
     unpacked.update(sphere_point=pos, sphere_radius=rad)
@@ -82,7 +84,7 @@ def instanced_forward_reference(
     ro, rd = rays_from_pack(cam, torch.arange(height), full_height or height, width)
     with torch.no_grad():
         return render_rays(
-            structure, params, ro, rd, cfg,
+            structure, params, ro, rd, cfg.replace(march_backend="jnp"),
             pixel_rad=cam[14] if cfg.antialias else None, live=live,
         )
 

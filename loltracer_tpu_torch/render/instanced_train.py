@@ -41,9 +41,8 @@ import torch
 
 from loltracer_tpu_torch import _build
 from loltracer_tpu_torch.config import DEFAULT_CONFIG, RenderConfig
-from loltracer_tpu_torch.render.backend import resolve_backend
+from loltracer_tpu_torch.render.backend import resolve_backend, resolve_device
 from loltracer_tpu_torch.render.camera import CAM_SIZE, camera_pack, rays_from_pack
-from loltracer_tpu_torch.render.cuda_renderer import _device
 from loltracer_tpu_torch.render.cuda_scene import (
     INSTANCED_BLOCKS,
     INSTANCED_BWD,
@@ -387,7 +386,7 @@ def make_instanced_training_renderer(
             "fused instanced training kernels implement the envelope shadow "
             f"estimator; got shadow_grad={cfg.shadow_grad!r}"
         )
-    device = _device(device, "make_instanced_training_renderer")
+    device = resolve_device(device, "make_instanced_training_renderer")
 
     def renderer(params: SceneParams) -> torch.Tensor:
         params = params_to(params, device=device, dtype=torch.float32)

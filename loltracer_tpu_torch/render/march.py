@@ -77,7 +77,10 @@ def ray_derivative(sdf: Callable, params, ro, rd, t):
     """d/dt sdf(ro + t rd) at t, without grad to anything, clamped away from
     zero to +/-MIN_DEN (the IFT denominator)."""
     frozen = type(params)(**{f: v.detach() for f, v in vars(params).items()})
-    with torch.enable_grad():
+    # its own graph, consumed here: under a checkpoint (a band of
+    # render_image_banded) its saved tensors stay out of the checkpoint, so
+    # this grad does not set off the band's recomputation
+    with torch.enable_grad(), torch.autograd.graph.saved_tensors_hooks(lambda x: x, lambda x: x):
         tt = t.detach().requires_grad_(True)
         f = sdf(frozen, ro.detach() + tt[..., None] * rd.detach())
         (den,) = torch.autograd.grad(f.sum(), tt)
@@ -95,9 +98,13 @@ def intersect_aa(
     cfg: RenderConfig,
     pixel_rad=None,
     live: Optional[Dict] = None,
+    march_fn: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Differentiable intersection with optional soft coverage; returns
     (t_shade, id_shade, alpha, hit), as the JAX package's `intersect_aa`.
+    `march_fn(params, ro, rd) -> MarchResult`, when given, replaces the
+    plain march for the frozen values (the march kernel K3,
+    render/march_kernels.py); the gradient is re-attached the same way.
 
     With pixel_rad=None: the marched t and the argmin id at the last query
     point (0 on a miss), alpha == 1. With pixel_rad (the pixel's angular
@@ -110,7 +117,10 @@ def intersect_aa(
     """
     live = live or {}
     with torch.no_grad():
-        res = march(sdf, params, ro, rd, cfg, live.get("march"), live.get("probe"))
+        if march_fn is not None:
+            res = march_fn(params, ro, rd)
+        else:
+            res = march(sdf, params, ro, rd, cfg, live.get("march"), live.get("probe"))
     t0 = res.t
     hit = t0 < cfg.max_dist
 

@@ -59,17 +59,22 @@ def _columns(structure: SceneStructure, params: SceneParams, p) -> Dict:
     return cols
 
 
+def _eval_node(node: Node, cols: Dict, params: SceneParams):
+    """One object's distance from the columns. A module-level function: a
+    nested recursive closure is a reference cycle, which would keep every
+    call's columns and their autograd graph alive until the garbage
+    collector runs."""
+    if node[0] == "smin":
+        _, k, a, b = node
+        return smooth_min(_eval_node(a, cols, params), _eval_node(b, cols, params),
+                          params.smooth_k[k])
+    return cols[node[0]][..., node[1]]
+
+
 def _object_dists(structure: SceneStructure, params: SceneParams, p) -> List:
     """Per-top-level-object distances, each [...], in file order."""
     cols = _columns(structure, params, p)
-
-    def eval_node(node: Node):
-        if node[0] == "smin":
-            _, k, a, b = node
-            return smooth_min(eval_node(a), eval_node(b), params.smooth_k[k])
-        return cols[node[0]][..., node[1]]
-
-    return [eval_node(node) for node in structure.objects]
+    return [_eval_node(node, cols, params) for node in structure.objects]
 
 
 def make_scene_sdf(

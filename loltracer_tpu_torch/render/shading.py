@@ -8,23 +8,48 @@ trips the res < -1 early-out into a hard 0), and the loop caps at
 `shadow_steps` with sharpness `shadow_w`.
 
 The two shadow-gradient estimators of the JAX package give the same values:
-"exact" differentiates through the loop; "envelope" runs the loop frozen,
-records the first-wins argmin t* of the running minimum, and re-attaches the
-gradient with one differentiable SDF evaluation at t* (Danskin's theorem),
-only where t* > 0 and 0 < res < 1.
+"exact" differentiates through the loop, each step checkpointed (the JAX
+package's `@jax.checkpoint` scan body: backward memory is one carry per
+step, and each step's SDF is recomputed in the backward); "envelope" runs
+the loop frozen, records the first-wins argmin t* of the running minimum,
+and re-attaches the gradient with one differentiable SDF evaluation at t*
+(Danskin's theorem), only where t* > 0 and 0 < res < 1. The frozen loop may
+come from `shadow_march_fn` (the shadow march kernel K4,
+render/march_kernels.py).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from loltracer_tpu_torch.config import RenderConfig
 from loltracer_tpu_torch.render.vecmath import clip, dot, maximum, normalize
 from loltracer_tpu_torch.scene import SceneParams, SceneStructure
 
 _NORMAL_KS = ((1.0, -1.0, -1.0), (-1.0, -1.0, 1.0), (-1.0, 1.0, -1.0), (1.0, 1.0, 1.0))
+
+
+def _shadow_step(sdf: Callable, params, ro, rd, max_dist, cfg: RenderConfig,
+                 res, t, t_star, done):
+    """One step of the shadow march: the carry (res, t, t*, done) after one
+    more SDF evaluation; done rays keep theirs."""
+    d = sdf(params, ro + t[..., None] * rd)
+    safe_t = torch.where(t > 0, t, 1.0)
+    # first iteration: w*d/0 -> +/-inf (d == 0 maps to +inf)
+    inf = float("inf")
+    val = torch.where(
+        t > 0, cfg.shadow_w * d / safe_t, torch.where(d < 0, -inf, inf)
+    )
+    better = ~done & (val < res)
+    res = torch.where(done, res, torch.minimum(res, val))
+    t_star = torch.where(better, t.detach(), t_star)
+    t = torch.where(done, t, t + d)
+    done = done | (res < -1) | (t > max_dist)
+    return res, t, t_star, done
 
 
 def shadow_march(
@@ -35,36 +60,34 @@ def shadow_march(
     along rd, up to `max_dist` (the distance to the light): the running
     minimum res of w*d/t and the t of its first-wins argmin (`val < res`,
     so NaN never wins). The loop freezes done rays and ends once every ray
-    is done; run under autograd it is the "exact" estimator. If `live` is
-    a list, the number of rays still marching at each step is appended;
-    `probe`, if given, is called at each step with those rays' points."""
+    is done; run under autograd it is the "exact" estimator, each step
+    checkpointed (the values and the gradients are those of the loop
+    differentiated straight). If `live` is a list, the number of
+    rays still marching at each step is appended; `probe`, if given, is
+    called at each step with those rays' points."""
     batch = torch.broadcast_shapes(ro.shape[:-1], rd.shape[:-1], max_dist.shape)
     kw = dict(dtype=rd.dtype, device=rd.device)
-    inf = float("inf")
-    res = torch.ones(batch, **kw)
-    t = torch.zeros(batch, **kw)
-    t_star = torch.zeros(batch, **kw)
-    done = torch.zeros(batch, dtype=torch.bool, device=rd.device)
+    carry = (
+        torch.ones(batch, **kw),  # res
+        torch.zeros(batch, **kw),  # t
+        torch.zeros(batch, **kw),  # t*
+        torch.zeros(batch, dtype=torch.bool, device=rd.device),  # done
+    )
+    step = functools.partial(_shadow_step, sdf, params, ro, rd, max_dist, cfg)
+    remat = torch.is_grad_enabled()
     for _ in range(cfg.shadow_steps):
+        done = carry[3]
         if bool(done.all()):
             break
         if live is not None:
             live.append(int((~done).sum()))
-        p = ro + t[..., None] * rd
         if probe is not None:
-            probe(p[~done])
-        d = sdf(params, p)
-        safe_t = torch.where(t > 0, t, 1.0)
-        # first iteration: w*d/0 -> +/-inf (d == 0 maps to +inf)
-        val = torch.where(
-            t > 0, cfg.shadow_w * d / safe_t, torch.where(d < 0, -inf, inf)
-        )
-        better = ~done & (val < res)
-        res = torch.where(done, res, torch.minimum(res, val))
-        t_star = torch.where(better, t.detach(), t_star)
-        t = torch.where(done, t, t + d)
-        done = done | (res < -1) | (t > max_dist)
-    return res, t_star
+            probe((ro + carry[1][..., None] * rd)[~done])
+        if remat:
+            carry = checkpoint(step, *carry, use_reentrant=False, preserve_rng_state=False)
+        else:
+            carry = step(*carry)
+    return carry[0], carry[2]
 
 
 def envelope_reattach(sdf: Callable, params, ro, rd, res0, t_star, cfg: RenderConfig):
@@ -79,11 +102,15 @@ def envelope_reattach(sdf: Callable, params, ro, rd, res0, t_star, cfg: RenderCo
 
 
 def soft_shadow(
-    sdf: Callable, params, ro, rd, max_dist, cfg: RenderConfig, live: Optional[Dict] = None
+    sdf: Callable, params, ro, rd, max_dist, cfg: RenderConfig, live: Optional[Dict] = None,
+    shadow_march_fn: Optional[Callable] = None,
 ):
     """Penumbra factor max(res, 0) of the shadow march (shadow_march), with
     the gradient of cfg.shadow_grad. `live` ({"shadow": list, "probe":
-    callable}, both optional) is handed to the march."""
+    callable}, both optional) is handed to the march.
+    `shadow_march_fn(params, ro, rd, max_dist) -> (res, t*)`, when given,
+    replaces the frozen march of "envelope" (the JAX package's
+    soft_shadow); "exact" differentiates through the plain loop."""
     live = live or {}
     counts = (live.get("shadow"), live.get("probe"))
     if cfg.shadow_grad == "exact":
@@ -92,7 +119,10 @@ def soft_shadow(
     if cfg.shadow_grad != "envelope":
         raise ValueError(f"unknown shadow_grad {cfg.shadow_grad!r}")
     with torch.no_grad():
-        res, t_star = shadow_march(sdf, params, ro, rd, max_dist, cfg, *counts)
+        if shadow_march_fn is not None:
+            res, t_star = shadow_march_fn(params, ro, rd, max_dist)
+        else:
+            res, t_star = shadow_march(sdf, params, ro, rd, max_dist, cfg, *counts)
     if torch.is_grad_enabled():
         res = envelope_reattach(sdf, params, ro, rd, res, t_star, cfg)
     return maximum(res, 0.0)
@@ -127,15 +157,17 @@ def shade(
     obj_id,
     cfg: RenderConfig,
     live: Optional[Dict] = None,
+    shadow_march_fn: Optional[Callable] = None,
 ):
     """Phong shading with per-light soft shadows. p: points [..., 3]; n:
     unit normals [..., 3]; obj_id: [...] (0 = miss -> material 0, the
-    background material). Returns clamped linear RGB [..., 3]. `live` is
-    handed to each light's soft_shadow."""
+    background material). Returns clamped linear RGB [..., 3]. `live` and
+    `shadow_march_fn` are handed to each light's soft_shadow."""
     mat_ids = torch.tensor(structure.material_ids, dtype=torch.long, device=p.device)
 
     def shadow_of(li, shadow_ro, light_dir, light_dist):
-        return soft_shadow(sdf, params, shadow_ro, light_dir, light_dist, cfg, live)
+        return soft_shadow(sdf, params, shadow_ro, light_dir, light_dist, cfg, live,
+                           shadow_march_fn)
 
     return phong(structure, params, p, n, mat_ids[obj_id.long()], shadow_of, cfg)
 

@@ -13,21 +13,31 @@ the jnp renderer. `make_renderer` renders without autograd;
 `render_image_banded` renders in sequential row bands, the same image with
 one band's temporaries at a time (instanced scenes evaluate [rays, 512]
 blocks at every SDF call).
+
+The frozen marches run where cfg.march_backend resolves them
+(render/backend.py `resolve_march_backend`), as the JAX package's
+`_select_march` / `_select_shadow_march` do: on CUDA tensors under "auto"
+the march kernel K3 for any estimator and the shadow march kernel K4 for
+"envelope" (render/march_kernels.py); the plain loops on CPU tensors or
+under "jnp". The plain versions of the earlier kernels pin "jnp".
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+import functools
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from loltracer_tpu_torch.config import DEFAULT_CONFIG, RenderConfig
+from loltracer_tpu_torch.render.backend import resolve_device, resolve_march_backend
 from loltracer_tpu_torch.render.camera import camera_rays, camera_rays_for_rows
 from loltracer_tpu_torch.render.march import intersect_aa
 from loltracer_tpu_torch.render.sdf import make_scene_sdf, make_scene_sdf_with_id
 from loltracer_tpu_torch.render.shading import get_normal, shade
 from loltracer_tpu_torch.render.vecmath import clip, true_div
-from loltracer_tpu_torch.scene import SceneParams, SceneStructure
+from loltracer_tpu_torch.scene import SceneParams, SceneStructure, params_to
 
 
 def pixel_radius(params: SceneParams, height: int, cfg: RenderConfig):
@@ -44,6 +54,30 @@ def gamma_encode(color, gamma: float):
     return torch.where(positive, torch.where(positive, color, 1.0) ** gamma, 0.0)
 
 
+def _march_kernels(structure: SceneStructure, params: SceneParams, rd, cfg: RenderConfig,
+                   live: Optional[Dict], scene) -> Tuple[Optional[Callable], Optional[Callable]]:
+    """(march_fn, shadow_march_fn) of this call: None each for the plain
+    loops, or, where cfg.march_backend resolves to the kernels for rd, K3
+    for any estimator and K4 for "envelope" shadows over `scene` (the
+    MarchScene of params, packed here when None)."""
+    if resolve_march_backend(cfg.march_backend, rd) == "jnp":
+        return None, None
+    if live is not None:
+        raise ValueError(
+            "live-ray counting runs the plain loops: pass march_backend='jnp' with `live`"
+        )
+    from loltracer_tpu_torch.render import march_kernels
+
+    if scene is None:
+        scene = march_kernels.pack_march_scene(structure, params)
+    march_fn = functools.partial(march_kernels.make_cuda_march(structure, cfg), scene=scene)
+    shadow_fn = None
+    if cfg.shadow_grad == "envelope":
+        shadow_fn = functools.partial(
+            march_kernels.make_cuda_shadow_march(structure, cfg), scene=scene)
+    return march_fn, shadow_fn
+
+
 def render_rays(
     structure: SceneStructure,
     params: SceneParams,
@@ -52,6 +86,7 @@ def render_rays(
     cfg: RenderConfig = DEFAULT_CONFIG,
     pixel_rad=None,
     live: Optional[Dict] = None,
+    march_scene=None,
 ):
     """Render ray batches: ro [3] or [..., 3], rd [..., 3] -> gamma-encoded
     RGB [..., 3]. With cfg.antialias and a pixel_rad (see pixel_radius),
@@ -61,19 +96,22 @@ def render_rays(
     under cfg.step_clamp, and march shadows under
     cfg.effective_shadow_clamp() (the JAX package's render_rays). With
     `live` = {"march": [], "shadow": []} (and optionally "probe", a
-    callable), the loops report their live rays per step (march.march)."""
+    callable), the loops report their live rays per step (march.march);
+    that needs the plain loops. `march_scene` is the kernels' packed view
+    of params (march_kernels.pack_march_scene), when the caller has one."""
     clamp = cfg.step_clamp if structure.instanced else None
     shadow_clamp = cfg.effective_shadow_clamp() if structure.instanced else None
     sdf = make_scene_sdf(structure, clamp)
     sdf_id = make_scene_sdf_with_id(structure, clamp)
     shadow_sdf = sdf if shadow_clamp == clamp else make_scene_sdf(structure, shadow_clamp)
+    march_fn, shadow_fn = _march_kernels(structure, params, rd, cfg, live, march_scene)
     use_aa = cfg.antialias and pixel_rad is not None
     t, obj_id, alpha, _ = intersect_aa(
-        sdf, sdf_id, params, ro, rd, cfg, pixel_rad if use_aa else None, live
+        sdf, sdf_id, params, ro, rd, cfg, pixel_rad if use_aa else None, live, march_fn
     )
     p = ro + t[..., None] * rd
     n = get_normal(sdf, params, p, t, cfg)
-    color = shade(structure, params, shadow_sdf, p, n, obj_id, cfg, live)
+    color = shade(structure, params, shadow_sdf, p, n, obj_id, cfg, live, shadow_fn)
     if use_aa:
         # blend toward the background (material 0 ambient) in linear space
         bg = clip(params.ambient_color * params.mat_ambient[0], 0.0, 1.0)
@@ -106,13 +144,25 @@ def render_image_banded(
     """`render_image` in sequential bands of `band_rows` full-width rows
     (the last band may be shorter): the same image, bitwise, with the
     temporaries of one band alive at a time (the JAX package's
-    render_image_banded, which maps over bands with lax.map)."""
+    render_image_banded, which maps over bands with lax.map). Under
+    autograd each band is checkpointed, as there: its forward runs again
+    in the backward, so one band's intermediates are alive at a time. The
+    march kernels' view of params is packed once for all bands."""
     pr = pixel_radius(params, height, cfg) if cfg.antialias else None
-    bands = []
-    for r0 in range(0, height, band_rows):
+    scene = None
+    if resolve_march_backend(cfg.march_backend, params.cam_point) == "pallas":
+        from loltracer_tpu_torch.render.march_kernels import pack_march_scene
+
+        scene = pack_march_scene(structure, params)
+
+    def band(r0: int):
         rows = torch.arange(r0, min(r0 + band_rows, height))
         ro, rd = camera_rays_for_rows(params, rows, height, width, cfg)
-        bands.append(render_rays(structure, params, ro, rd, cfg, pixel_rad=pr))
+        return render_rays(structure, params, ro, rd, cfg, pixel_rad=pr, march_scene=scene)
+
+    remat = torch.is_grad_enabled()
+    bands = [checkpoint(band, r0, use_reentrant=False, preserve_rng_state=False) if remat
+             else band(r0) for r0 in range(0, height, band_rows)]
     return torch.cat(bands, dim=0)
 
 
@@ -121,11 +171,18 @@ def make_renderer(
     height: int,
     width: int,
     cfg: RenderConfig = DEFAULT_CONFIG,
+    device=None,
 ) -> Callable[[SceneParams], torch.Tensor]:
-    """`params -> [H, W, 3]` for this structure, size and config."""
+    """`params -> [H, W, 3]` for this structure, size and config, without
+    autograd. With `device`, params go there as f32 first (raises for CUDA
+    without CUDA); else they render where they are."""
+    if device is not None:
+        device = resolve_device(device, "make_renderer")
 
     @torch.no_grad()
     def renderer(params: SceneParams) -> torch.Tensor:
+        if device is not None:
+            params = params_to(params, device=device, dtype=torch.float32)
         return render_image(structure, params, height, width, cfg)
 
     return renderer

@@ -1,0 +1,120 @@
+"""The port's `cli fit` and `cli render --backend`, and `fit_scene` on the
+path that the march kernel K3 serves on the card (any estimator but
+"envelope": the differentiable renderer), on CPU tensors:
+
+- `cli fit` prints the JAX package's `[fit] step` lines and `final loss:`
+  line and writes `-o`; its losses are `fit_scene`'s with antialiasing;
+  `--checkpoint` reaches fit_scene's NotImplementedError;
+- `fit_scene` with exact shadows takes `render_image` for compiled
+  structures and 16-row `render_image_banded` for instanced ones, and
+  raises for CUDA without CUDA;
+- `cli render --backend pallas` is the fused kernel's path, `--backend jnp`
+  the differentiable renderer's; on the CPU both give the same PNG.
+
+On the card `chip_smoke.py` phases 19 and 21 run these paths at 1080p."""
+
+import dataclasses
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from loltracer_tpu_torch import cli
+from loltracer_tpu_torch.config import RenderConfig
+from loltracer_tpu_torch.lol import parse_scene_file
+from loltracer_tpu_torch.opt import fit_scene, inverse
+from loltracer_tpu_torch.render.cuda_renderer import make_cuda_renderer
+from loltracer_tpu_torch.scene import build_scene
+from loltracer_tpu_torch.scenes import instanced_spheres
+from loltracer_tpu_torch.utils.image import read_png
+
+torch.set_num_threads(1)  # one intra-op thread per pytest worker
+
+H, W = 16, 24
+
+
+@pytest.fixture(scope="module")
+def scene4(examples_dir):
+    return build_scene(parse_scene_file(str(examples_dir / "scene4.lol")))
+
+
+@pytest.fixture(scope="module")
+def target(scene4, tmp_path_factory):
+    """scene4 at 24x16 with its sphere points moved, rendered with AA, as
+    the .npy `cli fit` reads."""
+    moved = scene4.params.sphere_point + torch.from_numpy(
+        np.random.default_rng(0).uniform(-0.1, 0.1, (scene4.structure.num_spheres, 3))
+        .astype(np.float32))
+    img = make_cuda_renderer(scene4.structure, H, W, RenderConfig(antialias=True),
+                             device="cpu")(dataclasses.replace(scene4.params, sphere_point=moved))
+    path = tmp_path_factory.mktemp("fit") / "target.npy"
+    np.save(path, img.numpy())
+    return path
+
+
+def test_cli_fit_matches_fit_scene(examples_dir, scene4, target, tmp_path, capsys):
+    """2 steps at 24x16 through the CLI (AA on by default, exact shadows),
+    then fit_scene with RenderConfig(antialias=True): the same losses."""
+    out = tmp_path / "fit.png"
+    assert cli.main(["fit", str(examples_dir / "scene4.lol"), "--target", str(target),
+                     "--steps", "2", "--trainable", "sphere_point", "--device", "cpu",
+                     "-o", str(out)]) == 0
+    printed = capsys.readouterr().out
+    steps = [float(v) for v in re.findall(r"^\[fit\] step \d+ loss (\S+)$", printed, re.M)]
+    final = re.search(r"^final loss: (\S+)$", printed, re.M)
+    assert len(steps) == 2 and final and float(final.group(1)) == steps[-1]
+    assert read_png(str(out)).shape == (H, W, 3)
+
+    result = fit_scene(scene4.structure, scene4.params, np.load(target), steps=2,
+                       trainable=("sphere_point",), cfg=RenderConfig(antialias=True),
+                       device="cpu")
+    assert [f"{v:.6g}" for v in result.losses] == [f"{v:.6g}" for v in steps]
+    assert np.isfinite(result.losses).all()
+
+
+def test_cli_fit_checkpoint_is_not_ported(examples_dir, target):
+    with pytest.raises(NotImplementedError, match="checkpoint"):
+        cli.main(["fit", str(examples_dir / "scene4.lol"), "--target", str(target),
+                  "--steps", "1", "--device", "cpu", "--checkpoint", "fit.ckpt"])
+
+
+def test_fit_scene_takes_the_differentiable_renderer(scene4, monkeypatch):
+    """Any estimator but "envelope": render_image for a compiled
+    structure, render_image_banded in 16-row bands for an instanced one
+    (the JAX package's _jnp_row_renderer). A CUDA request without CUDA
+    raises."""
+    calls = []
+    real_image, real_banded = inverse.render_image, inverse.render_image_banded
+    monkeypatch.setattr(inverse, "render_image",
+                        lambda *a, **k: calls.append("image") or real_image(*a, **k))
+    monkeypatch.setattr(inverse, "render_image_banded",
+                        lambda *a, **k: calls.append(("banded", k["band_rows"]))
+                        or real_banded(*a, **k))
+    fit_scene(scene4.structure, scene4.params, np.zeros((4, 6, 3), np.float32), steps=1,
+              device="cpu")
+    inst = instanced_spheres(n=64, seed=1)
+    fit_scene(inst.structure, inst.params, np.zeros((4, 6, 3), np.float32), steps=1,
+              cfg=RenderConfig(step_clamp=2.0), trainable=("sphere_point",), device="cpu")
+    assert calls == ["image", ("banded", 16)]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        fit_scene(scene4.structure, scene4.params, np.zeros((4, 6, 3), np.float32), steps=1,
+                  device="cuda")
+
+
+@pytest.mark.parametrize("scene", ["scene3.lol", "instanced:64"])
+def test_cli_render_backends_agree_on_the_cpu(examples_dir, scene, tmp_path, capsys):
+    """`--backend pallas` (the default: the fused kernel's plain version on
+    the CPU) and `--backend jnp` (the differentiable renderer) write the
+    same PNG."""
+    src = scene if scene.startswith("instanced:") else str(examples_dir / scene)
+    pngs = []
+    for backend in ("pallas", "jnp"):
+        out = tmp_path / f"{backend}.png"
+        extra = ["--step-clamp", "2"] if scene.startswith("instanced:") else []
+        assert cli.main(["render", src, "--size", "20x12", "--device", "cpu", "--backend",
+                         backend, "-o", str(out), *extra]) == 0
+        pngs.append(read_png(str(out)))
+    np.testing.assert_array_equal(pngs[0], pngs[1])
+    assert pngs[0].max() > 0

@@ -1,0 +1,303 @@
+"""Host side of the port's value march kernels K3 (`lol_march`,
+`lol_march_instanced`) and K4 (`lol_shadow_march`,
+`lol_shadow_march_instanced`), on a machine without CUDA:
+
+- the generated march source: deterministic, one text for every sphere
+  count, the four entry points where they belong;
+- csrc/march.cuh's per-ray functions over the compiled and the instanced
+  `Scene`, compiled for the host with g++ through the shim of
+  tests/test_torch_train_host.py, ray by ray against the plain loops
+  (march_values_reference, shadow_values_reference) on camera rays and on
+  the real shadow rays of each light: scene4, and instanced:300 at clamp 2
+  and exact;
+- `render_pixel` after its march and shadow loops moved into `march_ray` /
+  `shadow_ray`, against the same source with the loops written inline as
+  they were: the two host builds give bitwise the same image and residual
+  planes.
+
+The kernels themselves run only on the card (chip_smoke.py phases 17-21)."""
+
+import ctypes
+import hashlib
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from loltracer_tpu_torch.config import RenderConfig
+from loltracer_tpu_torch.lol import parse_scene_file
+from loltracer_tpu_torch.render import cuda_scene, march_kernels
+from loltracer_tpu_torch.render.camera import camera_pack, camera_rays
+from loltracer_tpu_torch.render.cuda_scene import (
+    generate_march_source,
+    generate_source,
+    pack_fields,
+)
+from loltracer_tpu_torch.render.march_kernels import (
+    march_values_reference,
+    pack_march_scene,
+    shadow_values_reference,
+)
+from loltracer_tpu_torch.render.vecmath import dot, normalize
+from loltracer_tpu_torch.scene import build_scene
+from loltracer_tpu_torch.scenes import instanced_spheres
+
+torch.set_num_threads(1)  # one intra-op thread per pytest worker
+
+_SHIM = r"""
+#include <cstddef>
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __ldg(p) (*(p))
+struct float4 { float x, y, z, w; };
+struct int2 { int x, y; };
+"""
+
+# per ray i of n: K3's four planes [4, n] (max_dist null) or K4's two [2, n]
+_COMPILED_ENTRY = r"""
+using lol_gen::Cfg;
+using lol_gen::Scene;
+
+extern "C" void host_march(const float* P, const float* ro, int ro_stride, const float* rd,
+                           const float* max_dist, float* out, int n) {
+  const Scene scn(P);
+  const lol::MarchArgs a{ro, ro_stride, rd, max_dist, out};
+  for (size_t i = 0; i < (size_t)n; ++i) {
+    if (max_dist) lol::value_at<true, Cfg>(scn, a, i, n);
+    else lol::value_at<false, Cfg>(scn, a, i, n);
+  }
+}
+"""
+
+_INSTANCED_ENTRY = r"""
+using lol_gen::Cfg;
+using lol_gen::Scene;
+
+extern "C" void host_march(const float* P, const float* s, const int* ids, const float* g,
+                           const float* bbox, int ns, int ng, const float* ro, int ro_stride,
+                           const float* rd, const float* max_dist, float* out, int n) {
+  const lol::InstancedTables tab{reinterpret_cast<const float4*>(s),
+                                 reinterpret_cast<const int2*>(ids),
+                                 reinterpret_cast<const float4*>(g), bbox, ns, ng};
+  const Scene scn(P, tab, reinterpret_cast<const float4*>(g));
+  const lol::MarchArgs a{ro, ro_stride, rd, max_dist, out};
+  for (size_t i = 0; i < (size_t)n; ++i) {
+    if (max_dist) lol::value_at<true, Cfg>(scn, a, i, n);
+    else lol::value_at<false, Cfg>(scn, a, i, n);
+  }
+}
+"""
+
+_RENDER_ENTRY = r"""
+extern "C" void host_render(const float* cam, const float* P, float* img, float* res,
+                            int height, int width) {
+  const lol_gen::Scene scn(P);
+  for (int y = 0; y < height; ++y)
+    for (int x = 0; x < width; ++x)
+      lol::render_pixel<lol_gen::Cfg, lol_gen::Scene>(cam, scn, P, x, y, height, width, img,
+                                                      res, (size_t)height * width);
+}
+"""
+
+# render_pixel's two loops as they were written before march_ray and
+# shadow_ray took them over
+_MARCH_CALL = """\
+  float t, t_query, s_min, t_close;
+  march_ray<Cfg, Cfg::antialias>(scn, ox, oy, oz, dx, dy, dz, t, t_query, s_min, t_close);
+"""
+_MARCH_INLINE = """\
+  float t = 0.f, t_query = 0.f, s_min = INFINITY, t_close = 0.f;
+  for (int step = 0; step < Cfg::max_steps; ++step) {
+    const float d = scn.dist(ox + t * dx, oy + t * dy, oz + t * dz);
+    const float new_t = t + d;
+    if (Cfg::antialias) {
+      const float s = d / (t > 0.f ? t : 1.f);
+      if (t > 0.f && s < s_min) {
+        s_min = s;
+        t_close = t;
+      }
+    }
+    t_query = t;
+    t = new_t;
+    if (d < Cfg::epsilon || new_t > Cfg::max_dist) break;
+  }
+"""
+_SHADOW_CALL = """\
+    float t_star;
+    const float res = shadow_ray<Cfg>(scn, sox, soy, soz, lx, ly, lz, light_dist, t_star);
+"""
+_SHADOW_INLINE = """\
+    float res = 1.f, ts = 0.f, t_star = 0.f;
+    for (int step = 0; step < Cfg::shadow_steps; ++step) {
+      const float d = scn.shadow_dist(sox + ts * lx, soy + ts * ly, soz + ts * lz);
+      const float val =
+          ts > 0.f ? Cfg::shadow_w * d / ts : (d < 0.f ? -INFINITY : INFINITY);
+      if constexpr (Cfg::with_residuals) {
+        if (val < res) t_star = ts;  // first-wins argmin (NaN never wins)
+      }
+      res = jmin(res, val);
+      ts = ts + d;
+      if (res < -1.f || ts > light_dist) break;
+    }
+"""
+
+
+def _build(text, tmp_path):
+    """`text` built for the host (g++, IEEE arithmetic without contraction,
+    as nvcc's --fmad=false), one file name per source."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed: the host build of the generated CUDA source needs it")
+    stem = "march_host_" + hashlib.sha256(text.encode()).hexdigest()[:16]
+    src = tmp_path / f"{stem}.cpp"
+    src.write_text(text)
+    so = tmp_path / f"{stem}.so"
+    subprocess.run(
+        ["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
+         "-o", str(so), str(src)],
+        check=True, capture_output=True, text=True,
+    )
+    return ctypes.CDLL(str(so))
+
+
+def _ptr(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.c_void_p)
+
+
+@pytest.fixture(scope="module")
+def scene4(examples_dir):
+    return build_scene(parse_scene_file(str(examples_dir / "scene4.lol")))
+
+
+def _shadow_rays(structure, params, ro, rd, t, cfg):
+    """Per light, the shadow rays shading.phong marches from the hits at t:
+    (origin, direction, distance to the light), contiguous."""
+    p = ro + t[..., None] * rd
+    out = []
+    for li in range(structure.num_lights):
+        to_light = params.light_point[li] - p
+        light_dir = normalize(to_light)
+        out.append(tuple(x.contiguous() for x in (
+            p + light_dir * cfg.shadow_offset, light_dir, torch.sqrt(dot(to_light, to_light)))))
+    return out
+
+
+def _host_values(lib, structure, scene, ro, rd, max_dist):
+    """The host build's planes [4 or 2, ...] for the rays ro, rd (and
+    max_dist for K4)."""
+    batch = tuple(rd.shape[:-1])
+    n = int(np.prod(batch))
+    out = np.zeros((4 if max_dist is None else 2, n), np.float32)
+    ro_np, rd_np = ro.contiguous().numpy(), rd.contiguous().numpy()
+    md = None if max_dist is None else max_dist.contiguous().numpy()
+    args = [_ptr(ro_np), 0 if ro.dim() == 1 else 3, _ptr(rd_np),
+            None if md is None else _ptr(md), _ptr(out), n]
+    fields = scene.fields.numpy()
+    if structure.instanced:
+        tabs = [t.numpy() for t in scene.tables]
+        lib.host_march(_ptr(fields), *[_ptr(t) for t in tabs], structure.num_spheres,
+                       scene.tables.groups.shape[0], *args)
+    else:
+        lib.host_march(_ptr(fields), *args)
+    return out.reshape((-1,) + batch)
+
+
+def _close(got, want, what, atol=1e-4, rtol=1e-4, most=2):
+    """Equal (infinities included) or within atol + rtol |want| on all but
+    `most` rays: the rule chip_smoke.py holds the kernels to."""
+    with np.errstate(invalid="ignore"):  # inf - inf
+        bad = ~((got == want) | (np.abs(got - want) <= atol + rtol * np.abs(want)))
+    assert bad.sum() <= most, (what, int(bad.sum()))
+
+
+def _check_marches(lib, structure, params, cfg, h, w):
+    """K3 on the camera rays and K4 on each light's shadow rays from K3's
+    hits, host build vs the plain loops."""
+    scene = pack_march_scene(structure, params)
+    ro, rd = camera_rays(params, h, w, cfg)
+    want = march_values_reference(structure, cfg, ro, rd, scene)
+    got = _host_values(lib, structure, scene, ro, rd, None)
+    for i, name in enumerate(("t", "t_query", "s_min", "t_close")):
+        _close(got[i], want[i].numpy(), name)
+    for li, (so, ld, dist) in enumerate(_shadow_rays(structure, params, ro, rd,
+                                                     torch.from_numpy(got[0]), cfg)):
+        want = shadow_values_reference(structure, cfg, so, ld, dist, scene)
+        got_s = _host_values(lib, structure, scene, so, ld, dist)
+        _close(got_s[0], want[0].numpy(), f"res of light {li}", atol=5e-5)
+        _close(got_s[1], want[1].numpy(), f"t* of light {li}", atol=5e-5)
+        # the per-ray origin layout (ro_stride 3) is exercised here too
+        assert so.dim() == 3
+
+
+def test_march_source_entries_and_determinism(scene4):
+    cfg = RenderConfig(antialias=True)
+    src = generate_march_source(scene4.structure, cfg)
+    assert src == generate_march_source(scene4.structure, cfg)
+    entries = src.rsplit("#ifdef __CUDACC__", 1)[1]
+    for name in ("lol_march", "lol_shadow_march"):
+        assert f"int {name}(" in entries
+    assert "instanced" not in entries
+    assert (cuda_scene.CSRC / "march.cuh").read_text() in src
+    a, b = instanced_spheres(n=300), instanced_spheres(n=10_000, seed=3)
+    clamp2 = RenderConfig(step_clamp=2.0)
+    inst = generate_march_source(a.structure, clamp2)
+    assert inst == generate_march_source(b.structure, clamp2)
+    for text in ("300", "10000", "299", "9999"):
+        assert text not in inst.split("namespace lol_gen {", 1)[1]
+    entries = inst.rsplit("#ifdef __CUDACC__", 1)[1]
+    for name in ("lol_march_instanced", "lol_shadow_march_instanced"):
+        assert f"int {name}(" in entries
+    assert inst != generate_march_source(a.structure, RenderConfig())
+    # configs that agree on what the kernels compile in share one library
+    k = march_kernels.kernel_config
+    assert k(scene4.structure, cfg) == k(scene4.structure, RenderConfig(gamma=1.0))
+    assert k(a.structure, clamp2) != k(a.structure, clamp2.replace(shadow_step_clamp=8.0))
+
+
+def test_host_built_compiled_marches_match_plain_loops(scene4, tmp_path):
+    """scene4 at 12x40: K3's four planes and, per light, K4's res and t*
+    on the shadow rays from the hits."""
+    cfg = RenderConfig(antialias=True)
+    src = _SHIM + generate_march_source(scene4.structure, cfg) + _COMPILED_ENTRY
+    _check_marches(_build(src, tmp_path), scene4.structure, scene4.params, cfg, 12, 40)
+
+
+@pytest.mark.parametrize(
+    "cfg", [RenderConfig(step_clamp=2.0), RenderConfig()], ids=["clamp2", "exact"]
+)
+def test_host_built_instanced_marches_match_plain_loops(cfg, tmp_path):
+    """instanced:300 (seed 9) at 10x24: the traversal under the primary
+    clamp in K3 and under the shadow clamp in K4, against the plain loops
+    over the blockwise SDF."""
+    scene = instanced_spheres(n=300, seed=9)
+    src = _SHIM + generate_march_source(scene.structure, cfg) + _INSTANCED_ENTRY
+    _check_marches(_build(src, tmp_path), scene.structure, scene.params, cfg, 10, 24)
+
+
+@pytest.mark.parametrize("residuals", [False, True], ids=["render", "train"])
+def test_render_pixel_is_bitwise_what_it_was(scene4, residuals, tmp_path):
+    """render_pixel with its loops in march_ray / shadow_ray vs the same
+    source with the loops inline as before: scene4 with antialiasing at
+    12x40, both built for the host; the image and, for the training
+    source, the residual planes are bitwise equal."""
+    cfg = RenderConfig(antialias=True, shadow_grad="envelope")
+    src = generate_source(scene4.structure, cfg, residuals=residuals)
+    assert src.count(_MARCH_CALL) == 1 and src.count(_SHADOW_CALL) == 1
+    old = src.replace(_MARCH_CALL, _MARCH_INLINE).replace(_SHADOW_CALL, _SHADOW_INLINE)
+    h, w = 12, 40
+    cam = camera_pack(scene4.params, h, w, cfg).numpy()
+    fields = pack_fields(scene4.structure, scene4.params).numpy()
+    planes = 4 + 2 * scene4.structure.num_lights
+    outs = []
+    for text in (src, old):
+        lib = _build(_SHIM + text + _RENDER_ENTRY, tmp_path)
+        img = np.zeros((h, w, 3), np.float32)
+        res = np.zeros((planes, h, w), np.float32)
+        lib.host_render(_ptr(cam), _ptr(fields), _ptr(img), _ptr(res) if residuals else None,
+                        h, w)
+        outs.append((img, res))
+    np.testing.assert_array_equal(outs[0][0], outs[1][0])
+    np.testing.assert_array_equal(outs[0][1], outs[1][1])
+    assert outs[0][0].max() > 0

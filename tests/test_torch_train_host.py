@@ -267,10 +267,11 @@ def test_training_renderer_refuses_what_the_kernels_do_not_implement(examples, m
     for kw in ({"mesh": object()}, {"checkpoint_path": "fit.ckpt"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fit_scene(st, examples["scene4.lol"].params, np.zeros((4, 4, 3)), **kw)
-    # on the card only the envelope path has kernels: the others raise
-    # before anything touches the device
+    # the exact estimator is no longer refused on the card (its march runs
+    # the kernel K3): past the gate, it reaches for the device, which this
+    # CPU build of torch does not have
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 3"):
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
         fit_scene(st, examples["scene4.lol"].params, np.zeros((4, 4, 3), np.float32),
                   cfg=RenderConfig(shadow_grad="exact"), device="cuda")
 
