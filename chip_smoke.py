@@ -116,6 +116,37 @@ Phases, one line each:
    over 3 path B steps and 3 rounds of the four march kernels, and one path
    B step's peak memory by allocating line.
 
+22. build the regrouped instanced forward K9 (`lol_rg_march`,
+   `lol_rg_shadow` and its stats twin, `lol_rg_shade`; started with the
+   other builds in phase 1) for clamp 2, exact, clamp 2 + AA and shadow
+   clamp 8; at 97x161, on phase 10's instanced cases, each kernel against
+   its plain version (`march_track_reference`: hit and material equal,
+   the rest by phase 18's rule; `shadow_sorted_reference` per light over
+   the Morton order; `shade_planes_reference` by the phase-2 rule), and
+   the pipeline's image bitwise `lol_instanced_render`'s;
+23. main path D: `make_instanced_renderer_regrouped` of instanced:10000
+   @1920x1080, clamp 2 and exact: one lol_rg_march, one lol_rg_shadow per
+   light and one lol_rg_shade, the image bitwise lol_instanced_render's.
+   Then, at clamp 2 (CUDA events, median of 3): each kernel, lol_rg_shadow
+   per light sorted and in pixel order (the identity permutation: the same
+   planes), the glue, the frame and lol_instanced_render in the same call;
+   `shadow_gather_stats` per light sorted and unsorted; device time by
+   kernel (`chip_smoke.py --profile-regroup`, a process of its own); the
+   plain version on the middle 16-row band (through the pack's row0, the
+   band launch bitwise the frame's rows), the pieces timed on it;
+24. the bounds of the three K9 kernels;
+25. path E, run right after phase 1, before any bound:
+   `loltracer_tpu_torch.cli peak` at full size (its record into a
+   temporary file), the measured FMA rate between 95 % and 105 % of the
+   modelled ceiling 132 SMs x 128 lanes x 2 flops x the card's maximum SM
+   clock; the three chain kernels bitwise the plain chains on the full
+   lane count at 8 iterations (the fused and mul + add plain chains
+   differing); device time of one full-size call of each chain
+   (`chip_smoke.py --profile-peak`, a process of its own).
+
+The CLI phases (3, 11) pass `--backend pallas`: `cli render` defaults to
+the differentiable renderer, as the JAX package's does.
+
 Then a JSON line with each kernel's launches on its main path, error,
 times and bound, and last the line {"ok": true, "device": {...}}. Any
 failure raises: the traceback is printed, the exit code is not 0 and the
@@ -124,11 +155,16 @@ file, it fails the same way.
 
 The march kernels' launches in the `kernels` line are those of their main
 paths: lol_march in path A, lol_shadow_march in path B, the instanced pair
-in path C's frame.
+in path C's frame; the K9 kernels' those of path D's clamp-2 frame (their
+`ms` per launch, lol_rg_shadow for light 0 sorted, beside `unsorted_ms`);
+K8's those of `cli peak` (its `ms` the best full-size call, `device_ms`
+the profiler's, `plain_ms` at `plain_ms_iters` iterations).
 
 A kernel's bound is the least time the card could take for its work: the
 larger of its bytes (inputs read once, outputs written once) over 3.35 TB/s
-and its FP32 operations over 67 TFLOP/s (H100 SXM data sheet). Operations
+and its FP32 operations over the modelled FP32 ceiling of this card (132
+SMs x 128 lanes x 2 flops x its maximum SM clock from nvidia-smi), which
+phase 25's measured FMA rate confirms. Operations
 are counted with an operation model (`sdf_ops` per SDF evaluation of the
 generated code, a fixed count per pixel for the rest) times the SDF
 evaluations this run's rays need, counted by the plain version's own march
@@ -159,7 +195,7 @@ MAIN_W, MAIN_H = 1920, 1080
 UHD_W, UHD_H = 3840, 2160
 BAND = 16  # rows of each 1080p band held against the plain version
 HBM_BYTES_PER_MS = 3.35e12 / 1e3  # H100 SXM
-FP32_OPS_PER_MS = 67e12 / 1e3
+PEAK_LOW, PEAK_HIGH = 0.95, 1.05  # the measured FMA rate over the modelled ceiling
 
 
 def require(cond: bool, msg: str) -> None:
@@ -443,11 +479,12 @@ def profile_march() -> int:
     return 0
 
 
-def run_profile(flag: str) -> str:
-    """profile_instanced's line, from a child process run with `flag` (it
-    loads the kernels the parent built from the build cache)."""
+def run_profile(*args: str) -> str:
+    """A profiling line (profile_instanced's and the like), from a child
+    process run with `args` (it loads the kernels the parent built from the
+    build cache)."""
     out = subprocess.run(
-        [sys.executable, str(Path(__file__).resolve()), flag],
+        [sys.executable, str(Path(__file__).resolve()), *args],
         capture_output=True, text=True, timeout=300,
     )
     require(out.returncode == 0,
@@ -455,10 +492,10 @@ def run_profile(flag: str) -> str:
     return out.stdout.strip().splitlines()[-1]
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, fp32_ops_per_ms: float):
     """(bound_ms, bound_by): the larger of bytes / HBM rate and FP32
-    operations / FP32 peak."""
-    b, o = nbytes / HBM_BYTES_PER_MS, ops / FP32_OPS_PER_MS
+    operations / the FP32 ceiling fp32_ops_per_ms (phase 25's)."""
+    b, o = nbytes / HBM_BYTES_PER_MS, ops / fp32_ops_per_ms
     return (b, "bytes") if b > o else (o, "operations")
 
 
@@ -553,7 +590,7 @@ def check_grads(got, want, what: str) -> float:
     return worst
 
 
-def march_phases(dev, card, scenes, inst, march_built, t0, e_inst, it_target):
+def march_phases(dev, card, scenes, inst, march_built, t0, e_inst, it_target, ceiling):
     """Phases 17-21: the value march kernels K3 / K4 and the three paths
     that run them (module docstring). Returns their four `kernels`
     entries."""
@@ -738,8 +775,8 @@ def march_phases(dev, card, scenes, inst, march_built, t0, e_inst, it_target):
     # K3 reads 12 B and writes 16 B per ray, K4 reads 28 B and writes 8 B
     E, rays = sdf_ops(st4), MAIN_W * MAIN_H
     small = 4 * (3 + packed_size(st4))
-    k3_bound = bound(small + 28 * rays, sum(live["march"]) * (E + 15))
-    k4_bound = bound(small + 36 * rays, sum(live["shadow"]) * (E + 17))
+    k3_bound = bound(small + 28 * rays, sum(live["march"]) * (E + 15), ceiling)
+    k4_bound = bound(small + 36 * rays, sum(live["shadow"]) * (E + 17), ceiling)
     print(f"[20] scene4 AA {MAIN_W}x{MAIN_H} on {card}: path A step (exact) {a_step_ms:.1f} ms, "
           f"path B fwd+bwd (envelope) {b_step_ms:.1f} ms; lol_march {k3_ms:.4f} ms (plain "
           f"{p3_ms:.1f} ms, bound {k3_bound[0]:.4f} ms by {k3_bound[1]}, "
@@ -859,8 +896,8 @@ def march_phases(dev, card, scenes, inst, march_built, t0, e_inst, it_target):
     # within the cut, counted on the bands, + 22), plus the step's 15 / 17
     band_rays = BAND * MAIN_W
     tables = 4 * sum(t.numel() for t in scene_c.tables) + 4 * (3 + fields_c.numel())
-    k3i_bound = bound(tables + 28 * band_rays, sum(live["march"]) * (e_inst + 15))
-    k4i_bound = bound(tables + 36 * band_rays, sum(live["shadow"]) * (e_inst + 17))
+    k3i_bound = bound(tables + 28 * band_rays, sum(live["march"]) * (e_inst + 15), ceiling)
+    k4i_bound = bound(tables + 36 * band_rays, sum(live["shadow"]) * (e_inst + 17), ceiling)
     print(f"[21] instanced:10000 clamp 2 on {card}: path C frame {c_frame_ms:.0f} ms (no "
           f"autograd), three bands fwd+bwd {sum(c_band_s):.1f} s (peak {c_peak / 2**20:.0f} MiB "
           f"allocated above the {c_base / 2**20:.0f} MiB live before them); per {BAND}-row band: lol_march_instanced {k3i_ms:.3f} ms (plain "
@@ -908,6 +945,373 @@ def march_phases(dev, card, scenes, inst, march_built, t0, e_inst, it_target):
     ]
 
 
+def peak_phase(dev, card, peak_built):
+    """Phase 25, run right after the builds, before any bound: path E, `cli
+    peak` at full size (its record into a temporary file), the measured
+    FMA rate within PEAK_LOW..PEAK_HIGH of the modelled ceiling 132 SMs x
+    128 lanes x 2 flops x the card's maximum SM clock, the chain kernels
+    bitwise the plain chains on the full lane count at 8 iterations, and
+    the device time of one full-size call of each chain. Returns the K8
+    `kernels` entries and the ceiling every bound divides by (FP32
+    operations per ms): the modelled one, which the measured rate
+    confirms."""
+    import torch
+
+    from loltracer_tpu_torch import cli
+    from loltracer_tpu_torch.utils import peak
+
+    peak_built.result()
+    for k in peak.launches:
+        peak.launches[k] = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "gpu_peak.json"
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            require(cli.main(["peak", "--out", str(out)]) == 0, "cli peak failed")
+        rec = json.loads(out.read_text())
+    e_counts = dict(peak.launches)
+    require(e_counts["lol_peak_fma"] > 0 and e_counts["lol_peak_sqrt"] > 0,
+            f"cli peak launched {e_counts}")
+    for key in ("fma_flops_per_s", "muladd_flops_per_s", "sqrt_evals_per_s"):
+        require(math.isfinite(rec[key]) and rec[key] > 0, f"{key} {rec[key]}")
+    dev_info = rec["device"]
+    modelled = dev_info["modelled_fma_flops_per_s"]
+    share = rec["fma_flops_per_s"] / modelled
+    require(PEAK_LOW <= share <= PEAK_HIGH,
+            f"measured FMA rate {rec['fma_flops_per_s']:.6g} flop/s is {share:.4f} of 132 SMs x "
+            f"128 x 2 x {dev_info['max_sm_clock_mhz']} MHz, outside [{PEAK_LOW}, {PEAK_HIGH}]: "
+            f"a fault of the probe, or a card held below its clock")
+    ceiling = modelled / 1e3
+    print(f"[25] path E: cli peak on {card} -> {printed.getvalue().strip().splitlines()[-1]}")
+    det = rec["detail"]
+    print(f"[25] lol_peak_fma fused {det['fma']['flops_per_s'] / 1e12:.4f} TFLOP/s "
+          f"({det['fma']['iters']} iterations, {det['fma']['best_seconds'] * 1e3:.3f} ms), "
+          f"{share:.4f} of the modelled ceiling at {dev_info['max_sm_clock_mhz']:.0f} MHz "
+          f"{modelled / 1e12:.4f} TFLOP/s, which every bound below divides by; mul + add "
+          f"{det['muladd']['flops_per_s'] / 1e12:.4f} TFLOP/s "
+          f"({det['muladd']['best_seconds'] * 1e3:.3f} ms); lol_peak_sqrt "
+          f"{det['sqrt']['evals_per_s'] / 1e12:.4f} T evaluations/s "
+          f"({det['sqrt']['best_seconds'] * 1e3:.3f} ms); transcendental weight "
+          f"{rec['transcendental_weight']:.3f}; launches {e_counts}")
+
+    lanes, iters = peak.LANES, 8
+    x = torch.linspace(1.0, 2.0, lanes, dtype=torch.float32, device=dev)
+    errs, plain_ms, small_ms, want = {}, {}, {}, {}
+    for kind in peak.KINDS:
+        got = peak.peak_chain(x, kind, iters)
+        want[kind] = peak.peak_chain_reference(x, kind, iters)
+        torch.cuda.synchronize()
+        errs[kind] = float((got - want[kind]).abs().max())
+        require(torch.equal(got, want[kind]),
+                f"{kind} chain: max |diff| {errs[kind]:.3g} vs the plain chain (bitwise expected)")
+        small_ms[kind] = time_ms(lambda: peak.peak_chain(x, kind, iters), 3)
+        plain_ms[kind] = time_ms(lambda: peak.peak_chain_reference(x, kind, iters), 1)
+        print(f"[25] {kind} chain, {lanes} lanes x {iters} iterations: bitwise the plain chain; "
+              f"kernel {small_ms[kind]:.3f} ms, plain {plain_ms[kind]:.1f} ms")
+    # the two FMA chains' plain versions round differently, so the bitwise
+    # checks above tell a fused kernel from a mul + add one
+    differ = int((want["fma"] != want["muladd"]).sum())
+    require(differ > 0, "the fused and mul + add plain chains agree on every lane")
+    print(f"[25] the fused and mul + add chains differ on {differ} of {lanes} lanes")
+
+    its = {k: det[k]["iters"] for k in peak.KINDS}
+    prof = run_profile("--profile-peak", *(str(its[k]) for k in peak.KINDS))
+    dev_ms = {}
+    for ms, kk in re.findall(r"([\d.]+) ms x1 [^;]*peak_kernel<(\d)>", prof):
+        dev_ms[{"1": "fma", "0": "muladd", "2": "sqrt"}[kk]] = float(ms)
+    require(set(dev_ms) == set(peak.KINDS), f"no device time of each chain in: {prof}")
+    print(f"[25] torch.profiler (`chip_smoke.py --profile-peak`) over one full-size call of "
+          f"each chain: {prof}")
+    fma_lanes, sqrt_lanes = det["fma"]["lanes"], det["sqrt"]["lanes"]
+    fma_ops = fma_lanes * its["fma"] * peak.STEPS * 2.0
+    sqrt_ops = sqrt_lanes * its["sqrt"] * peak.STEPS
+    return [
+        dict(entry("lol_peak_fma", "loltracer_tpu_torch/csrc/peak.cuh",
+                   "loltracer_tpu/utils/peak.py:39", e_counts["lol_peak_fma"],
+                   max(errs["fma"], errs["muladd"]), det["fma"]["best_seconds"] * 1e3,
+                   plain_ms["fma"], bound(8.0 * fma_lanes, fma_ops, ceiling)),
+             ms_iters=its["fma"], plain_ms_iters=iters, device_ms=dev_ms["fma"],
+             flops_per_s=rec["fma_flops_per_s"], muladd_device_ms=dev_ms["muladd"],
+             muladd_flops_per_s=rec["muladd_flops_per_s"]),
+        dict(entry("lol_peak_sqrt", "loltracer_tpu_torch/csrc/peak.cuh",
+                   "loltracer_tpu/utils/peak.py:39", e_counts["lol_peak_sqrt"], errs["sqrt"],
+                   det["sqrt"]["best_seconds"] * 1e3, plain_ms["sqrt"],
+                   bound(8.0 * sqrt_lanes, sqrt_ops, ceiling)),
+             ms_iters=its["sqrt"], plain_ms_iters=iters, device_ms=dev_ms["sqrt"]),
+    ], ceiling
+
+
+def profile_peak(iters) -> int:
+    """`chip_smoke.py --profile-peak F M S`: torch.profiler over one
+    full-size call of each chain (lol_peak_fma fused at F iterations and mul
+    + add at M, lol_peak_sqrt at S), one line on stdout."""
+    import torch
+
+    require(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    sys.path.insert(0, str(ROOT))
+    from loltracer_tpu_torch.utils import peak
+
+    x = torch.linspace(1.0, 2.0, peak.LANES, dtype=torch.float32, device=torch.device("cuda", 0))
+
+    def step():
+        for kind, n in zip(peak.KINDS, iters):
+            peak.peak_chain(x, kind, int(n))
+
+    step()
+    print(profile_steps(step, 1))
+    return 0
+
+
+def regroup_phases(dev, card, inst, inst_cfgs, regroup_built, t0, e_inst, evals_march,
+                   ceiling):
+    """Phases 22-24: the regrouped instanced forward K9 (lol_rg_march,
+    lol_rg_shadow, lol_rg_shade) and path D (module docstring). e_inst is
+    phase 16's operations per instanced evaluation, evals_march phase 11's
+    march evaluations per ray. Returns the three `kernels` entries."""
+    import torch
+
+    from loltracer_tpu_torch.config import RenderConfig
+    from loltracer_tpu_torch.render import instanced_fwd, regroup
+    from loltracer_tpu_torch.render.camera import camera_pack
+    from loltracer_tpu_torch.render.cuda_scene import pack_fields
+    from loltracer_tpu_torch.render.instanced_pack import pack_instanced
+
+    names = ("lol_rg_march", "lol_rg_shadow", "lol_rg_shade")
+
+    def reset():
+        for k in regroup.launches:
+            regroup.launches[k] = 0
+        instanced_fwd.launches = 0
+
+    # --- 22. build and K9 vs the plain versions at 97x161 ---------------------------
+    built = [f.result() for f in regroup_built]
+    print(f"[22] build: {len(built)} K9 libraries (clamp 2, exact, clamp 2 AA, shadow clamp 8) "
+          f"done {time.perf_counter() - t0:.1f} s after the builds started; ptxas (clamp 2): "
+          + " | ".join(ptxas_lines(built[0].log)))
+    h, w = 97, 161
+    clamp2 = RenderConfig(step_clamp=2.0)
+    errs = {k: 0.0 for k in names}
+    cases = [(10_000, c) for c in inst_cfgs] + [(1, clamp2), (300, clamp2)]
+    for n, c in cases:
+        sc = inst[n]
+        st = sc.structure
+        cam = camera_pack(sc.params, h, w, c)
+        fields, tab = pack_fields(st, sc.params), pack_instanced(st, sc.params)
+        what = (f"instanced:{n} step_clamp={c.step_clamp} shadow_step_clamp="
+                f"{c.shadow_step_clamp} antialias={c.antialias}")
+        got = regroup.march_track(st, c, cam, fields, tab, h, w)
+        want = regroup.march_track_reference(st, c, cam, fields, tab, h, w)
+        torch.cuda.synchronize()
+        require(torch.equal(got.track[1:], want.track[1:]), f"{what}: lol_rg_march hit / material")
+        err, differ = check_values([got.track[0], *got.hitp, *got.rec.reshape(-1, h, w)],
+                                   [want.track[0], *want.hitp, *want.rec.reshape(-1, h, w)],
+                                   f"{what} lol_rg_march")
+        errs["lol_rg_march"] = max(errs["lol_rg_march"], err)
+        line = [f"lol_rg_march max |diff| {err:.3g}, {differ} values not bitwise"]
+        lo, hi = regroup.hit_box(got.hitp)
+        shadow = torch.empty((st.num_lights, 2, h, w), device=dev)
+        for li in range(st.num_lights):
+            perm = regroup.shadow_order(got.rec[li], lo, hi)
+            regroup.shadow_sorted(st, c, fields, tab, got.rec[li], perm, out=shadow[li])
+            want_s = regroup.shadow_sorted_reference(st, c, fields, tab, got.rec[li], perm)
+            torch.cuda.synchronize()
+            err, differ = check_values(shadow[li], want_s, f"{what} lol_rg_shadow light {li}")
+            errs["lol_rg_shadow"] = max(errs["lol_rg_shadow"], err)
+            line.append(f"lol_rg_shadow light {li} max |diff| {err:.3g}, {differ} not bitwise")
+        k_img = regroup.shade_planes(st, c, cam, fields, tab, got.track, shadow, h, w)
+        p_img = regroup.shade_planes_reference(st, c, cam, fields, tab, got.track, shadow, h, w)
+        torch.cuda.synchronize()
+        err, over = compare(k_img, p_img, f"{what} lol_rg_shade")
+        errs["lol_rg_shade"] = max(errs["lol_rg_shade"], err)
+        k5 = instanced_fwd.instanced_forward(st, c, cam, fields, tab, h, w)
+        pipe = regroup.regrouped_forward(st, c, cam, fields, tab, h, w)
+        torch.cuda.synchronize()
+        require(torch.equal(pipe, k5) and torch.equal(k_img, k5),
+                f"{what}: the regrouped image differs from lol_instanced_render's (max |diff| "
+                f"{float((pipe - k5).abs().max()):.3g})")
+        line.append(f"lol_rg_shade max |diff| {err:.3g}, {over} px over {ATOL}; image bitwise "
+                    f"lol_instanced_render's")
+        print(f"[22] {what} {h}x{w}: " + "; ".join(line))
+
+    # --- 23. path D: the regrouped renderer at 1080p --------------------------------
+    big = inst[10_000]
+    st = big.structure
+    L = st.num_lights
+    k5_imgs = {}
+    for tag, c in (("clamp 2", clamp2), ("exact", RenderConfig())):
+        render = regroup.make_instanced_renderer_regrouped(st, MAIN_H, MAIN_W, c, device=dev)
+        reset()
+        img = render(big.params)
+        torch.cuda.synchronize()
+        d_counts = {k: regroup.launches[k] for k in names}
+        require(d_counts == {"lol_rg_march": 1, "lol_rg_shadow": L, "lol_rg_shade": 1}
+                and instanced_fwd.launches == 0,
+                f"path D ({tag}) launched {d_counts} and lol_instanced_render "
+                f"{instanced_fwd.launches} times")
+        if tag == "clamp 2":
+            main_counts = d_counts
+        cam, fields, tab = (camera_pack(big.params, MAIN_H, MAIN_W, c),
+                            pack_fields(st, big.params), pack_instanced(st, big.params))
+        k5 = instanced_fwd.instanced_forward(st, c, cam, fields, tab, MAIN_H, MAIN_W)
+        torch.cuda.synchronize()
+        require(tuple(img.shape) == (MAIN_H, MAIN_W, 3) and bool(torch.isfinite(img).all()),
+                f"path D ({tag}): image {tuple(img.shape)}, finite "
+                f"{bool(torch.isfinite(img).all())}")
+        require(torch.equal(img, k5), f"path D ({tag}): the image differs from "
+                f"lol_instanced_render's, max |diff| {float((img - k5).abs().max()):.3g}")
+        k5_imgs[tag] = k5
+        print(f"[23] main path D: make_instanced_renderer_regrouped instanced:10000 {tag} "
+              f"{MAIN_W}x{MAIN_H} -> {d_counts}; image bitwise lol_instanced_render's")
+
+    c = clamp2
+    cam, fields, tab = (camera_pack(big.params, MAIN_H, MAIN_W, c), pack_fields(st, big.params),
+                        pack_instanced(st, big.params))
+    tr = regroup.march_track(st, c, cam, fields, tab, MAIN_H, MAIN_W)
+    lo, hi = regroup.hit_box(tr.hitp)
+    perms = [regroup.shadow_order(tr.rec[li], lo, hi) for li in range(L)]
+    ident = regroup.shadow_order(tr.rec[0], lo, hi, sort=False)
+    shadow = torch.empty((L, 2, MAIN_H, MAIN_W), device=dev)
+    for li in range(L):
+        regroup.shadow_sorted(st, c, fields, tab, tr.rec[li], perms[li], out=shadow[li])
+    unsorted = torch.empty_like(shadow)
+    for li in range(L):
+        regroup.shadow_sorted(st, c, fields, tab, tr.rec[li], ident, out=unsorted[li])
+    torch.cuda.synchronize()
+    require(torch.equal(shadow, unsorted), "lol_rg_shadow: sorted and unsorted planes differ")
+
+    def glue():
+        lo_, hi_ = regroup.hit_box(tr.hitp)
+        for li in range(L):
+            regroup.shadow_order(tr.rec[li], lo_, hi_)
+
+    def frame():
+        regroup.regrouped_forward(st, c, cam, fields, tab, MAIN_H, MAIN_W)
+
+    t = {
+        "lol_rg_march": time_ms(lambda: regroup.march_track(st, c, cam, fields, tab, MAIN_H,
+                                                            MAIN_W), 3),
+        "glue": time_ms(glue, 3),
+        "lol_rg_shade": time_ms(lambda: regroup.shade_planes(st, c, cam, fields, tab, tr.track,
+                                                             shadow, MAIN_H, MAIN_W), 3),
+        "frame": time_ms(frame, 3),
+    }
+    for li in range(L):
+        t[f"lol_rg_shadow light {li} sorted"] = time_ms(lambda: regroup.shadow_sorted(
+            st, c, fields, tab, tr.rec[li], perms[li], out=shadow[li]), 3)
+        t[f"lol_rg_shadow light {li} unsorted"] = time_ms(lambda: regroup.shadow_sorted(
+            st, c, fields, tab, tr.rec[li], ident, out=unsorted[li]), 3)
+    k5_ms = time_ms(lambda: instanced_fwd.instanced_forward(st, c, cam, fields, tab, MAIN_H,
+                                                            MAIN_W), 3)
+    print(f"[23] instanced:10000 clamp 2 {MAIN_W}x{MAIN_H} on {card}, CUDA events (median of 3): "
+          + "; ".join(f"{k} {v:.3f} ms" for k, v in t.items())
+          + f"; lol_instanced_render {k5_ms:.3f} ms in the same call")
+    stats = {}
+    for li in range(L):
+        for sort in (True, False):
+            s = regroup.shadow_gather_stats(st, big.params, MAIN_H, MAIN_W, c, light=li,
+                                            sort=sort, device=dev)
+            stats[(li, sort)] = s
+            print(f"[23] shadow_gather_stats light {li} {'sorted' if sort else 'unsorted'}: "
+                  + json.dumps({k: s[k] for k in (
+                      "evals_per_ray", "worst_lane_evals_per_warp", "warp_efficiency",
+                      "runs_per_ray_eval", "runs_per_warp_step", "warps")}))
+    rg_profile = run_profile("--profile-regroup")
+    print(f"[23] torch.profiler (`chip_smoke.py --profile-regroup`) over 3 regrouped frames: "
+          f"{rg_profile}")
+
+    # the plain version on the middle 16-row band, through the pack's row0
+    r0 = (MAIN_H - BAND) // 2
+    bcam = camera_pack(big.params, MAIN_H, MAIN_W, c, row0=r0)
+    k_band = regroup.regrouped_forward(st, c, bcam, fields, tab, BAND, MAIN_W, MAIN_H)
+    t_band = time.perf_counter()
+    p_band = regroup.regrouped_forward_reference(st, c, bcam, fields, tab, BAND, MAIN_W, MAIN_H)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t_band) * 1e3
+    require(torch.equal(k_band, k5_imgs["clamp 2"][r0:r0 + BAND]),
+            "path D middle band: the band launch differs from lol_instanced_render's rows")
+    err, over = compare(k_band, p_band, "path D middle band vs regrouped_forward_reference")
+    errs["lol_rg_shade"] = max(errs["lol_rg_shade"], err)
+    print(f"[23] middle band (rows {r0}-{r0 + BAND - 1}): kernels bitwise lol_instanced_render's "
+          f"rows; vs regrouped_forward_reference max |diff| {err:.3g}, {over} px over {ATOL}; "
+          f"plain {plain_ms:.0f} ms")
+    plain_pieces = {
+        "lol_rg_march": time_ms(lambda: regroup.march_track_reference(
+            st, c, bcam, fields, tab, BAND, MAIN_W, MAIN_H), 1),
+    }
+    btr = regroup.march_track(st, c, bcam, fields, tab, BAND, MAIN_W, MAIN_H)
+    bperm = regroup.shadow_order(btr.rec[0], *regroup.hit_box(btr.hitp))
+    plain_pieces["lol_rg_shadow"] = time_ms(lambda: regroup.shadow_sorted_reference(
+        st, c, fields, tab, btr.rec[0], bperm), 1)
+    blo, bhi = regroup.hit_box(btr.hitp)
+    bshadow = torch.stack([regroup.shadow_sorted(st, c, fields, tab, btr.rec[li],
+                                                 regroup.shadow_order(btr.rec[li], blo, bhi))
+                           for li in range(L)])
+    plain_pieces["lol_rg_shade"] = time_ms(lambda: regroup.shade_planes_reference(
+        st, c, bcam, fields, tab, btr.track, bshadow, BAND, MAIN_W, MAIN_H), 1)
+
+    # --- 24. bounds -----------------------------------------------------------------
+    # per evaluation e_inst operations (phase 16's model), per march step 9
+    # more and per shadow step 15; lol_rg_march per pixel the camera ray 33,
+    # the material lookup (e_inst + 10) and 30 per light record; lol_rg_shade
+    # per pixel 4 normal taps (e_inst + 12), their normalize 10, Phong 70 per
+    # light and the output 30. Shadow evaluations: this frame's, counted by
+    # the stats launch; march evaluations per ray: phase 11's bands.
+    px = MAIN_W * MAIN_H
+    tables = 4 * (fields.numel() + sum(t_.numel() for t_ in tab))
+    rg_march_bound = bound(tables + 64 + 4 * (6 + 7 * L) * px,
+                           px * (evals_march * (e_inst + 9) + 33 + e_inst + 10 + 30 * L),
+                           ceiling)
+    sh_evals = stats[(0, True)]["evals_per_ray"] * px
+    rg_shadow_bound = bound(tables + (28 + 8 + 8) * px, sh_evals * (e_inst + 15), ceiling)
+    rg_shade_bound = bound(tables + 64 + 4 * (3 + 2 * L + 3) * px,
+                           px * (4 * (e_inst + 12) + 10 + 70 * L + 30), ceiling)
+    print(f"[24] bounds (FP32 ceiling {ceiling / 1e9:.4f} TFLOP/s): lol_rg_march {rg_march_bound[0]:.4f} ms by {rg_march_bound[1]} "
+          f"({evals_march:.2f} march evaluations per ray at {e_inst:.1f} operations); "
+          f"lol_rg_shadow light 0 {rg_shadow_bound[0]:.4f} ms by {rg_shadow_bound[1]} "
+          f"({stats[(0, True)]['evals_per_ray']:.2f} evaluations per ray); lol_rg_shade "
+          f"{rg_shade_bound[0]:.4f} ms by {rg_shade_bound[1]}")
+
+    src = "loltracer_tpu_torch/csrc/regroup.cuh"
+    return [
+        dict(entry("lol_rg_march", src, "loltracer_tpu/render/pallas_regroup.py:88",
+                   main_counts["lol_rg_march"], errs["lol_rg_march"], t["lol_rg_march"],
+                   plain_pieces["lol_rg_march"], rg_march_bound), plain_ms_rows=BAND),
+        dict(entry("lol_rg_shadow", src, "loltracer_tpu/render/pallas_regroup.py:179",
+                   main_counts["lol_rg_shadow"], errs["lol_rg_shadow"],
+                   t["lol_rg_shadow light 0 sorted"], plain_pieces["lol_rg_shadow"],
+                   rg_shadow_bound),
+             plain_ms_rows=BAND, ms_light=0, unsorted_ms=t["lol_rg_shadow light 0 unsorted"]),
+        dict(entry("lol_rg_shade", src, "loltracer_tpu/render/pallas_regroup.py:266",
+                   main_counts["lol_rg_shade"], errs["lol_rg_shade"], t["lol_rg_shade"],
+                   plain_pieces["lol_rg_shade"], rg_shade_bound), plain_ms_rows=BAND),
+    ]
+
+
+def profile_regroup() -> int:
+    """`chip_smoke.py --profile-regroup`: torch.profiler over 3 frames of the
+    regrouped renderer (instanced:10000, clamp 2, MAIN_W x MAIN_H): device
+    time by kernel (the three K9 kernels, the Morton keys and the sort) and
+    the device's idle share, one line on stdout."""
+    import torch
+
+    require(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    sys.path.insert(0, str(ROOT))
+    from loltracer_tpu_torch.config import RenderConfig
+    from loltracer_tpu_torch.render.regroup import make_instanced_renderer_regrouped
+    from loltracer_tpu_torch.scenes import instanced_spheres
+
+    sc = instanced_spheres(n=10_000, device=torch.device("cuda", 0))
+    render = make_instanced_renderer_regrouped(sc.structure, MAIN_H, MAIN_W,
+                                               RenderConfig(step_clamp=2.0),
+                                               device=torch.device("cuda", 0))
+
+    def frame():
+        render(sc.params)
+
+    frame()
+    print(profile_steps(frame, 3))
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -927,7 +1331,8 @@ def main() -> int:
     from loltracer_tpu_torch.lol import parse_scene_file
     from loltracer_tpu_torch.opt import fit_scene
     from loltracer_tpu_torch.render import fused_fwd, fused_train, instanced_fwd, instanced_train
-    from loltracer_tpu_torch.render import march_kernels
+    from loltracer_tpu_torch.render import march_kernels, regroup
+    from loltracer_tpu_torch.utils import peak
     from loltracer_tpu_torch.render.instanced_pack import GROUP, pack_instanced, sphere_bbox
     from loltracer_tpu_torch.render.sdf import bbox_cut
     from loltracer_tpu_torch.scenes import instanced_spheres
@@ -981,8 +1386,10 @@ def main() -> int:
     march_libs = [(scenes[n].structure, RenderConfig()) for n in SCENES] + [
         (inst[10_000].structure, c) for c in (clamp2, RenderConfig(),
                                               RenderConfig(step_clamp=2.0, shadow_step_clamp=8.0))]
-    pool = ThreadPoolExecutor(max_workers=len(cases) + len(train_cases) + len(inst_cfgs)
-                              + len(inst_train_cfgs) + len(march_libs))
+    pool = ThreadPoolExecutor(max_workers=len(cases) + len(train_cases) + 2 * len(inst_cfgs)
+                              + len(inst_train_cfgs) + len(march_libs) + 1)
+    peak_built = pool.submit(peak.library)
+    regroup_built = [pool.submit(regroup.library, c, inst[10_000].structure) for c in inst_cfgs]
     march_built = [pool.submit(march_kernels.library, st, c) for st, c in march_libs]
     inst_train_built = [pool.submit(instanced_train.library, c, inst[10_000].structure)
                         for c in inst_train_cfgs]
@@ -997,6 +1404,9 @@ def main() -> int:
             if "registers" in l or "spill" in l]
     print(f"[1] build: {len(built)} kernels ({len(SCENES)} structures + AA + custom "
           f"config) in {build_s:.1f} s; scene4 ptxas: {' | '.join(regs)}")
+
+    # --- 25. path E: cli peak, the measured ceiling (before any bound) --------------
+    peak_entries, ceiling = peak_phase(dev, card, peak_built)
 
     # --- 2. kernel vs plain version on the card ------------------------------
     h, w = 97, 161
@@ -1018,7 +1428,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "out.png"
         fused_fwd.launches = 0
-        cli.main(["render", str(EXAMPLES / "scene4.lol"),
+        cli.main(["render", str(EXAMPLES / "scene4.lol"), "--backend", "pallas",
                   "--size", f"{MAIN_W}x{MAIN_H}", "-o", str(out)])
         main_launches = fused_fwd.launches
         require(main_launches > 0, "the main path did not launch lol_render_fused")
@@ -1218,9 +1628,9 @@ def main() -> int:
         return (march * (E + 9 + (aa if with_aa else 0))
                 + shadow * (E + 15 + (2 if residuals else 0)) + px4 * per_ray)
 
-    k1_bound = bound(small_bytes + 12 * px4, fwd_ops(m_fwd, sh_fwd, False, False))
+    k1_bound = bound(small_bytes + 12 * px4, fwd_ops(m_fwd, sh_fwd, False, False), ceiling)
     n_res = fused_train.num_residuals(st)
-    k1r_bound = bound(small_bytes + (12 + 4 * n_res) * px4, fwd_ops(m_aa, sh_aa, True, True))
+    k1r_bound = bound(small_bytes + (12 + 4 * n_res) * px4, fwd_ops(m_aa, sh_aa, True, True), ceiling)
     hit = res4[1] > 0.5
     live_fat = int((hit | (res4[0] > 0)).sum())
     valid = sum(int(((res4[5 + 2 * l] > 0) & (res4[4 + 2 * l] > 0) & (res4[4 + 2 * l] < 1)).sum())
@@ -1232,7 +1642,7 @@ def main() -> int:
     k2_ops = (px4 * (33 + 4 * (E + 12) + 10 + 13 + 60 * L + 45
                      + 110 * L + 4 * (3 * E + 10) + 20 + 40)
               + live_fat * (3 * E + 6) + valid * (3 * E + 20))
-    k2_bound = bound(small_bytes * 2 + 4 * (n_res + 3) * px4, k2_ops)
+    k2_bound = bound(small_bytes * 2 + 4 * (n_res + 3) * px4, k2_ops, ceiling)
     print(f"[8] bounds: SDF evaluation {ops_eval} ops; scene4 march {m_fwd / px4:.1f} + "
           f"shadow {sh_fwd / px4:.1f} evaluations per ray (AA: {m_aa / px4:.1f} + "
           f"{sh_aa / px4:.1f}); lol_render_fused {k1_bound[0]:.4f} ms, lol_train_fwd "
@@ -1269,7 +1679,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "out.png"
         instanced_fwd.launches = 0
-        cli.main(["render", "instanced:10000", "--step-clamp", "2",
+        cli.main(["render", "instanced:10000", "--backend", "pallas", "--step-clamp", "2",
                   "--size", f"{MAIN_W}x{MAIN_H}", "-o", str(out)])
         inst_launches = instanced_fwd.launches
         require(inst_launches == 1,
@@ -1373,7 +1783,7 @@ def main() -> int:
     inst_ops = inst_ops_bands * (MAIN_W * MAIN_H) / band_px
     inst_bytes = (4 * (16 + fields.numel() + tab.spheres.numel() + tab.ids.numel()
                        + tab.groups.numel() + 6) + 12 * MAIN_W * MAIN_H)
-    k5_bound = bound(inst_bytes, inst_ops)
+    k5_bound = bound(inst_bytes, inst_ops, ceiling)
     print(f"[12] bound: lol_instanced_render {k5_bound[0]:.4f} ms by {k5_bound[1]} "
           f"({inst_ops:.4g} operations per 1080p frame, scaled from the bands)")
 
@@ -1567,7 +1977,7 @@ def main() -> int:
     px_main = MAIN_W * MAIN_H
     e_inst = 9 * near_total[0] / evals + 22
     n_res_i = instanced_train.num_residuals(st10)
-    k5r_bound = bound(inst_bytes + 4 * n_res_i * px_main, inst_ops + px_main * (e_inst + 15))
+    k5r_bound = bound(inst_bytes + 4 * n_res_i * px_main, inst_ops + px_main * (e_inst + 15), ceiling)
     Li = st10.num_lights
     hit_it = res_it[1] > 0.5
     fat_it = int((hit_it | (res_it[0] > 0)).sum())
@@ -1579,7 +1989,7 @@ def main() -> int:
     sites = instanced_train.num_sites(st10)
     k6_bytes = ((inst_bytes - 12 * px_main) + 4 * (n_res_i + 3) * px_main
                 + 4 * (16 + fields_it.numel() + 4 * st10.num_spheres))
-    k6_bound = bound(k6_bytes, k6_ops)
+    k6_bound = bound(k6_bytes, k6_ops, ceiling)
     rec_bytes = 2 * 20 * sites * px_main
     print(f"[16] bounds: lol_instanced_fwd {k5r_bound[0]:.4f} ms by {k5r_bound[1]}; "
           f"lol_instanced_bwd {k6_bound[0]:.4f} ms by {k6_bound[1]} ({k6_evals / px_main:.2f} "
@@ -1588,7 +1998,10 @@ def main() -> int:
           f"({rec_bytes / HBM_BYTES_PER_MS:.4f} ms at {HBM_BYTES_PER_MS / 1e9:.2f} TB/s), "
           f"not counted in the bound")
 
-    march_entries = march_phases(dev, card, scenes, inst, march_built, t0, e_inst, it_target)
+    march_entries = march_phases(dev, card, scenes, inst, march_built, t0, e_inst, it_target,
+                                 ceiling)
+    regroup_entries = regroup_phases(dev, card, inst, inst_cfgs, regroup_built, t0, e_inst,
+                                     m_inst / band_px, ceiling)
 
     print(json.dumps({"kernels": [
         entry("lol_render_fused", "loltracer_tpu_torch/csrc/fused_fwd.cuh",
@@ -1613,6 +2026,8 @@ def main() -> int:
                    k6_ms, it_pb_ms, k6_bound),
              plain_ms_rows=BAND),
         *march_entries,
+        *regroup_entries,
+        *peak_entries,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
@@ -1625,4 +2040,8 @@ if __name__ == "__main__":
         sys.exit(profile_instanced(train=sys.argv[1].endswith("-train")))
     if sys.argv[1:] == ["--profile-march"]:
         sys.exit(profile_march())
+    if sys.argv[1:] == ["--profile-regroup"]:
+        sys.exit(profile_regroup())
+    if sys.argv[1:2] == ["--profile-peak"]:
+        sys.exit(profile_peak(sys.argv[2:]))
     sys.exit(main())

@@ -1,16 +1,18 @@
 """Command-line interface of the port (`loltracer_tpu/cli.py`: render, fit,
 info).
 
-    python -m loltracer_tpu_torch.cli render examples/scene4.lol --size 1920x1080 -o out.png
+    python -m loltracer_tpu_torch.cli render examples/scene4.lol --backend pallas --size 1920x1080 -o out.png
     python -m loltracer_tpu_torch.cli info examples/scene4.lol
-    python -m loltracer_tpu_torch.cli render instanced:10000 --step-clamp 2 --size 1920x1080
+    python -m loltracer_tpu_torch.cli render instanced:10000 --backend pallas --step-clamp 2 --size 1920x1080
     python -m loltracer_tpu_torch.cli fit examples/scene4.lol --target t.npy --steps 3 -o fit.png
+    python -m loltracer_tpu_torch.cli peak
 
-`render --backend pallas` (the default) goes through the fused CUDA kernel
+`render --backend pallas` goes through the fused CUDA kernel
 (render/cuda_renderer.py; `instanced:N` is the procedural field of N
-spheres, scenes.py, rendered by lol_instanced_render); `--backend jnp`
-through the differentiable renderer (render/torch_renderer.py), whose
-marches run the march kernels K3 / K4 on CUDA. `--device cuda` is the
+spheres, scenes.py, rendered by lol_instanced_render); `--backend jnp`,
+the default as in the JAX package, through the differentiable renderer
+(render/torch_renderer.py), whose marches run the march kernels K3 / K4 on
+CUDA. `--device cuda` is the
 default and raises if CUDA is not available; `--device cpu` renders
 through the plain PyTorch versions. `fit` is the JAX package's: inverse
 rendering toward a target image (.png or .npy) with antialiasing on by
@@ -107,7 +109,8 @@ def cmd_render(args):
 
     t0 = time.perf_counter()
     if args.backend == "jnp":
-        img = make_renderer(scene.structure, h, w, cfg, device=args.device)(scene.params)
+        with torch.no_grad():
+            img = make_renderer(scene.structure, h, w, cfg, device=args.device)(scene.params)
     else:
         renderer = make_cuda_renderer(scene.structure, h, w, cfg, device=args.device)
         img = renderer(scene.params)
@@ -127,6 +130,7 @@ def cmd_render(args):
 
 def cmd_fit(args):
     import numpy as np
+    import torch
 
     from loltracer_tpu_torch.opt import fit_scene
     from loltracer_tpu_torch.render.torch_renderer import make_renderer
@@ -156,9 +160,26 @@ def cmd_fit(args):
     print(f"final loss: {result.losses[-1]:.6g}")
     if args.output:
         h, w = target.shape[:2]
-        img = make_renderer(scene.structure, h, w, cfg, device=args.device)(result.params)
+        with torch.no_grad():
+            img = make_renderer(scene.structure, h, w, cfg, device=args.device)(result.params)
         write_png(args.output, img.cpu().numpy())
         print(f"fitted render -> {args.output}")
+    return 0
+
+
+def cmd_peak(args):
+    """Measure the FP32 ceiling (utils/peak.py) and write its record."""
+    import os
+
+    from loltracer_tpu_torch.utils.peak import PEAK_ARTIFACT, measure_vpu_peak
+
+    rec = measure_vpu_peak(reps=args.reps, device=args.device)
+    out = args.out or (PEAK_ARTIFACT if args.device == "cuda" else None)
+    if out:
+        os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+        with open(out, "w") as f:
+            json.dump(rec, f, indent=2)
+    print(json.dumps({k: v for k, v in rec.items() if k != "detail"}))
     return 0
 
 
@@ -192,9 +213,9 @@ def main(argv=None):
     )
     p.add_argument("-o", "--output")
     p.add_argument(
-        "--backend", choices=["pallas", "jnp"], default="pallas",
-        help="pallas: the fused CUDA kernel (default); jnp: the differentiable "
-        "renderer (march kernels K3 / K4 on CUDA)",
+        "--backend", choices=["pallas", "jnp"], default="jnp",
+        help="jnp: the differentiable renderer (march kernels K3 / K4 on CUDA; "
+        "the default, as in the JAX package); pallas: the fused CUDA kernel",
     )
     _add_device_flag(p)
     _add_render_flags(p)
@@ -211,6 +232,12 @@ def main(argv=None):
     _add_device_flag(p)
     _add_render_flags(p)
     p.set_defaults(fn=cmd_fit, aa=True)
+
+    p = sub.add_parser("peak", help="measure the card's FP32 and sqrt rates")
+    p.add_argument("--reps", type=int, default=5)
+    p.add_argument("--out", help="record path (default artifacts/gpu_peak.json on cuda)")
+    _add_device_flag(p)
+    p.set_defaults(fn=cmd_peak)
 
     p = sub.add_parser("info", help="parsed scene summary")
     p.add_argument("scene", nargs="?", default="-")

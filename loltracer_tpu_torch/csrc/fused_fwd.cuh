@@ -35,6 +35,11 @@
 // from there. The march and shadow loops (`march_ray`, `shadow_ray`) are
 // also the value march kernels' (csrc/march.cuh), as the JAX package's
 // `march_loop` / `shadow_loop` serve its fused and value kernels alike.
+// render_pixel is a march half (`march_pixel`: camera ray, march, material,
+// coverage) and a shade half (`shade_pixel`: normals, Phong with each
+// light's shadow, blend, gamma); the regrouped instanced forward
+// (csrc/regroup.cuh) runs the two halves in kernels of their own with the
+// shadow marches between them.
 //
 // Arithmetic matches the plain PyTorch version op for op: the build passes
 // --fmad=false, sums run ((x + y) + z), vectors are normalized by dividing
@@ -143,69 +148,117 @@ __device__ __forceinline__ float shadow_ray(const Scene& scn, float sox, float s
   return res;
 }
 
-// One pixel (x, y) of the image, and with Cfg::with_residuals its residual
-// planes (res_out points at plane 0, pixel (0, 0); planes are `plane`
-// floats apart: the launch's rows times W).
-template <class Cfg, class Scene>
-__device__ __forceinline__ void render_pixel(const float* cam, const Scene& scn,
-                                             const float* __restrict__ P, int x,
-                                             int y, int height, int width,
-                                             float* __restrict__ img,
-                                             float* __restrict__ res_out,
-                                             size_t plane) {
-  [[maybe_unused]] float* const rp =
-      Cfg::with_residuals ? res_out + ((size_t)y * width + x) : nullptr;
+// The march half of one pixel's work: its camera ray, the march, and the
+// shading distance, material and AA coverage that the shade half reads.
+// render_pixel (K1, K5) runs both halves in one thread; the regrouped
+// instanced forward (csrc/regroup.cuh) runs this half in lol_rg_march and
+// the shade half in lol_rg_shade, over planes in between.
+struct PixelMarch {
+  float ox, oy, oz, dx, dy, dz;  // the camera ray
+  float t_sh;                    // the shading distance
+  float alpha;                   // AA coverage: 1 on a hit and without AA
+  float den;                     // the IFT denominator (with residuals only)
+  int mat;                       // material at the last query point
+  bool hit;
+};
 
-  // --- camera ray (camera.rays_from_pack) ------------------------------
-  const float ox = cam[0], oy = cam[1], oz = cam[2];
+// The camera ray of pixel (x, y) of an image `height` rows tall, whose
+// launch starts at image row cam[15] (camera.rays_from_pack).
+__device__ __forceinline__ void camera_ray(const float* cam, int x, int y, int height,
+                                           int width, PixelMarch& m) {
+  m.ox = cam[0];
+  m.oy = cam[1];
+  m.oz = cam[2];
   const float vx = ((float)x + 0.5f) / (float)width * 2.f - 1.f;
   const float vy = 1.f - ((cam[15] + (float)y) + 0.5f) / (float)height * 2.f;
   const float sx = vx * cam[12], sy = vy * cam[13];
-  float dx = cam[3] * sx + cam[6] * sy + cam[9];
-  float dy = cam[4] * sx + cam[7] * sy + cam[10];
-  float dz = cam[5] * sx + cam[8] * sy + cam[11];
-  normalize3(dx, dy, dz);
+  m.dx = cam[3] * sx + cam[6] * sy + cam[9];
+  m.dy = cam[4] * sx + cam[7] * sy + cam[10];
+  m.dz = cam[5] * sx + cam[8] * sy + cam[11];
+  normalize3(m.dx, m.dy, m.dz);
+}
+
+// Soft coverage of a miss from the SDF value f_close at its closest
+// approach tc (march.py intersect_aa): 0 where it never tracked one.
+__device__ __forceinline__ float coverage(const float* cam, float f_close, float tc) {
+  const float s = f_close / (tc > 0.f ? tc : 1.f);
+  return tc > 0.f ? jclip(1.f - s / cam[14], 0.f, 1.f) : 0.f;
+}
+
+template <class Cfg, class Scene>
+__device__ __forceinline__ PixelMarch march_pixel(const float* cam, const Scene& scn, int x,
+                                                  int y, int height, int width) {
+  PixelMarch m;
+  camera_ray(cam, x, y, height, width, m);
+  const float ox = m.ox, oy = m.oy, oz = m.oz, dx = m.dx, dy = m.dy, dz = m.dz;
 
   // --- march (march.py march) -------------------------------------------
   float t, t_query, s_min, t_close;
   march_ray<Cfg, Cfg::antialias>(scn, ox, oy, oz, dx, dy, dz, t, t_query, s_min, t_close);
-  const bool hit = t < Cfg::max_dist;
-
+  m.hit = t < Cfg::max_dist;
+  m.alpha = 1.f;
   if constexpr (Cfg::with_residuals) {
-    // IFT denominator: d/dt f(ro + t rd) at the marched t = grad f . rd
+    // IFT denominator: d/dt f(ro + t rd) at the marched t = grad f . rd,
+    // taken before the material lookup as the single-function body took
+    // it (after it, K5r ran slower on the H100)
     float gx, gy, gz;
-    scn.template dist_bwd<false>(ox + t * dx, oy + t * dy, oz + t * dz, 1.f, gx,
-                                 gy, gz, nullptr);
-    float den = dot3(gx, gy, gz, dx, dy, dz);
-    if (fabsf(den) < kMinDen) den = den < 0.f ? -kMinDen : kMinDen;
-    rp[3 * plane] = den;
+    scn.template dist_bwd<false>(ox + t * dx, oy + t * dy, oz + t * dz, 1.f, gx, gy, gz,
+                                 nullptr);
+    m.den = dot3(gx, gy, gz, dx, dy, dz);
+    if (fabsf(m.den) < kMinDen) m.den = m.den < 0.f ? -kMinDen : kMinDen;
   }
 
   // --- shading distance, material, coverage (march.py intersect_aa) -----
-  float t_sh, alpha = 1.f;
-  int mat;
   if (Cfg::antialias) {
-    const float tc = hit ? t_query : t_close;
+    const float tc = m.hit ? t_query : t_close;
     float f_close;
-    mat = scn.sdf_mat(ox + tc * dx, oy + tc * dy, oz + tc * dz, f_close);
-    if (!hit) {
-      const float s = f_close / (tc > 0.f ? tc : 1.f);
-      alpha = tc > 0.f ? jclip(1.f - s / cam[14], 0.f, 1.f) : 0.f;
-    }
-    t_sh = hit ? t : tc;
+    m.mat = scn.sdf_mat(ox + tc * dx, oy + tc * dy, oz + tc * dz, f_close);
+    if (!m.hit) m.alpha = coverage(cam, f_close, tc);
+    m.t_sh = m.hit ? t : tc;
   } else {
     float unused;
-    mat = scn.sdf_mat(ox + t_query * dx, oy + t_query * dy, oz + t_query * dz,
-                      unused);
-    if (!hit) mat = 0;
-    t_sh = t;
+    m.mat = scn.sdf_mat(ox + t_query * dx, oy + t_query * dy, oz + t_query * dz, unused);
+    if (!m.hit) m.mat = 0;
+    m.t_sh = t;
   }
-  if constexpr (Cfg::with_residuals) {
-    rp[0] = t_sh;
-    rp[plane] = hit ? 1.f : 0.f;
-    rp[2 * plane] = (float)mat;
-  }
-  const float px = ox + t_sh * dx, py = oy + t_sh * dy, pz = oz + t_sh * dz;
+  return m;
+}
+
+// The shadow ray toward light l from the shading point p (shading.py
+// phong): the unit direction l, the offset origin so and the distance from
+// p to the light.
+template <class Cfg, class Scene>
+__device__ __forceinline__ void light_ray(const float* __restrict__ P, int l, float px,
+                                          float py, float pz, float& lx, float& ly, float& lz,
+                                          float& sox, float& soy, float& soz,
+                                          float& light_dist) {
+  const float* lp = P + Scene::kLightPoint + 3 * l;
+  const float tlx = __ldg(lp) - px, tly = __ldg(lp + 1) - py, tlz = __ldg(lp + 2) - pz;
+  light_dist = sqrtf(dot3(tlx, tly, tlz, tlx, tly, tlz));
+  lx = tlx;
+  ly = tly;
+  lz = tlz;
+  normalize3(lx, ly, lz);
+  sox = px + lx * Cfg::shadow_offset;
+  soy = py + ly * Cfg::shadow_offset;
+  soz = pz + lz * Cfg::shadow_offset;
+}
+
+// The shade half of one pixel's work, from its march half m: tetrahedron
+// normals, Phong with light l's penumbra res = shadow_of(l, sox, soy, soz,
+// lx, ly, lz, light_dist), the AA blend and gamma, into pixel (x, y) of
+// img [.., width, 3]. Its address is taken after the light loop, as the
+// single-function body took it: a pointer live across the shadow marches
+// made K5 slower on the H100 (two more live registers in a kernel that
+// spills).
+template <class Cfg, class Scene, class ShadowOf>
+__device__ __forceinline__ void shade_pixel(const float* cam, const Scene& scn,
+                                            const float* __restrict__ P, const PixelMarch& m,
+                                            float* __restrict__ img, int x, int y, int width,
+                                            const ShadowOf& shadow_of) {
+  const float t_sh = m.t_sh;
+  const int mat = m.mat;
+  const float px = m.ox + t_sh * m.dx, py = m.oy + t_sh * m.dy, pz = m.oz + t_sh * m.dz;
 
   // --- tetrahedron normal (shading.py get_normal) -----------------------
   const float h = t_sh * Cfg::normal_h_scale;
@@ -238,24 +291,9 @@ __device__ __forceinline__ void render_pixel(const float* cam, const Scene& scn,
 
 #pragma unroll
   for (int l = 0; l < Scene::kNumLights; ++l) {
-    const float* lp = P + Scene::kLightPoint + 3 * l;
-    const float tlx = __ldg(lp) - px, tly = __ldg(lp + 1) - py,
-                tlz = __ldg(lp + 2) - pz;
-    const float light_dist = sqrtf(dot3(tlx, tly, tlz, tlx, tly, tlz));
-    float lx = tlx, ly = tly, lz = tlz;
-    normalize3(lx, ly, lz);
-    const float sox = px + lx * Cfg::shadow_offset;
-    const float soy = py + ly * Cfg::shadow_offset;
-    const float soz = pz + lz * Cfg::shadow_offset;
-
-    // soft-shadow march (shading.py soft_shadow)
-    float t_star;
-    const float res = shadow_ray<Cfg>(scn, sox, soy, soz, lx, ly, lz, light_dist, t_star);
-    if constexpr (Cfg::with_residuals) {
-      rp[(4 + 2 * l) * plane] = res;
-      rp[(5 + 2 * l) * plane] = t_star;
-    }
-    const float shadow = jmax(res, 0.f);
+    float lx, ly, lz, sox, soy, soz, light_dist;
+    light_ray<Cfg, Scene>(P, l, px, py, pz, lx, ly, lz, sox, soy, soz, light_dist);
+    const float shadow = jmax(shadow_of(l, sox, soy, soz, lx, ly, lz, light_dist), 0.f);
 
     const float ndl = dot3(nx, ny, nz, lx, ly, lz);
     const float diffuse_incidence = jclip(ndl, 0.f, 1.f);
@@ -281,10 +319,46 @@ __device__ __forceinline__ void render_pixel(const float* cam, const Scene& scn,
     if (Cfg::antialias) {
       // blend toward the background (material 0 ambient) in linear space
       const float bg = jclip(ambient * __ldg(P + Scene::kMatAmbient + c), 0.f, 1.f);
-      v = alpha * v + (1.f - alpha) * bg;
+      v = m.alpha * v + (1.f - m.alpha) * bg;
     }
     out[c] = v > 0.f ? powf(v, Cfg::gamma) : 0.f;
   }
+}
+
+// One pixel (x, y) of the image: the march half, then the shade half with
+// each light's shadow march run here; with Cfg::with_residuals also its
+// residual planes (res_out points at plane 0, pixel (0, 0); planes are
+// `plane` floats apart: the launch's rows times W).
+template <class Cfg, class Scene>
+__device__ __forceinline__ void render_pixel(const float* cam, const Scene& scn,
+                                             const float* __restrict__ P, int x,
+                                             int y, int height, int width,
+                                             float* __restrict__ img,
+                                             float* __restrict__ res_out,
+                                             size_t plane) {
+  [[maybe_unused]] float* const rp =
+      Cfg::with_residuals ? res_out + ((size_t)y * width + x) : nullptr;
+  const PixelMarch m = march_pixel<Cfg>(cam, scn, x, y, height, width);
+
+  if constexpr (Cfg::with_residuals) {
+    rp[3 * plane] = m.den;
+    rp[0] = m.t_sh;
+    rp[plane] = m.hit ? 1.f : 0.f;
+    rp[2 * plane] = (float)m.mat;
+  }
+
+  // soft-shadow march (shading.py soft_shadow)
+  const auto shadow_of = [&](int l, float sox, float soy, float soz, float lx, float ly,
+                             float lz, float light_dist) {
+    float t_star;
+    const float res = shadow_ray<Cfg>(scn, sox, soy, soz, lx, ly, lz, light_dist, t_star);
+    if constexpr (Cfg::with_residuals) {
+      rp[(4 + 2 * l) * plane] = res;
+      rp[(5 + 2 * l) * plane] = t_star;
+    }
+    return res;
+  };
+  shade_pixel<Cfg>(cam, scn, P, m, img, x, y, width, shadow_of);
 }
 
 constexpr int kBlockX = 32;

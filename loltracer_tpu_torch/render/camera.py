@@ -24,21 +24,22 @@ CAM_SIZE = 16  # ro(3) right(3) up(3) fwd(3) half_w half_h pixel_rad row0
 
 
 def camera_pack(
-    params: SceneParams, height: int, width: int, cfg: RenderConfig, row0=0.0
+    params: SceneParams, height: int, width: int, cfg: RenderConfig, row0=0.0,
+    dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """[16] f32 on the params' device: the camera-derived scalars the kernel
-    consumes. `row0` is the first image row the call renders."""
-    f32 = torch.float32
-    d = normalize(params.cam_direction.to(f32))
-    upg = torch.tensor([0.0, 1.0, 0.0], dtype=f32, device=d.device)
+    """[16] `dtype` (the kernels' f32 by default) on the params' device: the
+    camera-derived scalars the kernel consumes. `row0` is the first image
+    row the call renders."""
+    d = normalize(params.cam_direction.to(dtype))
+    upg = torch.tensor([0.0, 1.0, 0.0], dtype=dtype, device=d.device)
     rt = normalize(cross(d, upg))
     up = cross(rt, d)
-    half = params.cam_fov.to(f32) / 2.0
+    half = params.cam_fov.to(dtype) / 2.0
     hh = torch.atan(half) if cfg.atan_fov else torch.tan(half)
     hw = (width / height) * hh
     pixel_rad = true_div(cfg.aa_width * hh, height)
     tail = torch.stack([hw, hh, pixel_rad, torch.full_like(hh, float(row0))])
-    return torch.cat([params.cam_point.to(f32), rt, up, d, tail]).contiguous()
+    return torch.cat([params.cam_point.to(dtype), rt, up, d, tail]).contiguous()
 
 
 def rays_from_pack(
@@ -62,17 +63,19 @@ def rays_from_pack(
 
 def camera_rays_for_rows(
     params: SceneParams, rows: torch.Tensor, height_px: int, width_px: int,
-    cfg: RenderConfig,
+    cfg: RenderConfig, dtype: torch.dtype = torch.float32,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Ray grid for a subset of image rows. rows: [R] row indices. Returns
-    (ro [3], rd [R, W, 3])."""
-    cam = camera_pack(params, height_px, width_px, cfg)
+    (ro [3], rd [R, W, 3]) in `dtype`."""
+    cam = camera_pack(params, height_px, width_px, cfg, dtype=dtype)
     return rays_from_pack(cam, rows, height_px, width_px)
 
 
 def camera_rays(
-    params: SceneParams, height_px: int, width_px: int, cfg: RenderConfig
+    params: SceneParams, height_px: int, width_px: int, cfg: RenderConfig,
+    dtype: torch.dtype = torch.float32,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-image ray grid. Returns (ro [3], rd [H, W, 3]); aspect = W/H."""
+    """Full-image ray grid. Returns (ro [3], rd [H, W, 3]) in `dtype`;
+    aspect = W/H."""
     rows = torch.arange(height_px)
-    return camera_rays_for_rows(params, rows, height_px, width_px, cfg)
+    return camera_rays_for_rows(params, rows, height_px, width_px, cfg, dtype)

@@ -39,7 +39,9 @@ reduce and scatter launches), whose SDF adjoint is the traversal's own
 `generate_march_source(structure, cfg)` is the source of the value march
 kernels K3 and K4 (csrc/march.cuh) on the compiled `Scene` or, for an
 instanced structure, on the `InstancedScene`: one library per structure
-and config holds both.
+and config holds both. `generate_regroup_source(structure, cfg)` is the
+source of the regrouped instanced forward K9 (csrc/regroup.cuh: lol_rg_march,
+lol_rg_shadow, lol_rg_shade), one text for every sphere count too.
 """
 
 from __future__ import annotations
@@ -716,6 +718,91 @@ def generate_march_source(structure: SceneStructure, cfg: RenderConfig) -> str:
             "",
             "#ifdef __CUDACC__",
             entries,
+            "#endif  // __CUDACC__",
+            "",
+        ]
+    )
+
+
+RG_MARCH = "lol_rg_march"
+RG_SHADOW = "lol_rg_shadow"
+RG_SHADOW_STATS = "lol_rg_shadow_stats"
+RG_SHADE = "lol_rg_shade"
+
+_RG_ENTRIES = f"""\
+extern "C" int {RG_MARCH}(const void* cam, const void* fields, const void* spheres,
+                             const void* ids, const void* groups, const void* bbox,
+                             int num_spheres, int num_groups, void* track, void* hitp,
+                             void* rec, int height, int full_height, int width, void* stream) {{
+{_TABLES}
+  return lol::launch_rg_march<lol_gen::Cfg, lol_gen::Scene>(
+      static_cast<const float*>(cam), static_cast<const float*>(fields), tab,
+      static_cast<float*>(track), static_cast<float*>(hitp), static_cast<float*>(rec),
+      height, full_height, width, static_cast<cudaStream_t>(stream));
+}}
+
+extern "C" int {RG_SHADOW}(const void* fields, const void* spheres, const void* ids,
+                              const void* groups, const void* bbox, int num_spheres,
+                              int num_groups, const void* rec, const void* perm, void* out,
+                              long long n, void* stream) {{
+{_TABLES}
+  return lol::launch_rg_shadow<lol_gen::Cfg, lol_gen::Scene, false>(
+      static_cast<const float*>(fields), tab, static_cast<const float*>(rec),
+      static_cast<const long long*>(perm), static_cast<float*>(out), nullptr, n,
+      static_cast<cudaStream_t>(stream));
+}}
+
+extern "C" int {RG_SHADOW_STATS}(const void* fields, const void* spheres, const void* ids,
+                                    const void* groups, const void* bbox, int num_spheres,
+                                    int num_groups, const void* rec, const void* perm,
+                                    void* out, void* stats, long long n, void* stream) {{
+{_TABLES}
+  return lol::launch_rg_shadow<lol_gen::Cfg, lol_gen::Scene, true>(
+      static_cast<const float*>(fields), tab, static_cast<const float*>(rec),
+      static_cast<const long long*>(perm), static_cast<float*>(out),
+      static_cast<float*>(stats), n, static_cast<cudaStream_t>(stream));
+}}
+
+extern "C" int {RG_SHADE}(const void* cam, const void* fields, const void* spheres,
+                             const void* ids, const void* groups, const void* bbox,
+                             int num_spheres, int num_groups, const void* track,
+                             const void* shadow, void* img, int height, int full_height,
+                             int width, void* stream) {{
+{_TABLES}
+  return lol::launch_rg_shade<lol_gen::Cfg, lol_gen::Scene>(
+      static_cast<const float*>(cam), static_cast<const float*>(fields), tab,
+      static_cast<const float*>(track), static_cast<const float*>(shadow),
+      static_cast<float*>(img), height, full_height, width,
+      static_cast<cudaStream_t>(stream));
+}}"""
+
+
+def generate_regroup_source(structure: SceneStructure, cfg: RenderConfig) -> str:
+    """The CUDA translation unit of the regrouped instanced forward K9
+    (`lol_rg_march`, `lol_rg_shadow` and its stats twin, `lol_rg_shade`)
+    for this instanced structure and config: csrc/fused_fwd.cuh (whose
+    march and shade halves they run), csrc/instanced_scene.cuh,
+    csrc/regroup.cuh, then the Cfg (both clamps) and the layout. One text
+    for every sphere count; deterministic; holds no scene numbers. The
+    device functions also compile as host C++."""
+    require_instanced(structure)
+    if not structure.num_spheres:
+        raise ValueError("an instanced scene needs at least one sphere")
+    bodies = ["fused_fwd.cuh", "instanced_scene.cuh", "regroup.cuh"]
+    return "\n".join(
+        [
+            "// Generated by loltracer_tpu_torch.render.cuda_scene: the kernel",
+            "// bodies of csrc/, then this instanced structure's Cfg and layout.",
+            *[(CSRC / b).read_text() for b in bodies],
+            "namespace lol_gen {",
+            "using namespace lol;",
+            _cfg_source(cfg, residuals=False, instanced=True),
+            "",
+            _layout_source(structure),
+            "}  // namespace lol_gen",
+            "",
+            "#ifdef __CUDACC__",
+            _RG_ENTRIES,
             "#endif  // __CUDACC__",
             "",
         ]

@@ -9,7 +9,9 @@ is the plain version that the fused CUDA kernel is held against
 `render_image` is differentiable with the JAX package's estimators (the
 IFT at the frozen march, the coverage alpha, the shadow gradient of
 cfg.shadow_grad): autograd through it is the twin of `jax.grad` through
-the jnp renderer. `make_renderer` renders without autograd;
+the jnp renderer; `make_renderer` wraps it, differentiable too, as JAX's.
+`dtype` (f32 by default) is the rays' type: float64 rays over float64
+params render in float64, as the JAX package's `dtype` argument does.
 `render_image_banded` renders in sequential row bands, the same image with
 one band's temporaries at a time (instanced scenes evaluate [rays, 512]
 blocks at every SDF call).
@@ -125,10 +127,11 @@ def render_image(
     height: int,
     width: int,
     cfg: RenderConfig = DEFAULT_CONFIG,
+    dtype: torch.dtype = torch.float32,
 ):
-    """Render the full image: [H, W, 3] float32 in [0, 1], differentiable
-    in params."""
-    ro, rd = camera_rays(params, height, width, cfg)
+    """Render the full image: [H, W, 3] in [0, 1], differentiable in
+    params; rays in `dtype`."""
+    ro, rd = camera_rays(params, height, width, cfg, dtype)
     pr = pixel_radius(params, height, cfg) if cfg.antialias else None
     return render_rays(structure, params, ro, rd, cfg, pixel_rad=pr)
 
@@ -140,6 +143,7 @@ def render_image_banded(
     width: int,
     cfg: RenderConfig = DEFAULT_CONFIG,
     band_rows: int = 64,
+    dtype: torch.dtype = torch.float32,
 ):
     """`render_image` in sequential bands of `band_rows` full-width rows
     (the last band may be shorter): the same image, bitwise, with the
@@ -157,7 +161,7 @@ def render_image_banded(
 
     def band(r0: int):
         rows = torch.arange(r0, min(r0 + band_rows, height))
-        ro, rd = camera_rays_for_rows(params, rows, height, width, cfg)
+        ro, rd = camera_rays_for_rows(params, rows, height, width, cfg, dtype)
         return render_rays(structure, params, ro, rd, cfg, pixel_rad=pr, march_scene=scene)
 
     remat = torch.is_grad_enabled()
@@ -172,17 +176,18 @@ def make_renderer(
     width: int,
     cfg: RenderConfig = DEFAULT_CONFIG,
     device=None,
+    dtype: torch.dtype = torch.float32,
 ) -> Callable[[SceneParams], torch.Tensor]:
-    """`params -> [H, W, 3]` for this structure, size and config, without
-    autograd. With `device`, params go there as f32 first (raises for CUDA
-    without CUDA); else they render where they are."""
+    """`params -> [H, W, 3]` for this structure, size and config; it is
+    differentiable (callers that only render wrap their own `no_grad`).
+    With `device`, params go there as `dtype` first (raises for CUDA
+    without CUDA); else they render where they are. Rays in `dtype`."""
     if device is not None:
         device = resolve_device(device, "make_renderer")
 
-    @torch.no_grad()
     def renderer(params: SceneParams) -> torch.Tensor:
         if device is not None:
-            params = params_to(params, device=device, dtype=torch.float32)
-        return render_image(structure, params, height, width, cfg)
+            params = params_to(params, device=device, dtype=dtype)
+        return render_image(structure, params, height, width, cfg, dtype)
 
     return renderer

@@ -9,7 +9,8 @@ path that the march kernel K3 serves on the card (any estimator but
   structures and 16-row `render_image_banded` for instanced ones, and
   raises for CUDA without CUDA;
 - `cli render --backend pallas` is the fused kernel's path, `--backend jnp`
-  the differentiable renderer's; on the CPU both give the same PNG.
+  the differentiable renderer's; on the CPU both give the same PNG; without
+  `--backend` it takes "jnp", the JAX package's default.
 
 On the card `chip_smoke.py` phases 19 and 21 run these paths at 1080p."""
 
@@ -105,9 +106,8 @@ def test_fit_scene_takes_the_differentiable_renderer(scene4, monkeypatch):
 
 @pytest.mark.parametrize("scene", ["scene3.lol", "instanced:64"])
 def test_cli_render_backends_agree_on_the_cpu(examples_dir, scene, tmp_path, capsys):
-    """`--backend pallas` (the default: the fused kernel's plain version on
-    the CPU) and `--backend jnp` (the differentiable renderer) write the
-    same PNG."""
+    """`--backend pallas` (the fused kernel's plain version on the CPU) and
+    `--backend jnp` (the differentiable renderer) write the same PNG."""
     src = scene if scene.startswith("instanced:") else str(examples_dir / scene)
     pngs = []
     for backend in ("pallas", "jnp"):
@@ -118,3 +118,23 @@ def test_cli_render_backends_agree_on_the_cpu(examples_dir, scene, tmp_path, cap
         pngs.append(read_png(str(out)))
     np.testing.assert_array_equal(pngs[0], pngs[1])
     assert pngs[0].max() > 0
+
+
+def test_cli_render_defaults_to_the_jnp_backend(examples_dir, tmp_path, monkeypatch):
+    """Without `--backend`, `cli render` takes the differentiable renderer,
+    as the JAX package's `loltrace render` does: the fused path is never
+    built."""
+    from loltracer_tpu_torch.render import cuda_renderer, torch_renderer
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("cli render took --backend pallas by default")
+
+    taken = []
+    make = torch_renderer.make_renderer
+    monkeypatch.setattr(cuda_renderer, "make_cuda_renderer", refuse)
+    monkeypatch.setattr(torch_renderer, "make_renderer",
+                        lambda *a, **k: taken.append(a[1:3]) or make(*a, **k))
+    out = tmp_path / "default.png"
+    assert cli.main(["render", str(examples_dir / "scene3.lol"), "--size", "20x12",
+                     "--device", "cpu", "-o", str(out)]) == 0
+    assert taken == [(12, 20)] and read_png(str(out)).max() > 0
