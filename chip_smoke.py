@@ -17,7 +17,7 @@ Phases, one line each:
    finite, in [0, 1], and match the plain version at 1920x1080 to the
    tolerance of phase 2;
 4. frame times at scene4 @1920x1080: the kernel (median of 10 warm frames)
-   and the plain version (median of 3), CUDA events;
+   and the plain version (once, warm), CUDA events;
 5. build the training kernels (lol_train_fwd, lol_train_bwd and its reduce)
    for the four example structures with envelope shadows and for scene4
    with antialiasing; all builds start together in phase 1, one nvcc each;
@@ -39,7 +39,7 @@ Phases, one line each:
    port's render of scene4 with its sphere points moved; it must launch
    both training kernels and lower the loss. Then one fwd+bwd step of
    `make_training_renderer` timed (median of 10, CUDA events), its two
-   kernels timed apart, the plain versions (median of 3), peak memory;
+   kernels timed apart, the plain versions (once, warm), peak memory;
 9. build lol_instanced_render (the instanced tier, started with the other
    builds in phase 1) for clamp 2, exact, clamp 2 + AA and clamp 2 with
    shadow clamp 8; ptxas registers and spills;
@@ -54,8 +54,8 @@ Phases, one line each:
    loops count SDF evaluations and, per evaluated point on those bands, the
    spheres within its cut and the runs whose bounding ball reaches within
    it;
-12. kernel frame times (median of 5 warm frames, CUDA events) at 1920x1080
-   and 3840x2160, device time (torch.profiler, in a process of its own:
+12. kernel frame times (CUDA events; median of 3 warm frames at 1920x1080,
+   of 2 at 3840x2160), device time (torch.profiler, in a process of its own:
    `chip_smoke.py --profile-instanced`), the plain version's time on one
    band, and the bound;
 13. build lol_instanced_fwd and lol_instanced_bwd (the instanced training
@@ -71,24 +71,24 @@ Phases, one line each:
 15. the main path: `fit_scene` on instanced:10000 @1920x1080, clamp 2,
    envelope shadows, sphere points trainable, 3 Adam steps against K5's
    render with the spheres moved: one launch of each kernel per step, and
-   the loss falls. Then both kernels against the plain version on three
+   the loss falls. Then both kernels against the plain version on two
    full-width 16-row bands through the camera pack's row0 (the bands'
    launches bitwise the frame's rows), and lol_instanced_bwd's full-frame
    launch against the plain version run on every 16-row band of the frame
    and summed, by the phase-7 rule;
 16. one fwd+bwd step of `make_instanced_training_renderer` timed (median of
-   5, CUDA events), its two kernels timed apart, device time
+   3, CUDA events), its two kernels timed apart, device time
    (`chip_smoke.py --profile-instanced-train`, a process of its own), peak
    memory, the plain versions on one band, and the bounds;
 17. build the value march kernels (K3 `lol_march` and K4 `lol_shadow_march`
    for the four examples; `lol_march_instanced` and
    `lol_shadow_march_instanced` for clamp 2, exact and shadow clamp 8; all
    started with the other builds in phase 1); ptxas registers and spills;
-18. at 97x161, K3 vs its plain version (`march_values_reference`) on the
-   camera rays and K4 vs its plain version (`shadow_values_reference`) on
-   the real shadow rays of each light: the four examples, scene4 AA,
-   instanced:10000 at clamp 2, exact and shadow clamp 8, instanced:300 and
-   :1 at clamp 2; bitwise expected, else within atol/rtol 1e-4 on all but
+18. at 97x161 (instanced:10000 at 49x81), K3 vs its plain version
+   (`march_values_reference`) on the camera rays and K4 vs its plain
+   version (`shadow_values_reference`) on the real shadow rays of each
+   light: the four examples, scene4 AA, instanced:10000 at clamp 2, exact
+   and shadow clamp 8, instanced:300 and :1 at clamp 2; bitwise expected, else within atol/rtol 1e-4 on all but
    max(2, 1e-4 * rays);
 19. main path A: `loltracer_tpu_torch.cli fit examples/scene4.lol --target
    T.npy --steps 3 -o ...` (AA, exact shadows; sphere points trainable,
@@ -100,7 +100,7 @@ Phases, one line each:
    the phase-2 rule of lol_render_fused's; MSE gradients, the penumbra band
    masked out of the loss (tests/_penumbra.py), within 2e-2 * max|grad|
    per field of make_training_renderer's (K1r/K2). Then path A's step
-   (median of 2) and path B's (median of 3) timed; K3 and K4 at path B's
+   (once) and path B's (median of 2) timed; K3 and K4 at path B's
    rays held against their plain versions and timed (median of 10; plain
    median of 2), their bounds from the plain loops' live counts;
 21. main path C: `render_image_banded` of instanced:10000, clamp 2, envelope
@@ -109,11 +109,11 @@ Phases, one line each:
    rule of lol_instanced_render's; fwd+bwd of three 16-row bands (each the
    banded renderer's band body, `render_rays` over that band's rays)
    against K5r/K6 on the same band by phase 20's gradient rule; `fit_scene`
-   on instanced:300 @97x161 with exact shadows, 2 steps, one K3 launch per
+   on instanced:300 @48x81 with exact shadows, 2 steps, one K3 launch per
    band forward and one per band recompute; the instanced kernels held and
    timed on the middle band (median of 5; plain once), their bounds; device
    time by kernel (`chip_smoke.py --profile-march`, a process of its own)
-   over 3 path B steps and 3 rounds of the four march kernels, and one path
+   over one path B step and one round of the four march kernels, and one path
    B step's peak memory by allocating line.
 
 22. build the regrouped instanced forward K9 (`lol_rg_march`,
@@ -142,7 +142,32 @@ Phases, one line each:
    clock; the three chain kernels bitwise the plain chains on the full
    lane count at 8 iterations (the fused and mul + add plain chains
    differing); device time of one full-size call of each chain
-   (`chip_smoke.py --profile-peak`, a process of its own).
+   (`chip_smoke.py --profile-peak`, a process of its own);
+26. build K7, `lol_instanced_eval` (for step clamps 2, none and 8, started
+   with the other builds in phase 1); its registers and spills; at the
+   97x161 camera points (a quarter, half and all of the way to the plain
+   march's hits) and shadow points (0, a tenth and half of the way to each
+   light, at most 30 units) against its plain version
+   (`instanced_eval_reference`): instanced:10000 at clamp 2, exact and
+   clamp 8, and the second shard of instanced:10001 padded over 2 (one
+   sentinel sphere) under the AABB of all its spheres; bitwise expected,
+   else by phase 18's rule;
+27. the main path of object sharding: `make_object_sharded_renderer` of
+   instanced:10000 @1920x1080, clamp 2, `march_backend="pallas"`, over
+   `make_mesh()` (a world of one rank, NCCL): K7 launched for every `sdf`
+   / `shadow_sdf` evaluation and its plain version never; the image
+   bitwise lol_instanced_render's (else by phase 2's rule). The frame
+   (CUDA events, median of 2), the plain sharded `sdf_id` at the 2.07 M
+   hit points and one K7 launch there (median of 5) and its plain version,
+   timed apart; device time by kernel and the idle share over one frame
+   (`chip_smoke.py --profile-objects`, a process of its own);
+28. the same renderer over two ranks on the one card (`chip_smoke.py
+   --objects-rank`, two processes, gloo through the host; NCCL refuses two
+   ranks on one device) at 480x272: its image bitwise the one-rank image
+   of phase 27's world (else by phase 2's rule);
+29. K7's bound at the hit points: 16 bytes a point, and 22 operations a
+   point + 9 for each sphere within the cut there (phase 16's model, the
+   spheres counted on the card).
 
 The CLI phases (3, 11) pass `--backend pallas`: `cli render` defaults to
 the differentiable renderer, as the JAX package's does.
@@ -158,7 +183,9 @@ paths: lol_march in path A, lol_shadow_march in path B, the instanced pair
 in path C's frame; the K9 kernels' those of path D's clamp-2 frame (their
 `ms` per launch, lol_rg_shadow for light 0 sorted, beside `unsorted_ms`);
 K8's those of `cli peak` (its `ms` the best full-size call, `device_ms`
-the profiler's, `plain_ms` at `plain_ms_iters` iterations).
+the profiler's, `plain_ms` at `plain_ms_iters` iterations); K7's those of
+phase 27's frame (its `ms` one launch at the frame's hit points, beside
+`frame_ms` and `sdf_id_ms`).
 
 A kernel's bound is the least time the card could take for its work: the
 larger of its bytes (inputs read once, outputs written once) over 3.35 TB/s
@@ -294,6 +321,7 @@ def ptxas_lines(log: str):
                 "_instanced" if "instanced" in m.group(1) else "")
         elif m:
             name = next(k for k in ("instanced_fwd_kernel", "instanced_bwd_kernel",
+                                    "instanced_eval_kernel",
                                     "fused_fwd_kernel", "fused_bwd_kernel",
                                     "bwd_reduce_kernel", "rec_count_kernel",
                                     "rec_scan_kernel", "rec_place_kernel",
@@ -353,8 +381,8 @@ def profile_steps(step, n: int) -> str:
 
 def profile_instanced(train: bool) -> int:
     """`chip_smoke.py --profile-instanced` / `--profile-instanced-train`:
-    torch.profiler over 3 frames of lol_instanced_render, or 3 fwd+bwd
-    steps of make_instanced_training_renderer with envelope shadows
+    torch.profiler over one frame of lol_instanced_render, or one fwd+bwd
+    step of make_instanced_training_renderer with envelope shadows
     (instanced:10000, clamp 2, MAIN_W x MAIN_H), one line on stdout.
     Phases 12 and 16 run it as a process of its own: a second profiling
     session in one process reported no device events (torch 2.11 on an
@@ -390,7 +418,7 @@ def profile_instanced(train: bool) -> int:
             instanced_fwd.instanced_forward(sc.structure, cfg, cam, fields, tab, MAIN_H, MAIN_W)
 
     frame()
-    print(profile_steps(frame, 3))
+    print(profile_steps(frame, 1))
     return 0
 
 
@@ -426,9 +454,9 @@ def peak_breakdown(fn) -> str:
 
 
 def profile_march() -> int:
-    """`chip_smoke.py --profile-march`: torch.profiler over 3 fwd+bwd steps
+    """`chip_smoke.py --profile-march`: torch.profiler over one fwd+bwd step
     of path B (render_image, scene4 AA envelope, MAIN_W x MAIN_H), and over
-    3 rounds of the four march kernels alone (lol_march and
+    one round of the four march kernels alone (lol_march and
     lol_shadow_march for light 0 on path B's rays; lol_march_instanced and
     lol_shadow_march_instanced for light 0 on the middle 16-row band of
     instanced:10000 at clamp 2); then one path B step under the allocator's
@@ -474,7 +502,7 @@ def profile_march() -> int:
         mk.shadow_values(big.structure, c_cfg, so, ld, dist, scene)
 
     step(), band()
-    print(profile_steps(step, 3) + " || " + profile_steps(band, 3) + " || "
+    print(profile_steps(step, 1) + " || " + profile_steps(band, 1) + " || "
           + peak_breakdown(step))
     return 0
 
@@ -483,6 +511,9 @@ def run_profile(*args: str) -> str:
     """A profiling line (profile_instanced's and the like), from a child
     process run with `args` (it loads the kernels the parent built from the
     build cache)."""
+    import torch
+
+    torch.cuda.empty_cache()  # the child needs the memory this process keeps cached
     out = subprocess.run(
         [sys.executable, str(Path(__file__).resolve()), *args],
         capture_output=True, text=True, timeout=300,
@@ -643,10 +674,12 @@ def march_phases(dev, card, scenes, inst, march_built, t0, e_inst, it_target, ce
              + [(f"instanced:{n} clamp 2", inst[n], clamp2) for n in (300, 1)])
     errs = {name: 0.0 for name in mk.launches}
     for what, sc, c in cases:
+        # the plain loops over 10 000 spheres take seconds a case: those at 49x81
+        ch, cw = (49, 81) if sc.structure.num_spheres == 10_000 else (97, 161)
         k3_name = "lol_march_instanced" if sc.structure.instanced else "lol_march"
         k4_name = k3_name.replace("march", "shadow_march", 1)
         scene = mk.pack_march_scene(sc.structure, sc.params)
-        ro, rd = camera_rays(sc.params, h, w, c)
+        ro, rd = camera_rays(sc.params, ch, cw, c)
         got = mk.march_values(sc.structure, c, ro, rd, scene)
         want = mk.march_values_reference(sc.structure, c, ro, rd, scene)
         torch.cuda.synchronize()
@@ -662,7 +695,7 @@ def march_phases(dev, card, scenes, inst, march_built, t0, e_inst, it_target, ce
             err, differ = check_values(got_s, want_s, f"{what} {k4_name} light {li}")
             errs[k4_name] = max(errs[k4_name], err)
             line.append(f"K4 light {li} max |diff| {err:.3g}, {differ} not bitwise")
-        print(f"[18] {what} {h}x{w}: " + "; ".join(line))
+        print(f"[18] {what} {ch}x{cw}: " + "; ".join(line))
 
     # --- 19. path A: cli fit, exact shadows -----------------------------------------
     s4 = scenes["scene4.lol"]
@@ -713,7 +746,7 @@ def march_phases(dev, card, scenes, inst, march_built, t0, e_inst, it_target, ce
         ((render_image(st4, a_leaves, MAIN_H, MAIN_W, a_cfg) - target) ** 2).mean().backward()
 
     step_a()
-    a_step_ms = time_ms(step_a, 2)
+    a_step_ms = time_ms(step_a, 1)
 
     # --- 20. path B: render_image with envelope shadows under autograd -------------------
     b_cfg = RenderConfig(antialias=True, shadow_grad="envelope")
@@ -747,7 +780,7 @@ def march_phases(dev, card, scenes, inst, march_built, t0, e_inst, it_target, ce
         img = render_image(st4, b_leaves, MAIN_H, MAIN_W, b_cfg)
         (keep_b * (img - target) ** 2).mean().backward()
 
-    b_step_ms = time_ms(step_b, 3)
+    b_step_ms = time_ms(step_b, 2)
 
     # K3 and K4 at the main shape (path B's rays), held and timed
     ro, rd = camera_rays(s4.params, MAIN_H, MAIN_W, b_cfg)
@@ -858,19 +891,19 @@ def march_phases(dev, card, scenes, inst, march_built, t0, e_inst, it_target, ce
     # fit_scene with exact shadows on an instanced structure: 16-row bands,
     # each checkpointed, so K3 runs once per band forward and once more in
     # the backward's recompute
-    s300 = inst[300]
+    s300, fh, fw = inst[300], 48, 81
     moved = s300.params.sphere_point + torch.from_numpy(np.random.default_rng(1).uniform(
         -0.2, 0.2, tuple(s300.params.sphere_point.shape)).astype(np.float32)).to(dev)
-    tgt300 = make_cuda_renderer(s300.structure, h, w, clamp2, device=dev)(
+    tgt300 = make_cuda_renderer(s300.structure, fh, fw, clamp2, device=dev)(
         dataclasses.replace(s300.params, sphere_point=moved))
     reset_counts()
     fit300 = fit_scene(s300.structure, s300.params, tgt300, steps=2, learning_rate=1e-2,
                        trainable=("sphere_point",), cfg=clamp2, device=dev)
-    f_counts, bands300 = counts(), -(-h // 16)
+    f_counts, bands300 = counts(), -(-fh // 16)
     require(f_counts == {"lol_march_instanced": 2 * 2 * bands300},
             f"fit_scene instanced:300 exact (2 steps, {bands300} bands) launched {f_counts}")
     require(bool(np.isfinite(fit300.losses).all()), f"non-finite losses {fit300.losses}")
-    print(f"[21] fit_scene instanced:300 clamp 2 exact shadows {h}x{w}, 2 Adam steps -> "
+    print(f"[21] fit_scene instanced:300 clamp 2 exact shadows {fh}x{fw}, 2 Adam steps -> "
           f"{f_counts}; losses {[float(v) for v in fit300.losses]}")
 
     # the instanced kernels at the main shape (the middle band), held and timed
@@ -918,9 +951,9 @@ def march_phases(dev, card, scenes, inst, march_built, t0, e_inst, it_target, ce
           f"{k3i_ms:.3f} ms)")
 
     march_profile = run_profile("--profile-march").split(" || ")
-    print(f"[21] torch.profiler (`chip_smoke.py --profile-march`) over 3 path B steps: "
+    print(f"[21] torch.profiler (`chip_smoke.py --profile-march`) over one path B step: "
           f"{march_profile[0]}")
-    print(f"[21] torch.profiler over 3 rounds of the four march kernels (K3, K4 light 0 at "
+    print(f"[21] torch.profiler over one round of the four march kernels (K3, K4 light 0 at "
           f"path B's rays; the instanced pair on the middle band): {march_profile[1]}")
     print(f"[21] one path B step in a process of its own, under the allocator's history: "
           f"{march_profile[2]}")
@@ -1215,7 +1248,7 @@ def regroup_phases(dev, card, inst, inst_cfgs, regroup_built, t0, e_inst, evals_
                       "evals_per_ray", "worst_lane_evals_per_warp", "warp_efficiency",
                       "runs_per_ray_eval", "runs_per_warp_step", "warps")}))
     rg_profile = run_profile("--profile-regroup")
-    print(f"[23] torch.profiler (`chip_smoke.py --profile-regroup`) over 3 regrouped frames: "
+    print(f"[23] torch.profiler (`chip_smoke.py --profile-regroup`) over one regrouped frame: "
           f"{rg_profile}")
 
     # the plain version on the middle 16-row band, through the pack's row0
@@ -1287,7 +1320,7 @@ def regroup_phases(dev, card, inst, inst_cfgs, regroup_built, t0, e_inst, evals_
 
 
 def profile_regroup() -> int:
-    """`chip_smoke.py --profile-regroup`: torch.profiler over 3 frames of the
+    """`chip_smoke.py --profile-regroup`: torch.profiler over one frame of the
     regrouped renderer (instanced:10000, clamp 2, MAIN_W x MAIN_H): device
     time by kernel (the three K9 kernels, the Morton keys and the sort) and
     the device's idle share, one line on stdout."""
@@ -1308,8 +1341,328 @@ def profile_regroup() -> int:
         render(sc.params)
 
     frame()
-    print(profile_steps(frame, 3))
+    print(profile_steps(frame, 1))
     return 0
+
+
+OBJ_W, OBJ_H = 480, 272  # the two-rank world's frame (phase 28)
+
+
+def object_points(structure, params, cfg, h, w):
+    """K7's check points at h x w (phase 26): along the camera rays at a
+    quarter, half and all of the plain march's hit distance, and along each
+    light's shadow rays from those hits at 0, a tenth and half of the way
+    (at most 30 units); [n, 3] each, contiguous."""
+    import torch
+
+    from loltracer_tpu_torch.render.camera import camera_rays
+    from loltracer_tpu_torch.render.march_kernels import march_values_reference, pack_march_scene
+
+    ro, rd = camera_rays(params, h, w, cfg)
+    t = march_values_reference(structure, cfg, ro, rd,
+                               pack_march_scene(structure, params)).t_query
+    cam = torch.cat([(ro + (s * t)[..., None] * rd).reshape(-1, 3) for s in (0.25, 0.5, 1.0)])
+    shadow = []
+    for so, ld, dist in shadow_rays(params, ro, rd, t, cfg):
+        reach = torch.clamp(dist, max=30.0)
+        shadow += [(so + (s * reach)[..., None] * ld).reshape(-1, 3) for s in (0.0, 0.1, 0.5)]
+    return cam.contiguous(), torch.cat(shadow).contiguous()
+
+
+def near_spheres(points, pos, rad, bbox, clamp, chunk=8192) -> int:
+    """The spheres within the cut max(clamp, distance to bbox) of each
+    point, summed over the points: what an exact evaluation there must
+    look at (phase 16's work model)."""
+    import torch
+
+    from loltracer_tpu_torch.render.sdf import bbox_cut
+
+    total = 0
+    for i in range(0, points.shape[0], chunk):
+        p = points[i:i + chunk]
+        d = torch.cdist(p, pos) - rad
+        total += int((d <= bbox_cut(bbox[:3], bbox[3:], p, clamp)[:, None]).sum())
+    return total
+
+
+def objects_world(dev, ranks: int):
+    """The mesh of this process' world, of `ranks` ranks, and its object
+    axis (parallel/objects.ObjectAxis)."""
+    from loltracer_tpu_torch.parallel import AXIS, make_mesh, objects
+
+    mesh = make_mesh(device=dev.type)
+    require(mesh.size(0) == ranks, f"a world of {mesh.size(0)} ranks, not {ranks}")
+    return mesh, objects.ObjectAxis(mesh.get_group(AXIS), ranks, mesh.get_local_rank(AXIS))
+
+
+def objects_rank(world: int, rank: int, store: str, out: str) -> int:
+    """`chip_smoke.py --objects-rank WORLD RANK STORE OUT`: one rank of the
+    two-rank world of phase 28, on the one card: gloo (it carries CUDA
+    tensors through the host; NCCL refuses two ranks on one device), the
+    object-sharded renderer at OBJ_W x OBJ_H, clamp 2, through K7; rank 0
+    writes the image and its K7 launches to OUT."""
+    import torch
+    import torch.distributed as dist
+
+    require(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    sys.path.insert(0, str(ROOT))
+    from loltracer_tpu_torch.config import RenderConfig
+    from loltracer_tpu_torch.parallel import AXIS, make_object_sharded_renderer
+    from loltracer_tpu_torch.render import march_kernels
+    from loltracer_tpu_torch.render.cuda_scene import INSTANCED_EVAL
+    from loltracer_tpu_torch.scenes import instanced_spheres
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    mesh, _ = objects_world(dev, world)
+    sc = instanced_spheres(n=10_000, device=dev)
+    render = make_object_sharded_renderer(
+        sc.structure, mesh, OBJ_H, OBJ_W, RenderConfig(step_clamp=2.0, march_backend="pallas"),
+        obj_axis=AXIS, device=dev)
+    march_kernels.launches[INSTANCED_EVAL] = 0
+    t = time.perf_counter()
+    with torch.no_grad():
+        img = render(sc.params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    if rank == 0:
+        torch.save({"img": img.cpu(), "launches": march_kernels.launches[INSTANCED_EVAL],
+                    "wall_s": wall, "backend": dist.get_backend()}, out)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def profile_objects() -> int:
+    """`chip_smoke.py --profile-objects`: torch.profiler over one frame of
+    the one-rank object-sharded renderer (instanced:10000, clamp 2, K7,
+    MAIN_W x MAIN_H), one line on stdout."""
+    import torch
+    import torch.distributed as dist
+
+    require(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    sys.path.insert(0, str(ROOT))
+    from loltracer_tpu_torch.config import RenderConfig
+    from loltracer_tpu_torch.parallel import AXIS, make_object_sharded_renderer
+    from loltracer_tpu_torch.scenes import instanced_spheres
+
+    dev = torch.device("cuda", 0)
+    mesh, _ = objects_world(dev, 1)
+    sc = instanced_spheres(n=10_000, device=dev)
+    render = make_object_sharded_renderer(
+        sc.structure, mesh, MAIN_H, MAIN_W, RenderConfig(step_clamp=2.0, march_backend="pallas"),
+        obj_axis=AXIS, device=dev)
+
+    def frame():
+        with torch.no_grad():
+            render(sc.params)
+
+    frame()
+    print(profile_steps(frame, 1))
+    dist.destroy_process_group()
+    return 0
+
+
+def objects_phases(dev, card, inst, eval_built, t0, ceiling):
+    """Phases 26-29: K7 (`lol_instanced_eval`) against its plain version,
+    the object-sharded renderer over a one-rank world at 1080p (the main
+    path of this slice), the same renderer over a two-rank world on the
+    same card, and K7's bound. Returns K7's `kernels` entry."""
+    import torch
+    import torch.distributed as dist
+
+    from loltracer_tpu_torch.config import RenderConfig
+    from loltracer_tpu_torch.parallel import AXIS, make_object_sharded_renderer, objects
+    from loltracer_tpu_torch.render import instanced_fwd, march_kernels
+    from loltracer_tpu_torch.render.camera import camera_pack, camera_rays
+    from loltracer_tpu_torch.render.cuda_scene import INSTANCED_EVAL, pack_fields
+    from loltracer_tpu_torch.render.instanced_pack import pack_instanced
+    from loltracer_tpu_torch.render.march_kernels import (instanced_eval_reference,
+                                                          make_instanced_eval, pack_eval_tables)
+    from loltracer_tpu_torch.scenes import instanced_spheres
+
+    # --- 26. K7 vs its plain version ------------------------------------------------
+    built = [f.result() for f in eval_built]
+    print(f"[26] build: {len(built)} lol_instanced_eval libraries (clamp 2, exact, clamp 8) "
+          f"done {time.perf_counter() - t0:.1f} s after the builds started; ptxas (clamp 2): "
+          + " | ".join(ptxas_lines(built[0].log)))
+    big = inst[10_000]
+    h, w = 97, 161
+    clamp2 = RenderConfig(step_clamp=2.0)
+    cam_pts, shadow_pts = object_points(big.structure, big.params, clamp2, h, w)
+    # a shard: the second half of instanced:10001 padded over 2 (one
+    # sentinel sphere), under the AABB of all 10001 spheres
+    odd = instanced_spheres(n=10_001, seed=0, device=dev)
+    axis2 = objects.ObjectAxis(None, 2, 1)
+    shard = objects.shard_spheres(objects.pad_spheres_for_sharding(odd.params, 2), axis2)
+    require(int((shard.sphere_radius < -1e29).sum()) == 1, "the shard holds no sentinel")
+    whole = pack_eval_tables(odd.params).bbox
+    shard_tables = pack_eval_tables(shard)
+    require(bool((shard_tables.bbox[:3] > whole[:3]).any() or
+                 (shard_tables.bbox[3:] < whole[3:]).any()),
+            "the shard's own AABB is as wide as the combined one")
+    shard_st = dataclasses.replace(odd.structure, num_spheres=shard.sphere_radius.shape[0], material_ids=())
+    eval_cases = [
+        ("instanced:10000 clamp 2", big, big.structure, pack_eval_tables(big.params), clamp2),
+        ("instanced:10000 exact", big, big.structure, pack_eval_tables(big.params),
+         RenderConfig()),
+        ("instanced:10000 shadow clamp 8", big, big.structure, pack_eval_tables(big.params),
+         RenderConfig(step_clamp=8.0)),
+        ("instanced:10001 shard 2 of 2, combined AABB, clamp 2", odd, shard_st,
+         shard_tables._replace(bbox=whole), clamp2),
+    ]
+    k7_err = 0.0
+    for what, sc, st, tables, c in eval_cases:
+        fn = make_instanced_eval(st, c)
+        for kind, pts in (("camera", cam_pts), ("shadow", shadow_pts)):
+            got = fn(tables, sc.params.plane_y, pts)
+            want = instanced_eval_reference(tables, sc.params.plane_y, pts, c.step_clamp)
+            torch.cuda.synchronize()
+            err, differ = check_values([got], [want], f"{what} {kind} points")
+            k7_err = max(k7_err, err)
+            print(f"[26] {what}, {pts.shape[0]} {kind} points of {h}x{w}: "
+                  + ("bitwise equal" if differ == 0 else
+                     f"{differ} differ, max |diff| {err:.3g} (within atol/rtol 1e-4)"))
+
+    # --- 27. the main path: one-rank object-sharded frame at 1080p through K7 ---------
+    mesh, axis = objects_world(dev, 1)
+    render = make_object_sharded_renderer(big.structure, mesh, MAIN_H, MAIN_W,
+                                          RenderConfig(step_clamp=2.0, march_backend="pallas"),
+                                          obj_axis=AXIS, device=dev)
+    twin_calls = [0]
+    real_twin = march_kernels.instanced_eval_reference
+
+    def counted_twin(*a, **k):
+        twin_calls[0] += 1
+        return real_twin(*a, **k)
+
+    march_kernels.instanced_eval_reference = counted_twin
+    try:
+        march_kernels.launches[INSTANCED_EVAL] = 0
+        t_first = time.perf_counter()
+        with torch.no_grad():
+            img = render(big.params)
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t_first
+        k7_launches = march_kernels.launches[INSTANCED_EVAL]
+    finally:
+        march_kernels.instanced_eval_reference = real_twin
+    require(k7_launches > 0, "the object-sharded frame launched lol_instanced_eval no time")
+    require(twin_calls[0] == 0, f"the kernel tier ran the plain K7 {twin_calls[0]} times")
+    require(tuple(img.shape) == (MAIN_H, MAIN_W, 3), f"image shape {tuple(img.shape)}")
+    require(bool(torch.isfinite(img).all()), "non-finite pixels")
+    cam = camera_pack(big.params, MAIN_H, MAIN_W, clamp2)
+    fields, tab = pack_fields(big.structure, big.params), pack_instanced(big.structure,
+                                                                         big.params)
+    k5 = instanced_fwd.instanced_forward(big.structure, clamp2, cam, fields, tab, MAIN_H, MAIN_W)
+    torch.cuda.synchronize()
+    if torch.equal(img, k5):
+        k5_rule = "bitwise lol_instanced_render's"
+    else:
+        err, over = compare(img, k5, "object-sharded 1080p vs lol_instanced_render")
+        k5_rule = f"within the phase-2 rule of lol_instanced_render's (max |diff| {err:.3g}, {over} px)"
+
+    def frame():
+        with torch.no_grad():
+            render(big.params)
+
+    frame_ms = time_ms(frame, 2)
+    # the hit-id lookup stays the plain sharded sdf_id (as in the JAX package), timed apart
+    ro, rd = camera_rays(big.params, MAIN_H, MAIN_W, clamp2)
+    t_q = march_kernels.march_values(big.structure, clamp2, ro, rd,
+                                     march_kernels.pack_march_scene(big.structure, big.params))
+    hit_pts = (ro + t_q.t_query[..., None] * rd).reshape(-1, 3).contiguous()
+    bbox = objects.combined_bbox(big.params, axis)
+    _, sdf_id, _ = objects._sharded_sdfs(big.structure, clamp2, axis, bbox)
+
+    def id_lookup():
+        with torch.no_grad():
+            sdf_id(big.params, hit_pts)
+
+    id_lookup()
+    id_ms = time_ms(id_lookup, 2)
+    tables = pack_eval_tables(big.params)._replace(bbox=bbox)
+    k7 = make_instanced_eval(big.structure, clamp2)
+
+    def k7_once():
+        k7(tables, big.params.plane_y, hit_pts)
+
+    def k7_plain():
+        instanced_eval_reference(tables, big.params.plane_y, hit_pts, 2.0)
+
+    k7_once()
+    k7_ms = time_ms(k7_once, 5)
+    got_hit = k7(tables, big.params.plane_y, hit_pts)
+    want_hit = instanced_eval_reference(tables, big.params.plane_y, hit_pts, 2.0)
+    err, differ = check_values([got_hit], [want_hit], "lol_instanced_eval at the 1080p hit points")
+    k7_err = max(k7_err, err)
+    k7_plain_ms = time_ms(k7_plain, 1)
+    prof = run_profile("--profile-objects")
+    m = re.search(r"([\d.]+) ms x(\d+) [^;]*instanced_eval_kernel", prof)
+    dev_k7 = f"{float(m.group(1)) / int(m.group(2)):.4f} ms" if m else "not in the profile"
+    print(f"[27] main path: make_object_sharded_renderer(instanced:10000, make_mesh() of one "
+          f"rank, {MAIN_W}x{MAIN_H}, clamp 2, march_backend='pallas') -> {k7_launches} "
+          f"lol_instanced_eval launches per frame, the plain K7 never; image {k5_rule}; first "
+          f"frame {t_first:.2f} s (builds loaded)")
+    print(f"[27] on {card}: frame {frame_ms:.3f} ms (CUDA events, median of 2); the plain "
+          f"sdf_id at the {MAIN_W * MAIN_H} hit points {id_ms:.3f} ms; one K7 launch there "
+          f"{k7_ms:.4f} ms (median of 5; " + ("bitwise its plain version" if differ == 0 else
+                                               f"{differ} points differ, max |diff| {err:.3g}")
+          + f"), its plain version {k7_plain_ms:.1f} ms; torch.profiler over one frame "
+          f"(`chip_smoke.py --profile-objects`): K7 {dev_k7} per launch on the device; {prof}")
+
+    # --- 28. two ranks on the one card (gloo) against one rank -----------------------
+    render_small = make_object_sharded_renderer(
+        big.structure, mesh, OBJ_H, OBJ_W, RenderConfig(step_clamp=2.0, march_backend="pallas"),
+        obj_axis=AXIS, device=dev)
+    with torch.no_grad():
+        one = render_small(big.params)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                   "--objects-rank", "2", str(r), str(Path(tmp) / "store"),
+                                   str(Path(tmp) / "rank0.pt")],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=300)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        bad = [(r, p.returncode, log[-2000:]) for r, (p, log) in enumerate(zip(procs, logs))
+               if p.returncode != 0]
+        require(not bad, f"the two-rank world failed: {bad}")
+        two = torch.load(Path(tmp) / "rank0.pt")
+    require(two["launches"] > 0, "the two-rank world launched lol_instanced_eval no time")
+    two_img = two["img"].to(dev)
+    if torch.equal(two_img, one):
+        pair_rule = "bitwise the one-rank image"
+    else:
+        err, over = compare(two_img, one, "two ranks vs one rank")
+        pair_rule = f"within the phase-2 rule of the one-rank image (max |diff| {err:.3g}, {over} px)"
+    print(f"[28] two ranks on the one card ({two['backend']}, `chip_smoke.py --objects-rank`), "
+          f"instanced:10000 split 5000 + 5000, {OBJ_W}x{OBJ_H}, clamp 2: {two['launches']} "
+          f"lol_instanced_eval launches on rank 0, frame {two['wall_s']:.2f} s on the host "
+          f"clock; image {pair_rule}")
+    dist.destroy_process_group()
+
+    # --- 29. K7's bound ---------------------------------------------------------------
+    n = hit_pts.shape[0]
+    near = near_spheres(hit_pts, big.params.sphere_point, big.params.sphere_radius, bbox, 2.0)
+    k7_bound = bound(16.0 * n, n * 22.0 + 9.0 * near, ceiling)
+    print(f"[29] bound: lol_instanced_eval at the {n} hit points {k7_bound[0]:.4f} ms by "
+          f"{k7_bound[1]} ({near / n:.2f} spheres within the cut per point, 9 operations each "
+          f"+ 22; {16 * n / 1e6:.1f} MB)")
+    return dict(entry("lol_instanced_eval", "loltracer_tpu_torch/csrc/march.cuh",
+                      "loltracer_tpu/render/pallas_march.py:222", k7_launches, k7_err, k7_ms,
+                      k7_plain_ms, k7_bound),
+                frame_ms=frame_ms, sdf_id_ms=id_ms)
 
 
 def main() -> int:
@@ -1386,9 +1739,12 @@ def main() -> int:
     march_libs = [(scenes[n].structure, RenderConfig()) for n in SCENES] + [
         (inst[10_000].structure, c) for c in (clamp2, RenderConfig(),
                                               RenderConfig(step_clamp=2.0, shadow_step_clamp=8.0))]
+    eval_clamps = (2.0, None, 8.0)  # K7 (phase 26): the one source per step clamp
     pool = ThreadPoolExecutor(max_workers=len(cases) + len(train_cases) + 2 * len(inst_cfgs)
-                              + len(inst_train_cfgs) + len(march_libs) + 1)
+                              + len(inst_train_cfgs) + len(march_libs) + len(eval_clamps) + 1)
     peak_built = pool.submit(peak.library)
+    eval_built = [pool.submit(march_kernels.eval_library, inst[10_000].structure,
+                              RenderConfig(step_clamp=c)) for c in eval_clamps]
     regroup_built = [pool.submit(regroup.library, c, inst[10_000].structure) for c in inst_cfgs]
     march_built = [pool.submit(march_kernels.library, st, c) for st, c in march_libs]
     inst_train_built = [pool.submit(instanced_train.library, c, inst[10_000].structure)
@@ -1459,7 +1815,7 @@ def main() -> int:
         kernel()
     k_ms = time_ms(kernel, 10)
     plain()
-    p_ms = time_ms(plain, 3)
+    p_ms = time_ms(plain, 1)
     rays = MAIN_W * MAIN_H
     print(f"[4] scene4 {MAIN_W}x{MAIN_H} on {card}: kernel {k_ms:.3f} ms/frame "
           f"({rays / k_ms / 1e3:.1f} M rays/s), plain {p_ms:.1f} ms/frame "
@@ -1593,9 +1949,9 @@ def main() -> int:
     peak = torch.cuda.max_memory_allocated()
     k1r_ms, k2_ms = time_ms(k1r, 10), time_ms(k2, 10)
     plain_fwd()
-    pf_ms = time_ms(plain_fwd, 3)
+    pf_ms = time_ms(plain_fwd, 1)
     plain_bwd()
-    pb_ms = time_ms(plain_bwd, 3)
+    pb_ms = time_ms(plain_bwd, 1)
     breakdown = profile_steps(step, 5)
     print(f"[8] scene4 AA {MAIN_W}x{MAIN_H} on {card}: fwd+bwd step {step_ms:.3f} ms "
           f"(peak {peak / 2**20:.0f} MiB allocated); lol_train_fwd {k1r_ms:.3f} ms, "
@@ -1760,15 +2116,15 @@ def main() -> int:
                                                   BAND, MAIN_W, MAIN_H)
 
     inst_kernel(), inst_kernel_uhd()
-    inst_ms = time_ms(inst_kernel, 5)
-    uhd_ms = time_ms(inst_kernel_uhd, 5)
+    inst_ms = time_ms(inst_kernel, 3)
+    uhd_ms = time_ms(inst_kernel_uhd, 2)
     inst_plain_ms = time_ms(inst_plain_band, 1)
     inst_profile = run_profile("--profile-instanced")
     print(f"[12] instanced:10000 clamp 2 on {card}: kernel {inst_ms:.3f} ms/frame at "
           f"{MAIN_W}x{MAIN_H} ({MAIN_W * MAIN_H / inst_ms / 1e3:.3f} M rays/s), "
           f"{uhd_ms:.3f} ms/frame at {UHD_W}x{UHD_H} ({UHD_W * UHD_H / uhd_ms / 1e3:.3f} M "
           f"rays/s); plain {inst_plain_ms:.1f} ms for one {BAND}-row band")
-    print(f"[12] torch.profiler over 3 frames at {MAIN_W}x{MAIN_H}: {inst_profile}")
+    print(f"[12] torch.profiler over one frame at {MAIN_W}x{MAIN_H}: {inst_profile}")
 
     # K5 work model (independent of the kernel's traversal): per evaluation
     # 9 operations for each sphere within the cut of the point (counted on
@@ -1882,7 +2238,8 @@ def main() -> int:
     img_it, res_it = instanced_train.instanced_train_forward(st10, clamp2_env, cam_it, fields_it,
                                                              tab_it, MAIN_H, MAIN_W)
     it_fwd_err, it_bwd_err = 0.0, 0.0
-    for name, r0 in bands.items():
+    for name in ("middle", "bottom"):  # two of phase 11's bands
+        r0 = bands[name]
         bcam = camera_pack(big.params, MAIN_H, MAIN_W, clamp2_env, row0=r0)
         k_band, k_bres = instanced_train.instanced_train_forward(
             st10, clamp2_env, bcam, fields_it, tab_it, BAND, MAIN_W, MAIN_H)
@@ -1952,16 +2309,16 @@ def main() -> int:
     it_step(), k6()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    it_step_ms = time_ms(it_step, 5)
+    it_step_ms = time_ms(it_step, 3)
     it_peak = torch.cuda.max_memory_allocated()
-    k5r_ms, k6_ms = time_ms(k5r, 5), time_ms(k6, 5)
+    k5r_ms, k6_ms = time_ms(k5r, 3), time_ms(k6, 3)
     it_pf_ms, it_pb_ms = time_ms(it_plain_fwd, 1), time_ms(it_plain_bwd, 1)
     it_profile = run_profile("--profile-instanced-train")
     print(f"[16] instanced:10000 clamp 2 envelope {MAIN_W}x{MAIN_H} on {card}: fwd+bwd step "
           f"{it_step_ms:.3f} ms (peak {it_peak / 2**20:.0f} MiB allocated); lol_instanced_fwd "
           f"{k5r_ms:.3f} ms, lol_instanced_bwd {k6_ms:.3f} ms; plain fwd {it_pf_ms:.1f} ms, "
           f"plain bwd {it_pb_ms:.1f} ms for one {BAND}-row band")
-    print(f"[16] torch.profiler over 3 steps: {it_profile}")
+    print(f"[16] torch.profiler over one step: {it_profile}")
 
     # Bounds on K5's work model (phase 12): an evaluation costs 9 operations
     # per sphere within the cut (the bands' average) + 22, its adjoint 15
@@ -2002,6 +2359,7 @@ def main() -> int:
                                  ceiling)
     regroup_entries = regroup_phases(dev, card, inst, inst_cfgs, regroup_built, t0, e_inst,
                                      m_inst / band_px, ceiling)
+    objects_entry = objects_phases(dev, card, inst, eval_built, t0, ceiling)
 
     print(json.dumps({"kernels": [
         entry("lol_render_fused", "loltracer_tpu_torch/csrc/fused_fwd.cuh",
@@ -2028,6 +2386,7 @@ def main() -> int:
         *march_entries,
         *regroup_entries,
         *peak_entries,
+        objects_entry,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
@@ -2044,4 +2403,8 @@ if __name__ == "__main__":
         sys.exit(profile_regroup())
     if sys.argv[1:2] == ["--profile-peak"]:
         sys.exit(profile_peak(sys.argv[2:]))
+    if sys.argv[1:] == ["--profile-objects"]:
+        sys.exit(profile_objects())
+    if sys.argv[1:2] == ["--objects-rank"]:
+        sys.exit(objects_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]))
     sys.exit(main())

@@ -203,6 +203,11 @@ def cmd_info(args):
 
 
 def main(argv=None):
+    # multi-process bootstrap, a no-op unless LOLTRACE_COORDINATOR or
+    # LOLTRACE_DISTRIBUTED is set (parallel/distributed.py)
+    from loltracer_tpu_torch.parallel.distributed import maybe_initialize
+
+    maybe_initialize()
     parser = argparse.ArgumentParser(prog="loltrace-torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
 

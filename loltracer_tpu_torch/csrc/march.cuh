@@ -37,9 +37,28 @@
 // is done, so a warp waits only for its own worst ray; instanced blocks
 // keep the run balls in shared memory, loaded once per block.
 //
+// K7, lol_instanced_eval: one evaluation of the instanced scene's distance
+// at arbitrary points, under one step clamp whose cut takes the AABB it is
+// given. Replaces `loltracer_tpu/render/pallas_march.py: _eval_kernel`
+// (built by `make_instanced_eval`, the Pallas call `lol_instanced_eval`),
+// whose only caller is the object-sharded renderer
+// (loltracer_tpu_torch/parallel/objects.py): each rank evaluates its own
+// sphere shard under the AABB combined over the object axis, and the ranks
+// all-reduce the minimum. One thread per point of a [n, 3] batch writes
+// `InstancedScene::dist` (K5's traversal under Cfg's primary clamp) to
+// out[n]; the ragged edge is masked, nothing is padded, and the TPU's
+// (3, COL) tiles, windows and pick loop are not carried over. The planes'
+// heights are a buffer of their own (the generated eval layout reads
+// plane_y at offset 0 of it). Bound: FP32 and SFU issue in the traversal,
+// as K5 (bytes: 12 B in and 4 B out per point). The run balls sit in
+// shared memory, loaded once per block; a block is 128 consecutive points,
+// so in the march's pixel order a warp is 32 pixels of one row rather than
+// K5's 8 x 4 tile.
+//
 // This file follows csrc/fused_fwd.cuh and csrc/instanced_scene.cuh in
-// the source render/cuda_scene.py generates (`generate_march_source`); the
-// per-ray functions also compile as host C++ (tests/test_torch_march_host.py).
+// the sources render/cuda_scene.py generates (`generate_march_source`,
+// `generate_eval_source`); the per-ray and per-point functions also compile
+// as host C++ (tests/test_torch_march_host.py).
 
 namespace lol {
 
@@ -89,6 +108,14 @@ __device__ __forceinline__ void value_at(const Scene& scn, const MarchArgs& a, s
   } else {
     march_at<Cfg>(scn, a, i, n);
   }
+}
+
+// K7's work for point i: the primary-clamp distance at p[3 i .. 3 i + 2].
+template <class Scene>
+__device__ __forceinline__ void eval_at(const Scene& scn, const float* __restrict__ p,
+                                        float* __restrict__ out, size_t i) {
+  const float* q = p + 3 * i;
+  out[i] = scn.dist(__ldg(q), __ldg(q + 1), __ldg(q + 2));
 }
 
 #ifdef __CUDACC__
@@ -149,6 +176,36 @@ int launch_march_instanced(const float* P, const InstancedTables& tab, const Mar
   march_grid(rows, width, kInstBlockX, kInstBlockY, grid, block);
   march_instanced_kernel<kShadow, Cfg, Scene>
       <<<grid, block, smem, stream>>>(P, tab, a, rows, width);
+  return (int)cudaGetLastError();
+}
+constexpr int kEvalBlock = 128;
+
+template <class Scene>
+__global__ void __launch_bounds__(kEvalBlock)
+    instanced_eval_kernel(const float* __restrict__ plane_y, InstancedTables tab,
+                          const float* __restrict__ p, float* __restrict__ out, long long n) {
+  extern __shared__ float4 s_groups[];
+  for (int i = threadIdx.x; i < 2 * tab.num_groups; i += blockDim.x) s_groups[i] = tab.groups[i];
+  __syncthreads();
+
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Scene scn(plane_y, tab, s_groups);
+  eval_at(scn, p, out, (size_t)i);
+}
+
+template <class Scene>
+int launch_instanced_eval(const float* plane_y, const InstancedTables& tab, const float* p,
+                          float* out, long long n, cudaStream_t stream) {
+  const int smem = 2 * tab.num_groups * (int)sizeof(float4);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        instanced_eval_kernel<Scene>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const long long blocks = (n + kEvalBlock - 1) / kEvalBlock;
+  instanced_eval_kernel<Scene><<<(unsigned)blocks, kEvalBlock, smem, stream>>>(
+      plane_y, tab, p, out, n);
   return (int)cudaGetLastError();
 }
 #endif  // __CUDACC__

@@ -42,6 +42,9 @@ instanced structure, on the `InstancedScene`: one library per structure
 and config holds both. `generate_regroup_source(structure, cfg)` is the
 source of the regrouped instanced forward K9 (csrc/regroup.cuh: lol_rg_march,
 lol_rg_shadow, lol_rg_shade), one text for every sphere count too.
+`generate_eval_source(structure, cfg)` is the source of K7
+(`lol_instanced_eval`, csrc/march.cuh): the instanced distance at points
+under cfg.step_clamp, its planes' heights read from a buffer of their own.
 """
 
 from __future__ import annotations
@@ -718,6 +721,70 @@ def generate_march_source(structure: SceneStructure, cfg: RenderConfig) -> str:
             "",
             "#ifdef __CUDACC__",
             entries,
+            "#endif  // __CUDACC__",
+            "",
+        ]
+    )
+
+
+INSTANCED_EVAL = "lol_instanced_eval"
+
+_EVAL_ENTRY = f"""\
+extern "C" int {INSTANCED_EVAL}(const void* plane_y, const void* spheres, const void* groups,
+                                   const void* bbox, int num_spheres, int num_groups,
+                                   const void* p, void* out, long long n, void* stream) {{
+  const void* ids = nullptr;
+{_TABLES}
+  return lol::launch_instanced_eval<lol_gen::Scene>(
+      static_cast<const float*>(plane_y), tab, static_cast<const float*>(p),
+      static_cast<float*>(out), n, static_cast<cudaStream_t>(stream));
+}}"""
+
+
+def _eval_layout_source(structure: SceneStructure) -> str:
+    """K7's layout: the InstancedScene's constants, with the planes'
+    heights at offset 0 of the buffer the kernel is given (plane_y itself)
+    and no other field: the distance reads nothing else."""
+    consts = {
+        "kNumLights": 0,
+        "kNumMaterials": 0,
+        "kNumFields": structure.num_planes,
+        "kNumPlanes": structure.num_planes,
+        "kGroup": GROUP,
+        "kPlaneY": 0,
+        **{k: 0 for k in ("kMatShininess", "kMatDiffuse", "kMatSpecular", "kMatAmbient",
+                          "kAmbientColor", "kLightPoint", "kLightDiffuse", "kLightSpecular")},
+    }
+    lines = ["struct Layout {"]
+    lines += [f"  static constexpr int {k} = {v};" for k, v in consts.items()]
+    lines += ["};", "using Scene = InstancedScene<Layout, Cfg>;"]
+    return "\n".join(lines)
+
+
+def generate_eval_source(structure: SceneStructure, cfg: RenderConfig) -> str:
+    """The CUDA translation unit of K7 (`lol_instanced_eval`) for this
+    instanced structure and cfg.step_clamp: csrc/fused_fwd.cuh,
+    csrc/instanced_scene.cuh and csrc/march.cuh, then the Cfg and the eval
+    layout. One text for every structure with as many planes, whatever its
+    spheres, lights, materials and shadow clamp; deterministic; holds no scene numbers. The device functions
+    also compile as host C++."""
+    require_instanced(structure)
+    cfg = RenderConfig(step_clamp=cfg.step_clamp)
+    bodies = ["fused_fwd.cuh", "instanced_scene.cuh", "march.cuh"]
+    return "\n".join(
+        [
+            "// Generated by loltracer_tpu_torch.render.cuda_scene: the kernel",
+            "// bodies of csrc/, then this instanced structure's Cfg and eval layout.",
+            *[(CSRC / b).read_text() for b in bodies],
+            "namespace lol_gen {",
+            "using namespace lol;",
+            _cfg_source(cfg, residuals=False, instanced=True),
+            "",
+            _eval_layout_source(structure),
+            "}  // namespace lol_gen",
+            "",
+            "#ifdef __CUDACC__",
+            _EVAL_ENTRY,
             "#endif  // __CUDACC__",
             "",
         ]

@@ -112,6 +112,17 @@ def sphere_bbox(pos: torch.Tensor, rad: torch.Tensor) -> Tuple[torch.Tensor, tor
     return (pos - rad[:, None]).amin(dim=0), (pos + rad[:, None]).amax(dim=0)
 
 
+def real_sphere_bbox(pos: torch.Tensor, rad: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`sphere_bbox` over the real spheres only: those of radius > -1e29,
+    leaving out the sentinel spheres (radius -1e30) that pad a sphere set
+    for sharding (parallel/objects.py). lo is +inf and hi -inf where there
+    is no real sphere; on a set without sentinels it is `sphere_bbox`."""
+    real = (rad > -1e29)[:, None]
+    inf = float("inf")
+    return (torch.where(real, pos - rad[:, None], inf).amin(dim=0),
+            torch.where(real, pos + rad[:, None], -inf).amax(dim=0))
+
+
 def pack_instanced(structure: SceneStructure, params: SceneParams) -> InstancedTables:
     """The kernel's tables for this structure's sphere set, in f32 on the
     params' device."""

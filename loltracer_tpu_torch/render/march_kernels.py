@@ -16,6 +16,13 @@ So the two loops are value functions, and on CUDA tensors they run here:
   `shadow_fn` that render/torch_renderer.py hands to the renderer (the
   counterparts of `make_pallas_march` / `make_pallas_shadow_march`).
 
+- `make_instanced_eval(structure, cfg)` -> `eval_fn(tables, plane_y, p)`:
+  K7, `lol_instanced_eval` (csrc/march.cuh), the instanced distance under
+  cfg.step_clamp at points p [..., 3] over the value-only tables of
+  `pack_eval_tables` (whose AABB the caller may replace: the object-sharded
+  renderer, parallel/objects.py, passes the one combined over its object
+  axis); its plain version is `instanced_eval_reference`.
+
 ro is one origin [3] or one per ray [..., 3]; rd [..., 3]; any batch shape,
 flattened for the kernel (its last dimension is the kernel's tile width).
 `scene` is the `MarchScene` of `pack_march_scene`: the packed buffer and,
@@ -26,9 +33,10 @@ A wrapper given CUDA tensors checks them (CUDA, float32, contiguous,
 shape), launches its kernel or raises; nothing falls back. CPU tensors
 take the plain versions, `march_values_reference` and
 `shadow_values_reference`: render/march.py `march` and render/shading.py
-`shadow_march` under `no_grad`. `launches` counts kernel launches per
-entry point; the plain versions never add to it. K3 and K4 share one
-library per structure and march config, built at first use.
+`shadow_march` under `no_grad`; `instanced_eval_reference` for K7.
+`launches` counts kernel launches per entry point; the plain versions
+never add to it. K3 and K4 share one library per structure and march
+config, built at first use; K7 has one per step clamp and plane count.
 """
 
 from __future__ import annotations
@@ -44,10 +52,12 @@ from loltracer_tpu_torch import _build
 from loltracer_tpu_torch.config import RenderConfig
 from loltracer_tpu_torch.render.backend import resolve_backend
 from loltracer_tpu_torch.render.cuda_scene import (
+    INSTANCED_EVAL,
     MARCH,
     MARCH_INSTANCED,
     SHADOW_MARCH,
     SHADOW_MARCH_INSTANCED,
+    generate_eval_source,
     generate_march_source,
     pack_fields,
     packed_size,
@@ -55,26 +65,40 @@ from loltracer_tpu_torch.render.cuda_scene import (
 )
 from loltracer_tpu_torch.render.fused_fwd import _check
 from loltracer_tpu_torch.render.instanced_fwd import _check_tables
-from loltracer_tpu_torch.render.instanced_pack import InstancedTables, pack_instanced, soa_spheres
+from loltracer_tpu_torch.render.instanced_pack import (
+    GROUP,
+    InstancedTables,
+    group_bounds,
+    pack_instanced,
+    pack_order,
+    real_sphere_bbox,
+    soa_spheres,
+)
 from loltracer_tpu_torch.render.march import MarchResult, march
-from loltracer_tpu_torch.render.sdf import make_scene_sdf
+from loltracer_tpu_torch.render.sdf import bbox_cut, make_scene_sdf
 from loltracer_tpu_torch.render.shading import shadow_march
-from loltracer_tpu_torch.scene import SceneParams, SceneStructure
+from loltracer_tpu_torch.scene import SceneParams, SceneStructure, require_instanced
 
 __all__ = [
+    "EvalTables",
     "MarchScene",
+    "eval_library",
+    "instanced_eval_reference",
     "launches",
     "library",
     "make_cuda_march",
     "make_cuda_shadow_march",
+    "make_instanced_eval",
     "march_values",
     "march_values_reference",
+    "pack_eval_tables",
     "pack_march_scene",
     "shadow_values",
     "shadow_values_reference",
 ]
 
-launches = {MARCH: 0, SHADOW_MARCH: 0, MARCH_INSTANCED: 0, SHADOW_MARCH_INSTANCED: 0}
+launches = {MARCH: 0, SHADOW_MARCH: 0, MARCH_INSTANCED: 0, SHADOW_MARCH_INSTANCED: 0,
+            INSTANCED_EVAL: 0}
 
 # the most rows of a 2-D launch grid (grid.y < 65536 blocks of up to 16 rows)
 _MAX_ROWS = 65535 * 8
@@ -279,3 +303,132 @@ def make_cuda_shadow_march(structure: SceneStructure, cfg: RenderConfig) -> Call
         return shadow_values(structure, cfg, *_ray_batch(ro, rd, max_dist), scene)
 
     return shadow_fn
+
+
+class EvalTables(NamedTuple):
+    """K7's view of one sphere set, value-only (detached, f32, contiguous):
+
+    spheres [Ns, 4]  x y z r, Morton-sorted; sentinel spheres (radius
+                     -1e30, the padding of parallel/objects.py) included
+    groups  [Ng, 8]  the run balls of instanced_pack.group_bounds
+    bbox    [6]      lo, hi of the real spheres' surfaces, or the AABB the
+                     caller puts in its place (the object axis' combined one)
+    """
+
+    spheres: torch.Tensor
+    groups: torch.Tensor
+    bbox: torch.Tensor
+
+
+def pack_eval_tables(params: SceneParams) -> EvalTables:
+    """The tables of K7 for params' spheres (`pallas_scene.pack_instanced_spheres`
+    without the material column): no ids and no material table, so a
+    shard's sphere set packs as it is; the AABB leaves sentinels out."""
+    with torch.no_grad():
+        pos = params.sphere_point.detach().to(torch.float32)
+        rad = params.sphere_radius.detach().to(torch.float32)
+        if pos.dim() != 2 or pos.shape[1] != 3 or tuple(rad.shape) != (pos.shape[0],):
+            raise ValueError(f"sphere_point {tuple(pos.shape)} / sphere_radius "
+                             f"{tuple(rad.shape)} are not an [N, 3] / [N] sphere set")
+        if pos.shape[0] == 0:
+            raise ValueError("an instanced scene needs at least one sphere")
+        order = pack_order(pos)
+        pos, rad = pos[order], rad[order]
+        lo, hi = real_sphere_bbox(pos, rad)
+        return EvalTables(torch.cat([pos, rad[:, None]], dim=1).contiguous(),
+                          group_bounds(pos, rad).contiguous(), torch.cat([lo, hi]).contiguous())
+
+
+def instanced_eval_reference(tables: EvalTables, plane_y, p, step_clamp: Optional[float] = None,
+                             block: int = 512, chunk: int = 1 << 16) -> torch.Tensor:
+    """The plain version of K7 at points p [..., 3] (f32): the min over the
+    tables' real spheres of |p - c| - r (+inf where there is none), under
+    a step clamp min'd with max(clamp, distance to tables.bbox), then the
+    planes by a strict `<`; sums written ((x+y)+z) as the kernel's. Blocks
+    of `block` spheres over chunks of `chunk` points bound the
+    temporaries. Without autograd."""
+    batch = p.shape[:-1]
+    flat = p.detach().reshape(-1, 3)
+    out = torch.empty(flat.shape[0], dtype=flat.dtype, device=flat.device)
+    spheres = tables.spheres
+    lo, hi = tables.bbox[:3], tables.bbox[3:]
+    with torch.no_grad():
+        for start in range(0, flat.shape[0], chunk):
+            q = flat[start:start + chunk]
+            px, py, pz = q[:, 0, None], q[:, 1, None], q[:, 2, None]
+            dmin = torch.full((q.shape[0],), float("inf"), dtype=q.dtype, device=q.device)
+            for s0 in range(0, spheres.shape[0], block):
+                c = spheres[s0:s0 + block]
+                dx, dy, dz = px - c[:, 0], py - c[:, 1], pz - c[:, 2]
+                d = torch.sqrt((dx * dx + dy * dy) + dz * dz) - c[:, 3]
+                d = torch.where(c[:, 3] > -1e29, d, float("inf"))
+                dmin = torch.minimum(dmin, d.amin(dim=-1))
+            if step_clamp is not None:
+                dmin = torch.minimum(dmin, bbox_cut(lo, hi, q, step_clamp))
+            for k in range(plane_y.shape[0]):
+                dp = q[:, 1] - plane_y[k]
+                dmin = torch.where(dp < dmin, dp, dmin)
+            out[start:start + chunk] = dmin
+    return out.reshape(batch)
+
+
+@functools.lru_cache(maxsize=None)
+def _eval_library(structure: SceneStructure, cfg: RenderConfig) -> _build.Library:
+    built = _build.build(generate_eval_source(structure, cfg), "instanced_eval")
+    fn = getattr(built.lib, INSTANCED_EVAL)
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+                   + [ctypes.c_longlong, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return built
+
+
+def eval_library(structure: SceneStructure, cfg: RenderConfig) -> _build.Library:
+    """The built K7 for this structure and cfg.step_clamp (compiled at first
+    use, then loaded from the build cache); structures with as many planes
+    share one source."""
+    return _eval_library(structure, RenderConfig(step_clamp=cfg.step_clamp))
+
+
+def _check_eval(structure: SceneStructure, tables: EvalTables, plane_y, p) -> None:
+    ns = structure.num_spheres
+    want = {"spheres": (ns, 4), "groups": (-(-ns // GROUP), 8), "bbox": (6,)}
+    for name, shape in want.items():
+        _check(f"tables.{name}", getattr(tables, name), shape)
+    _check("plane_y", plane_y, (structure.num_planes,))
+    if p.dtype != torch.float32 or p.shape[-1:] != (3,):
+        raise ValueError(f"p: want float32 [..., 3], got {p.dtype} {tuple(p.shape)}")
+    if any(t.device != p.device for t in (*tables, plane_y)):
+        raise ValueError("p, plane_y and the tables must be on one device")
+
+
+def make_instanced_eval(structure: SceneStructure, cfg: RenderConfig) -> Callable:
+    """`eval_fn(tables, plane_y, p[..., 3]) -> dist[...]`: one evaluation of
+    the instanced distance under cfg.step_clamp at arbitrary points
+    (`pallas_march.make_instanced_eval`), over the EvalTables of
+    `structure.num_spheres` spheres and the planes' heights plane_y
+    [num_planes]. CUDA tensors launch K7 (one thread per point, no
+    padding); CPU tensors take `instanced_eval_reference`. Value-only: the
+    caller attaches gradients (parallel/objects.py)."""
+    require_instanced(structure)
+
+    def eval_fn(tables: EvalTables, plane_y, p):
+        if resolve_backend(p, plane_y, *tables) == "torch":
+            return instanced_eval_reference(tables, plane_y, p, cfg.step_clamp)
+        _check_eval(structure, tables, plane_y, p)
+        batch = tuple(p.shape[:-1])
+        flat = p.detach().reshape(-1, 3).contiguous()
+        out = torch.empty(flat.shape[0], dtype=torch.float32, device=p.device)
+        if flat.shape[0] == 0:
+            return out.reshape(batch)
+        fn = getattr(eval_library(structure, cfg).lib, INSTANCED_EVAL)
+        with torch.cuda.device(p.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = fn(plane_y.data_ptr(), tables.spheres.data_ptr(), tables.groups.data_ptr(),
+                    tables.bbox.data_ptr(), tables.spheres.shape[0], tables.groups.shape[0],
+                    flat.data_ptr(), out.data_ptr(), flat.shape[0], stream)
+        if rc != 0:
+            raise RuntimeError(f"{INSTANCED_EVAL} launch failed: cudaError {rc}")
+        launches[INSTANCED_EVAL] += 1
+        return out.reshape(batch)
+
+    return eval_fn

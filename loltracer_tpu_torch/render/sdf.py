@@ -134,19 +134,18 @@ def bbox_cut(lo, hi, p, step_clamp: float):
 def sphere_argmin(structure: SceneStructure, params: SceneParams, p):
     """(dist, id) over the spheres of an instanced structure only: a
     running min and argmin over blocks of `structure.instanced_block`
-    spheres, the last block padded with sentinel spheres of radius -1e30
-    that never win; within a block the first minimum wins and across blocks
-    a strict `<`, so ties go to the smaller SoA index. id is 1-based."""
+    spheres, the last block short (the JAX package pads it with sentinel
+    spheres of radius -1e30, which never win: the same values); within a
+    block the first minimum wins and across blocks a strict `<`, so ties
+    go to the smaller SoA index. id is 1-based."""
     block = structure.instanced_block
     ns = structure.num_spheres
     batch = p.shape[:-1]
     dmin = torch.full(batch, float("inf"), dtype=p.dtype, device=p.device)
     imin = torch.zeros(batch, dtype=torch.int32, device=p.device)
     px, py, pz = p[..., 0, None], p[..., 1, None], p[..., 2, None]
-    pad = -ns % block
-    pos = torch.cat([params.sphere_point, params.sphere_point.new_zeros((pad, 3))])
-    rad = torch.cat([params.sphere_radius, params.sphere_radius.new_full((pad,), -1e30)])
-    for start in range(0, ns + pad, block):
+    pos, rad = params.sphere_point, params.sphere_radius
+    for start in range(0, ns, block):
         c, r = pos[start : start + block], rad[start : start + block]
         dx, dy, dz = px - c[:, 0], py - c[:, 1], pz - c[:, 2]
         dist = torch.sqrt((dx * dx + dy * dy) + dz * dz) - r

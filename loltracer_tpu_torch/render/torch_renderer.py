@@ -89,6 +89,9 @@ def render_rays(
     pixel_rad=None,
     live: Optional[Dict] = None,
     march_scene=None,
+    sdf: Optional[Callable] = None,
+    sdf_id: Optional[Callable] = None,
+    shadow_sdf: Optional[Callable] = None,
 ):
     """Render ray batches: ro [3] or [..., 3], rd [..., 3] -> gamma-encoded
     RGB [..., 3]. With cfg.antialias and a pixel_rad (see pixel_radius),
@@ -100,13 +103,34 @@ def render_rays(
     `live` = {"march": [], "shadow": []} (and optionally "probe", a
     callable), the loops report their live rays per step (march.march);
     that needs the plain loops. `march_scene` is the kernels' packed view
-    of params (march_kernels.pack_march_scene), when the caller has one."""
+    of params (march_kernels.pack_march_scene), when the caller has one.
+
+    `sdf` / `sdf_id` / `shadow_sdf` override the scene's distance (the
+    object-sharded renderer, parallel/objects.py, passes its all-reduced
+    ones), as in the JAX package: an `sdf` override runs the plain march
+    loops (the march kernels compile the structure's own distance), and
+    with a shadow clamp other than the step clamp it needs a `shadow_sdf`
+    of its own, else ValueError."""
     clamp = cfg.step_clamp if structure.instanced else None
     shadow_clamp = cfg.effective_shadow_clamp() if structure.instanced else None
-    sdf = make_scene_sdf(structure, clamp)
-    sdf_id = make_scene_sdf_with_id(structure, clamp)
-    shadow_sdf = sdf if shadow_clamp == clamp else make_scene_sdf(structure, shadow_clamp)
-    march_fn, shadow_fn = _march_kernels(structure, params, rd, cfg, live, march_scene)
+    override = sdf is not None
+    if sdf is None:
+        sdf = make_scene_sdf(structure, clamp)
+    if sdf_id is None:
+        sdf_id = make_scene_sdf_with_id(structure, clamp)
+    if shadow_sdf is None:
+        if shadow_clamp == clamp:
+            shadow_sdf = sdf
+        elif override:
+            raise ValueError(
+                "shadow_step_clamp differs from step_clamp but the sdf override "
+                "supplies no shadow_sdf"
+            )
+        else:
+            shadow_sdf = make_scene_sdf(structure, shadow_clamp)
+    march_fn = shadow_fn = None
+    if not override:
+        march_fn, shadow_fn = _march_kernels(structure, params, rd, cfg, live, march_scene)
     use_aa = cfg.antialias and pixel_rad is not None
     t, obj_id, alpha, _ = intersect_aa(
         sdf, sdf_id, params, ro, rd, cfg, pixel_rad if use_aa else None, live, march_fn

@@ -10,14 +10,20 @@
   (march_values_reference, shadow_values_reference) on camera rays and on
   the real shadow rays of each light: scene4, and instanced:300 at clamp 2
   and exact;
+- K7's per-point function `eval_at` (`lol_instanced_eval`) over the
+  InstancedScene of its generated source, point by point against its
+  plain version (`instanced_eval_reference`): instanced:300 whole at clamp
+  2 and exact, and a sentinel-padded shard under the combined AABB;
 - `render_pixel` after its march and shadow loops moved into `march_ray` /
   `shadow_ray`, against the same source with the loops written inline as
   they were: the two host builds give bitwise the same image and residual
   planes.
 
-The kernels themselves run only on the card (chip_smoke.py phases 17-21)."""
+The kernels themselves run only on the card (chip_smoke.py phases 17-21
+and 26)."""
 
 import ctypes
+import dataclasses
 import hashlib
 import shutil
 import subprocess
@@ -31,12 +37,15 @@ from loltracer_tpu_torch.lol import parse_scene_file
 from loltracer_tpu_torch.render import cuda_scene, march_kernels
 from loltracer_tpu_torch.render.camera import camera_pack, camera_rays
 from loltracer_tpu_torch.render.cuda_scene import (
+    generate_eval_source,
     generate_march_source,
     generate_source,
     pack_fields,
 )
 from loltracer_tpu_torch.render.march_kernels import (
+    instanced_eval_reference,
     march_values_reference,
+    pack_eval_tables,
     pack_march_scene,
     shadow_values_reference,
 )
@@ -88,6 +97,17 @@ extern "C" void host_march(const float* P, const float* s, const int* ids, const
     if (max_dist) lol::value_at<true, Cfg>(scn, a, i, n);
     else lol::value_at<false, Cfg>(scn, a, i, n);
   }
+}
+"""
+
+# K7 per point i of n
+_EVAL_ENTRY = r"""
+extern "C" void host_eval(const float* plane_y, const float* s, const float* g,
+                          const float* bbox, int ns, int ng, const float* p, float* out, int n) {
+  const lol::InstancedTables tab{reinterpret_cast<const float4*>(s), nullptr,
+                                 reinterpret_cast<const float4*>(g), bbox, ns, ng};
+  const lol_gen::Scene scn(plane_y, tab, reinterpret_cast<const float4*>(g));
+  for (size_t i = 0; i < (size_t)n; ++i) lol::eval_at(scn, p, out, i);
 }
 """
 
@@ -274,6 +294,63 @@ def test_host_built_instanced_marches_match_plain_loops(cfg, tmp_path):
     scene = instanced_spheres(n=300, seed=9)
     src = _SHIM + generate_march_source(scene.structure, cfg) + _INSTANCED_ENTRY
     _check_marches(_build(src, tmp_path), scene.structure, scene.params, cfg, 10, 24)
+
+
+def test_eval_source_entry_and_determinism():
+    """K7's source: one entry, deterministic, one text for every structure
+    with as many planes whatever its spheres, lights and materials, and for
+    every shadow clamp; the step clamp is compiled in."""
+    a, b = instanced_spheres(n=300), instanced_spheres(n=10_000, seed=3)
+    clamp2 = RenderConfig(step_clamp=2.0)
+    src = generate_eval_source(a.structure, clamp2)
+    assert src == generate_eval_source(b.structure, clamp2.replace(shadow_step_clamp=8.0))
+    shard = dataclasses.replace(b.structure, num_spheres=2_501, material_ids=())
+    assert src == generate_eval_source(shard, clamp2)
+    assert src != generate_eval_source(a.structure, RenderConfig())
+    entries = src.rsplit("#ifdef __CUDACC__", 1)[1]
+    assert "int lol_instanced_eval(" in entries and entries.count("extern") == 1
+    assert (cuda_scene.CSRC / "march.cuh").read_text() in src
+
+
+def _eval_points(n=300, seed=5):
+    gen = np.random.default_rng(seed)
+    return torch.from_numpy(np.stack([gen.uniform(-50, 50, n), gen.uniform(-2.0, 40, n),
+                                      gen.uniform(-90, 10, n)], axis=-1).astype(np.float32))
+
+
+@pytest.mark.parametrize("case", ["clamp2", "exact", "shard_clamp2", "shard_exact"])
+def test_host_built_eval_matches_plain_version(case, tmp_path):
+    """instanced:300 (seed 9) at 300 points, the whole set, or the last
+    shard of its spheres padded over 11 (eight sentinel spheres of radius
+    -1e30 among 28) under the AABB of all real spheres: within 1e-6, and
+    bitwise on almost every point. (torch's CPU sqrt is not correctly
+    rounded on every input, 1 ulp off where g++'s and nvcc's sqrtf are;
+    on the card the kernel is held bitwise, chip_smoke.py phase 26.)"""
+    from loltracer_tpu_torch.parallel.objects import pad_spheres_for_sharding
+
+    scene = instanced_spheres(n=300, seed=9)
+    clamp = None if case.endswith("exact") else 2.0
+    params, structure = scene.params, scene.structure
+    tables = pack_eval_tables(params)
+    if case.startswith("shard"):
+        padded = pad_spheres_for_sharding(params, 11)
+        per = padded.sphere_radius.shape[0] // 11
+        local = dataclasses.replace(padded, sphere_point=padded.sphere_point[10 * per:],
+                                    sphere_radius=padded.sphere_radius[10 * per:])
+        assert int((local.sphere_radius < -1e29).sum()) == 8
+        structure = dataclasses.replace(structure, num_spheres=per, material_ids=())
+        tables = pack_eval_tables(local)._replace(bbox=tables.bbox)
+        assert (pack_eval_tables(local).bbox[:3] > tables.bbox[:3]).any()
+    cfg = RenderConfig(step_clamp=clamp)
+    lib = _build(_SHIM + generate_eval_source(structure, cfg) + _EVAL_ENTRY, tmp_path)
+    pts = _eval_points()
+    want = instanced_eval_reference(tables, params.plane_y, pts, clamp).numpy()
+    got = np.zeros(pts.shape[0], np.float32)
+    arrs = [t.numpy() for t in tables]
+    lib.host_eval(_ptr(params.plane_y.numpy()), _ptr(arrs[0]), _ptr(arrs[1]), _ptr(arrs[2]),
+                  arrs[0].shape[0], arrs[1].shape[0], _ptr(pts.numpy()), _ptr(got), len(got))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    assert (got == want).mean() >= 0.97
 
 
 @pytest.mark.parametrize("residuals", [False, True], ids=["render", "train"])
