@@ -82,14 +82,17 @@ Phases, one line each:
    memory, the plain versions on one band, and the bounds;
 17. build the value march kernels (K3 `lol_march` and K4 `lol_shadow_march`
    for the four examples; `lol_march_instanced` and
-   `lol_shadow_march_instanced` for clamp 2, exact and shadow clamp 8; all
-   started with the other builds in phase 1); ptxas registers and spills;
+   `lol_shadow_march_instanced` for clamp 2, exact and shadow clamp 8, at
+   every lane-group width of `cuda_scene.MARCH_LANES`; all started with
+   the other builds in phase 1); ptxas registers and spills per width (a
+   lane group must not spill);
 18. at 97x161 (instanced:10000 at 49x81), K3 vs its plain version
    (`march_values_reference`) on the camera rays and K4 vs its plain
    version (`shadow_values_reference`) on the real shadow rays of each
    light: the four examples, scene4 AA, instanced:10000 at clamp 2, exact
-   and shadow clamp 8, instanced:300 and :1 at clamp 2; bitwise expected, else within atol/rtol 1e-4 on all but
-   max(2, 1e-4 * rays);
+   and shadow clamp 8, instanced:300 and :1 at clamp 2, the instanced ones
+   at every compiled width; bitwise expected, else within atol/rtol 1e-4
+   on all but max(2, 1e-4 * rays);
 19. main path A: `loltracer_tpu_torch.cli fit examples/scene4.lol --target
    T.npy --steps 3 -o ...` (AA, exact shadows; sphere points trainable,
    lr 3e-2) against scene4 with its sphere points moved, rendered by
@@ -111,10 +114,15 @@ Phases, one line each:
    against K5r/K6 on the same band by phase 20's gradient rule; `fit_scene`
    on instanced:300 @48x81 with exact shadows, 2 steps, one K3 launch per
    band forward and one per band recompute; the instanced kernels held and
-   timed on the middle band (median of 5; plain once), their bounds; device
-   time by kernel (`chip_smoke.py --profile-march`, a process of its own)
-   over one path B step and one round of the four march kernels, and one path
-   B step's peak memory by allocating line.
+   timed on the middle band at the width `march_kernels.lanes_for` picks
+   there (median of 5; plain once), their bounds; every compiled width on
+   the middle band (held against the plain version), the middle half of
+   the frame and the whole frame (the camera rays and light 0's shadow
+   rays; held against width 1), timed (band median of 5, the others of 3),
+   with the width the rule picks at each size; device time by kernel
+   (`chip_smoke.py --profile-march`, a process of its own) over one path B
+   step, one round of the four march kernels and path C's middle band, and
+   one path B step's peak memory by allocating line.
 
 22. build the regrouped instanced forward K9 (`lol_rg_march`,
    `lol_rg_shadow` and its stats twin, `lol_rg_shade`; started with the
@@ -180,8 +188,11 @@ file, it fails the same way.
 
 The march kernels' launches in the `kernels` line are those of their main
 paths: lol_march in path A, lol_shadow_march in path B, the instanced pair
-in path C's frame; the K9 kernels' those of path D's clamp-2 frame (their
-`ms` per launch, lol_rg_shadow for light 0 sorted, beside `unsorted_ms`);
+in path C's frame (their `ms` per 16-row band at the rule's `lanes`,
+`frame_ms` one full-frame launch at the rule's `frame_lanes`, `sweep_ms`
+[band, half frame, frame] per width); the K9 kernels' those of path D's
+clamp-2 frame (their `ms` per launch, lol_rg_shadow for light 0 sorted,
+beside `unsorted_ms`);
 K8's those of `cli peak` (its `ms` the best full-size call, `device_ms`
 the profiler's, `plain_ms` at `plain_ms_iters` iterations); K7's those of
 phase 27's frame (its `ms` one launch at the frame's hit points, beside
@@ -317,8 +328,10 @@ def ptxas_lines(log: str):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m and "march" in m.group(1):  # K3 / K4: march_kernel<kShadow, ...>
+            coop = re.search(r"WarpGroupILi(\d+)E", m.group(1))  # the lane-group kernels
+            lanes = coop.group(1) if coop else "1" if "instanced" in m.group(1) else None
             name = ("lol_shadow_march" if "ILb1E" in m.group(1) else "lol_march") + (
-                "_instanced" if "instanced" in m.group(1) else "")
+                f"_instanced @{lanes} lanes" if lanes else "")
         elif m:
             name = next(k for k in ("instanced_fwd_kernel", "instanced_bwd_kernel",
                                     "instanced_eval_kernel",
@@ -353,21 +366,31 @@ def sdf_ops(structure) -> int:
 
 def profile_steps(step, n: int) -> str:
     """Device time per step by kernel (torch.profiler, CUPTI), the wall
-    time per step on the host clock, and the device's idle share."""
+    time per step on the host clock, and the device's idle share. One
+    more step runs first, traced and dropped (the profiler's warm-up): a
+    profile's first kernel was seen missing from its records (the fused
+    FMA chain of `--profile-peak`, the first of its three launches)."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            step()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=n, repeat=1)) as prof:
+        step()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / n
+        prof.step()
+        t0 = time.perf_counter()
+        for i in range(n):
+            step()
+            if i == n - 1:
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3 / n
+            prof.step()
     rows = []
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+        # the schedule's step marker spans the step on the device's clock
+        if e.device_type != DeviceType.CUDA or e.key.startswith("ProfilerStep"):
             continue
         us = getattr(e, "self_device_time_total", None)
         us = getattr(e, "self_cuda_time_total", 0) if us is None else us
@@ -460,7 +483,8 @@ def profile_march() -> int:
     lol_shadow_march for light 0 on path B's rays; lol_march_instanced and
     lol_shadow_march_instanced for light 0 on the middle 16-row band of
     instanced:10000 at clamp 2); then one path B step under the allocator's
-    history (peak_breakdown). One line on stdout, the three joined by
+    history (peak_breakdown); then path C's band body (`render_rays`, no
+    autograd) on that middle band. One line on stdout, the four joined by
     " || "."""
     import torch
 
@@ -470,7 +494,7 @@ def profile_march() -> int:
     from loltracer_tpu_torch.lol import parse_scene_file
     from loltracer_tpu_torch.render import march_kernels as mk
     from loltracer_tpu_torch.render.camera import camera_rays, camera_rays_for_rows
-    from loltracer_tpu_torch.render.torch_renderer import render_image
+    from loltracer_tpu_torch.render.torch_renderer import render_image, render_rays
     from loltracer_tpu_torch.scene import build_scene
     from loltracer_tpu_torch.scenes import instanced_spheres
 
@@ -501,9 +525,13 @@ def profile_march() -> int:
         mk.march_values(big.structure, c_cfg, ro, rd, scene)
         mk.shadow_values(big.structure, c_cfg, so, ld, dist, scene)
 
-    step(), band()
+    def band_c():  # path C's band body on the middle band, no autograd
+        with torch.no_grad():
+            render_rays(big.structure, big.params, ro, rd, c_cfg, march_scene=scene)
+
+    step(), band(), band_c()
     print(profile_steps(step, 1) + " || " + profile_steps(band, 1) + " || "
-          + peak_breakdown(step))
+          + peak_breakdown(step) + " || " + profile_steps(band_c, 1))
     return 0
 
 
@@ -635,7 +663,7 @@ def march_phases(dev, card, scenes, inst, march_built, t0, e_inst, it_target, ce
     from loltracer_tpu_torch.render import march_kernels as mk
     from loltracer_tpu_torch.render.camera import camera_pack, camera_rays, camera_rays_for_rows
     from loltracer_tpu_torch.render.cuda_renderer import make_cuda_renderer
-    from loltracer_tpu_torch.render.cuda_scene import pack_fields, packed_size
+    from loltracer_tpu_torch.render.cuda_scene import MARCH_LANES, pack_fields, packed_size
     from loltracer_tpu_torch.render.instanced_pack import pack_instanced
     from loltracer_tpu_torch.render.torch_renderer import (
         render_image,
@@ -660,9 +688,17 @@ def march_phases(dev, card, scenes, inst, march_built, t0, e_inst, it_target, ce
     built = [f.result() for f in march_built]
     print(f"[17] build: {len(built)} march libraries (lol_march + lol_shadow_march for the 4 "
           f"examples; lol_march_instanced + lol_shadow_march_instanced for clamp 2, exact, "
-          f"shadow clamp 8) done {time.perf_counter() - t0:.1f} s after the builds started; "
-          f"ptxas scene4: " + " | ".join(ptxas_lines(built[3].log))
-          + "; instanced clamp 2: " + " | ".join(ptxas_lines(built[4].log)))
+          f"shadow clamp 8, each at lane widths {MARCH_LANES}) done "
+          f"{time.perf_counter() - t0:.1f} s after the builds started; "
+          f"ptxas scene4: " + " | ".join(ptxas_lines(built[3].log)))
+    for tag, lib in zip(("clamp 2", "exact", "shadow clamp 8"), built[4:]):
+        lines = ptxas_lines(lib.log)
+        require(len(lines) == 2 * len(MARCH_LANES), f"instanced {tag}: ptxas reported {lines}")
+        # one lane a ray is csrc/march.cuh's kernel as it was (32 registers
+        # and 8-12 B of spills); the lane groups must not spill
+        require(all(" 0 B spill stores, 0 B spill loads" in x for x in lines
+                    if "@1 lanes" not in x), f"instanced {tag}: a lane group spills: {lines}")
+        print(f"[17] ptxas instanced {tag}, per width: " + " | ".join(lines))
 
     # --- 18. K3 / K4 vs their plain versions at 97x161 ---------------------------------
     h, w = 97, 161
@@ -678,23 +714,31 @@ def march_phases(dev, card, scenes, inst, march_built, t0, e_inst, it_target, ce
         ch, cw = (49, 81) if sc.structure.num_spheres == 10_000 else (97, 161)
         k3_name = "lol_march_instanced" if sc.structure.instanced else "lol_march"
         k4_name = k3_name.replace("march", "shadow_march", 1)
+        # instanced: every compiled lane width against the plain version
+        widths = MARCH_LANES if sc.structure.instanced else (None,)
         scene = mk.pack_march_scene(sc.structure, sc.params)
         ro, rd = camera_rays(sc.params, ch, cw, c)
-        got = mk.march_values(sc.structure, c, ro, rd, scene)
         want = mk.march_values_reference(sc.structure, c, ro, rd, scene)
-        torch.cuda.synchronize()
-        err, differ = check_values(got, want, f"{what} {k3_name}")
-        errs[k3_name] = max(errs[k3_name], err)
-        line = [f"K3 max |diff| {err:.3g}, {differ} values not bitwise"]
+        line = []
+        for lanes in widths:
+            got = mk.march_values(sc.structure, c, ro, rd, scene, lanes=lanes)
+            torch.cuda.synchronize()
+            err, differ = check_values(got, want, f"{what} {k3_name} lanes {lanes}")
+            errs[k3_name] = max(errs[k3_name], err)
+            line.append(f"K3{'' if lanes is None else f' @{lanes}'} max |diff| {err:.3g}, "
+                        f"{differ} values not bitwise")
         hit = got.t < c.max_dist
         t_sh = torch.where(hit, got.t, got.t_close) if c.antialias else got.t
         for li, (so, ld, dist) in enumerate(shadow_rays(sc.params, ro, rd, t_sh, c)):
-            got_s = mk.shadow_values(sc.structure, c, so, ld, dist, scene)
             want_s = mk.shadow_values_reference(sc.structure, c, so, ld, dist, scene)
-            torch.cuda.synchronize()
-            err, differ = check_values(got_s, want_s, f"{what} {k4_name} light {li}")
-            errs[k4_name] = max(errs[k4_name], err)
-            line.append(f"K4 light {li} max |diff| {err:.3g}, {differ} not bitwise")
+            for lanes in widths:
+                got_s = mk.shadow_values(sc.structure, c, so, ld, dist, scene, lanes=lanes)
+                torch.cuda.synchronize()
+                err, differ = check_values(got_s, want_s, f"{what} {k4_name} light {li} "
+                                                          f"lanes {lanes}")
+                errs[k4_name] = max(errs[k4_name], err)
+                line.append(f"K4 light {li}{'' if lanes is None else f' @{lanes}'} max |diff| "
+                            f"{err:.3g}, {differ} not bitwise")
         print(f"[18] {what} {ch}x{cw}: " + "; ".join(line))
 
     # --- 19. path A: cli fit, exact shadows -----------------------------------------
@@ -906,49 +950,86 @@ def march_phases(dev, card, scenes, inst, march_built, t0, e_inst, it_target, ce
     print(f"[21] fit_scene instanced:300 clamp 2 exact shadows {fh}x{fw}, 2 Adam steps -> "
           f"{f_counts}; losses {[float(v) for v in fit300.losses]}")
 
-    # the instanced kernels at the main shape (the middle band), held and timed
+    # the instanced kernels at the main shape (the middle band), held and
+    # timed at the width the rule picks there; then every compiled width on
+    # the band (held against the plain version), the middle half of the
+    # frame and the whole frame (camera rays and light 0's shadow rays from
+    # their hits; held against width 1)
     r0 = (MAIN_H - BAND) // 2
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     ro, rd = camera_rays_for_rows(big.params, torch.arange(r0, r0 + BAND), MAIN_H, MAIN_W, c_cfg)
     live = {"march": [], "shadow": []}
     k3 = mk.march_values(st10, c_cfg, ro, rd, scene_c)
     p3 = mk.march_values_reference(st10, c_cfg, ro, rd, scene_c, live["march"])
-    torch.cuda.synchronize()
-    err, _ = check_values(k3, p3, "lol_march_instanced middle band")
-    errs["lol_march_instanced"] = max(errs["lol_march_instanced"], err)
     so, ld, dist = shadow_rays(big.params, ro, rd, k3.t, c_cfg)[0]
-    k4 = mk.shadow_values(st10, c_cfg, so, ld, dist, scene_c)
     p4 = mk.shadow_values_reference(st10, c_cfg, so, ld, dist, scene_c, live["shadow"])
-    torch.cuda.synchronize()
-    err, _ = check_values(k4, p4, "lol_shadow_march_instanced middle band light 0")
-    errs["lol_shadow_march_instanced"] = max(errs["lol_shadow_march_instanced"], err)
-    k3i_ms = time_ms(lambda: mk.march_values(st10, c_cfg, ro, rd, scene_c), 5)
-    k4i_ms = time_ms(lambda: mk.shadow_values(st10, c_cfg, so, ld, dist, scene_c), 5)
+    sizes = {"band": (ro, rd, so, ld, dist, (p3, p4))}
+    for size, rows in (("half", MAIN_H // 2), ("frame", MAIN_H)):
+        h0 = (MAIN_H - rows) // 2
+        ro_s, rd_s = camera_rays_for_rows(big.params, torch.arange(h0, h0 + rows), MAIN_H, MAIN_W,
+                                          c_cfg)
+        t1 = mk.march_values(st10, c_cfg, ro_s, rd_s, scene_c, lanes=1)
+        shadow_s = shadow_rays(big.params, ro_s, rd_s, t1.t, c_cfg)[0]
+        sizes[size] = (ro_s, rd_s, *shadow_s,
+                       (t1, mk.shadow_values(st10, c_cfg, *shadow_s, scene_c, lanes=1)))
+    rays = {size: v[1].numel() // 3 for size, v in sizes.items()}
+    # the rule's width per size and kernel
+    rule = {size: {k: mk.lanes_for(n, sms, shadow=k == "k4") for k in ("k3", "k4")}
+            for size, n in rays.items()}
+    sweep, differ = {}, {}  # per width: {size_k3: ms, ...}, {size: (K3i, K4i) values not bitwise}
+    for lanes in MARCH_LANES:
+        sweep[lanes], differ[lanes] = {}, {}
+        for size, (ro_s, rd_s, so_s, ld_s, dist_s, (want3, want4)) in sizes.items():
+            g3 = mk.march_values(st10, c_cfg, ro_s, rd_s, scene_c, lanes=lanes)
+            g4 = mk.shadow_values(st10, c_cfg, so_s, ld_s, dist_s, scene_c, lanes=lanes)
+            torch.cuda.synchronize()
+            against = "the plain version" if size == "band" else "width 1"
+            err3, d3 = check_values(g3, want3, f"lol_march_instanced {size} @{lanes} vs {against}")
+            err4, d4 = check_values(g4, want4, f"lol_shadow_march_instanced {size} light 0 "
+                                               f"@{lanes} vs {against}")
+            if size == "band":
+                errs["lol_march_instanced"] = max(errs["lol_march_instanced"], err3)
+                errs["lol_shadow_march_instanced"] = max(errs["lol_shadow_march_instanced"], err4)
+            differ[lanes][size] = (d3, d4)
+            del g3, g4
+            reps = 5 if size == "band" else 3
+            sweep[lanes][f"{size}_k3"] = time_ms(
+                lambda: mk.march_values(st10, c_cfg, ro_s, rd_s, scene_c, lanes=lanes), reps)
+            sweep[lanes][f"{size}_k4"] = time_ms(
+                lambda: mk.shadow_values(st10, c_cfg, so_s, ld_s, dist_s, scene_c, lanes=lanes),
+                reps)
+    band_lanes, frame_lanes = rule["band"], rule["frame"]
+    k3i_ms, k4i_ms = sweep[band_lanes["k3"]]["band_k3"], sweep[band_lanes["k4"]]["band_k4"]
+    k3f_ms, k4f_ms = sweep[frame_lanes["k3"]]["frame_k3"], sweep[frame_lanes["k4"]]["frame_k4"]
     p3i_ms = time_ms(lambda: mk.march_values_reference(st10, c_cfg, ro, rd, scene_c), 1)
     p4i_ms = time_ms(lambda: mk.shadow_values_reference(st10, c_cfg, so, ld, dist, scene_c), 1)
     # per evaluation e_inst operations (phase 16's model: 9 per sphere
     # within the cut, counted on the bands, + 22), plus the step's 15 / 17
-    band_rays = BAND * MAIN_W
+    band_rays = rays["band"]
     tables = 4 * sum(t.numel() for t in scene_c.tables) + 4 * (3 + fields_c.numel())
     k3i_bound = bound(tables + 28 * band_rays, sum(live["march"]) * (e_inst + 15), ceiling)
     k4i_bound = bound(tables + 36 * band_rays, sum(live["shadow"]) * (e_inst + 17), ceiling)
     print(f"[21] instanced:10000 clamp 2 on {card}: path C frame {c_frame_ms:.0f} ms (no "
           f"autograd), three bands fwd+bwd {sum(c_band_s):.1f} s (peak {c_peak / 2**20:.0f} MiB "
-          f"allocated above the {c_base / 2**20:.0f} MiB live before them); per {BAND}-row band: lol_march_instanced {k3i_ms:.3f} ms (plain "
-          f"{p3i_ms:.0f} ms, bound {k3i_bound[0]:.4f} ms by {k3i_bound[1]}, "
-          f"{sum(live['march']) / band_rays:.1f} evaluations per ray), "
-          f"lol_shadow_march_instanced light 0 {k4i_ms:.3f} ms (plain {p4i_ms:.0f} ms, bound "
-          f"{k4i_bound[0]:.4f} ms by {k4i_bound[1]}, {sum(live['shadow']) / band_rays:.1f} "
-          f"evaluations per ray); max |diff| vs plain here and in phase 18: "
-          f"{errs['lol_march_instanced']:.3g} / {errs['lol_shadow_march_instanced']:.3g}")
-
-    # the same kernel over the whole frame in one launch: what a 16-row
-    # band's 240 blocks of 128 threads leave of the card
-    ro_f, rd_f = camera_rays(big.params, MAIN_H, MAIN_W, c_cfg)
-    mk.march_values(st10, c_cfg, ro_f, rd_f, scene_c)
-    k3f_ms = time_ms(lambda: mk.march_values(st10, c_cfg, ro_f, rd_f, scene_c), 3)
-    print(f"[21] lol_march_instanced over the whole {MAIN_W}x{MAIN_H} frame in one launch: "
-          f"{k3f_ms:.3f} ms, {k3f_ms / n_bands:.3f} ms per {BAND} rows (a band launch: "
-          f"{k3i_ms:.3f} ms)")
+          f"allocated above the {c_base / 2**20:.0f} MiB live before them); per {BAND}-row band "
+          f"({band_rays} rays, {sms} SMs) at the rule's widths: lol_march_instanced "
+          f"@{band_lanes['k3']} {k3i_ms:.3f} ms (plain {p3i_ms:.0f} ms, bound "
+          f"{k3i_bound[0]:.4f} ms by {k3i_bound[1]}, {sum(live['march']) / band_rays:.1f} "
+          f"evaluations per ray), lol_shadow_march_instanced light 0 @{band_lanes['k4']} "
+          f"{k4i_ms:.3f} ms (plain {p4i_ms:.0f} ms, bound {k4i_bound[0]:.4f} ms by "
+          f"{k4i_bound[1]}, {sum(live['shadow']) / band_rays:.1f} evaluations per ray); max "
+          f"|diff| vs plain here and in phase 18: {errs['lol_march_instanced']:.3g} / "
+          f"{errs['lol_shadow_march_instanced']:.3g}")
+    for size, n in rays.items():
+        print(f"[21] {size} ({n} rays; CUDA events, median of {5 if size == 'band' else 3}; "
+              f"the rule picks {rule[size]}): "
+              + "; ".join(f"@{w}: K3i {sweep[w][size + '_k3']:.3f} ms, K4i light 0 "
+                          f"{sweep[w][size + '_k4']:.3f} ms (values not bitwise "
+                          f"{'the plain version' if size == 'band' else 'width 1'}'s: "
+                          f"{differ[w][size][0]} / {differ[w][size][1]})" for w in MARCH_LANES))
+    print(f"[21] the rule's frame widths against width 1: K3i "
+          f"{k3f_ms / sweep[1]['frame_k3']:.4f}x, K4i {k4f_ms / sweep[1]['frame_k4']:.4f}x")
+    del sizes
 
     march_profile = run_profile("--profile-march").split(" || ")
     print(f"[21] torch.profiler (`chip_smoke.py --profile-march`) over one path B step: "
@@ -957,6 +1038,8 @@ def march_phases(dev, card, scenes, inst, march_built, t0, e_inst, it_target, ce
           f"path B's rays; the instanced pair on the middle band): {march_profile[1]}")
     print(f"[21] one path B step in a process of its own, under the allocator's history: "
           f"{march_profile[2]}")
+    print(f"[21] torch.profiler over path C's band body on the middle band (no autograd): "
+          f"{march_profile[3]}")
 
     return [
         entry("lol_march", "loltracer_tpu_torch/csrc/march.cuh",
@@ -966,15 +1049,18 @@ def march_phases(dev, card, scenes, inst, march_built, t0, e_inst, it_target, ce
               "loltracer_tpu/render/pallas_march.py:111", b_counts["lol_shadow_march"],
               errs["lol_shadow_march"],
               k4_ms, p4_ms, k4_bound),
-        dict(entry("lol_march_instanced", "loltracer_tpu_torch/csrc/march.cuh",
+        dict(entry("lol_march_instanced", "loltracer_tpu_torch/csrc/coop_march.cuh",
                    "loltracer_tpu/render/pallas_march.py:94",
                    c_counts["lol_march_instanced"], errs["lol_march_instanced"], k3i_ms, p3i_ms,
-                   k3i_bound), plain_ms_rows=BAND, ms_rows=BAND),
-        dict(entry("lol_shadow_march_instanced", "loltracer_tpu_torch/csrc/march.cuh",
+                   k3i_bound), plain_ms_rows=BAND, ms_rows=BAND, lanes=band_lanes["k3"],
+             frame_ms=k3f_ms, frame_lanes=frame_lanes["k3"],
+             sweep_ms={w: [t["band_k3"], t["half_k3"], t["frame_k3"]] for w, t in sweep.items()}),
+        dict(entry("lol_shadow_march_instanced", "loltracer_tpu_torch/csrc/coop_march.cuh",
                    "loltracer_tpu/render/pallas_march.py:111",
                    c_counts["lol_shadow_march_instanced"], errs["lol_shadow_march_instanced"],
-                   k4i_ms,
-                   p4i_ms, k4i_bound), plain_ms_rows=BAND, ms_rows=BAND),
+                   k4i_ms, p4i_ms, k4i_bound), plain_ms_rows=BAND, ms_rows=BAND,
+             lanes=band_lanes["k4"], frame_ms=k4f_ms, frame_lanes=frame_lanes["k4"],
+             sweep_ms={w: [t["band_k4"], t["half_k4"], t["frame_k4"]] for w, t in sweep.items()}),
     ]
 
 

@@ -28,6 +28,8 @@
 // caller's [rows, width] batch (the last batch dimension is the width), and
 // a block covers a 2-D tile of it, as K1 (32 x 8) and K5 (8 x 16) do, so a
 // warp marches neighbouring pixels; a batch of one row takes 1-D blocks.
+// The instanced entries take a lane-group width: at more than one lane a
+// group of a warp's lanes marches each ray (csrc/coop_march.cuh).
 // The ragged edge is masked; nothing is padded. The TPU's (8, 128) tiles,
 // lane-packed 16x32 patches and edge padding are not carried over.
 //
@@ -73,40 +75,44 @@ struct MarchArgs {
   float* __restrict__ out;
 };
 
-// K3's work for ray i of n.
+// K3's work for ray i of n; the outputs written only with `write` (a lane
+// group's first lane, csrc/coop_march.cuh).
 template <class Cfg, class Scene>
 __device__ __forceinline__ void march_at(const Scene& scn, const MarchArgs& a, size_t i,
-                                         size_t n) {
+                                         size_t n, bool write = true) {
   const float* o = a.ro + (size_t)a.ro_stride * i;
   const float* d = a.rd + 3 * i;
   float t, t_query, s_min, t_close;
   march_ray<Cfg, true>(scn, __ldg(o), __ldg(o + 1), __ldg(o + 2), __ldg(d), __ldg(d + 1),
                        __ldg(d + 2), t, t_query, s_min, t_close);
+  if (!write) return;
   a.out[i] = t;
   a.out[n + i] = t_query;
   a.out[2 * n + i] = s_min;
   a.out[3 * n + i] = t_close;
 }
 
-// K4's work for ray i of n.
+// K4's work for ray i of n, written only with `write`.
 template <class Cfg, class Scene>
 __device__ __forceinline__ void shadow_at(const Scene& scn, const MarchArgs& a, size_t i,
-                                          size_t n) {
+                                          size_t n, bool write = true) {
   const float* o = a.ro + (size_t)a.ro_stride * i;
   const float* d = a.rd + 3 * i;
   float t_star;
-  a.out[i] = shadow_ray<Cfg>(scn, __ldg(o), __ldg(o + 1), __ldg(o + 2), __ldg(d),
-                             __ldg(d + 1), __ldg(d + 2), __ldg(a.max_dist + i), t_star);
+  const float res = shadow_ray<Cfg>(scn, __ldg(o), __ldg(o + 1), __ldg(o + 2), __ldg(d),
+                                    __ldg(d + 1), __ldg(d + 2), __ldg(a.max_dist + i), t_star);
+  if (!write) return;
+  a.out[i] = res;
   a.out[n + i] = t_star;
 }
 
 template <bool kShadow, class Cfg, class Scene>
 __device__ __forceinline__ void value_at(const Scene& scn, const MarchArgs& a, size_t i,
-                                         size_t n) {
+                                         size_t n, bool write = true) {
   if constexpr (kShadow) {
-    shadow_at<Cfg>(scn, a, i, n);
+    shadow_at<Cfg>(scn, a, i, n, write);
   } else {
-    march_at<Cfg>(scn, a, i, n);
+    march_at<Cfg>(scn, a, i, n, write);
   }
 }
 

@@ -38,9 +38,10 @@ reduce and scatter launches), whose SDF adjoint is the traversal's own
 
 `generate_march_source(structure, cfg)` is the source of the value march
 kernels K3 and K4 (csrc/march.cuh) on the compiled `Scene` or, for an
-instanced structure, on the `InstancedScene`: one library per structure
-and config holds both. `generate_regroup_source(structure, cfg)` is the
-source of the regrouped instanced forward K9 (csrc/regroup.cuh: lol_rg_march,
+instanced structure, on the `InstancedScene`, one thread a ray, or a lane
+group a ray (csrc/coop_march.cuh, each width of MARCH_LANES): one library
+per structure and config holds both. `generate_regroup_source(structure,
+cfg)` is the source of the regrouped instanced forward K9 (csrc/regroup.cuh: lol_rg_march,
 lol_rg_shadow, lol_rg_shade), one text for every sphere count too.
 `generate_eval_source(structure, cfg)` is the source of K7
 (`lol_instanced_eval`, csrc/march.cuh): the instanced distance at points
@@ -662,18 +663,45 @@ extern "C" int {SHADOW_MARCH}(const void* ro, int ro_stride, const void* rd,
       static_cast<const float*>(fields), a, rows, width, static_cast<cudaStream_t>(stream));
 }}"""
 
+# The lane-group widths the instanced march entries are compiled for: 1 is
+# csrc/march.cuh's one thread a ray over InstancedScene, the others
+# csrc/coop_march.cuh's group per ray. march_kernels.lanes_for picks one per
+# launch among them; another width is refused (cudaErrorInvalidValue).
+MARCH_LANES = (1, 32)
+
+
+def _lanes_switch(shadow: bool) -> str:
+    """The instanced entry's dispatch on its `lanes` argument."""
+    k = "true" if shadow else "false"
+    cases = [f"""\
+    case 1:
+      return lol::launch_march_instanced<{k}, lol_gen::Cfg, lol_gen::Scene>(
+          static_cast<const float*>(fields), tab, a, rows, width,
+          static_cast<cudaStream_t>(stream));"""]
+    cases += [f"""\
+    case {w}:
+      return lol::launch_march_coop<{k}, lol_gen::Cfg, lol_gen::CoopScene<{w}>>(
+          static_cast<const float*>(fields), tab, a, (long long)rows * width,
+          static_cast<cudaStream_t>(stream));""" for w in MARCH_LANES if w != 1]
+    return "\n".join(["  switch (lanes) {", *cases, "    default:",
+                      "      return (int)cudaErrorInvalidValue;", "  }"])
+
+
 _MARCH_INSTANCED_ENTRIES = f"""\
+namespace lol_gen {{
+template <int K>
+using CoopScene = lol::CoopInstancedScene<Layout, Cfg, lol::WarpGroup<K>>;
+}}  // namespace lol_gen
+
 extern "C" int {MARCH_INSTANCED}(const void* ro, int ro_stride, const void* rd,
                                     const void* fields, const void* spheres, const void* ids,
                                     const void* groups, const void* bbox, int num_spheres,
-                                    int num_groups, void* out, int rows, int width,
+                                    int num_groups, void* out, int rows, int width, int lanes,
                                     void* stream) {{
   const void* max_dist = nullptr;
 {_MARCH_ARGS}
 {_TABLES}
-  return lol::launch_march_instanced<false, lol_gen::Cfg, lol_gen::Scene>(
-      static_cast<const float*>(fields), tab, a, rows, width,
-      static_cast<cudaStream_t>(stream));
+{_lanes_switch(False)}
 }}
 
 extern "C" int {SHADOW_MARCH_INSTANCED}(const void* ro, int ro_stride, const void* rd,
@@ -681,12 +709,10 @@ extern "C" int {SHADOW_MARCH_INSTANCED}(const void* ro, int ro_stride, const voi
                                            const void* spheres, const void* ids,
                                            const void* groups, const void* bbox,
                                            int num_spheres, int num_groups, void* out,
-                                           int rows, int width, void* stream) {{
+                                           int rows, int width, int lanes, void* stream) {{
 {_MARCH_ARGS}
 {_TABLES}
-  return lol::launch_march_instanced<true, lol_gen::Cfg, lol_gen::Scene>(
-      static_cast<const float*>(fields), tab, a, rows, width,
-      static_cast<cudaStream_t>(stream));
+{_lanes_switch(True)}
 }}"""
 
 
@@ -697,8 +723,9 @@ def generate_march_source(structure: SceneStructure, cfg: RenderConfig) -> str:
     the Cfg and the compiled `Scene` (entries `lol_march`,
     `lol_shadow_march`) or, for an instanced structure, the layout of the
     `InstancedScene` (`lol_march_instanced`, `lol_shadow_march_instanced`;
-    one text for every sphere count). Deterministic; holds no scene
-    numbers. The device functions also compile as host C++."""
+    one text for every sphere count), whose entries take a lane-group
+    width of MARCH_LANES (csrc/coop_march.cuh). Deterministic; holds no
+    scene numbers. The device functions also compile as host C++."""
     if structure.instanced:
         require_instanced(structure)
         if not structure.num_spheres:
@@ -706,7 +733,7 @@ def generate_march_source(structure: SceneStructure, cfg: RenderConfig) -> str:
         scene, entries = _layout_source(structure), _MARCH_INSTANCED_ENTRIES
     else:
         scene, entries = _scene_source(structure, residuals=False), _MARCH_ENTRIES
-    bodies = ["fused_fwd.cuh", "instanced_scene.cuh", "march.cuh"]
+    bodies = ["fused_fwd.cuh", "instanced_scene.cuh", "march.cuh", "coop_march.cuh"]
     return "\n".join(
         [
             "// Generated by loltracer_tpu_torch.render.cuda_scene: the kernel",

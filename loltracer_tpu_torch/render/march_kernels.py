@@ -12,6 +12,12 @@ So the two loops are value functions, and on CUDA tensors they run here:
   the closest approach is always tracked, as the Pallas kernel does);
 - `shadow_values(structure, cfg, ro, rd, max_dist, scene)` -> (res, t*):
   `lol_shadow_march` / `lol_shadow_march_instanced` (K4);
+- the instanced pair marches each ray with a group of `lanes_for(n,
+  SMs, shadow)` lanes of a warp (csrc/coop_march.cuh; 1 is one thread a
+  ray), a width chosen per launch from the kernel, its ray count and the
+  card's SM count;
+  `lanes=` of march_values / shadow_values names one of
+  cuda_scene.MARCH_LANES instead (to sweep and check the widths);
 - `make_cuda_march` / `make_cuda_shadow_march` return the `march_fn` /
   `shadow_fn` that render/torch_renderer.py hands to the renderer (the
   counterparts of `make_pallas_march` / `make_pallas_shadow_march`).
@@ -55,6 +61,7 @@ from loltracer_tpu_torch.render.cuda_scene import (
     INSTANCED_EVAL,
     MARCH,
     MARCH_INSTANCED,
+    MARCH_LANES,
     SHADOW_MARCH,
     SHADOW_MARCH_INSTANCED,
     generate_eval_source,
@@ -84,6 +91,7 @@ __all__ = [
     "MarchScene",
     "eval_library",
     "instanced_eval_reference",
+    "lanes_for",
     "launches",
     "library",
     "make_cuda_march",
@@ -175,9 +183,9 @@ def _library(structure: SceneStructure, cfg: RenderConfig) -> _build.Library:
     built = _build.build(generate_march_source(structure, cfg), "march")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     if structure.instanced:
-        entries = {MARCH_INSTANCED: [ptr, i32] + [ptr] * 6 + [i32] * 2 + [ptr] + [i32] * 2 + [ptr],
+        entries = {MARCH_INSTANCED: [ptr, i32] + [ptr] * 6 + [i32] * 2 + [ptr] + [i32] * 3 + [ptr],
                    SHADOW_MARCH_INSTANCED: [ptr, i32] + [ptr] * 7 + [i32] * 2 + [ptr]
-                   + [i32] * 2 + [ptr]}
+                   + [i32] * 3 + [ptr]}
     else:
         entries = {MARCH: [ptr, i32, ptr, ptr, ptr, i32, i32, ptr],
                    SHADOW_MARCH: [ptr, i32] + [ptr] * 4 + [i32] * 2 + [ptr]}
@@ -205,9 +213,46 @@ def _layout(batch) -> Tuple[int, int]:
     return (rows, width) if rows <= _MAX_ROWS else (1, n)
 
 
-def _launch(structure, cfg, name, scene, ro, rd, max_dist, planes):
+# Rays per SM above which one thread a ray marches K4's shadow rays faster
+# than a lane group: on the H100 (132 SMs) the two meet near half a 1080p
+# frame, and over a full frame's shadow rays one thread a ray is the
+# faster; K3's camera rays are faster in lane groups up to a full frame
+# (chip_smoke.py phase 21 times both widths on a band, half a frame and a
+# frame; PERF.md).
+_SHADOW_RAYS_PER_SM = 8192
+
+
+def lanes_for(n: int, sm_count: int, shadow: bool = False) -> int:
+    """The lane-group width of an instanced march launch of n rays (K4's
+    shadow rays if `shadow`, else K3's camera rays) on a card of sm_count
+    SMs: one thread a ray for shadow launches of more than
+    _SHADOW_RAYS_PER_SM rays per SM, else the widest group of
+    MARCH_LANES. A 16-row 1080p band (30 720 rays) takes the group in both
+    kernels; a full 1080p frame (2.07 M rays) the group in K3 and one thread
+    a ray in K4."""
+    if shadow and n > _SHADOW_RAYS_PER_SM * sm_count:
+        return MARCH_LANES[0]
+    return MARCH_LANES[-1]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _check_lanes(structure: SceneStructure, lanes: Optional[int]) -> None:
+    if lanes is None:
+        return
+    if not structure.instanced:
+        raise ValueError("lanes= applies to instanced structures only")
+    if lanes not in MARCH_LANES:
+        raise ValueError(f"lanes={lanes}: the instanced marches are built for {MARCH_LANES}")
+
+
+def _launch(structure, cfg, name, scene, ro, rd, max_dist, planes, lanes=None):
     """Checks the inputs, launches entry `name` and returns its [planes,
-    ...] output over rd's batch."""
+    ...] output over rd's batch; instanced entries at `lanes` lanes a ray,
+    or lanes_for's width."""
     batch = tuple(rd.shape[:-1])
     n = math.prod(batch)
     _check("rd", rd, batch + (3,))
@@ -234,9 +279,13 @@ def _launch(structure, cfg, name, scene, ro, rd, max_dist, planes):
         tab = scene.tables
         args += [tab.spheres.data_ptr(), tab.ids.data_ptr(), tab.groups.data_ptr(),
                  tab.bbox.data_ptr(), tab.spheres.shape[0], tab.groups.shape[0]]
+    tail = [rows, width]
+    if scene.tables is not None:
+        device = rd.device.index if rd.device.index is not None else torch.cuda.current_device()
+        tail.append(lanes or lanes_for(n, _sm_count(device), max_dist is not None))
     with torch.cuda.device(rd.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(*args, out.data_ptr(), rows, width, stream)
+        rc = fn(*args, out.data_ptr(), *tail, stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
     launches[name] += 1
@@ -244,26 +293,31 @@ def _launch(structure, cfg, name, scene, ro, rd, max_dist, planes):
 
 
 def march_values(
-    structure: SceneStructure, cfg: RenderConfig, ro, rd, scene: MarchScene
+    structure: SceneStructure, cfg: RenderConfig, ro, rd, scene: MarchScene,
+    *, lanes: Optional[int] = None,
 ) -> MarchResult:
     """K3 for CUDA tensors, march_values_reference for CPU tensors: the
-    frozen march of rays ro [3] or [..., 3] along rd [..., 3]."""
+    frozen march of rays ro [3] or [..., 3] along rd [..., 3]. `lanes`
+    (instanced only): the kernel's lane-group width, else lanes_for's."""
+    _check_lanes(structure, lanes)
     if resolve_backend(ro, rd, scene.fields) == "torch":
         return march_values_reference(structure, cfg, ro, rd, scene)
     name = MARCH_INSTANCED if structure.instanced else MARCH
-    return MarchResult(*_launch(structure, cfg, name, scene, ro, rd, None, 4))
+    return MarchResult(*_launch(structure, cfg, name, scene, ro, rd, None, 4, lanes))
 
 
 def shadow_values(
-    structure: SceneStructure, cfg: RenderConfig, ro, rd, max_dist, scene: MarchScene
+    structure: SceneStructure, cfg: RenderConfig, ro, rd, max_dist, scene: MarchScene,
+    *, lanes: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4 for CUDA tensors, shadow_values_reference for CPU tensors: (res,
     t*) of the shadow marches from ro [..., 3] along rd [..., 3] up to
-    max_dist [...]."""
+    max_dist [...]. `lanes` as for march_values."""
+    _check_lanes(structure, lanes)
     if resolve_backend(ro, rd, max_dist, scene.fields) == "torch":
         return shadow_values_reference(structure, cfg, ro, rd, max_dist, scene)
     name = SHADOW_MARCH_INSTANCED if structure.instanced else SHADOW_MARCH
-    res, t_star = _launch(structure, cfg, name, scene, ro, rd, max_dist, 2)
+    res, t_star = _launch(structure, cfg, name, scene, ro, rd, max_dist, 2, lanes)
     return res, t_star
 
 
