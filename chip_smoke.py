@@ -41,11 +41,13 @@ Phases, one line each:
    `make_training_renderer` timed (median of 10, CUDA events), its two
    kernels timed apart, the plain versions (once, warm), peak memory;
 9. build lol_instanced_render (the instanced tier, started with the other
-   builds in phase 1) for clamp 2, exact, clamp 2 + AA and clamp 2 with
-   shadow clamp 8; ptxas registers and spills;
+   builds in phase 1; its search the cell grid of csrc/grid_scene.cuh, with
+   the run walk alone and the counting grid as check entries) for clamp 2,
+   exact, clamp 2 + AA and clamp 2 with shadow clamp 8; ptxas registers and
+   spills of the three;
 10. lol_instanced_render vs its plain version at 97x161: instanced:10000 in
    those four configs, and instanced:1 and instanced:300 (seed 9) at clamp
-   2, by the phase-2 rule;
+   2, by the phase-2 rule, and bitwise the run walk's image;
 11. the main path: `loltracer_tpu_torch.cli render instanced:10000
    --step-clamp 2 --size 1920x1080`, which must launch the kernel exactly
    once; its image finite, in [0, 1], equal to the PNG, and within the
@@ -55,9 +57,12 @@ Phases, one line each:
    spheres within its cut and the runs whose bounding ball reaches within
    it;
 12. kernel frame times (CUDA events; median of 3 warm frames at 1920x1080,
-   of 2 at 3840x2160), device time (torch.profiler, in a process of its own:
-   `chip_smoke.py --profile-instanced`), the plain version's time on one
-   band, and the bound;
+   of 2 at 3840x2160; each call builds its cell grid, timed apart), the run
+   walk's in turns around them (walk, grid, walk), its 1080p image bitwise
+   the grid's at clamp 2 and exact, the share of grid searches that fell
+   back to the walk (the counting twin); device time (torch.profiler, in a
+   process of its own: `chip_smoke.py --profile-instanced`), the plain
+   version's time on one band, and the bound;
 13. build lol_instanced_fwd and lol_instanced_bwd (the instanced training
    pair, started with the other builds in phase 1) for clamp 2, exact and
    clamp 2 + AA with envelope shadows; ptxas registers and spills;
@@ -152,22 +157,25 @@ Phases, one line each:
    differing); device time of one full-size call of each chain
    (`chip_smoke.py --profile-peak`, a process of its own);
 26. build K7, `lol_instanced_eval` (for step clamps 2, none and 8, started
-   with the other builds in phase 1); its registers and spills; at the
-   97x161 camera points (a quarter, half and all of the way to the plain
-   march's hits) and shadow points (0, a tenth and half of the way to each
-   light, at most 30 units) against its plain version
-   (`instanced_eval_reference`): instanced:10000 at clamp 2, exact and
-   clamp 8, and the second shard of instanced:10001 padded over 2 (one
-   sentinel sphere) under the AABB of all its spheres; bitwise expected,
-   else by phase 18's rule;
+   with the other builds in phase 1; over the cell grid, with the run walk
+   and the counting grid as check entries); its registers and spills; at
+   the 97x161 camera points (a quarter, half and all of the way to the
+   plain march's hits) and shadow points (0, a tenth and half of the way
+   to each light, at most 30 units) against its plain version
+   (`instanced_eval_reference`) and bitwise the run walk: instanced:10000
+   at clamp 2, exact and clamp 8, and the second shard of instanced:10001
+   padded over 2 (one sentinel sphere) under the AABB of all its spheres;
+   bitwise expected, else by phase 18's rule;
 27. the main path of object sharding: `make_object_sharded_renderer` of
    instanced:10000 @1920x1080, clamp 2, `march_backend="pallas"`, over
    `make_mesh()` (a world of one rank, NCCL): K7 launched for every `sdf`
    / `shadow_sdf` evaluation and its plain version never; the image
    bitwise lol_instanced_render's (else by phase 2's rule). The frame
    (CUDA events, median of 2), the plain sharded `sdf_id` at the 2.07 M
-   hit points and one K7 launch there (median of 5) and its plain version,
-   timed apart; device time by kernel and the idle share over one frame
+   hit points and one K7 launch there (median of 5; over the grid the
+   renderer builds once a frame, its build timed apart, and over the run
+   walk in turns around it, bitwise equal) and its plain version, timed
+   apart; device time by kernel and the idle share over one frame
    (`chip_smoke.py --profile-objects`, a process of its own);
 28. the same renderer over two ranks on the one card (`chip_smoke.py
    --objects-rank`, two processes, gloo through the host; NCCL refuses two
@@ -175,7 +183,14 @@ Phases, one line each:
    of phase 27's world (else by phase 2's rule);
 29. K7's bound at the hit points: 16 bytes a point, and 22 operations a
    point + 9 for each sphere within the cut there (phase 16's model, the
-   spheres counted on the card).
+   spheres counted on the card);
+30. the cell grid (`grid_phase`): K7 over the grid bitwise K7 over the run
+   walk on a full 1080p frame of points (the hit points, the camera rays at
+   a quarter and half of the way, each light's shadow rays at 0, a tenth
+   and half of the way) under step clamps 2, none and 8, with the share of
+   searches that fell back; the cell-size sweep (0.5, 1 and 2 units): the
+   build's time, the lists' lengths, K5 @1080p clamp 2 over each grid (its
+   image bitwise, its fallback share) and K7 at the hit points.
 
 The CLI phases (3, 11) pass `--backend pallas`: `cli render` defaults to
 the differentiable renderer, as the JAX package's does.
@@ -340,6 +355,11 @@ def ptxas_lines(log: str):
                                     "rec_scan_kernel", "rec_place_kernel",
                                     "rec_sum_kernel", m.group(1))
                         if k in m.group(1))
+            if name in ("instanced_fwd_kernel", "instanced_eval_kernel"):
+                # the search: the cell grid (its counting twin), or the run walk
+                grid = re.search(r"GridSceneI\w*?Lb([01])E", m.group(1))
+                name += (" (walk)" if not grid else
+                         " (grid, counting)" if grid.group(1) == "1" else " (grid)")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
             spill = f"{m.group(1)} B spill stores, {m.group(2)} B spill loads"
@@ -1565,6 +1585,7 @@ def objects_phases(dev, card, inst, eval_built, t0, ceiling):
     from loltracer_tpu_torch.render.camera import camera_pack, camera_rays
     from loltracer_tpu_torch.render.cuda_scene import INSTANCED_EVAL, pack_fields
     from loltracer_tpu_torch.render.instanced_pack import pack_instanced
+    from loltracer_tpu_torch.render.cell_grid import grid_for
     from loltracer_tpu_torch.render.march_kernels import (instanced_eval_reference,
                                                           make_instanced_eval, pack_eval_tables)
     from loltracer_tpu_torch.scenes import instanced_spheres
@@ -1604,12 +1625,14 @@ def objects_phases(dev, card, inst, eval_built, t0, ceiling):
         fn = make_instanced_eval(st, c)
         for kind, pts in (("camera", cam_pts), ("shadow", shadow_pts)):
             got = fn(tables, sc.params.plane_y, pts)
+            walked = fn(tables, sc.params.plane_y, pts, walk=True)
             want = instanced_eval_reference(tables, sc.params.plane_y, pts, c.step_clamp)
             torch.cuda.synchronize()
+            require(torch.equal(got, walked), f"{what} {kind} points: grid != run walk")
             err, differ = check_values([got], [want], f"{what} {kind} points")
             k7_err = max(k7_err, err)
-            print(f"[26] {what}, {pts.shape[0]} {kind} points of {h}x{w}: "
-                  + ("bitwise equal" if differ == 0 else
+            print(f"[26] {what}, {pts.shape[0]} {kind} points of {h}x{w}: the grid = the run "
+                  "walk bitwise; vs plain " + ("bitwise equal" if differ == 0 else
                      f"{differ} differ, max |diff| {err:.3g} (within atol/rtol 1e-4)"))
 
     # --- 27. the main path: one-rank object-sharded frame at 1080p through K7 ---------
@@ -1671,31 +1694,46 @@ def objects_phases(dev, card, inst, eval_built, t0, ceiling):
     id_ms = time_ms(id_lookup, 2)
     tables = pack_eval_tables(big.params)._replace(bbox=bbox)
     k7 = make_instanced_eval(big.structure, clamp2)
+    grid = grid_for(tables, 2.0)  # as the renderer builds it, once a frame
 
     def k7_once():
-        k7(tables, big.params.plane_y, hit_pts)
+        k7(tables, big.params.plane_y, hit_pts, grid)
+
+    def k7_walk():
+        k7(tables, big.params.plane_y, hit_pts, walk=True)
+
+    def k7_grid():
+        grid_for(tables, 2.0)
 
     def k7_plain():
         instanced_eval_reference(tables, big.params.plane_y, hit_pts, 2.0)
 
-    k7_once()
+    k7_once(), k7_walk()
+    k7_walk_ms = [time_ms(k7_walk, 5)]
     k7_ms = time_ms(k7_once, 5)
-    got_hit = k7(tables, big.params.plane_y, hit_pts)
+    k7_walk_ms.append(time_ms(k7_walk, 5))
+    k7_build_ms = time_ms(k7_grid, 5)
+    got_hit = k7(tables, big.params.plane_y, hit_pts, grid)
+    require(torch.equal(got_hit, k7(tables, big.params.plane_y, hit_pts, walk=True)),
+            "K7 at the 1080p hit points: grid != run walk")
     want_hit = instanced_eval_reference(tables, big.params.plane_y, hit_pts, 2.0)
     err, differ = check_values([got_hit], [want_hit], "lol_instanced_eval at the 1080p hit points")
     k7_err = max(k7_err, err)
     k7_plain_ms = time_ms(k7_plain, 1)
     prof = run_profile("--profile-objects")
     m = re.search(r"([\d.]+) ms x(\d+) [^;]*instanced_eval_kernel", prof)
-    dev_k7 = f"{float(m.group(1)) / int(m.group(2)):.4f} ms" if m else "not in the profile"
+    dev_k7_ms = float(m.group(1)) / int(m.group(2)) if m else None
+    dev_k7 = f"{dev_k7_ms:.4f} ms" if m else "not in the profile"
     print(f"[27] main path: make_object_sharded_renderer(instanced:10000, make_mesh() of one "
           f"rank, {MAIN_W}x{MAIN_H}, clamp 2, march_backend='pallas') -> {k7_launches} "
           f"lol_instanced_eval launches per frame, the plain K7 never; image {k5_rule}; first "
           f"frame {t_first:.2f} s (builds loaded)")
     print(f"[27] on {card}: frame {frame_ms:.3f} ms (CUDA events, median of 2); the plain "
           f"sdf_id at the {MAIN_W * MAIN_H} hit points {id_ms:.3f} ms; one K7 launch there "
-          f"{k7_ms:.4f} ms (median of 5; " + ("bitwise its plain version" if differ == 0 else
-                                               f"{differ} points differ, max |diff| {err:.3g}")
+          f"{k7_ms:.4f} ms (median of 5; the grid, built once a frame in {k7_build_ms:.3f} ms; "
+          f"the run walk {k7_walk_ms[0]:.4f} / {k7_walk_ms[1]:.4f} ms before / after, bitwise "
+          f"equal; " + ("bitwise its plain version" if differ == 0 else
+                        f"{differ} points differ, max |diff| {err:.3g}")
           + f"), its plain version {k7_plain_ms:.1f} ms; torch.profiler over one frame "
           f"(`chip_smoke.py --profile-objects`): K7 {dev_k7} per launch on the device; {prof}")
 
@@ -1748,7 +1786,99 @@ def objects_phases(dev, card, inst, eval_built, t0, ceiling):
     return dict(entry("lol_instanced_eval", "loltracer_tpu_torch/csrc/march.cuh",
                       "loltracer_tpu/render/pallas_march.py:222", k7_launches, k7_err, k7_ms,
                       k7_plain_ms, k7_bound),
-                frame_ms=frame_ms, sdf_id_ms=id_ms)
+                frame_ms=frame_ms, sdf_id_ms=id_ms, walk_ms=k7_walk_ms,
+                grid_build_ms=k7_build_ms, device_ms=dev_k7_ms), hit_pts
+
+
+def grid_phase(dev, card, inst, hit_pts) -> None:
+    """Phase 30: the cell grid (render/cell_grid.py) and GridScene
+    (csrc/grid_scene.cuh) at instanced:10000: K7 over the grid bitwise K7
+    over the run walk on a full 1080p frame of points (phase 27's hit
+    points, the camera rays at a quarter and half of the way, and each
+    light's shadow rays from the hits at 0, a tenth and half of the way, at
+    most 30 units) under step clamps 2, none and 8, with the share of
+    searches that fell back; then the cell-size sweep: per cell size the
+    grid's build time (CUDA events, median of 5), its list lengths, K5's
+    1080p frame at clamp 2 over it (median of 2, its image bitwise the
+    default grid's) with its fallback share, and K7 at the hit points
+    (median of 5, bitwise)."""
+    import torch
+
+    from loltracer_tpu_torch.config import RenderConfig
+    from loltracer_tpu_torch.render import instanced_fwd, march_kernels
+    from loltracer_tpu_torch.render.camera import camera_pack, camera_rays
+    from loltracer_tpu_torch.render.cell_grid import CELL, build_cell_grid, reach_for
+    from loltracer_tpu_torch.render.cuda_scene import pack_fields
+    from loltracer_tpu_torch.render.instanced_pack import pack_instanced
+
+    big = inst[10_000]
+    st, params = big.structure, big.params
+    clamp2 = RenderConfig(step_clamp=2.0)
+    ro, rd = camera_rays(params, MAIN_H, MAIN_W, clamp2)
+    t = (hit_pts.reshape(MAIN_H, MAIN_W, 3) - ro).norm(dim=-1)
+    frame = [hit_pts] + [(ro + (s * t)[..., None] * rd).reshape(-1, 3) for s in (0.25, 0.5)]
+    for l in range(st.num_lights):
+        to = params.light_point[l] - hit_pts
+        dist = to.norm(dim=-1, keepdim=True)
+        reach = torch.clamp(dist, max=30.0)
+        frame += [hit_pts + s * reach * to / dist for s in (0.0, 0.1, 0.5)]
+    frame = torch.cat(frame).contiguous()
+    tables = march_kernels.pack_eval_tables(params)
+    for c in (2.0, None, 8.0):
+        cfg = RenderConfig(step_clamp=c)
+        k7 = march_kernels.make_instanced_eval(st, cfg)
+        counts = torch.zeros(3, dtype=torch.int64, device=dev)
+        got = k7(tables, params.plane_y, frame, stats=counts)
+        require(torch.equal(got, k7(tables, params.plane_y, frame)),
+                "K7's counting twin differs from K7")
+        require(torch.equal(got, k7(tables, params.plane_y, frame, walk=True)),
+                f"K7 step clamp {c}: the grid search != the run walk on the 1080p frame points")
+        n_search, n_fall, n_read = counts.tolist()
+        print(f"[30] lol_instanced_eval step clamp {c}, {frame.shape[0]} points of a "
+              f"{MAIN_W}x{MAIN_H} frame: the grid search = the run walk bitwise; "
+              f"{n_fall / n_search:.4%} fell back, {n_read / n_search:.2f} list entries read "
+              f"a search")
+
+    cam = camera_pack(params, MAIN_H, MAIN_W, clamp2)
+    fields, tab = pack_fields(st, params), pack_instanced(st, params)
+    ref = instanced_fwd.instanced_forward(st, clamp2, cam, fields, tab, MAIN_H, MAIN_W)
+    k7 = march_kernels.make_instanced_eval(st, clamp2)
+    k7_ref = k7(tables, params.plane_y, hit_pts)
+    reach = reach_for(tab, 2.0)
+    for cell in (0.5, 1.0, 2.0):
+        grid = build_cell_grid(tab, reach, cell)
+        lens = (grid.cell_start[1:] - grid.cell_start[:-1]).float()
+        build_ms = time_ms(lambda: build_cell_grid(tab, reach, cell), 5)
+        egrid = build_cell_grid(tables, reach, cell)
+
+        def k5():
+            instanced_fwd.instanced_forward(st, clamp2, cam, fields, tab, MAIN_H, MAIN_W,
+                                            grid=grid)
+
+        def k7_once():
+            k7(tables, params.plane_y, hit_pts, egrid)
+
+        counts = torch.zeros(3, dtype=torch.int64, device=dev)
+        img = instanced_fwd.instanced_forward(st, clamp2, cam, fields, tab, MAIN_H, MAIN_W,
+                                              grid=grid, stats=counts)
+        require(torch.equal(img, ref), f"cell {cell}: K5's image differs from the default's")
+        require(torch.equal(k7(tables, params.plane_y, hit_pts, egrid), k7_ref),
+                f"cell {cell}: K7 differs from the default grid's")
+        k5()
+        k5_ms = time_ms(k5, 2)
+        k7_once()
+        k7_ms = time_ms(k7_once, 5)
+        n_search, n_fall, n_read = counts.tolist()
+        print(f"[30] cell {cell}{' (the default)' if cell == CELL else ''} on {card}: grid "
+              f"{grid.dims} = {lens.numel()} cells, {grid.cell_rows.numel()} entries "
+              f"({grid.cell_rows.numel() * 20 / 1e6:.1f} MB: a row and a sphere each), "
+              f"list length mean "
+              f"{float(lens.mean()):.2f} (over non-empty cells "
+              f"{float(lens[lens > 0].mean()):.2f}), max {int(lens.max())}; build "
+              f"{build_ms:.3f} ms; lol_instanced_render clamp 2 {MAIN_W}x{MAIN_H} {k5_ms:.3f} ms "
+              f"(image bitwise; {n_fall / n_search:.4%} of {n_search} searches fell back, "
+              f"{n_read / n_search:.2f} entries read a search); lol_instanced_eval at the "
+              f"{hit_pts.shape[0]} hit points {k7_ms:.4f} ms (bitwise)")
 
 
 def main() -> int:
@@ -1772,6 +1902,7 @@ def main() -> int:
     from loltracer_tpu_torch.render import fused_fwd, fused_train, instanced_fwd, instanced_train
     from loltracer_tpu_torch.render import march_kernels, regroup
     from loltracer_tpu_torch.utils import peak
+    from loltracer_tpu_torch.render.cell_grid import grid_for
     from loltracer_tpu_torch.render.instanced_pack import GROUP, pack_instanced, sphere_bbox
     from loltracer_tpu_torch.render.sdf import bbox_cut
     from loltracer_tpu_torch.scenes import instanced_spheres
@@ -2109,12 +2240,16 @@ def main() -> int:
         sc = inst[n]
         cam, fields, tab = inst_inputs(sc, c, h, w)
         k_img = instanced_fwd.instanced_forward(sc.structure, c, cam, fields, tab, h, w)
+        w_img = instanced_fwd.instanced_forward(sc.structure, c, cam, fields, tab, h, w,
+                                                walk=True)
         p_img = instanced_fwd.instanced_forward_reference(sc.structure, c, cam, fields, tab, h, w)
         torch.cuda.synchronize()
         what = (f"instanced:{n} step_clamp={c.step_clamp} shadow_step_clamp="
                 f"{c.shadow_step_clamp} antialias={c.antialias}")
+        require(torch.equal(k_img, w_img), f"{what}: the grid search's image != the run walk's")
         err, over = compare(k_img, p_img, what)
-        print(f"[10] {what} {h}x{w}: max |diff| {err:.3g}, {over} px over {ATOL}")
+        print(f"[10] {what} {h}x{w}: = the run walk's image bitwise; vs plain max |diff| "
+              f"{err:.3g}, {over} px over {ATOL}")
 
     # --- 11. main path: cli render instanced:10000 ------------------------------------
     big = inst[10_000]
@@ -2201,15 +2336,56 @@ def main() -> int:
         instanced_fwd.instanced_forward_reference(big.structure, clamp2, bcam, fields, tab,
                                                   BAND, MAIN_W, MAIN_H)
 
-    inst_kernel(), inst_kernel_uhd()
+    def inst_walk():
+        instanced_fwd.instanced_forward(big.structure, clamp2, cam, fields, tab, MAIN_H, MAIN_W,
+                                        walk=True)
+
+    def inst_walk_uhd():
+        instanced_fwd.instanced_forward(big.structure, clamp2, cam_uhd, fields_uhd, tab_uhd,
+                                        UHD_H, UHD_W, walk=True)
+
+    def grid_build():
+        grid_for(tab, 2.0)
+
+    inst_kernel(), inst_kernel_uhd(), inst_walk()
+    # parent-style turns: walk, grid, grid, walk (one card, one call)
+    walk_ms = [time_ms(inst_walk, 2)]
     inst_ms = time_ms(inst_kernel, 3)
     uhd_ms = time_ms(inst_kernel_uhd, 2)
+    walk_ms.append(time_ms(inst_walk, 2))
+    walk_uhd_ms = time_ms(inst_walk_uhd, 1)
+    build_ms = time_ms(grid_build, 5)
+    w_img = instanced_fwd.instanced_forward(big.structure, clamp2, cam, fields, tab, MAIN_H,
+                                            MAIN_W, walk=True)
+    require(torch.equal(k_img, w_img), "the 1080p grid image != the run walk's image")
+    del w_img
+    inst_stats = {}
+    for name, c in (("clamp 2", clamp2), ("exact", RenderConfig())):
+        counts = torch.zeros(3, dtype=torch.int64, device=dev)
+        s_img = instanced_fwd.instanced_forward(big.structure, c, cam, fields, tab, MAIN_H,
+                                                MAIN_W, stats=counts)
+        if name == "clamp 2":
+            require(torch.equal(s_img, k_img), "the counting grid kernel's image differs")
+        else:
+            e_img = instanced_fwd.instanced_forward(big.structure, c, cam, fields, tab,
+                                                    MAIN_H, MAIN_W, walk=True)
+            require(torch.equal(s_img, e_img), "exact 1080p: the grid image != the walk's")
+            del e_img
+        n_search, n_fall, n_read = counts.tolist()
+        inst_stats[name] = (n_fall / n_search, n_read / n_search, n_search / (MAIN_W * MAIN_H))
+        del s_img
     inst_plain_ms = time_ms(inst_plain_band, 1)
     inst_profile = run_profile("--profile-instanced")
-    print(f"[12] instanced:10000 clamp 2 on {card}: kernel {inst_ms:.3f} ms/frame at "
-          f"{MAIN_W}x{MAIN_H} ({MAIN_W * MAIN_H / inst_ms / 1e3:.3f} M rays/s), "
-          f"{uhd_ms:.3f} ms/frame at {UHD_W}x{UHD_H} ({UHD_W * UHD_H / uhd_ms / 1e3:.3f} M "
-          f"rays/s); plain {inst_plain_ms:.1f} ms for one {BAND}-row band")
+    print(f"[12] instanced:10000 clamp 2 on {card}: kernel (cell grid) {inst_ms:.3f} ms/frame "
+          f"at {MAIN_W}x{MAIN_H} ({MAIN_W * MAIN_H / inst_ms / 1e3:.3f} M rays/s; the grid "
+          f"build {build_ms:.3f} ms of it), {uhd_ms:.3f} ms/frame at {UHD_W}x{UHD_H} "
+          f"({UHD_W * UHD_H / uhd_ms / 1e3:.3f} M rays/s); the run walk {walk_ms[0]:.3f} / "
+          f"{walk_ms[1]:.3f} ms at {MAIN_W}x{MAIN_H} (before / after), {walk_uhd_ms:.3f} ms "
+          f"at {UHD_W}x{UHD_H}; the 1080p image bitwise the walk's; plain "
+          f"{inst_plain_ms:.1f} ms for one {BAND}-row band")
+    print("[12] grid searches at 1080p (the counting twin, its image bitwise the kernel's): "
+          + "; ".join(f"{k}: {v[2]:.1f} searches a pixel, {v[0]:.4%} fell back to the walk, "
+                      f"{v[1]:.2f} list entries read a search" for k, v in inst_stats.items()))
     print(f"[12] torch.profiler over one frame at {MAIN_W}x{MAIN_H}: {inst_profile}")
 
     # K5 work model (independent of the kernel's traversal): per evaluation
@@ -2445,7 +2621,8 @@ def main() -> int:
                                  ceiling)
     regroup_entries = regroup_phases(dev, card, inst, inst_cfgs, regroup_built, t0, e_inst,
                                      m_inst / band_px, ceiling)
-    objects_entry = objects_phases(dev, card, inst, eval_built, t0, ceiling)
+    objects_entry, hit_pts = objects_phases(dev, card, inst, eval_built, t0, ceiling)
+    grid_phase(dev, card, inst, hit_pts)
 
     print(json.dumps({"kernels": [
         entry("lol_render_fused", "loltracer_tpu_torch/csrc/fused_fwd.cuh",
@@ -2457,14 +2634,15 @@ def main() -> int:
         entry("lol_train_bwd", "loltracer_tpu_torch/csrc/fused_bwd.cuh",
               "loltracer_tpu/render/pallas_train.py:469", bwd_launches, bwd_err,
               k2_ms, pb_ms, k2_bound),
-        dict(entry("lol_instanced_render", "loltracer_tpu_torch/csrc/instanced_scene.cuh",
+        dict(entry("lol_instanced_render", "loltracer_tpu_torch/csrc/grid_scene.cuh",
                    "loltracer_tpu/render/pallas_train.py:840", inst_launches, inst_err,
                    inst_ms, inst_plain_ms, k5_bound),
-             plain_ms_rows=BAND),
-        dict(entry("lol_instanced_fwd", "loltracer_tpu_torch/csrc/instanced_scene.cuh",
+             plain_ms_rows=BAND, uhd_ms=uhd_ms, walk_ms=walk_ms, walk_uhd_ms=walk_uhd_ms,
+             grid_build_ms=build_ms, fallback_share={k: v[0] for k, v in inst_stats.items()}),
+        dict(entry("lol_instanced_fwd", "loltracer_tpu_torch/csrc/grid_scene.cuh",
                    "loltracer_tpu/render/pallas_train.py:840", it_fwd_launches, it_fwd_err,
                    k5r_ms, it_pf_ms, k5r_bound),
-             plain_ms_rows=BAND),
+             plain_ms_rows=BAND, step_ms=it_step_ms),
         dict(entry("lol_instanced_bwd", "loltracer_tpu_torch/csrc/instanced_bwd.cuh",
                    "loltracer_tpu/render/pallas_train.py:1314", it_bwd_launches, it_bwd_err,
                    k6_ms, it_pb_ms, k6_bound),

@@ -58,7 +58,7 @@ def _build_cfg(args):
     return RenderConfig(**kw)
 
 
-def _load_scene(path):
+def _load_scene(path, device):
     from loltracer_tpu_torch.lol import parse_scene_file
     from loltracer_tpu_torch.scene import build_scene
 
@@ -67,8 +67,8 @@ def _load_scene(path):
         # (BASELINE config 5; scenes.instanced_spheres)
         from loltracer_tpu_torch.scenes import instanced_spheres
 
-        return instanced_spheres(n=int(str(path).split(":")[1]))
-    return build_scene(parse_scene_file(path))
+        return instanced_spheres(n=int(str(path).split(":")[1]), device=device)
+    return build_scene(parse_scene_file(path), device=device)
 
 
 def _add_render_flags(p):
@@ -105,7 +105,7 @@ def cmd_render(args):
 
     w, h = _parse_size(args.size)
     cfg = _build_cfg(args)
-    scene = _load_scene(args.scene)
+    scene = _load_scene(args.scene, args.device)
 
     t0 = time.perf_counter()
     if args.backend == "jnp":
@@ -136,7 +136,7 @@ def cmd_fit(args):
     from loltracer_tpu_torch.render.torch_renderer import make_renderer
     from loltracer_tpu_torch.utils.image import read_png, write_png
 
-    scene = _load_scene(args.scene)
+    scene = _load_scene(args.scene, args.device)
     cfg = _build_cfg(args)
     if args.target.endswith(".npy"):
         target = np.load(args.target)
@@ -184,7 +184,7 @@ def cmd_peak(args):
 
 
 def cmd_info(args):
-    scene = _load_scene(args.scene)
+    scene = _load_scene(args.scene, "cpu")  # the structure only
     st = scene.structure
     print(json.dumps(
         {

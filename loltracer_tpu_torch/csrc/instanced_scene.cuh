@@ -5,8 +5,11 @@
 // Replaces `loltracer_tpu/render/pallas_train.py: _instanced_fwd_kernel`
 // with residuals off (the Pallas call named `lol_instanced_render`) and on
 // (`lol_instanced_fwd`). The pixel body is csrc/fused_fwd.cuh's
-// `render_pixel`; this file supplies the instanced `Scene` it runs on and
-// the kernel that launches it. With residuals, the IFT denominator is the
+// `render_pixel`; this file supplies the instanced `Scene`, the run walk
+// below, and the kernel that launches it. K5 and K5r search through
+// csrc/grid_scene.cuh's `GridScene` (a cell grid, this walk its fallback);
+// the walk alone is their check entry and the search of K6, K3i / K4i and
+// K9. With residuals, the IFT denominator is the
 // winner's normal . rd from `dist_bwd` (pallas_train.py:947-967), and the
 // image stays bitwise the residuals-off kernel's.
 //
@@ -47,6 +50,11 @@
 // normal when a sphere wins, 0 when the cut wins (raw > cut: the cut is
 // frozen), (0, 1, 0) when a plane wins (strict <). The sphere term goes to
 // a RecordSink, one slot per call per pixel, for the deterministic scatter.
+//
+// Self names a struct that derives from this one and brings its own search
+// (csrc/grid_scene.cuh's GridScene: `dist_under` and `winner` over a cell
+// grid, this run walk its fallback): `dist`, `shadow_dist`, `sdf_mat` and
+// `dist_bwd` call Self's. With Self = void they call this struct's own.
 //
 // The device functions also compile as host C++ (tests/test_torch_instanced_host.py);
 // the kernel and its launch sit under __CUDACC__.
@@ -94,9 +102,18 @@ struct RecordSink {
   }
 };
 
+template <class Self, class Base>
+struct SelfOr {
+  using type = Self;
+};
+template <class Base>
+struct SelfOr<void, Base> {
+  using type = Base;
+};
+
 // L: the generated layout (offsets into the packed small-field buffer and
-// kGroup); C: the generated Cfg with the two clamps.
-template <class L, class C>
+// kGroup); C: the generated Cfg with the two clamps; Self: see above.
+template <class L, class C, class Self = void>
 struct InstancedScene {
   static constexpr int kNumLights = L::kNumLights;
   static constexpr int kNumMaterials = L::kNumMaterials;
@@ -111,6 +128,8 @@ struct InstancedScene {
   static constexpr int kLightSpecular = L::kLightSpecular;
   static constexpr int kNumPlanes = L::kNumPlanes;
   static constexpr int kGroup = L::kGroup;
+  static constexpr bool kStats = false;  // a GridScene may count its searches
+  using Derived = typename SelfOr<Self, InstancedScene>::type;
 
   const float* P;
   InstancedTables tab;
@@ -127,15 +146,23 @@ struct InstancedScene {
     for (int k = 0; k < kNumPlanes; ++k) plane_y[k] = __ldg(P + L::kPlaneY + k);
   }
 
-  // max(clamp, distance from p to the spheres' AABB) (render/sdf.py bbox_cut)
-  __device__ __forceinline__ float cut(float px, float py, float pz, float clamp) const {
+  __device__ __forceinline__ const Derived& self() const {
+    return static_cast<const Derived&>(*this);
+  }
+
+  // the distance from p to the spheres' AABB
+  __device__ __forceinline__ float box_dist(float px, float py, float pz) const {
     const float* b = tab.bbox;
     const float qx = jmax(jmax(__ldg(b) - px, px - __ldg(b + 3)), 0.f);
     const float qy = jmax(jmax(__ldg(b + 1) - py, py - __ldg(b + 4)), 0.f);
     const float qz = jmax(jmax(__ldg(b + 2) - pz, pz - __ldg(b + 5)), 0.f);
     const float s = (qx * qx + qy * qy) + qz * qz;
-    const float d_bbox = s > 0.f ? sqrtf(s) : 0.f;
-    return jmax(d_bbox, clamp);
+    return s > 0.f ? sqrtf(s) : 0.f;
+  }
+
+  // max(clamp, distance from p to the spheres' AABB) (render/sdf.py bbox_cut)
+  __device__ __forceinline__ float cut(float px, float py, float pz, float clamp) const {
+    return jmax(box_dist(px, py, pz), clamp);
   }
 
   // min over runs of |p - ctr| + S: >= the least sphere distance
@@ -170,12 +197,11 @@ struct InstancedScene {
     return sqrtf((dx * dx + dy * dy) + dz * dz) - s.w;
   }
 
-  // min(min over spheres, cut) and the planes, for one clamp
-  template <bool kHasClamp>
-  __device__ __forceinline__ float dist_under(float px, float py, float pz,
-                                              float clamp) const {
-    float best = kHasClamp ? cut(px, py, pz, clamp) : INFINITY;
-    const float u = kHasClamp ? INFINITY : upper(px, py, pz);
+  // min(best, every sphere distance at p) by the run walk from the bound
+  // best (with kUpper, best is INFINITY and the balls' upper bound gates)
+  template <bool kUpper>
+  __device__ __forceinline__ float walk(float px, float py, float pz, float best) const {
+    const float u = kUpper ? upper(px, py, pz) : INFINITY;
     for (int g = 0; g < tab.num_groups; ++g) {
       if (!visit(g, px, py, pz, u < best ? u : best)) continue;
       const int end = run_end(g);
@@ -184,6 +210,11 @@ struct InstancedScene {
         if (d < best) best = d;
       }
     }
+    return best;
+  }
+
+  // min(best, the planes' distances at p)
+  __device__ __forceinline__ float planes(float py, float best) const {
 #pragma unroll
     for (int k = 0; k < kNumPlanes; ++k) {
       const float dp = py - plane_y[k];
@@ -192,12 +223,20 @@ struct InstancedScene {
     return best;
   }
 
+  // min(min over spheres, cut) and the planes, for one clamp
+  template <bool kHasClamp>
+  __device__ __forceinline__ float dist_under(float px, float py, float pz,
+                                              float clamp) const {
+    return planes(py, walk<!kHasClamp>(px, py, pz,
+                                       kHasClamp ? cut(px, py, pz, clamp) : INFINITY));
+  }
+
   __device__ __forceinline__ float dist(float px, float py, float pz) const {
-    return dist_under<C::has_clamp>(px, py, pz, C::clamp);
+    return self().template dist_under<C::has_clamp>(px, py, pz, C::clamp);
   }
 
   __device__ __forceinline__ float shadow_dist(float px, float py, float pz) const {
-    return dist_under<C::has_shadow_clamp>(px, py, pz, C::shadow_clamp);
+    return self().template dist_under<C::has_shadow_clamp>(px, py, pz, C::shadow_clamp);
   }
 
   // The first-wins argmin over the spheres at distance <= best (best on
@@ -231,7 +270,7 @@ struct InstancedScene {
   __device__ __forceinline__ int sdf_mat(float px, float py, float pz,
                                          float& dmin) const {
     float best = INFINITY;
-    const int best_row = winner(px, py, pz, best);
+    const int best_row = self().winner(px, py, pz, best);
     int mat = best_row >= 0 ? __ldg(&tab.ids[best_row].y) : 0;
     float d = best;
     if (C::has_clamp) d = jmin(d, cut(px, py, pz, C::clamp));
@@ -256,7 +295,7 @@ struct InstancedScene {
                                             float& gx, float& gy, float& gz,
                                             float* __restrict__ gP) const {
     float d = C::has_clamp ? cut(px, py, pz, C::clamp) : INFINITY;
-    const int row = winner(px, py, pz, d);
+    const int row = self().winner(px, py, pz, d);
     int plane = -1;
 #pragma unroll
     for (int k = 0; k < kNumPlanes; ++k) {
@@ -299,12 +338,14 @@ constexpr int kInstBlockX = 8;
 constexpr int kInstBlockY = 16;
 
 #ifdef __CUDACC__
-template <class Cfg, class Scene>
+// Index: what the Scene's search takes beyond the tables (GridScene's cell
+// grid; nothing for the run walk).
+template <class Cfg, class Scene, class... Index>
 __global__ void __launch_bounds__(kInstBlockX * kInstBlockY)
     instanced_fwd_kernel(const float* __restrict__ cam_in,
                          const float* __restrict__ P, InstancedTables tab,
                          float* __restrict__ img, float* __restrict__ res,
-                         int height, int full_height, int width) {
+                         int height, int full_height, int width, Index... index) {
   extern __shared__ float4 s_groups[];
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   for (int i = tid; i < 2 * tab.num_groups; i += blockDim.x * blockDim.y)
@@ -317,31 +358,32 @@ __global__ void __launch_bounds__(kInstBlockX * kInstBlockY)
   float cam[kCamSize];
 #pragma unroll
   for (int i = 0; i < kCamSize; ++i) cam[i] = __ldg(cam_in + i);
-  const Scene scn(P, tab, s_groups);
+  const Scene scn(P, tab, s_groups, index...);
   // rows y of the launch are image rows cam[15] + y of full_height; the
   // residual planes are the launch's rows
   render_pixel<Cfg, Scene>(cam, scn, P, x, y, full_height, width, img, res,
                            (size_t)height * width);
+  if constexpr (Scene::kStats) scn.flush();
 }
 
-template <class Cfg, class Scene>
+template <class Cfg, class Scene, class... Index>
 int launch_instanced_fwd(const float* cam, const float* fields,
                          const InstancedTables& tab, float* img, float* res,
                          int height, int full_height, int width,
-                         cudaStream_t stream) {
+                         cudaStream_t stream, Index... index) {
   const int smem = 2 * tab.num_groups * (int)sizeof(float4);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        instanced_fwd_kernel<Cfg, Scene>,
+        instanced_fwd_kernel<Cfg, Scene, Index...>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 block(kInstBlockX, kInstBlockY);
   const dim3 grid((width + kInstBlockX - 1) / kInstBlockX,
                   (height + kInstBlockY - 1) / kInstBlockY);
-  instanced_fwd_kernel<Cfg, Scene>
+  instanced_fwd_kernel<Cfg, Scene, Index...>
       <<<grid, block, smem, stream>>>(cam, fields, tab, img, res, height, full_height,
-                                      width);
+                                      width, index...);
   return (int)cudaGetLastError();
 }
 #endif  // __CUDACC__

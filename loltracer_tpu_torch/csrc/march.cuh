@@ -47,15 +47,17 @@
 // (loltracer_tpu_torch/parallel/objects.py): each rank evaluates its own
 // sphere shard under the AABB combined over the object axis, and the ranks
 // all-reduce the minimum. One thread per point of a [n, 3] batch writes
-// `InstancedScene::dist` (K5's traversal under Cfg's primary clamp) to
-// out[n]; the ragged edge is masked, nothing is padded, and the TPU's
-// (3, COL) tiles, windows and pick loop are not carried over. The planes'
-// heights are a buffer of their own (the generated eval layout reads
-// plane_y at offset 0 of it). Bound: FP32 and SFU issue in the traversal,
-// as K5 (bytes: 12 B in and 4 B out per point). The run balls sit in
-// shared memory, loaded once per block; a block is 128 consecutive points,
-// so in the march's pixel order a warp is 32 pixels of one row rather than
-// K5's 8 x 4 tile.
+// `GridScene::dist` (csrc/grid_scene.cuh: the rank's cell grid, built once
+// per frame, then K5's run walk where the grid cannot certify; Cfg's
+// primary clamp) to out[n]; the run walk alone (`InstancedScene::dist`) is
+// the check entry; the ragged edge is masked, nothing is padded, and the
+// TPU's (3, COL) tiles, windows and pick loop are not carried over. The
+// planes' heights are a buffer of their own (the generated eval layout
+// reads plane_y at offset 0 of it). Bound: FP32 and SFU issue in the
+// search, as K5 (bytes: 12 B in and 4 B out per point). The run balls sit
+// in shared memory for the fallback, loaded once per block; a block is 128
+// consecutive points, so in the march's pixel order a warp is 32 pixels of
+// one row rather than K5's 8 x 4 tile, mostly in one cell.
 //
 // This file follows csrc/fused_fwd.cuh and csrc/instanced_scene.cuh in
 // the sources render/cuda_scene.py generates (`generate_march_source`,
@@ -186,32 +188,35 @@ int launch_march_instanced(const float* P, const InstancedTables& tab, const Mar
 }
 constexpr int kEvalBlock = 128;
 
-template <class Scene>
+template <class Scene, class... Index>
 __global__ void __launch_bounds__(kEvalBlock)
     instanced_eval_kernel(const float* __restrict__ plane_y, InstancedTables tab,
-                          const float* __restrict__ p, float* __restrict__ out, long long n) {
+                          const float* __restrict__ p, float* __restrict__ out, long long n,
+                          Index... index) {
   extern __shared__ float4 s_groups[];
   for (int i = threadIdx.x; i < 2 * tab.num_groups; i += blockDim.x) s_groups[i] = tab.groups[i];
   __syncthreads();
 
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const Scene scn(plane_y, tab, s_groups);
+  const Scene scn(plane_y, tab, s_groups, index...);
   eval_at(scn, p, out, (size_t)i);
+  if constexpr (Scene::kStats) scn.flush();
 }
 
-template <class Scene>
+template <class Scene, class... Index>
 int launch_instanced_eval(const float* plane_y, const InstancedTables& tab, const float* p,
-                          float* out, long long n, cudaStream_t stream) {
+                          float* out, long long n, cudaStream_t stream, Index... index) {
   const int smem = 2 * tab.num_groups * (int)sizeof(float4);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        instanced_eval_kernel<Scene>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        instanced_eval_kernel<Scene, Index...>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
     if (e != cudaSuccess) return (int)e;
   }
   const long long blocks = (n + kEvalBlock - 1) / kEvalBlock;
-  instanced_eval_kernel<Scene><<<(unsigned)blocks, kEvalBlock, smem, stream>>>(
-      plane_y, tab, p, out, n);
+  instanced_eval_kernel<Scene, Index...><<<(unsigned)blocks, kEvalBlock, smem, stream>>>(
+      plane_y, tab, p, out, n, index...);
   return (int)cudaGetLastError();
 }
 #endif  // __CUDACC__

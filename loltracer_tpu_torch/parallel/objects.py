@@ -24,8 +24,9 @@ Two tiers, by cfg.march_backend (render/backend.resolve_march_backend):
 the kernel tier ("pallas", or "auto" on CUDA tensors) evaluates every
 `sdf` / `shadow_sdf` call with K7, `lol_instanced_eval`
 (render/march_kernels.make_instanced_eval, csrc/march.cuh), over the
-shard's tables packed once per render with the axis-combined AABB
-(`_make_kernel_pmin_sdf`). The hit-id lookup stays the plain `sdf_id`, as
+shard's tables packed once per render with the axis-combined AABB, and
+their cell grid (render/cell_grid.py), built once per render over the
+shard's own spheres for both (`_make_kernel_pmin_sdf`). The hit-id lookup stays the plain `sdf_id`, as
 in the JAX package. Both render through render_rays' SDF overrides, hence
 the plain march loops. Gradients: the all-reduced distance passes its
 gradient to the rank(s) attaining the minimum (the JAX package's
@@ -46,6 +47,7 @@ from loltracer_tpu_torch.config import DEFAULT_CONFIG, RenderConfig
 from loltracer_tpu_torch.render.backend import resolve_device, resolve_march_backend
 from loltracer_tpu_torch.render.camera import camera_rays_for_rows
 from loltracer_tpu_torch.render.instanced_pack import real_sphere_bbox
+from loltracer_tpu_torch.render.cell_grid import CellGrid, grid_for
 from loltracer_tpu_torch.render.march_kernels import make_instanced_eval, pack_eval_tables
 from loltracer_tpu_torch.render.sdf import bbox_cut, make_scene_sdf_with_id
 from loltracer_tpu_torch.render.torch_renderer import pixel_radius, render_rays
@@ -165,6 +167,7 @@ class _Evaluation(NamedTuple):
 
     eval_fn: Callable
     tables: tuple
+    grid: CellGrid
     axis: ObjectAxis
     local: Callable
     params: SceneParams
@@ -182,7 +185,7 @@ class _KernelPmin(torch.autograd.Function):
     @staticmethod
     def forward(ctx, p, sphere_point, sphere_radius, plane_y, ev: _Evaluation):
         plane = plane_y.detach().to(torch.float32).contiguous()
-        d_loc = ev.eval_fn(ev.tables, plane, p.detach())
+        d_loc = ev.eval_fn(ev.tables, plane, p.detach(), ev.grid)
         m = _all_reduce(d_loc, dist.ReduceOp.MIN, ev.axis)
         ctx.ev = ev
         ctx.save_for_backward(p, sphere_point, sphere_radius, plane_y, d_loc, m)
@@ -204,19 +207,29 @@ class _KernelPmin(torch.autograd.Function):
         return (*[next(got) if n else None for n in needs], None)
 
 
-def _make_kernel_pmin_sdf(axis: ObjectAxis, eval_fn: Callable, params: SceneParams,
-                          local: Callable, bbox: torch.Tensor) -> Callable:
+def _shard_tables(local: SceneParams, bbox: torch.Tensor, cfg: RenderConfig):
+    """(K7's tables of this rank's shard with the axis-combined AABB `bbox`,
+    their cell grid for cfg's primary clamp): packed once a render, since
+    the spheres do not move within a frame. The grid serves the shadow
+    clamp's K7 too: its reach is the primary clamp's, and a shadow search
+    beyond it falls back to the run walk."""
+    tables = pack_eval_tables(local)._replace(bbox=bbox.detach().to(torch.float32).contiguous())
+    return tables, grid_for(tables, cfg.step_clamp)
+
+
+def _make_kernel_pmin_sdf(axis: ObjectAxis, eval_fn: Callable, tables, grid,
+                          local: Callable) -> Callable:
     """The object-sharded distance through an evaluator (`_make_pallas_pmin_sdf`):
-    this rank's shard of `params` is packed into K7's tables once (the
-    AABB replaced by the axis-combined `bbox`, so the step clamp's cut is
-    the unsharded one), and every call evaluates `eval_fn(tables, plane_y,
-    p)` (make_instanced_eval's: K7 on CUDA tensors, its plain version on
-    CPU ones) and all-reduces the minimum, with the gradient of `local`,
-    the plain sharded distance (_KernelPmin)."""
-    tables = pack_eval_tables(params)._replace(bbox=bbox.detach().to(torch.float32).contiguous())
+    every call evaluates `eval_fn(tables, plane_y, p, grid)`
+    (make_instanced_eval's: K7 on CUDA tensors, its plain version on CPU
+    ones) over this rank's shard, packed into K7's tables once a render
+    (the AABB replaced by the axis-combined one, so the step clamp's cut
+    is the unsharded one) and their cell grid, and all-reduces the
+    minimum, with the gradient of `local`, the plain sharded distance
+    (_KernelPmin)."""
 
     def sdf(params_: SceneParams, p):
-        ev = _Evaluation(eval_fn, tables, axis, local, params_)
+        ev = _Evaluation(eval_fn, tables, grid, axis, local, params_)
         return _KernelPmin.apply(p, params_.sphere_point, params_.sphere_radius,
                                  params_.plane_y, ev)
 
@@ -294,12 +307,13 @@ def make_object_sharded_renderer(
         if own_shadow:
             shadow_sdf, _, shadow_local = _sharded_sdfs(structure_local, shadow_cfg, axis, bbox)
         if use_kernel:
-            sdf = _make_kernel_pmin_sdf(axis, make_instanced_eval(structure_local, cfg), local,
-                                        plain_local, bbox)
+            tables, grid = _shard_tables(local, bbox, cfg)
+            sdf = _make_kernel_pmin_sdf(axis, make_instanced_eval(structure_local, cfg), tables,
+                                        grid, plain_local)
             if own_shadow:
                 shadow_sdf = _make_kernel_pmin_sdf(
-                    axis, make_instanced_eval(structure_local, shadow_cfg), local, shadow_local,
-                    bbox)
+                    axis, make_instanced_eval(structure_local, shadow_cfg), tables, grid,
+                    shadow_local)
         ro, rd = camera_rays_for_rows(local, rows, height, width, cfg)
         pr = pixel_radius(local, height, cfg) if cfg.antialias else None
         img = render_rays(structure_global, local, ro, rd, cfg, pixel_rad=pr,

@@ -24,9 +24,12 @@ numbers (a moved camera, an optimiser step) reuses the same built library.
 back for the plain PyTorch version.
 
 `generate_instanced_source(structure, cfg)` is the instanced tier's source
-(`lol_instanced_render`): the forward body, the traversal of
-csrc/instanced_scene.cuh, and a generated layout and Cfg with both step
-clamps. For instanced structures the buffer holds the small fields only
+(`lol_instanced_render`): the forward body, the search of
+csrc/grid_scene.cuh (a cell grid of candidate spheres over
+csrc/instanced_scene.cuh's run walk), and a generated layout and Cfg with
+both step clamps; `lol_instanced_render_walk` (the run walk alone) and
+`lol_instanced_render_stats` (the grid, counting its fallbacks) are its
+check entries. For instanced structures the buffer holds the small fields only
 (`pallas_train.instanced_small_fields`): the sphere SoA goes to the kernel
 as the tables of render/instanced_pack.py. The source depends on neither
 the sphere count nor the material ids, so `instanced:300` and
@@ -34,7 +37,8 @@ the sphere count nor the material ids, so `instanced:300` and
 instanced training source: the forward with residuals (`lol_instanced_fwd`)
 and the backward of csrc/instanced_bwd.cuh (`lol_instanced_bwd`, with its
 reduce and scatter launches), whose SDF adjoint is the traversal's own
-`InstancedScene::dist_bwd`, not a generated one.
+`InstancedScene::dist_bwd`, not a generated one; the forward searches the
+grid, the backward (and K3i / K4i, K9) still walks the runs.
 
 `generate_march_source(structure, cfg)` is the source of the value march
 kernels K3 and K4 (csrc/march.cuh) on the compiled `Scene` or, for an
@@ -45,11 +49,16 @@ cfg)` is the source of the regrouped instanced forward K9 (csrc/regroup.cuh: lol
 lol_rg_shadow, lol_rg_shade), one text for every sphere count too.
 `generate_eval_source(structure, cfg)` is the source of K7
 (`lol_instanced_eval`, csrc/march.cuh): the instanced distance at points
-under cfg.step_clamp, its planes' heights read from a buffer of their own.
+under cfg.step_clamp over the cell grid, its planes' heights read from a
+buffer of their own; `_walk` and `_stats` entries as K5's.
+
+The grid entries take the grid by value after the image or output
+arguments (`GRID_ARGTYPES`, render/cell_grid.py `grid_args`).
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from pathlib import Path
 from typing import Dict, List, Tuple
@@ -494,6 +503,8 @@ def _layout_source(structure: SceneStructure) -> str:
 
 ENTRY = "lol_render_fused"
 INSTANCED_ENTRY = "lol_instanced_render"
+INSTANCED_WALK = "lol_instanced_render_walk"
+INSTANCED_STATS = "lol_instanced_render_stats"
 INSTANCED_FWD = "lol_instanced_fwd"
 INSTANCED_BWD = "lol_instanced_bwd"
 INSTANCED_BLOCKS = "lol_instanced_bwd_blocks"
@@ -549,29 +560,64 @@ _TABLES = """\
       static_cast<const float4*>(groups), static_cast<const float*>(bbox),
       num_spheres, num_groups};"""
 
-_INSTANCED_ENTRY = f"""\
-extern "C" int {INSTANCED_ENTRY}(const void* cam, const void* fields, const void* spheres,
-                                    const void* ids, const void* groups, const void* bbox,
-                                    int num_spheres, int num_groups, void* img,
-                                    int height, int full_height, int width,
-                                    void* stream) {{
+# The cell grid's arguments of a grid entry, by value (csrc/grid_scene.cuh
+# GridTables), and the aliases of the searches over it.
+_GRID_PARAMS = """\
+float gox, float goy, float goz, int gnx, int gny, int gnz, float inv_cell, float reach,
+    float r_max, float tilt, float coord, const void* cell_start, const void* cell_rows,
+    const void* cell_spheres, void* stats"""
+
+GRID_ARGTYPES = ([ctypes.c_float] * 3 + [ctypes.c_int] * 3 + [ctypes.c_float] * 5
+                 + [ctypes.c_void_p] * 4)
+
+_GRID = """\
+  const lol::GridTables grid{gox, goy, goz, gnx, gny, gnz, inv_cell, reach, r_max, tilt, coord,
+                             static_cast<const int*>(cell_start),
+                             static_cast<const int*>(cell_rows),
+                             static_cast<const float4*>(cell_spheres),
+                             static_cast<unsigned long long*>(stats)};"""
+
+_GRID_ALIASES = """\
+using SceneOnGrid = GridScene<Layout, Cfg>;
+using SceneOnGridStats = GridScene<Layout, Cfg, true>;"""
+
+
+def _instanced_render_entry(name: str, scene: str) -> str:
+    """A K5 entry over the search `scene` (a lol_gen alias): the grid's
+    arguments unless it is the run walk."""
+    grid = scene != "Scene"
+    return f"""\
+extern "C" int {name}(const void* cam, const void* fields, const void* spheres,
+                      const void* ids, const void* groups, const void* bbox, int num_spheres,
+                      int num_groups, void* img, int height, int full_height, int width,
+                      {_GRID_PARAMS + ", " if grid else ""}void* stream) {{
 {_TABLES}
-  return lol::launch_instanced_fwd<lol_gen::Cfg, lol_gen::Scene>(
+{_GRID if grid else ""}
+  return lol::launch_instanced_fwd<lol_gen::Cfg, lol_gen::{scene}>(
       static_cast<const float*>(cam), static_cast<const float*>(fields), tab,
       static_cast<float*>(img), nullptr, height, full_height, width,
-      static_cast<cudaStream_t>(stream));
+      static_cast<cudaStream_t>(stream){", grid" if grid else ""});
 }}"""
+
+
+_INSTANCED_ENTRY = "\n\n".join([
+    _instanced_render_entry(INSTANCED_ENTRY, "SceneOnGrid"),
+    _instanced_render_entry(INSTANCED_WALK, "Scene"),
+    _instanced_render_entry(INSTANCED_STATS, "SceneOnGridStats"),
+])
 
 _INSTANCED_TRAIN_ENTRIES = f"""\
 extern "C" int {INSTANCED_FWD}(const void* cam, const void* fields, const void* spheres,
                                  const void* ids, const void* groups, const void* bbox,
                                  int num_spheres, int num_groups, void* img, void* res,
-                                 int height, int full_height, int width, void* stream) {{
+                                 int height, int full_height, int width, {_GRID_PARAMS},
+                                 void* stream) {{
 {_TABLES}
-  return lol::launch_instanced_fwd<lol_gen::Cfg, lol_gen::Scene>(
+{_GRID}
+  return lol::launch_instanced_fwd<lol_gen::Cfg, lol_gen::SceneOnGrid>(
       static_cast<const float*>(cam), static_cast<const float*>(fields), tab,
       static_cast<float*>(img), static_cast<float*>(res), height, full_height, width,
-      static_cast<cudaStream_t>(stream));
+      static_cast<cudaStream_t>(stream), grid);
 }}
 
 extern "C" int {INSTANCED_BLOCKS}(int height, int width) {{
@@ -604,18 +650,21 @@ extern "C" int {INSTANCED_BWD}(const void* cam, const void* fields, const void* 
 def generate_instanced_source(
     structure: SceneStructure, cfg: RenderConfig, residuals: bool = False
 ) -> str:
-    """The CUDA translation unit of `lol_instanced_render` for this
-    instanced structure and config: csrc/fused_fwd.cuh, then
-    csrc/instanced_scene.cuh, then the Cfg (both clamps) and the layout.
+    """The CUDA translation unit of `lol_instanced_render` (and its check
+    entries, the run walk and the counting grid) for this instanced
+    structure and config: csrc/fused_fwd.cuh, then csrc/instanced_scene.cuh
+    and csrc/grid_scene.cuh, then the Cfg (both clamps) and the layout.
     With `residuals`, the training pair instead: `lol_instanced_fwd` and
     `lol_instanced_bwd` (csrc/fused_bwd.cuh and csrc/instanced_bwd.cuh
-    join the bodies). Deterministic; holds no scene numbers, no sphere count
-    and no material ids. The device functions also compile as host C++."""
+    join the bodies; the backward keeps the run walk). Deterministic; holds
+    no scene numbers, no sphere count and no material ids. The device
+    functions also compile as host C++."""
     require_instanced(structure)
     if not structure.num_spheres:
         raise ValueError("an instanced scene needs at least one sphere")
-    bodies = (["fused_fwd.cuh", "fused_bwd.cuh", "instanced_scene.cuh", "instanced_bwd.cuh"]
-              if residuals else ["fused_fwd.cuh", "instanced_scene.cuh"])
+    bodies = (["fused_fwd.cuh", "fused_bwd.cuh", "instanced_scene.cuh", "grid_scene.cuh",
+               "instanced_bwd.cuh"]
+              if residuals else ["fused_fwd.cuh", "instanced_scene.cuh", "grid_scene.cuh"])
     return "\n".join(
         [
             "// Generated by loltracer_tpu_torch.render.cuda_scene: the kernel",
@@ -626,6 +675,7 @@ def generate_instanced_source(
             _cfg_source(cfg, residuals=residuals, instanced=True),
             "",
             _layout_source(structure),
+            _GRID_ALIASES,
             "}  // namespace lol_gen",
             "",
             "#ifdef __CUDACC__",
@@ -755,17 +805,32 @@ def generate_march_source(structure: SceneStructure, cfg: RenderConfig) -> str:
 
 
 INSTANCED_EVAL = "lol_instanced_eval"
+INSTANCED_EVAL_WALK = "lol_instanced_eval_walk"
+INSTANCED_EVAL_STATS = "lol_instanced_eval_stats"
 
-_EVAL_ENTRY = f"""\
-extern "C" int {INSTANCED_EVAL}(const void* plane_y, const void* spheres, const void* groups,
-                                   const void* bbox, int num_spheres, int num_groups,
-                                   const void* p, void* out, long long n, void* stream) {{
+
+def _eval_entry(name: str, scene: str) -> str:
+    """A K7 entry over the search `scene` (a lol_gen alias), as
+    _instanced_render_entry."""
+    grid = scene != "Scene"
+    return f"""\
+extern "C" int {name}(const void* plane_y, const void* spheres, const void* groups,
+                      const void* bbox, int num_spheres, int num_groups, const void* p,
+                      void* out, long long n, {_GRID_PARAMS + ", " if grid else ""}void* stream) {{
   const void* ids = nullptr;
 {_TABLES}
-  return lol::launch_instanced_eval<lol_gen::Scene>(
+{_GRID if grid else ""}
+  return lol::launch_instanced_eval<lol_gen::{scene}>(
       static_cast<const float*>(plane_y), tab, static_cast<const float*>(p),
-      static_cast<float*>(out), n, static_cast<cudaStream_t>(stream));
+      static_cast<float*>(out), n, static_cast<cudaStream_t>(stream){", grid" if grid else ""});
 }}"""
+
+
+_EVAL_ENTRY = "\n\n".join([
+    _eval_entry(INSTANCED_EVAL, "SceneOnGrid"),
+    _eval_entry(INSTANCED_EVAL_WALK, "Scene"),
+    _eval_entry(INSTANCED_EVAL_STATS, "SceneOnGridStats"),
+])
 
 
 def _eval_layout_source(structure: SceneStructure) -> str:
@@ -791,13 +856,14 @@ def _eval_layout_source(structure: SceneStructure) -> str:
 def generate_eval_source(structure: SceneStructure, cfg: RenderConfig) -> str:
     """The CUDA translation unit of K7 (`lol_instanced_eval`) for this
     instanced structure and cfg.step_clamp: csrc/fused_fwd.cuh,
-    csrc/instanced_scene.cuh and csrc/march.cuh, then the Cfg and the eval
-    layout. One text for every structure with as many planes, whatever its
+    csrc/instanced_scene.cuh, csrc/grid_scene.cuh and csrc/march.cuh, then
+    the Cfg and the eval layout (entries over the cell grid, the run walk
+    and the counting grid). One text for every structure with as many planes, whatever its
     spheres, lights, materials and shadow clamp; deterministic; holds no scene numbers. The device functions
     also compile as host C++."""
     require_instanced(structure)
     cfg = RenderConfig(step_clamp=cfg.step_clamp)
-    bodies = ["fused_fwd.cuh", "instanced_scene.cuh", "march.cuh"]
+    bodies = ["fused_fwd.cuh", "instanced_scene.cuh", "grid_scene.cuh", "march.cuh"]
     return "\n".join(
         [
             "// Generated by loltracer_tpu_torch.render.cuda_scene: the kernel",
@@ -808,6 +874,7 @@ def generate_eval_source(structure: SceneStructure, cfg: RenderConfig) -> str:
             _cfg_source(cfg, residuals=False, instanced=True),
             "",
             _eval_layout_source(structure),
+            _GRID_ALIASES,
             "}  // namespace lol_gen",
             "",
             "#ifdef __CUDACC__",

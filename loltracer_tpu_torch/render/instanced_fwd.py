@@ -10,9 +10,14 @@ planes) and the sphere tables (`instanced_pack.pack_instanced`). With
 on, of an image `full_height` rows tall.
 
 - CUDA tensors launch `lol_instanced_render` (csrc/fused_fwd.cuh's pixel
-  body over csrc/instanced_scene.cuh's exact two-level traversal, one
+  body over csrc/grid_scene.cuh's exact search: a cell grid of candidate
+  spheres, render/cell_grid.py, built from the tables at each call, with
+  csrc/instanced_scene.cuh's run walk where the grid cannot certify; one
   thread per ray), built at first use for the config; the source does not
-  depend on the sphere count. A failed build or launch raises; nothing
+  depend on the sphere count. `walk=True` launches the run walk alone
+  (`lol_instanced_render_walk`, the check of the grid: the same image
+  bitwise), `stats=` the grid entry that counts its searches
+  (`lol_instanced_render_stats`). A failed build or launch raises; nothing
   falls back.
 - CPU tensors go to `instanced_forward_reference`, the plain version: the
   torch renderer (render/torch_renderer.py) on the spheres read back out of
@@ -33,8 +38,12 @@ from loltracer_tpu_torch import _build
 from loltracer_tpu_torch.config import RenderConfig
 from loltracer_tpu_torch.render.backend import resolve_backend
 from loltracer_tpu_torch.render.camera import CAM_SIZE, rays_from_pack
+from loltracer_tpu_torch.render.cell_grid import CellGrid, check_grid, grid_args, grid_for
 from loltracer_tpu_torch.render.cuda_scene import (
+    GRID_ARGTYPES,
     INSTANCED_ENTRY,
+    INSTANCED_STATS,
+    INSTANCED_WALK,
     generate_instanced_source,
     packed_size,
     unpack_fields,
@@ -95,10 +104,12 @@ def library(cfg: RenderConfig, structure: SceneStructure) -> _build.Library:
     use, then loaded from the build cache). Structures that differ only in
     their sphere count or material ids share one source, hence one build."""
     built = _build.build(generate_instanced_source(structure, cfg), "instanced_fwd")
-    fn = getattr(built.lib, INSTANCED_ENTRY)
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    head = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p] + [ctypes.c_int] * 3
+    for name, grid in ((INSTANCED_ENTRY, True), (INSTANCED_WALK, False),
+                       (INSTANCED_STATS, True)):
+        fn = getattr(built.lib, name)
+        fn.argtypes = head + (GRID_ARGTYPES if grid else []) + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return built
 
 
@@ -129,9 +140,16 @@ def instanced_forward(
     height: int,
     width: int,
     full_height: Optional[int] = None,
+    grid: Optional[CellGrid] = None,
+    walk: bool = False,
+    stats: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Render [height, W, 3] f32: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors (render/backend.py)."""
+    plain version for CPU tensors (render/backend.py). On CUDA the kernel
+    searches `grid` (default: `cell_grid.grid_for(tables, cfg.step_clamp)`,
+    built now), or with
+    `walk` the run walk alone; `stats` (int64 [3] on the device) takes the
+    grid search's counts: searches, fallbacks, list entries read."""
     require_instanced(structure)
     full_height = full_height or height
     if resolve_backend(cam, fields, *tables) == "torch":
@@ -145,16 +163,23 @@ def instanced_forward(
         raise ValueError(f"cam on {cam.device}, fields on {fields.device}")
     if height <= 0 or width <= 0 or full_height < height:
         raise ValueError(f"bad image size {height}x{width} of {full_height} rows")
-    fn = getattr(library(cfg, structure).lib, INSTANCED_ENTRY)
+    if walk:
+        name, index = INSTANCED_WALK, ()
+    else:
+        grid = grid_for(tables, cfg.step_clamp) if grid is None else grid
+        check_grid(grid, cam.device, stats)
+        name, index = (INSTANCED_ENTRY if stats is None else INSTANCED_STATS), grid_args(grid,
+                                                                                         stats)
+    fn = getattr(library(cfg, structure).lib, name)
     img = torch.empty((height, width, 3), dtype=torch.float32, device=cam.device)
     with torch.cuda.device(cam.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(cam.data_ptr(), fields.data_ptr(), tables.spheres.data_ptr(),
                 tables.ids.data_ptr(), tables.groups.data_ptr(), tables.bbox.data_ptr(),
                 tables.spheres.shape[0], tables.groups.shape[0], img.data_ptr(),
-                height, full_height, width, stream)
+                height, full_height, width, *index, stream)
     if rc != 0:
-        raise RuntimeError(f"{INSTANCED_ENTRY} launch failed: cudaError {rc}")
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
     global launches
     launches += 1
     return img

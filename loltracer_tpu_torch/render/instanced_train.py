@@ -8,7 +8,9 @@
   fused_train (t_sh, hit, material, IFT denominator, per light res and t*).
   CUDA tensors launch `lol_instanced_fwd` (csrc/instanced_scene.cuh with
   Cfg::with_residuals, the port of `_instanced_fwd_kernel` with residuals
-  on); CPU tensors take `instanced_train_forward_reference`.
+  on; it searches a cell grid built from the tables at each call,
+  csrc/grid_scene.cuh, as lol_instanced_render does); CPU tensors take
+  `instanced_train_forward_reference`.
 - `instanced_train_backward(structure, cfg, cam, fields, tables, res, ct)
   -> (dcam [16], dfields [packed_size], dsph [Ns, 4])`: the vector-Jacobian
   product of `instanced_shade_from_frozen` at the residuals, dsph per
@@ -43,7 +45,9 @@ from loltracer_tpu_torch import _build
 from loltracer_tpu_torch.config import DEFAULT_CONFIG, RenderConfig
 from loltracer_tpu_torch.render.backend import resolve_backend, resolve_device
 from loltracer_tpu_torch.render.camera import CAM_SIZE, camera_pack, rays_from_pack
+from loltracer_tpu_torch.render.cell_grid import check_grid, grid_args, grid_for
 from loltracer_tpu_torch.render.cuda_scene import (
+    GRID_ARGTYPES,
     INSTANCED_BLOCKS,
     INSTANCED_BWD,
     INSTANCED_CHUNKS,
@@ -222,7 +226,7 @@ def library(cfg: RenderConfig, structure: SceneStructure) -> _build.Library:
                          "instanced_train")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for name, args in (
-        (INSTANCED_FWD, [ptr] * 6 + [i32] * 2 + [ptr] * 2 + [i32] * 3 + [ptr]),
+        (INSTANCED_FWD, [ptr] * 6 + [i32] * 2 + [ptr] * 2 + [i32] * 3 + GRID_ARGTYPES + [ptr]),
         (INSTANCED_BWD, [ptr] * 6 + [i32] * 2 + [ptr] * 11 + [i32] * 3 + [ptr]),
         (INSTANCED_BLOCKS, [i32, i32]),
         (INSTANCED_CHUNKS, [ctypes.c_longlong]),
@@ -267,6 +271,8 @@ def instanced_train_forward(
     if height <= 0 or width <= 0 or full_height < height:
         raise ValueError(f"bad image size {height}x{width} of {full_height} rows")
     lib = library(cfg, structure).lib
+    grid = grid_for(tables, cfg.step_clamp)  # the spheres may have moved since the last step
+    check_grid(grid, cam.device)
     img = torch.empty((height, width, 3), dtype=torch.float32, device=cam.device)
     res = torch.empty((num_residuals(structure), height, width), dtype=torch.float32,
                       device=cam.device)
@@ -274,7 +280,7 @@ def instanced_train_forward(
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, INSTANCED_FWD)(
             cam.data_ptr(), fields.data_ptr(), *_table_args(tables), img.data_ptr(),
-            res.data_ptr(), height, full_height, width, stream,
+            res.data_ptr(), height, full_height, width, *grid_args(grid), stream,
         )
     if rc != 0:
         raise RuntimeError(f"{INSTANCED_FWD} launch failed: cudaError {rc}")

@@ -22,12 +22,14 @@ So the two loops are value functions, and on CUDA tensors they run here:
   `shadow_fn` that render/torch_renderer.py hands to the renderer (the
   counterparts of `make_pallas_march` / `make_pallas_shadow_march`).
 
-- `make_instanced_eval(structure, cfg)` -> `eval_fn(tables, plane_y, p)`:
-  K7, `lol_instanced_eval` (csrc/march.cuh), the instanced distance under
-  cfg.step_clamp at points p [..., 3] over the value-only tables of
-  `pack_eval_tables` (whose AABB the caller may replace: the object-sharded
-  renderer, parallel/objects.py, passes the one combined over its object
-  axis); its plain version is `instanced_eval_reference`.
+- `make_instanced_eval(structure, cfg)` -> `eval_fn(tables, plane_y, p,
+  grid=None)`: K7, `lol_instanced_eval` (csrc/march.cuh), the instanced
+  distance under cfg.step_clamp at points p [..., 3] over the value-only
+  tables of `pack_eval_tables` (whose AABB the caller may replace: the
+  object-sharded renderer, parallel/objects.py, passes the one combined
+  over its object axis) and their cell grid (render/cell_grid.py; built
+  per call unless given: the renderer builds one per frame); its plain
+  version is `instanced_eval_reference`.
 
 ro is one origin [3] or one per ray [..., 3]; rd [..., 3]; any batch shape,
 flattened for the kernel (its last dimension is the kernel's tile width).
@@ -57,8 +59,12 @@ import torch
 from loltracer_tpu_torch import _build
 from loltracer_tpu_torch.config import RenderConfig
 from loltracer_tpu_torch.render.backend import resolve_backend
+from loltracer_tpu_torch.render.cell_grid import CellGrid, check_grid, grid_args, grid_for
 from loltracer_tpu_torch.render.cuda_scene import (
+    GRID_ARGTYPES,
     INSTANCED_EVAL,
+    INSTANCED_EVAL_STATS,
+    INSTANCED_EVAL_WALK,
     MARCH,
     MARCH_INSTANCED,
     MARCH_LANES,
@@ -429,10 +435,12 @@ def instanced_eval_reference(tables: EvalTables, plane_y, p, step_clamp: Optiona
 @functools.lru_cache(maxsize=None)
 def _eval_library(structure: SceneStructure, cfg: RenderConfig) -> _build.Library:
     built = _build.build(generate_eval_source(structure, cfg), "instanced_eval")
-    fn = getattr(built.lib, INSTANCED_EVAL)
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
-                   + [ctypes.c_longlong, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    head = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 + [ctypes.c_longlong]
+    for name, grid in ((INSTANCED_EVAL, True), (INSTANCED_EVAL_WALK, False),
+                       (INSTANCED_EVAL_STATS, True)):
+        fn = getattr(built.lib, name)
+        fn.argtypes = head + (GRID_ARGTYPES if grid else []) + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return built
 
 
@@ -456,16 +464,22 @@ def _check_eval(structure: SceneStructure, tables: EvalTables, plane_y, p) -> No
 
 
 def make_instanced_eval(structure: SceneStructure, cfg: RenderConfig) -> Callable:
-    """`eval_fn(tables, plane_y, p[..., 3]) -> dist[...]`: one evaluation of
-    the instanced distance under cfg.step_clamp at arbitrary points
-    (`pallas_march.make_instanced_eval`), over the EvalTables of
+    """`eval_fn(tables, plane_y, p[..., 3], grid=None) -> dist[...]`: one
+    evaluation of the instanced distance under cfg.step_clamp at arbitrary
+    points (`pallas_march.make_instanced_eval`), over the EvalTables of
     `structure.num_spheres` spheres and the planes' heights plane_y
     [num_planes]. CUDA tensors launch K7 (one thread per point, no
-    padding); CPU tensors take `instanced_eval_reference`. Value-only: the
-    caller attaches gradients (parallel/objects.py)."""
+    padding) over `grid` (default: `cell_grid.grid_for(tables,
+    cfg.step_clamp)`, built now), or
+    with `walk=True` the run walk alone (`lol_instanced_eval_walk`, the
+    check of the grid); `stats` (int64 [3] on the device) takes the grid
+    search's counts (searches, fallbacks, list entries read). CPU tensors
+    take `instanced_eval_reference`. Value-only: the caller attaches
+    gradients (parallel/objects.py)."""
     require_instanced(structure)
 
-    def eval_fn(tables: EvalTables, plane_y, p):
+    def eval_fn(tables: EvalTables, plane_y, p, grid: Optional[CellGrid] = None,
+                walk: bool = False, stats: Optional[torch.Tensor] = None):
         if resolve_backend(p, plane_y, *tables) == "torch":
             return instanced_eval_reference(tables, plane_y, p, cfg.step_clamp)
         _check_eval(structure, tables, plane_y, p)
@@ -474,14 +488,21 @@ def make_instanced_eval(structure: SceneStructure, cfg: RenderConfig) -> Callabl
         out = torch.empty(flat.shape[0], dtype=torch.float32, device=p.device)
         if flat.shape[0] == 0:
             return out.reshape(batch)
-        fn = getattr(eval_library(structure, cfg).lib, INSTANCED_EVAL)
+        if walk:
+            name, index = INSTANCED_EVAL_WALK, ()
+        else:
+            grid = grid_for(tables, cfg.step_clamp) if grid is None else grid
+            check_grid(grid, p.device, stats)
+            name = INSTANCED_EVAL if stats is None else INSTANCED_EVAL_STATS
+            index = grid_args(grid, stats)
+        fn = getattr(eval_library(structure, cfg).lib, name)
         with torch.cuda.device(p.device):
             stream = torch.cuda.current_stream().cuda_stream
             rc = fn(plane_y.data_ptr(), tables.spheres.data_ptr(), tables.groups.data_ptr(),
                     tables.bbox.data_ptr(), tables.spheres.shape[0], tables.groups.shape[0],
-                    flat.data_ptr(), out.data_ptr(), flat.shape[0], stream)
+                    flat.data_ptr(), out.data_ptr(), flat.shape[0], *index, stream)
         if rc != 0:
-            raise RuntimeError(f"{INSTANCED_EVAL} launch failed: cudaError {rc}")
+            raise RuntimeError(f"{name} launch failed: cudaError {rc}")
         launches[INSTANCED_EVAL] += 1
         return out.reshape(batch)
 

@@ -28,6 +28,7 @@ from loltracer_tpu_torch.lol.ast import (
     SmoothUnion,
     Sphere,
 )
+from loltracer_tpu_torch.render.backend import resolve_device
 
 # --- Static structure ------------------------------------------------------
 
@@ -182,9 +183,12 @@ class _Collector:
 
 
 def build_scene(
-    ast: SceneAst, dtype: torch.dtype = torch.float32, device="cpu"
+    ast: SceneAst, dtype: torch.dtype = torch.float32, device="cuda"
 ) -> Scene:
-    """Compile a parsed scene into structure + SoA parameter tensors."""
+    """Compile a parsed scene into structure + SoA parameter tensors on
+    `device` (the card by default; raises without CUDA, nothing falls back:
+    pass device="cpu" for the plain versions)."""
+    device = resolve_device(device, "build_scene")
     col = _Collector()
     nodes = tuple(col.collect(obj) for obj in ast.objects)
     material_ids = (0,) + tuple(obj.material for obj in ast.objects)
@@ -233,11 +237,13 @@ def build_scene(
     return Scene(structure=structure, params=params_from_numpy(arrays, device))
 
 
-def params_from_numpy(d: Dict[str, np.ndarray], device="cpu") -> SceneParams:
-    """SceneParams from numpy arrays keyed by field name — the carrier of
-    numbers between the JAX package and the port, e.g.
+def params_from_numpy(d: Dict[str, np.ndarray], device="cuda") -> SceneParams:
+    """SceneParams on `device` (the card by default; raises without CUDA)
+    from numpy arrays keyed by field name — the carrier of numbers between
+    the JAX package and the port, e.g.
     `{f: np.asarray(getattr(jax_params, f)) for f in FIELDS}`. Values and
     dtypes are kept exactly."""
+    device = resolve_device(device, "params_from_numpy")
     missing = set(FIELDS) - set(d)
     if missing:
         raise KeyError(f"missing SceneParams fields: {sorted(missing)}")

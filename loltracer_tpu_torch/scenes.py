@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from loltracer_tpu_torch.render.backend import resolve_device
 from loltracer_tpu_torch.scene import Scene, SceneStructure, params_from_numpy
 
 
@@ -20,13 +21,16 @@ def instanced_spheres(
     num_materials: int = 6,
     extent: float = 40.0,
     dtype=np.float32,
-    device="cpu",
+    device="cuda",
 ) -> Scene:
     """A field of n spheres over a ground plane, lit by two point lights.
 
     Spheres scatter in a slab in front of the camera with radii 0.2-0.6;
     materials cycle through a small palette (id 0 stays the black
-    background material). The parameters are torch tensors on `device`."""
+    background material). The parameters are torch tensors on `device`:
+    the card by default (raises without CUDA; pass device="cpu" for the
+    plain versions)."""
+    device = resolve_device(device, "instanced_spheres")
     rng = np.random.default_rng(seed)
 
     pos = np.empty((n, 3), dtype)

@@ -170,7 +170,7 @@ def _lib(cfg_name, scene, build_dir):
 
 
 def _scene(n):
-    return instanced_spheres(n=n, seed=9)
+    return instanced_spheres(n=n, seed=9, device="cpu")
 
 
 def _table_args(scene):

@@ -37,7 +37,7 @@ H, W = 16, 24
 
 @pytest.fixture(scope="module")
 def scene4(examples_dir):
-    return build_scene(parse_scene_file(str(examples_dir / "scene4.lol")))
+    return build_scene(parse_scene_file(str(examples_dir / "scene4.lol")), device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -94,7 +94,7 @@ def test_fit_scene_takes_the_differentiable_renderer(scene4, monkeypatch):
                         or real_banded(*a, **k))
     fit_scene(scene4.structure, scene4.params, np.zeros((4, 6, 3), np.float32), steps=1,
               device="cpu")
-    inst = instanced_spheres(n=64, seed=1)
+    inst = instanced_spheres(n=64, seed=1, device="cpu")
     fit_scene(inst.structure, inst.params, np.zeros((4, 6, 3), np.float32), steps=1,
               cfg=RenderConfig(step_clamp=2.0), trainable=("sphere_point",), device="cpu")
     assert calls == ["image", ("banded", 16)]

@@ -56,7 +56,7 @@ def test_ast_matches(examples_dir, name):
 @pytest.mark.parametrize("name", SCENES)
 def test_build_scene_matches(examples_dir, name):
     path = str(examples_dir / name)
-    port = build_scene(parse_scene_file(path))
+    port = build_scene(parse_scene_file(path), device="cpu")
     ref = jlt.build_scene(jlt.parse_scene_file(path))
     assert isinstance(port.structure, SceneStructure)
     for f in dataclasses.fields(SceneStructure):
@@ -90,14 +90,30 @@ def test_malformed_input_raises_with_line(text, line):
 def test_params_from_numpy_round_trips_jax_params(examples_dir):
     ref = jlt.build_scene(jlt.parse_scene_file(str(examples_dir / "scene4.lol")))
     arrays = _np_params(ref.params)
-    port = params_from_numpy(arrays)
+    port = params_from_numpy(arrays, device="cpu")
     for f in FIELDS:
         back = getattr(port, f).numpy()
         assert back.dtype == arrays[f].dtype and np.array_equal(back, arrays[f]), f
     moved = params_to(port, dtype=__import__("torch").float64)
     assert all(getattr(moved, f).dtype.is_floating_point for f in FIELDS)
     with pytest.raises(KeyError):
-        params_from_numpy({k: v for k, v in arrays.items() if k != "smooth_k"})
+        params_from_numpy({k: v for k, v in arrays.items() if k != "smooth_k"}, device="cpu")
+
+
+def test_builders_default_to_the_card(examples_dir, monkeypatch):
+    """build_scene, params_from_numpy and instanced_spheres put their
+    parameters on the card unless told otherwise: without CUDA they raise,
+    nothing falls back to the CPU."""
+    from loltracer_tpu_torch.scenes import instanced_spheres
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ast = parse_scene_file(str(examples_dir / "scene4.lol"))
+    arrays = _np_params(build_scene(ast, device="cpu").params)
+    for make in (lambda: build_scene(ast), lambda: params_from_numpy(arrays),
+                 lambda: instanced_spheres(64)):
+        with pytest.raises(RuntimeError, match="is_available"):
+            make()
+    assert instanced_spheres(64, device="cpu").params.sphere_point.device.type == "cpu"
 
 
 def test_png_writer_matches(tmp_path):

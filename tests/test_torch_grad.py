@@ -56,7 +56,7 @@ AD_RTOL = 1e-7
 
 
 def _port_grads(path: str):
-    scene = build_scene(parse_scene_file(path), dtype=torch.float64)
+    scene = build_scene(parse_scene_file(path), dtype=torch.float64, device="cpu")
     params = scene.params
     for f in FIELDS:
         getattr(params, f).requires_grad_(True)
@@ -141,7 +141,7 @@ def test_float64_ad_matches_golden_central_differences(examples_dir):
 def test_make_renderer_is_differentiable(examples_dir):
     """JAX's make_renderer "maps params -> image and is differentiable":
     the port's renders under autograd and its gradients are render_image's."""
-    scene = build_scene(parse_scene_file(str(examples_dir / "scene2.lol")))
+    scene = build_scene(parse_scene_file(str(examples_dir / "scene2.lol")), device="cpu")
     params = scene.params
     params.sphere_radius.requires_grad_(True)
     img = make_renderer(scene.structure, 6, 8)(params)

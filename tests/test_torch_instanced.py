@@ -60,7 +60,7 @@ def flush_denormals():
 @pytest.fixture(scope="module")
 def scenes():
     return {
-        n: (jax_instanced_spheres(n=n, seed=SEED), instanced_spheres(n=n, seed=SEED))
+        n: (jax_instanced_spheres(n=n, seed=SEED), instanced_spheres(n=n, seed=SEED, device="cpu"))
         for n in (1, N)
     }
 
@@ -84,7 +84,7 @@ def _points(tscene, n_pts=2048, seed=0):
 @pytest.mark.parametrize("n", [1, N, 10_000])
 def test_instanced_spheres_params_are_bitwise_jax(n):
     j = jax_instanced_spheres(n=n)
-    t = instanced_spheres(n=n)
+    t = instanced_spheres(n=n, device="cpu")
     assert dataclasses.asdict(t.structure) == dataclasses.asdict(j.structure)
     for f in FIELDS:
         ours, ref = getattr(t.params, f).numpy(), np.asarray(getattr(j.params, f))
@@ -94,7 +94,7 @@ def test_instanced_spheres_params_are_bitwise_jax(n):
 
 @pytest.mark.parametrize("n", [1, N, 10_000])
 def test_morton_codes_and_order_equal_jax(n):
-    t = instanced_spheres(n=n)
+    t = instanced_spheres(n=n, device="cpu")
     pos = t.params.sphere_point
     np.testing.assert_array_equal(
         morton_codes(pos).numpy(), np.asarray(_morton_codes(pos.numpy())).astype(np.int64)
@@ -110,7 +110,7 @@ def test_group_bounds_are_true_bounds(n):
     S - margin / 2, in float64 (so |p - ctr| - R lower-bounds every member's distance and
     |p - ctr| + S upper-bounds the least one, with slack for f32 rounding).
     The tables hold every sphere once, with its material."""
-    t = instanced_spheres(n=n)
+    t = instanced_spheres(n=n, device="cpu")
     tab = pack_instanced(t.structure, t.params)
     sph = tab.spheres.double().numpy()
     groups = tab.groups.double().numpy()

@@ -54,7 +54,7 @@ def tied():
     """instanced_spheres(300, seed 9) with sphere 200 a copy of sphere 17
     (materials 3 and 6): equal distances everywhere, so the first-wins
     rule decides their material."""
-    scene = instanced_spheres(n=300, seed=9)
+    scene = instanced_spheres(n=300, seed=9, device="cpu")
     scene.params.sphere_point[200] = scene.params.sphere_point[17]
     scene.params.sphere_radius[200] = scene.params.sphere_radius[17]
     return scene
@@ -65,7 +65,7 @@ def tied():
 
 def test_instanced_source_is_one_text_for_every_count_and_seed():
     cfg = RenderConfig(step_clamp=2.0)
-    a, b = instanced_spheres(n=300), instanced_spheres(n=10_000, seed=3)
+    a, b = instanced_spheres(n=300, device="cpu"), instanced_spheres(n=10_000, seed=3, device="cpu")
     src = generate_instanced_source(a.structure, cfg)
     assert src == generate_instanced_source(a.structure, cfg)
     assert src == generate_instanced_source(b.structure, cfg)
@@ -91,7 +91,7 @@ def test_instanced_source_is_one_text_for_every_count_and_seed():
 
 
 def test_instanced_structures_are_checked():
-    st = instanced_spheres(n=3).structure
+    st = instanced_spheres(n=3, device="cpu").structure
     with pytest.raises(NotImplementedError):
         generate_source(st, EXACT)
     with pytest.raises(ValueError, match="boxes"):
@@ -282,7 +282,7 @@ def test_host_built_scene_is_the_brute_force_min_and_argmin(tied, n, tmp_path):
     exact config Scene::dist: bitwise the brute-force min; Scene::sdf_mat:
     the unclamped first-wins argmin's material (the tied copy never wins
     over sphere 17) and the clamped distance, bitwise."""
-    scene = tied if n == 300 else instanced_spheres(n=1, seed=7)
+    scene = tied if n == 300 else instanced_spheres(n=1, seed=7, device="cpu")
     pts = _points(scene)
     for cfg in (CLAMPED, EXACT):
         lib = _host_library(scene.structure, cfg, tmp_path)
@@ -404,7 +404,7 @@ def test_host_built_training_pixels_match_plain_versions(cfg, tmp_path):
     the residual planes as chip_smoke.py holds them; dcam rtol 2e-3, every
     field and the sphere table (records summed per row in record order)
     within 1e-4 * max|grad|."""
-    scene = instanced_spheres(n=300, seed=9)
+    scene = instanced_spheres(n=300, seed=9, device="cpu")
     st = scene.structure
     h, w = 12, 16
     lib = _host_library(st, cfg, tmp_path, residuals=True)
@@ -461,7 +461,7 @@ def test_host_built_training_pixels_match_plain_versions(cfg, tmp_path):
 
 
 def test_cpu_tensors_take_plain_version_and_launch_nothing():
-    scene = instanced_spheres(n=40, seed=2)
+    scene = instanced_spheres(n=40, seed=2, device="cpu")
     st, cfg = scene.structure, RenderConfig(step_clamp=2.0)
     instanced_fwd.launches = 0
     cam = camera_pack(scene.params, 6, 10, cfg)
@@ -475,7 +475,7 @@ def test_cpu_tensors_take_plain_version_and_launch_nothing():
 
 
 def test_cuda_request_without_cuda_raises(monkeypatch, tmp_path):
-    st = instanced_spheres(n=3).structure
+    st = instanced_spheres(n=3, device="cpu").structure
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for make in (make_cuda_renderer, make_instanced_renderer):
         with pytest.raises(RuntimeError, match="is_available"):
@@ -491,7 +491,7 @@ def test_cli_render_instanced_on_cpu(tmp_path, capsys):
     instanced_fwd.launches = 0
     cli.main(["render", "instanced:300", "--step-clamp", "2", "--size", "12x8",
               "--device", "cpu", "-o", str(out)])
-    scene = instanced_spheres(n=300)
+    scene = instanced_spheres(n=300, device="cpu")
     ref = make_instanced_renderer(
         scene.structure, 8, 12, RenderConfig(step_clamp=2.0), device="cpu"
     )(scene.params)

@@ -66,7 +66,7 @@ GRAD_FIELDS = ("sphere_point", "sphere_radius", "plane_y", "light_point", "mat_d
 
 @pytest.fixture(scope="module")
 def scenes():
-    return jax_instanced_spheres(n=N, seed=SEED), instanced_spheres(n=N, seed=SEED)
+    return jax_instanced_spheres(n=N, seed=SEED), instanced_spheres(n=N, seed=SEED, device="cpu")
 
 
 def _jax_cfg(cfg: RenderConfig) -> JaxRenderConfig:
@@ -214,7 +214,7 @@ def test_training_renderer_matches_pallas_training_renderer(scenes):
 
 
 def test_training_renderer_refuses_what_the_kernels_do_not_implement(monkeypatch):
-    st = instanced_spheres(n=3).structure
+    st = instanced_spheres(n=3, device="cpu").structure
     with pytest.raises(ValueError, match="envelope"):
         instanced_train.make_instanced_training_renderer(st, 8, 8, RenderConfig(step_clamp=2.0),
                                                          device="cpu")
@@ -225,8 +225,8 @@ def test_training_renderer_refuses_what_the_kernels_do_not_implement(monkeypatch
     with pytest.raises(RuntimeError, match="is_available"):
         instanced_train.make_instanced_training_renderer(st, 8, 8, CLAMP2)
     with pytest.raises(RuntimeError, match="is_available"):
-        fit_scene(st, instanced_spheres(n=3).params, np.zeros((4, 4, 3), np.float32), steps=1,
-                  cfg=CLAMP2)
+        fit_scene(st, instanced_spheres(n=3, device="cpu").params,
+                  np.zeros((4, 4, 3), np.float32), steps=1, cfg=CLAMP2)
 
 
 def test_cpu_tensors_take_plain_versions_and_launch_nothing(scenes):
@@ -249,7 +249,7 @@ def test_fit_scene_lowers_the_loss_on_instanced_64():
     """fit_scene on instanced:64 at 16x24 on the CPU, clamp 2, envelope: the
     sphere points moved and the only trainable field, Adam 1e-2, 4 steps;
     the least loss is below the first, frozen fields stay bitwise."""
-    scene = instanced_spheres(n=64, seed=3)
+    scene = instanced_spheres(n=64, seed=3, device="cpu")
     st, cfg = scene.structure, CLAMP2
     target = instanced_train.make_instanced_training_renderer(st, 16, 24, cfg, device="cpu")(
         scene.params).detach()

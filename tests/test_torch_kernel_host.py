@@ -62,12 +62,12 @@ def _numbers(seed):
 
 
 def _structured(seed):
-    return build_scene(parse_scene(_TEMPLATE.format(**_numbers(seed))))
+    return build_scene(parse_scene(_TEMPLATE.format(**_numbers(seed))), device="cpu")
 
 
 @pytest.fixture(scope="module")
 def examples(examples_dir):
-    return {n: build_scene(parse_scene_file(str(examples_dir / n))) for n in SCENES}
+    return {n: build_scene(parse_scene_file(str(examples_dir / n)), device="cpu") for n in SCENES}
 
 
 def test_source_is_deterministic(examples):

@@ -81,7 +81,7 @@ def _jax_cfg(cfg: RenderConfig, backend: str = "jnp") -> JaxRenderConfig:
 
 def _carried(jparams) -> SceneParams:
     """The JAX scene's numbers as the port's SceneParams."""
-    return params_from_numpy({f: np.asarray(getattr(jparams, f)) for f in FIELDS})
+    return params_from_numpy({f: np.asarray(getattr(jparams, f)) for f in FIELDS}, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -90,7 +90,7 @@ def examples(examples_dir):
     for name in SCENES:
         path = str(examples_dir / name)
         jscene = jlt.build_scene(jlt.parse_scene_file(path))
-        out[name] = (jscene, build_scene(parse_scene_file(path)).structure,
+        out[name] = (jscene, build_scene(parse_scene_file(path), device="cpu").structure,
                      _carried(jscene.params))
     return out
 
@@ -98,7 +98,7 @@ def examples(examples_dir):
 @pytest.fixture(scope="module")
 def instanced():
     jscene = jax_instanced_spheres(n=300, seed=9)
-    return jscene, instanced_spheres(n=300, seed=9).structure, _carried(jscene.params)
+    return jscene, instanced_spheres(n=300, seed=9, device="cpu").structure, _carried(jscene.params)
 
 
 def _rays(jscene, cfg, h, w):

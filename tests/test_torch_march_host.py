@@ -188,7 +188,7 @@ def _ptr(a: np.ndarray):
 
 @pytest.fixture(scope="module")
 def scene4(examples_dir):
-    return build_scene(parse_scene_file(str(examples_dir / "scene4.lol")))
+    return build_scene(parse_scene_file(str(examples_dir / "scene4.lol")), device="cpu")
 
 
 def _shadow_rays(structure, params, ro, rd, t, cfg):
@@ -260,7 +260,7 @@ def test_march_source_entries_and_determinism(scene4):
         assert f"int {name}(" in entries
     assert "instanced" not in entries
     assert (cuda_scene.CSRC / "march.cuh").read_text() in src
-    a, b = instanced_spheres(n=300), instanced_spheres(n=10_000, seed=3)
+    a, b = instanced_spheres(n=300, device="cpu"), instanced_spheres(n=10_000, seed=3, device="cpu")
     clamp2 = RenderConfig(step_clamp=2.0)
     inst = generate_march_source(a.structure, clamp2)
     assert inst == generate_march_source(b.structure, clamp2)
@@ -291,16 +291,17 @@ def test_host_built_instanced_marches_match_plain_loops(cfg, tmp_path):
     """instanced:300 (seed 9) at 10x24: the traversal under the primary
     clamp in K3 and under the shadow clamp in K4, against the plain loops
     over the blockwise SDF."""
-    scene = instanced_spheres(n=300, seed=9)
+    scene = instanced_spheres(n=300, seed=9, device="cpu")
     src = _SHIM + generate_march_source(scene.structure, cfg) + _INSTANCED_ENTRY
     _check_marches(_build(src, tmp_path), scene.structure, scene.params, cfg, 10, 24)
 
 
 def test_eval_source_entry_and_determinism():
-    """K7's source: one entry, deterministic, one text for every structure
-    with as many planes whatever its spheres, lights and materials, and for
-    every shadow clamp; the step clamp is compiled in."""
-    a, b = instanced_spheres(n=300), instanced_spheres(n=10_000, seed=3)
+    """K7's source: its entry over the cell grid and the two check entries
+    (the run walk, the grid with counts), deterministic, one text for every
+    structure with as many planes whatever its spheres, lights and
+    materials, and for every shadow clamp; the step clamp is compiled in."""
+    a, b = instanced_spheres(n=300, device="cpu"), instanced_spheres(n=10_000, seed=3, device="cpu")
     clamp2 = RenderConfig(step_clamp=2.0)
     src = generate_eval_source(a.structure, clamp2)
     assert src == generate_eval_source(b.structure, clamp2.replace(shadow_step_clamp=8.0))
@@ -308,8 +309,11 @@ def test_eval_source_entry_and_determinism():
     assert src == generate_eval_source(shard, clamp2)
     assert src != generate_eval_source(a.structure, RenderConfig())
     entries = src.rsplit("#ifdef __CUDACC__", 1)[1]
-    assert "int lol_instanced_eval(" in entries and entries.count("extern") == 1
+    for name in ("lol_instanced_eval", "lol_instanced_eval_walk", "lol_instanced_eval_stats"):
+        assert f"int {name}(" in entries
+    assert entries.count("extern") == 3
     assert (cuda_scene.CSRC / "march.cuh").read_text() in src
+    assert (cuda_scene.CSRC / "grid_scene.cuh").read_text() in src
 
 
 def _eval_points(n=300, seed=5):
@@ -328,7 +332,7 @@ def test_host_built_eval_matches_plain_version(case, tmp_path):
     on the card the kernel is held bitwise, chip_smoke.py phase 26.)"""
     from loltracer_tpu_torch.parallel.objects import pad_spheres_for_sharding
 
-    scene = instanced_spheres(n=300, seed=9)
+    scene = instanced_spheres(n=300, seed=9, device="cpu")
     clamp = None if case.endswith("exact") else 2.0
     params, structure = scene.params, scene.structure
     tables = pack_eval_tables(params)

@@ -91,7 +91,7 @@ def _rank_main(world: int, rank: int, store: str, out: str) -> None:
     dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
                             world_size=world)
     torch.set_flush_denormal(True)  # as XLA on the CPU
-    sc = instanced_spheres(n=N, seed=3)
+    sc = instanced_spheres(n=N, seed=3, device="cpu")
     twin_calls = [0]
     twin = march_kernels.instanced_eval_reference
 
@@ -133,7 +133,8 @@ def _rank_main(world: int, rank: int, store: str, out: str) -> None:
     cfg = RenderConfig(step_clamp=2.0)
     plain_sdf, _, plain_local = objects._sharded_sdfs(st_local, cfg, axis, bbox)
     kernel_sdf = objects._make_kernel_pmin_sdf(
-        axis, march_kernels.make_instanced_eval(st_local, cfg), local, plain_local, bbox)
+        axis, march_kernels.make_instanced_eval(st_local, cfg),
+        *objects._shard_tables(local, bbox, cfg), plain_local)
     for tag, fn in (("plain", plain_sdf), ("kernel", kernel_sdf)):
         leaves = {f: getattr(local, f).detach().clone().requires_grad_(True)
                   for f in ("sphere_point", "sphere_radius", "plane_y")}
@@ -330,7 +331,7 @@ def test_render_rays_rejects_override_without_shadow_sdf():
     from loltracer_tpu_torch.render.torch_renderer import render_rays
     from loltracer_tpu_torch.scenes import instanced_spheres
 
-    sc = instanced_spheres(n=N, seed=3)
+    sc = instanced_spheres(n=N, seed=3, device="cpu")
     cfg = RenderConfig(march_backend="jnp", step_clamp=1.0, shadow_step_clamp=8.0)
     ro, rd = camera_rays(sc.params, 4, 6, cfg)
     with pytest.raises(ValueError, match="shadow_sdf"):
@@ -348,7 +349,7 @@ def test_pad_spheres_for_sharding_is_bitwise_jax(n_shards):
     jparams = jax_pad(jax_instanced_spheres(n=N, seed=3).params, n_shards)
     jp = {f: np.asarray(getattr(jparams, f)) for f in FIELDS}
     carried = params_from_numpy({f: np.asarray(getattr(jax_instanced_spheres(n=N, seed=3).params,
-                                                       f)) for f in FIELDS})
+                                                       f)) for f in FIELDS}, device="cpu")
     got = pad_spheres_for_sharding(carried, n_shards)
     for f in FIELDS:
         v = getattr(got, f).numpy()
@@ -432,7 +433,7 @@ def test_world_of_one_mesh(no_dist_env):
         mesh2 = make_mesh_2d(device="cpu")
         assert mesh2.mesh_dim_names == (HOSTS_AXIS, CHIPS_AXIS)
         assert tuple(mesh2.mesh.shape) == (1, 1)
-        sc = instanced_spheres(n=40, seed=3)
+        sc = instanced_spheres(n=40, seed=3, device="cpu")
         cfg = RenderConfig(march_backend="jnp", step_clamp=2.0)
         with torch.no_grad():
             img = make_object_sharded_renderer(sc.structure, mesh, 6, 8, cfg, obj_axis=AXIS,

@@ -54,7 +54,7 @@ def _points(n=400, seed=11):
 
 
 def _carried(jparams):
-    return params_from_numpy({f: np.asarray(getattr(jparams, f)) for f in FIELDS})
+    return params_from_numpy({f: np.asarray(getattr(jparams, f)) for f in FIELDS}, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -87,7 +87,8 @@ def _compare(jparams, structure, cfg, bbox=None):
     want = np.asarray(jax_make_instanced_eval(
         structure, JaxRenderConfig(**dataclasses.asdict(cfg)), interpret=True)(
             jtables, jparams.plane_y, pts))
-    got = make_instanced_eval(instanced_spheres(n=structure.num_spheres).structure, cfg)(
+    st = instanced_spheres(n=structure.num_spheres, device="cpu").structure
+    got = make_instanced_eval(st, cfg)(
         tables, torch.from_numpy(np.asarray(jparams.plane_y)), torch.from_numpy(pts))
     return got.numpy(), want
 
@@ -100,7 +101,7 @@ def test_eval_reference_matches_pallas_eval_full_set(scene, clamp):
     print(f"bitwise on {int((got == want).sum())} of {got.size} points")
     # and the port's own instanced SDF, the distance K5 marches
     carried = _carried(scene.params)
-    sdf = make_scene_sdf(instanced_spheres(n=N, seed=3).structure, clamp)
+    sdf = make_scene_sdf(instanced_spheres(n=N, seed=3, device="cpu").structure, clamp)
     np.testing.assert_array_equal(got, sdf(carried, torch.from_numpy(_points())).numpy())
 
 
@@ -130,7 +131,7 @@ def test_eval_tables_leave_sentinels_out_of_the_bbox(scene):
     lo = (pos - rad[:, None])[real].amin(0)
     hi = (pos + rad[:, None])[real].amax(0)
     torch.testing.assert_close(tables.bbox, torch.cat([lo, hi]), atol=0, rtol=0)
-    whole = instanced_spheres(n=N, seed=3)
+    whole = instanced_spheres(n=N, seed=3, device="cpu")
     full = pack_eval_tables(whole.params)
     inst = pack_instanced(whole.structure, whole.params)
     for name in ("spheres", "groups", "bbox"):
@@ -140,7 +141,7 @@ def test_eval_tables_leave_sentinels_out_of_the_bbox(scene):
 def test_eval_wrapper_takes_the_plain_version_on_the_cpu(scene):
     """CPU tensors take the plain version, at any batch shape [..., 3],
     and count no launch."""
-    whole = instanced_spheres(n=N, seed=3)
+    whole = instanced_spheres(n=N, seed=3, device="cpu")
     tables = pack_eval_tables(whole.params)
     pts = torch.from_numpy(_points()).reshape(20, 20, 3)
     before = march_kernels.launches[INSTANCED_EVAL]

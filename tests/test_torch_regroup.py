@@ -122,7 +122,7 @@ def run(request):
     finally:
         mp.undo()
     calls = jax.tree_util.tree_map(np.asarray, calls)
-    scene = instanced_spheres(n=150, seed=5)
+    scene = instanced_spheres(n=150, seed=5, device="cpu")
     st = scene.structure
     for f in FIELDS:  # both packages hold the same numbers
         np.testing.assert_array_equal(getattr(scene.params, f).numpy(),
@@ -223,7 +223,7 @@ def test_regrouped_renderer_contract(monkeypatch, examples_dir):
     """make_instanced_renderer_regrouped on the CPU is the plain pipeline,
     with row offsets too; it raises for a compiled structure and for CUDA
     without CUDA, and the stats need the card."""
-    scene = instanced_spheres(n=40, seed=2)
+    scene = instanced_spheres(n=40, seed=2, device="cpu")
     cfg = RenderConfig(step_clamp=2.0)
     regroup.launches.update({k: 0 for k in regroup.launches})
     img = regroup.make_instanced_renderer_regrouped(scene.structure, 6, 10, cfg,
@@ -243,7 +243,7 @@ def test_regrouped_renderer_contract(monkeypatch, examples_dir):
     # torch's CPU pow rounds by where a value sits in its batch: 1 ulp
     torch.testing.assert_close(band, img[3:5], rtol=0, atol=1e-6)
     assert not any(regroup.launches.values())
-    scene4 = build_scene(parse_scene_file(str(examples_dir / "scene4.lol")))
+    scene4 = build_scene(parse_scene_file(str(examples_dir / "scene4.lol")), device="cpu")
     with pytest.raises(ValueError):
         regroup.make_instanced_renderer_regrouped(scene4.structure, 4, 4, device="cpu")
     with pytest.raises(ValueError, match="card"):

@@ -358,7 +358,7 @@ def _render(lib, cam, table_args, planes, old, h=H, w=W):
 
 
 def test_regroup_source_entries_and_determinism():
-    a, b = instanced_spheres(n=300), instanced_spheres(n=10_000, seed=3)
+    a, b = instanced_spheres(n=300, device="cpu"), instanced_spheres(n=10_000, seed=3, device="cpu")
     cfg = RenderConfig(step_clamp=2.0)
     src = generate_regroup_source(a.structure, cfg)
     assert src == generate_regroup_source(b.structure, cfg)
@@ -371,7 +371,7 @@ def test_regroup_source_entries_and_determinism():
     assert src != generate_regroup_source(a.structure, RenderConfig())
     with pytest.raises(ValueError):
         generate_regroup_source(build_scene(parse_scene_file(
-            str(CSRC.parent.parent / "examples" / "scene4.lol"))).structure, cfg)
+            str(CSRC.parent.parent / "examples" / "scene4.lol")), device="cpu").structure, cfg)
 
 
 @pytest.mark.parametrize("residuals", [False, True], ids=["render", "train"])
@@ -379,7 +379,7 @@ def test_split_render_pixel_is_bitwise_the_old_one_compiled(examples_dir, residu
     """K1 / K1r: scene4 with AA at 10x24, the split render_pixel against the
     old one, image and residual planes bitwise; an AA miss's sdf_mat value
     bitwise its dist."""
-    scene = build_scene(parse_scene_file(str(examples_dir / "scene4.lol")))
+    scene = build_scene(parse_scene_file(str(examples_dir / "scene4.lol")), device="cpu")
     cfg = RenderConfig(antialias=True, shadow_grad="envelope")
     lib = _build(_SHIM + generate_source(scene.structure, cfg, residuals=residuals)
                  + _OLD_RENDER_PIXEL + _COMPILED_ENTRIES, tmp_path)
@@ -416,7 +416,7 @@ def inst(request, tmp_path_factory):
     source (K5 / K5r) with regroup.cuh, march.cuh and the old render_pixel,
     the scene's packed inputs, and render_pixel's image and residuals."""
     cfg = INST_CFGS[request.param]
-    scene = instanced_spheres(n=300, seed=9)
+    scene = instanced_spheres(n=300, seed=9, device="cpu")
     st = scene.structure
     text = (_SHIM + generate_instanced_source(st, cfg, residuals=True)
             + (CSRC / "regroup.cuh").read_text() + (CSRC / "march.cuh").read_text()

@@ -47,7 +47,7 @@ def scenes(examples_dir):
         path = str(examples_dir / name)
         out[name] = (
             jlt.build_scene(jlt.parse_scene_file(path)),
-            build_scene(parse_scene_file(path)),
+            build_scene(parse_scene_file(path), device="cpu"),
         )
     return out
 

@@ -56,7 +56,7 @@ def scenes(examples_dir):
         path = str(examples_dir / name)
         out[name] = (
             jlt.build_scene(jlt.parse_scene_file(path)),
-            build_scene(parse_scene_file(path)),
+            build_scene(parse_scene_file(path), device="cpu"),
         )
     return out
 
@@ -258,7 +258,7 @@ def test_params_to_numpy_round_trips(scenes):
 
     jscene, tscene = scenes["scene4.lol"]
     arrays = params_to_numpy(tscene.params)
-    back = params_from_numpy(arrays)
+    back = params_from_numpy(arrays, device="cpu")
     for f in FIELDS:
         assert torch.equal(getattr(back, f), getattr(tscene.params, f)), f
         np.testing.assert_array_equal(arrays[f], np.asarray(getattr(jscene.params, f)))

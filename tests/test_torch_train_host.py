@@ -51,7 +51,7 @@ CFG_AA = dataclasses.replace(CFG, antialias=True)
 
 @pytest.fixture(scope="module")
 def examples(examples_dir):
-    return {n: build_scene(parse_scene_file(str(examples_dir / n))) for n in SCENES}
+    return {n: build_scene(parse_scene_file(str(examples_dir / n)), device="cpu") for n in SCENES}
 
 
 # --- the training source -----------------------------------------------------
