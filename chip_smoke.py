@@ -129,25 +129,40 @@ Phases, one line each:
    step, one round of the four march kernels and path C's middle band, and
    one path B step's peak memory by allocating line.
 
-22. build the regrouped instanced forward K9 (`lol_rg_march`,
-   `lol_rg_shadow` and its stats twin, `lol_rg_shade`; started with the
+22. build the regrouped instanced forward K9 (`lol_rg_march` and
+   `lol_rg_shadow` over the cell grid, their run-walk twins, the counting
+   launches of the walk and of the grid, `lol_rg_shade`; started with the
    other builds in phase 1) for clamp 2, exact, clamp 2 + AA and shadow
-   clamp 8; at 97x161, on phase 10's instanced cases, each kernel against
-   its plain version (`march_track_reference`: hit and material equal,
-   the rest by phase 18's rule; `shadow_sorted_reference` per light over
-   the Morton order; `shade_planes_reference` by the phase-2 rule), and
-   the pipeline's image bitwise `lol_instanced_render`'s;
+   clamp 8, and the sweep of lol_rg_shadow's variants for clamp 2
+   (`cuda_scene.RG_SHADOW_VARIANTS`: the warp-list read, block sizes, a
+   minimum of blocks per SM, gathered records, the squared-distance cull,
+   batched loads), ptxas registers and spills of every kernel and variant;
+   at 97x161, on phase 10's instanced cases, lol_rg_march and lol_rg_shadow
+   over the grid bitwise their walk twins, each kernel against its plain
+   version (`march_track_reference`: hit and material equal, the rest by
+   phase 18's rule; `shadow_sorted_reference` per light over the Morton
+   order; `shade_planes_reference` by the phase-2 rule), every sweep
+   variant bitwise lol_rg_shadow (clamp 2), and the pipeline's image
+   bitwise `lol_instanced_render`'s;
 23. main path D: `make_instanced_renderer_regrouped` of instanced:10000
-   @1920x1080, clamp 2 and exact: one lol_rg_march, one lol_rg_shadow per
-   light and one lol_rg_shade, the image bitwise lol_instanced_render's.
-   Then, at clamp 2 (CUDA events, median of 3): each kernel, lol_rg_shadow
-   per light sorted and in pixel order (the identity permutation: the same
-   planes), the glue, the frame and lol_instanced_render in the same call;
-   `shadow_gather_stats` per light sorted and unsorted; device time by
-   kernel (`chip_smoke.py --profile-regroup`, a process of its own); the
-   plain version on the middle 16-row band (through the pack's row0, the
-   band launch bitwise the frame's rows), the pieces timed on it;
-24. the bounds of the three K9 kernels;
+   @1920x1080, clamp 2 and exact: one cell grid built, one lol_rg_march,
+   one lol_rg_shadow per light and one lol_rg_shade, no walk twin and no
+   lol_instanced_render; the image bitwise lol_instanced_render's. At
+   clamp 2, lol_rg_march bitwise its walk twin and lol_rg_shadow's planes
+   equal sorted and in pixel order (the identity permutation), over the
+   grid and the walk, and in every sweep variant. Then (CUDA events,
+   median of 3): lol_rg_march and its walk twin, the grid build, the glue
+   (`hit_box`, the Morton keys and argsorts), lol_rg_shade, the frame,
+   lol_rg_shadow per light sorted and unsorted over the grid and the walk,
+   lol_instanced_render in the same call, every sweep variant per light,
+   and the exact frame beside lol_instanced_render's; `shadow_gather_stats`
+   per light sorted and unsorted over the grid (searches, fallbacks, list
+   entries, distinct lists per warp step) and over the walk; device time
+   by kernel and the idle share (`chip_smoke.py --profile-regroup`, a
+   process of its own); the plain version on the middle 16-row band
+   (through the pack's row0, the band launch bitwise the frame's rows),
+   the pieces timed on it;
+24. the bounds of the three K9 kernels, lol_rg_shadow's for each light;
 25. path E, run right after phase 1, before any bound:
    `loltracer_tpu_torch.cli peak` at full size (its record into a
    temporary file), the measured FMA rate between 95 % and 105 % of the
@@ -206,8 +221,10 @@ paths: lol_march in path A, lol_shadow_march in path B, the instanced pair
 in path C's frame (their `ms` per 16-row band at the rule's `lanes`,
 `frame_ms` one full-frame launch at the rule's `frame_lanes`, `sweep_ms`
 [band, half frame, frame] per width); the K9 kernels' those of path D's
-clamp-2 frame (their `ms` per launch, lol_rg_shadow for light 0 sorted,
-beside `unsorted_ms`);
+clamp-2 frame (their `ms` per launch, lol_rg_march's and lol_rg_shadow's
+over the grid beside `walk_ms`, lol_rg_shadow for light 0 sorted beside
+`unsorted_ms` and, under `lights`, each light's times, sweep and bound;
+lol_rg_shade's entry carries the frame, the glue and K5's time);
 K8's those of `cli peak` (its `ms` the best full-size call, `device_ms`
 the profiler's, `plain_ms` at `plain_ms_iters` iterations); K7's those of
 phase 27's frame (its `ms` one launch at the frame's hit points, beside
@@ -336,13 +353,25 @@ def time_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+# csrc/regroup.cuh RgShadowView, in order
+RG_VIEWS = ("direct", "walk counts", "grid counts", "warp_list", "squared_cull", "batched")
+
+
 def ptxas_lines(log: str):
     """(kernel, "N registers, M bytes spill stores, K bytes spill loads")
     per compiled entry function of an nvcc -Xptxas -v log."""
     out, name = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m and "march" in m.group(1):  # K3 / K4: march_kernel<kShadow, ...>
+        if m and "rg_" in m.group(1):  # K9: the search, and for K9b its view and shape
+            grid = re.search(r"GridSceneI\w*?Lb([01])E", m.group(1))
+            search = "walk" if not grid else "grid, counting" if grid.group(1) == "1" else "grid"
+            k = re.search(r"ELi(\d+)ELi(\d+)ELi(\d+)ELb([01])E", m.group(1))
+            kind = next(x for x in ("rg_march", "rg_shadow", "rg_shade") if x in m.group(1))
+            name = f"{kind}_kernel ({search}" + (
+                f", {RG_VIEWS[int(k.group(1))]}, {k.group(2)} threads, min {k.group(3)} "
+                f"blocks{', gathered' if k.group(4) == '1' else ''}" if k else "") + ")"
+        elif m and "march" in m.group(1):  # K3 / K4: march_kernel<kShadow, ...>
             coop = re.search(r"WarpGroupILi(\d+)E", m.group(1))  # the lane-group kernels
             lanes = coop.group(1) if coop else "1" if "instanced" in m.group(1) else None
             name = ("lol_shadow_march" if "ILb1E" in m.group(1) else "lol_march") + (
@@ -1200,32 +1229,47 @@ def profile_peak(iters) -> int:
     return 0
 
 
+def same_bits(a, b) -> bool:
+    """Whether two f32 tensors are bitwise equal (NaNs and -0 included)."""
+    import torch
+
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
+                                              b.contiguous().view(torch.int32))
+
+
 def regroup_phases(dev, card, inst, inst_cfgs, regroup_built, t0, e_inst, evals_march,
                    ceiling):
     """Phases 22-24: the regrouped instanced forward K9 (lol_rg_march,
-    lol_rg_shadow, lol_rg_shade) and path D (module docstring). e_inst is
-    phase 16's operations per instanced evaluation, evals_march phase 11's
-    march evaluations per ray. Returns the three `kernels` entries."""
+    lol_rg_shadow over the cell grid, their run-walk twins, lol_rg_shade)
+    and path D (module docstring). regroup_built: the four libraries, then
+    the sweep's; e_inst is phase 16's operations per instanced evaluation,
+    evals_march phase 11's march evaluations per ray. Returns the three
+    `kernels` entries."""
     import torch
 
     from loltracer_tpu_torch.config import RenderConfig
     from loltracer_tpu_torch.render import instanced_fwd, regroup
     from loltracer_tpu_torch.render.camera import camera_pack
-    from loltracer_tpu_torch.render.cuda_scene import pack_fields
+    from loltracer_tpu_torch.render.cell_grid import grid_for
+    from loltracer_tpu_torch.render.cuda_scene import RG_SHADOW_VARIANTS, pack_fields
     from loltracer_tpu_torch.render.instanced_pack import pack_instanced
 
     names = ("lol_rg_march", "lol_rg_shadow", "lol_rg_shade")
+    variants = list(RG_SHADOW_VARIANTS)
 
     def reset():
         for k in regroup.launches:
             regroup.launches[k] = 0
         instanced_fwd.launches = 0
 
-    # --- 22. build and K9 vs the plain versions at 97x161 ---------------------------
+    # --- 22. build; K9 over the grid vs its walk twins and the plain versions --------
     built = [f.result() for f in regroup_built]
+    sweep = built.pop()
     print(f"[22] build: {len(built)} K9 libraries (clamp 2, exact, clamp 2 AA, shadow clamp 8) "
-          f"done {time.perf_counter() - t0:.1f} s after the builds started; ptxas (clamp 2): "
-          + " | ".join(ptxas_lines(built[0].log)))
+          f"and the lol_rg_shadow sweep done {time.perf_counter() - t0:.1f} s after the builds "
+          f"started; ptxas (clamp 2): " + " | ".join(ptxas_lines(built[0].log)))
+    print("[22] ptxas of the sweep (lol_rg_shadow_variant, in RG_SHADOW_VARIANTS' order "
+          f"{variants}): " + " | ".join(ptxas_lines(sweep.log)))
     h, w = 97, 161
     clamp2 = RenderConfig(step_clamp=2.0)
     errs = {k: 0.0 for k in names}
@@ -1235,27 +1279,44 @@ def regroup_phases(dev, card, inst, inst_cfgs, regroup_built, t0, e_inst, evals_
         st = sc.structure
         cam = camera_pack(sc.params, h, w, c)
         fields, tab = pack_fields(st, sc.params), pack_instanced(st, sc.params)
+        grid = grid_for(tab, c.step_clamp)
         what = (f"instanced:{n} step_clamp={c.step_clamp} shadow_step_clamp="
                 f"{c.shadow_step_clamp} antialias={c.antialias}")
-        got = regroup.march_track(st, c, cam, fields, tab, h, w)
+        got = regroup.march_track(st, c, cam, fields, tab, h, w, grid=grid)
+        walked = regroup.march_track(st, c, cam, fields, tab, h, w, walk=True)
         want = regroup.march_track_reference(st, c, cam, fields, tab, h, w)
         torch.cuda.synchronize()
+        require(all(same_bits(a, b) for a, b in zip(got, walked)),
+                f"{what}: lol_rg_march differs from lol_rg_march_walk")
         require(torch.equal(got.track[1:], want.track[1:]), f"{what}: lol_rg_march hit / material")
         err, differ = check_values([got.track[0], *got.hitp, *got.rec.reshape(-1, h, w)],
                                    [want.track[0], *want.hitp, *want.rec.reshape(-1, h, w)],
                                    f"{what} lol_rg_march")
         errs["lol_rg_march"] = max(errs["lol_rg_march"], err)
-        line = [f"lol_rg_march max |diff| {err:.3g}, {differ} values not bitwise"]
+        line = [f"lol_rg_march bitwise its walk twin, vs plain max |diff| {err:.3g}, {differ} "
+                f"values not bitwise"]
         lo, hi = regroup.hit_box(got.hitp)
         shadow = torch.empty((st.num_lights, 2, h, w), device=dev)
         for li in range(st.num_lights):
             perm = regroup.shadow_order(got.rec[li], lo, hi)
-            regroup.shadow_sorted(st, c, fields, tab, got.rec[li], perm, out=shadow[li])
+            regroup.shadow_sorted(st, c, fields, tab, got.rec[li], perm, out=shadow[li],
+                                  grid=grid)
+            walk_s = regroup.shadow_sorted(st, c, fields, tab, got.rec[li], perm, walk=True)
             want_s = regroup.shadow_sorted_reference(st, c, fields, tab, got.rec[li], perm)
             torch.cuda.synchronize()
+            require(same_bits(shadow[li], walk_s),
+                    f"{what}: lol_rg_shadow light {li} differs from lol_rg_shadow_walk")
             err, differ = check_values(shadow[li], want_s, f"{what} lol_rg_shadow light {li}")
             errs["lol_rg_shadow"] = max(errs["lol_rg_shadow"], err)
-            line.append(f"lol_rg_shadow light {li} max |diff| {err:.3g}, {differ} not bitwise")
+            line.append(f"lol_rg_shadow light {li} bitwise its walk twin, vs plain max |diff| "
+                        f"{err:.3g}, {differ} not bitwise")
+            if n == 10_000 and c == clamp2:
+                for v in variants:
+                    got_v = regroup.shadow_variant(st, c, fields, tab, got.rec[li], perm, grid, v)
+                    torch.cuda.synchronize()
+                    require(same_bits(got_v, shadow[li]),
+                            f"{what}: lol_rg_shadow variant {v} light {li} differs")
+                line.append(f"light {li}: every sweep variant bitwise")
         k_img = regroup.shade_planes(st, c, cam, fields, tab, got.track, shadow, h, w)
         p_img = regroup.shade_planes_reference(st, c, cam, fields, tab, got.track, shadow, h, w)
         torch.cuda.synchronize()
@@ -1276,16 +1337,28 @@ def regroup_phases(dev, card, inst, inst_cfgs, regroup_built, t0, e_inst, evals_
     st = big.structure
     L = st.num_lights
     k5_imgs = {}
+    builds = []
+    real_grid_for = regroup.grid_for
+
+    def counting_grid_for(*a, **k):
+        builds.append(1)
+        return real_grid_for(*a, **k)
+
     for tag, c in (("clamp 2", clamp2), ("exact", RenderConfig())):
         render = regroup.make_instanced_renderer_regrouped(st, MAIN_H, MAIN_W, c, device=dev)
         reset()
-        img = render(big.params)
+        builds.clear()
+        regroup.grid_for = counting_grid_for
+        try:
+            img = render(big.params)
+        finally:
+            regroup.grid_for = real_grid_for
         torch.cuda.synchronize()
-        d_counts = {k: regroup.launches[k] for k in names}
+        d_counts = {k: v for k, v in regroup.launches.items() if v}
         require(d_counts == {"lol_rg_march": 1, "lol_rg_shadow": L, "lol_rg_shade": 1}
-                and instanced_fwd.launches == 0,
-                f"path D ({tag}) launched {d_counts} and lol_instanced_render "
-                f"{instanced_fwd.launches} times")
+                and instanced_fwd.launches == 0 and len(builds) == 1,
+                f"path D ({tag}) launched {d_counts}, lol_instanced_render "
+                f"{instanced_fwd.launches} times, and built {len(builds)} grids")
         if tag == "clamp 2":
             main_counts = d_counts
         cam, fields, tab = (camera_pack(big.params, MAIN_H, MAIN_W, c),
@@ -1299,23 +1372,41 @@ def regroup_phases(dev, card, inst, inst_cfgs, regroup_built, t0, e_inst, evals_
                 f"lol_instanced_render's, max |diff| {float((img - k5).abs().max()):.3g}")
         k5_imgs[tag] = k5
         print(f"[23] main path D: make_instanced_renderer_regrouped instanced:10000 {tag} "
-              f"{MAIN_W}x{MAIN_H} -> {d_counts}; image bitwise lol_instanced_render's")
+              f"{MAIN_W}x{MAIN_H} -> {d_counts}, one cell grid built, no walk twin launched; "
+              f"image bitwise lol_instanced_render's")
 
     c = clamp2
     cam, fields, tab = (camera_pack(big.params, MAIN_H, MAIN_W, c), pack_fields(st, big.params),
                         pack_instanced(st, big.params))
-    tr = regroup.march_track(st, c, cam, fields, tab, MAIN_H, MAIN_W)
+    grid = grid_for(tab, c.step_clamp)
+    tr = regroup.march_track(st, c, cam, fields, tab, MAIN_H, MAIN_W, grid=grid)
+    tr_walk = regroup.march_track(st, c, cam, fields, tab, MAIN_H, MAIN_W, walk=True)
     lo, hi = regroup.hit_box(tr.hitp)
-    perms = [regroup.shadow_order(tr.rec[li], lo, hi) for li in range(L)]
-    ident = regroup.shadow_order(tr.rec[0], lo, hi, sort=False)
-    shadow = torch.empty((L, 2, MAIN_H, MAIN_W), device=dev)
-    for li in range(L):
-        regroup.shadow_sorted(st, c, fields, tab, tr.rec[li], perms[li], out=shadow[li])
-    unsorted = torch.empty_like(shadow)
-    for li in range(L):
-        regroup.shadow_sorted(st, c, fields, tab, tr.rec[li], ident, out=unsorted[li])
+    orders = {"sorted": [regroup.shadow_order(tr.rec[li], lo, hi) for li in range(L)],
+              "unsorted": [regroup.shadow_order(tr.rec[0], lo, hi, sort=False)] * L}
+    planes = {}
+    for order, perms in orders.items():
+        for walk in (False, True):
+            out = torch.empty((L, 2, MAIN_H, MAIN_W), device=dev)
+            for li in range(L):
+                regroup.shadow_sorted(st, c, fields, tab, tr.rec[li], perms[li], out=out[li],
+                                      grid=None if walk else grid, walk=walk)
+            planes[(order, walk)] = out
     torch.cuda.synchronize()
-    require(torch.equal(shadow, unsorted), "lol_rg_shadow: sorted and unsorted planes differ")
+    require(all(same_bits(a, b) for a, b in zip(tr, tr_walk)),
+            "lol_rg_march at 1080p differs from lol_rg_march_walk")
+    shadow = planes[("sorted", False)]
+    require(all(same_bits(v, shadow) for v in planes.values()),
+            "lol_rg_shadow at 1080p: sorted / unsorted, grid / walk planes differ")
+    for li in range(L):
+        for v in variants:
+            got_v = regroup.shadow_variant(st, c, fields, tab, tr.rec[li], orders["sorted"][li],
+                                           grid, v)
+            torch.cuda.synchronize()
+            require(same_bits(got_v, shadow[li]),
+                    f"lol_rg_shadow variant {v} light {li} at 1080p differs")
+    print("[23] 1080p clamp 2: lol_rg_march bitwise its walk twin; lol_rg_shadow's planes equal "
+          "sorted and unsorted, over the grid and the walk, and in every sweep variant")
 
     def glue():
         lo_, hi_ = regroup.hit_box(tr.hitp)
@@ -1325,34 +1416,68 @@ def regroup_phases(dev, card, inst, inst_cfgs, regroup_built, t0, e_inst, evals_
     def frame():
         regroup.regrouped_forward(st, c, cam, fields, tab, MAIN_H, MAIN_W)
 
+    def shadow_ms(li, order, walk, reps=3):
+        return time_ms(lambda: regroup.shadow_sorted(
+            st, c, fields, tab, tr.rec[li], orders[order][li], out=shadow[li],
+            grid=None if walk else grid, walk=walk), reps)
+
     t = {
         "lol_rg_march": time_ms(lambda: regroup.march_track(st, c, cam, fields, tab, MAIN_H,
-                                                            MAIN_W), 3),
+                                                            MAIN_W, grid=grid), 3),
+        "lol_rg_march_walk": time_ms(lambda: regroup.march_track(
+            st, c, cam, fields, tab, MAIN_H, MAIN_W, walk=True), 3),
+        "grid build": time_ms(lambda: grid_for(tab, c.step_clamp), 3),
         "glue": time_ms(glue, 3),
         "lol_rg_shade": time_ms(lambda: regroup.shade_planes(st, c, cam, fields, tab, tr.track,
                                                              shadow, MAIN_H, MAIN_W), 3),
         "frame": time_ms(frame, 3),
     }
     for li in range(L):
-        t[f"lol_rg_shadow light {li} sorted"] = time_ms(lambda: regroup.shadow_sorted(
-            st, c, fields, tab, tr.rec[li], perms[li], out=shadow[li]), 3)
-        t[f"lol_rg_shadow light {li} unsorted"] = time_ms(lambda: regroup.shadow_sorted(
-            st, c, fields, tab, tr.rec[li], ident, out=unsorted[li]), 3)
+        for order in orders:
+            t[f"lol_rg_shadow light {li} {order}"] = shadow_ms(li, order, False)
+            t[f"lol_rg_shadow_walk light {li} {order}"] = shadow_ms(li, order, True)
     k5_ms = time_ms(lambda: instanced_fwd.instanced_forward(st, c, cam, fields, tab, MAIN_H,
                                                             MAIN_W), 3)
     print(f"[23] instanced:10000 clamp 2 {MAIN_W}x{MAIN_H} on {card}, CUDA events (median of 3): "
           + "; ".join(f"{k} {v:.3f} ms" for k, v in t.items())
           + f"; lol_instanced_render {k5_ms:.3f} ms in the same call")
+    sweep_ms = {}
+    for li in range(L):
+        for v in variants:
+            sweep_ms[(li, v)] = time_ms(lambda: regroup.shadow_variant(
+                st, c, fields, tab, tr.rec[li], orders["sorted"][li], grid, v, out=shadow[li]), 3)
+    print(f"[23] lol_rg_shadow sweep, sorted, CUDA events (median of 3), on {card}: "
+          + "; ".join(f"light {li}: " + ", ".join(f"{v} {sweep_ms[(li, v)]:.3f} ms"
+                                                  for v in variants) for li in range(L)))
+    exact = RenderConfig()
+    ecam = camera_pack(big.params, MAIN_H, MAIN_W, exact)
+    exact_ms = {
+        "frame": time_ms(lambda: regroup.regrouped_forward(st, exact, ecam, fields, tab, MAIN_H,
+                                                           MAIN_W), 3),
+        "lol_instanced_render": time_ms(lambda: instanced_fwd.instanced_forward(
+            st, exact, ecam, fields, tab, MAIN_H, MAIN_W), 3),
+    }
+    print(f"[23] instanced:10000 exact {MAIN_W}x{MAIN_H}, CUDA events (median of 3): path D frame "
+          f"{exact_ms['frame']:.3f} ms; lol_instanced_render {exact_ms['lol_instanced_render']:.3f}"
+          f" ms in the same call")
     stats = {}
     for li in range(L):
         for sort in (True, False):
-            s = regroup.shadow_gather_stats(st, big.params, MAIN_H, MAIN_W, c, light=li,
-                                            sort=sort, device=dev)
-            stats[(li, sort)] = s
-            print(f"[23] shadow_gather_stats light {li} {'sorted' if sort else 'unsorted'}: "
-                  + json.dumps({k: s[k] for k in (
-                      "evals_per_ray", "worst_lane_evals_per_warp", "warp_efficiency",
-                      "runs_per_ray_eval", "runs_per_warp_step", "warps")}))
+            for walk in (False, True):
+                s = regroup.shadow_gather_stats(st, big.params, MAIN_H, MAIN_W, c, light=li,
+                                                sort=sort, device=dev, walk=walk)
+                stats[(li, sort, walk)] = s
+                keys = (("evals_per_ray", "worst_lane_evals_per_warp", "warp_efficiency",
+                         "runs_per_ray_eval", "runs_per_warp_step") if walk else
+                        ("searches_per_ray", "fallback_share", "entries_per_search",
+                         "worst_lane_searches_per_warp", "warp_efficiency",
+                         "lists_per_warp_step", "one_list_share"))
+                print(f"[23] shadow_gather_stats light {li} {'sorted' if sort else 'unsorted'} "
+                      f"over the {'run walk' if walk else 'grid'}: "
+                      + json.dumps({k: s[k] for k in keys + ("warps",)}))
+            require(stats[(li, sort, False)]["searches_per_ray"]
+                    == stats[(li, sort, True)]["evals_per_ray"],
+                    f"light {li}: the grid's searches differ from the walk's evaluations")
     rg_profile = run_profile("--profile-regroup")
     print(f"[23] torch.profiler (`chip_smoke.py --profile-regroup`) over one regrouped frame: "
           f"{rg_profile}")
@@ -1376,14 +1501,15 @@ def regroup_phases(dev, card, inst, inst_cfgs, regroup_built, t0, e_inst, evals_
         "lol_rg_march": time_ms(lambda: regroup.march_track_reference(
             st, c, bcam, fields, tab, BAND, MAIN_W, MAIN_H), 1),
     }
-    btr = regroup.march_track(st, c, bcam, fields, tab, BAND, MAIN_W, MAIN_H)
-    bperm = regroup.shadow_order(btr.rec[0], *regroup.hit_box(btr.hitp))
-    plain_pieces["lol_rg_shadow"] = time_ms(lambda: regroup.shadow_sorted_reference(
-        st, c, fields, tab, btr.rec[0], bperm), 1)
+    btr = regroup.march_track(st, c, bcam, fields, tab, BAND, MAIN_W, MAIN_H, grid=grid)
     blo, bhi = regroup.hit_box(btr.hitp)
-    bshadow = torch.stack([regroup.shadow_sorted(st, c, fields, tab, btr.rec[li],
-                                                 regroup.shadow_order(btr.rec[li], blo, bhi))
-                           for li in range(L)])
+    bperms = [regroup.shadow_order(btr.rec[li], blo, bhi) for li in range(L)]
+    for li in range(L):
+        plain_pieces[f"lol_rg_shadow light {li}"] = time_ms(
+            lambda: regroup.shadow_sorted_reference(st, c, fields, tab, btr.rec[li], bperms[li]),
+            1)
+    bshadow = torch.stack([regroup.shadow_sorted(st, c, fields, tab, btr.rec[li], bperms[li],
+                                                 grid=grid) for li in range(L)])
     plain_pieces["lol_rg_shade"] = time_ms(lambda: regroup.shade_planes_reference(
         st, c, bcam, fields, tab, btr.track, bshadow, BAND, MAIN_W, MAIN_H), 1)
 
@@ -1392,36 +1518,51 @@ def regroup_phases(dev, card, inst, inst_cfgs, regroup_built, t0, e_inst, evals_
     # more and per shadow step 15; lol_rg_march per pixel the camera ray 33,
     # the material lookup (e_inst + 10) and 30 per light record; lol_rg_shade
     # per pixel 4 normal taps (e_inst + 12), their normalize 10, Phong 70 per
-    # light and the output 30. Shadow evaluations: this frame's, counted by
-    # the stats launch; march evaluations per ray: phase 11's bands.
+    # light and the output 30. Shadow evaluations: this frame's, per light,
+    # counted by the stats launches; march evaluations per ray: phase 11's bands.
     px = MAIN_W * MAIN_H
     tables = 4 * (fields.numel() + sum(t_.numel() for t_ in tab))
     rg_march_bound = bound(tables + 64 + 4 * (6 + 7 * L) * px,
                            px * (evals_march * (e_inst + 9) + 33 + e_inst + 10 + 30 * L),
                            ceiling)
-    sh_evals = stats[(0, True)]["evals_per_ray"] * px
-    rg_shadow_bound = bound(tables + (28 + 8 + 8) * px, sh_evals * (e_inst + 15), ceiling)
+    rg_shadow_bounds = [
+        bound(tables + (28 + 8 + 8) * px,
+              stats[(li, True, False)]["searches_per_ray"] * px * (e_inst + 15), ceiling)
+        for li in range(L)]
     rg_shade_bound = bound(tables + 64 + 4 * (3 + 2 * L + 3) * px,
                            px * (4 * (e_inst + 12) + 10 + 70 * L + 30), ceiling)
-    print(f"[24] bounds (FP32 ceiling {ceiling / 1e9:.4f} TFLOP/s): lol_rg_march {rg_march_bound[0]:.4f} ms by {rg_march_bound[1]} "
-          f"({evals_march:.2f} march evaluations per ray at {e_inst:.1f} operations); "
-          f"lol_rg_shadow light 0 {rg_shadow_bound[0]:.4f} ms by {rg_shadow_bound[1]} "
-          f"({stats[(0, True)]['evals_per_ray']:.2f} evaluations per ray); lol_rg_shade "
-          f"{rg_shade_bound[0]:.4f} ms by {rg_shade_bound[1]}")
+    print(f"[24] bounds (FP32 ceiling {ceiling / 1e9:.4f} TFLOP/s): lol_rg_march "
+          f"{rg_march_bound[0]:.4f} ms by {rg_march_bound[1]} ({evals_march:.2f} march "
+          f"evaluations per ray at {e_inst:.1f} operations); "
+          + "; ".join(f"lol_rg_shadow light {li} {b[0]:.4f} ms by {b[1]} "
+                      f"({stats[(li, True, False)]['searches_per_ray']:.2f} evaluations per ray)"
+                      for li, b in enumerate(rg_shadow_bounds))
+          + f"; lol_rg_shade {rg_shade_bound[0]:.4f} ms by {rg_shade_bound[1]}")
 
     src = "loltracer_tpu_torch/csrc/regroup.cuh"
     return [
         dict(entry("lol_rg_march", src, "loltracer_tpu/render/pallas_regroup.py:88",
                    main_counts["lol_rg_march"], errs["lol_rg_march"], t["lol_rg_march"],
-                   plain_pieces["lol_rg_march"], rg_march_bound), plain_ms_rows=BAND),
+                   plain_pieces["lol_rg_march"], rg_march_bound), plain_ms_rows=BAND,
+             walk_ms=t["lol_rg_march_walk"], grid_build_ms=t["grid build"]),
         dict(entry("lol_rg_shadow", src, "loltracer_tpu/render/pallas_regroup.py:179",
                    main_counts["lol_rg_shadow"], errs["lol_rg_shadow"],
-                   t["lol_rg_shadow light 0 sorted"], plain_pieces["lol_rg_shadow"],
-                   rg_shadow_bound),
-             plain_ms_rows=BAND, ms_light=0, unsorted_ms=t["lol_rg_shadow light 0 unsorted"]),
+                   t["lol_rg_shadow light 0 sorted"], plain_pieces["lol_rg_shadow light 0"],
+                   rg_shadow_bounds[0]),
+             plain_ms_rows=BAND, ms_light=0, unsorted_ms=t["lol_rg_shadow light 0 unsorted"],
+             walk_ms=t["lol_rg_shadow_walk light 0 sorted"],
+             lights=[{"light": li, "ms": t[f"lol_rg_shadow light {li} sorted"],
+                      "unsorted_ms": t[f"lol_rg_shadow light {li} unsorted"],
+                      "walk_ms": t[f"lol_rg_shadow_walk light {li} sorted"],
+                      "walk_unsorted_ms": t[f"lol_rg_shadow_walk light {li} unsorted"],
+                      "plain_ms": plain_pieces[f"lol_rg_shadow light {li}"],
+                      "bound_ms": rg_shadow_bounds[li][0], "bound_by": rg_shadow_bounds[li][1],
+                      "sweep_ms": {v: sweep_ms[(li, v)] for v in variants}}
+                     for li in range(L)]),
         dict(entry("lol_rg_shade", src, "loltracer_tpu/render/pallas_regroup.py:266",
                    main_counts["lol_rg_shade"], errs["lol_rg_shade"], t["lol_rg_shade"],
-                   plain_pieces["lol_rg_shade"], rg_shade_bound), plain_ms_rows=BAND),
+                   plain_pieces["lol_rg_shade"], rg_shade_bound), plain_ms_rows=BAND,
+             frame_ms=t["frame"], glue_ms=t["glue"], k5_ms=k5_ms),
     ]
 
 
@@ -1958,11 +2099,12 @@ def main() -> int:
                                               RenderConfig(step_clamp=2.0, shadow_step_clamp=8.0))]
     eval_clamps = (2.0, None, 8.0)  # K7 (phase 26): the one source per step clamp
     pool = ThreadPoolExecutor(max_workers=len(cases) + len(train_cases) + 2 * len(inst_cfgs)
-                              + len(inst_train_cfgs) + len(march_libs) + len(eval_clamps) + 1)
+                              + len(inst_train_cfgs) + len(march_libs) + len(eval_clamps) + 2)
     peak_built = pool.submit(peak.library)
     eval_built = [pool.submit(march_kernels.eval_library, inst[10_000].structure,
                               RenderConfig(step_clamp=c)) for c in eval_clamps]
-    regroup_built = [pool.submit(regroup.library, c, inst[10_000].structure) for c in inst_cfgs]
+    regroup_built = ([pool.submit(regroup.library, c, inst[10_000].structure) for c in inst_cfgs]
+                     + [pool.submit(regroup.sweep_library, clamp2, inst[10_000].structure)])
     march_built = [pool.submit(march_kernels.library, st, c) for st, c in march_libs]
     inst_train_built = [pool.submit(instanced_train.library, c, inst[10_000].structure)
                         for c in inst_train_cfgs]

@@ -16,8 +16,8 @@
 //   render_pixel's own expressions (`light_ray`). The host then sorts each
 //   light's records by the Morton code of their origins.
 // - lol_rg_shadow, one thread per record, per light: thread i marches record
-//   perm[i] with `shadow_ray` over `InstancedScene::shadow_dist` (K4's
-//   loop) and writes res and t* straight back to pixel perm[i]. A warp is
+//   perm[i] with `shadow_ray` over the Scene's `shadow_dist` (K4's loop)
+//   and writes res and t* straight back to pixel perm[i]. A warp is
 //   then 32 shadow rays that are neighbours in 3-D, where K5's warp is an
 //   8x4 pixel tile whose hit points can lie far apart at a silhouette.
 // - lol_rg_shade, one thread per pixel: render_pixel's shade half
@@ -28,26 +28,46 @@
 //
 // Per-pixel values depend only on the pixel's own ray, so the order in
 // which shadow rays are marched changes no value: only which rays share a
-// warp, i.e. how far a warp's rays diverge in the runs they visit and in
+// warp, i.e. how far a warp's rays diverge in the cells they search and in
 // their step counts.
 //
-// What bounds them on this card: as K5, FP32 / SFU issue in the traversal
-// and warp divergence, not bytes (lol_rg_march writes 24 + 28 L B per
-// pixel, lol_rg_shadow reads 28 B and writes 8 B per record). The TPU's
-// (8, 128) tiles and 16x32 patches, its scratch gathers (cfg.shadow_scratch,
-// cfg.scratch_window) and the segment cull (cfg.shadow_cull) are not carried
-// over: all are speed only. Bands keep `full_height` and the pack's row0,
-// as K5.
+// The search. lol_rg_march and lol_rg_shadow search csrc/grid_scene.cuh's
+// `GridScene` (the cell grid of render/cell_grid.py, built once a frame and
+// shared by the march and every light's shadow launch), with the run walk
+// as its fallback, as K5 does; their `_walk` twins (`InstancedScene` alone)
+// are the check and the yardstick. lol_rg_shade keeps the run walk.
 //
-// `CountingScene` is the diagnostic of `shadow_gather_stats`: the shadow
-// loop over it also counts, per ray, its evaluations and the runs whose
-// ball reaches within the evaluation's initial gate (the cut under a
-// clamp), and per warp step the distinct such runs over the warp's active
-// lanes. Only the stats instantiation of lol_rg_shadow runs it.
+// What bounds them on this card: as K5, FP32 / SFU issue, not bytes
+// (lol_rg_march writes 24 + 28 L B per pixel, lol_rg_shadow reads 28 B and
+// writes 8 B per record). On the walk an evaluation paid ~157 ball tests and
+// ~750 sphere tests; on the grid it pays one cell's list, ~28 entries, each a
+// 16-byte load and ~10 FP32 / SFU operations, behind two dependent loads
+// (the cell's start, then its entries). The Morton order puts 32 shadow
+// origins that are neighbours in 3-D, marching toward one light, in a warp:
+// at most steps its active lanes search one list, so each entry's load is a
+// broadcast and the lanes' loops run in step. `lol_rg_shadow_grid_stats`
+// counts that (distinct lists per warp step, `GridCountingScene`), and the
+// sweep entry `lol_rg_shadow_variant` holds what was tried against it: the
+// warp reading its shared list once, coalesced, and passing the spheres by
+// shuffles (`WarpListScene`); the block size and a minimum of blocks per SM;
+// the records gathered into sorted order beforehand. PERF.md records each.
 //
-// This file follows csrc/fused_fwd.cuh and csrc/instanced_scene.cuh in the
-// source render/cuda_scene.py generates (`generate_regroup_source`); the
-// per-pixel and per-record functions also compile as host C++.
+// The TPU's (8, 128) tiles and 16x32 patches, its scratch gathers
+// (cfg.shadow_scratch, cfg.scratch_window) and the segment cull
+// (cfg.shadow_cull) are not carried over: all are speed only. Bands keep
+// `full_height` and the pack's row0, as K5.
+//
+// `CountingScene` is the diagnostic of `shadow_gather_stats(walk=True)`: the
+// shadow loop over the run walk also counts, per ray, its evaluations and
+// the runs whose ball reaches within the evaluation's initial gate (the cut
+// under a clamp), and per warp step the distinct such runs over the warp's
+// active lanes. `GridCountingScene` is the grid's: GridScene's own counts
+// (searches, fallbacks, entries read) and per warp step the distinct lists.
+//
+// This file follows csrc/fused_fwd.cuh, csrc/instanced_scene.cuh and
+// csrc/grid_scene.cuh in the source render/cuda_scene.py generates
+// (`generate_regroup_source`); the per-pixel and per-record functions also
+// compile as host C++.
 
 namespace lol {
 
@@ -155,16 +175,206 @@ struct CountingScene {
   }
 };
 
-// Threads per block of lol_rg_shadow: 1-D, so that a warp is 32
-// consecutive records.
+// The distinct lists [b, e) over the warp's active lanes; 1 on the host,
+// where a warp is one lane.
+__device__ __forceinline__ int warp_lists(int b, int e) {
+#ifdef __CUDA_ARCH__
+  const unsigned active = __activemask();
+  const unsigned same =
+      __match_any_sync(active, ((unsigned long long)(unsigned)b << 32) | (unsigned)e);
+  unsigned lt;
+  asm("mov.u32 %0, %%lanemask_lt;" : "=r"(lt));
+  // one leader per list: its lowest lane
+  return __popc(__ballot_sync(active, (same & lt) == 0u));
+#else
+  return 1;
+#endif
+}
+
+// The grid's shadow-stats view (lol_rg_shadow_grid_stats) of a counting
+// GridScene G (GridScene<L, C, true>): its shadow_dist, counted by G
+// (searches, fallbacks, entries read), and per call the distinct lists
+// over the warp's active lanes (lists_warp) and whether there was one
+// (one_list).
+template <class Cfg, class G>
+struct GridCountingScene {
+  const G& s;
+  mutable float lists_warp = 0.f, one_list = 0.f;
+
+  __device__ __forceinline__ float shadow_dist(float px, float py, float pz) const {
+    int b, e;
+    s.locate(px, py, pz, s.box_dist(px, py, pz), b, e);
+    const int distinct = warp_lists(b, e);
+    lists_warp += (float)distinct;
+    one_list += distinct == 1 ? 1.f : 0.f;
+    return s.shadow_dist(px, py, pz);
+  }
+};
+
+// GridScene G's shadow distance with the min over the list [b, e) taken by
+// list_min(b, e, best) from the cut `best`: the rest (the cut, the list,
+// the fallback to the run walk, the planes) is GridScene::dist_under's,
+// so a list_min that returns GridScene's min gives its value bitwise. The
+// sweep's views below differ only in list_min.
+template <class Cfg, class G, class ListMin>
+__device__ __forceinline__ float grid_shadow_dist(const G& s, float px, float py, float pz,
+                                                  ListMin list_min) {
+  constexpr bool kHasClamp = Cfg::has_shadow_clamp;
+  const float d_box = s.box_dist(px, py, pz);
+  float best = kHasClamp ? jmax(d_box, Cfg::shadow_clamp) : INFINITY;  // the cut
+  int b, e;
+  const int where = s.locate(px, py, pz, d_box, b, e);
+  best = list_min(b, e, best);
+  if (s.falls_back(where, best, px, py, pz, d_box, e - b)) {
+    best = (kHasClamp || best < INFINITY) ? s.template walk<false>(px, py, pz, best)
+                                          : s.template walk<true>(px, py, pz, best);
+  }
+  return s.planes(py, best);
+}
+
+// The sweep's "warp_list": when every active lane takes the same list,
+// active lane k of n loads entries b + k, b + n + k, ... (one coalesced
+// read per n entries) and each sphere reaches every lane by __shfl_sync;
+// else each lane reads its own list, as GridScene does. The same
+// expression per entry, and min is order-free.
+template <class Cfg, class G>
+struct WarpListScene {
+  const G& s;
+
+  __device__ __forceinline__ float shadow_dist(float px, float py, float pz) const {
+    return grid_shadow_dist<Cfg>(s, px, py, pz, [&](int b, int e, float best) {
+#ifdef __CUDA_ARCH__
+      const unsigned active = __activemask();
+      if (__match_any_sync(active, ((unsigned long long)(unsigned)b << 32) | (unsigned)e) ==
+          active) {
+        unsigned lt;
+        asm("mov.u32 %0, %%lanemask_lt;" : "=r"(lt));
+        const int rank = __popc(active & lt), lanes = __popc(active);
+        for (int base = b; base < e; base += lanes) {
+          const float4 mine = base + rank < e ? __ldg(s.grid.cells + base + rank)
+                                              : make_float4(0.f, 0.f, 0.f, 0.f);
+          const int count = e - base < lanes ? e - base : lanes;
+          unsigned m = active;
+          for (int k = 0; k < count; ++k) {
+            const int src = __ffs(m) - 1;  // the k-th active lane loaded entry base + k
+            m &= m - 1;
+            const float dx = px - __shfl_sync(active, mine.x, src);
+            const float dy = py - __shfl_sync(active, mine.y, src);
+            const float dz = pz - __shfl_sync(active, mine.z, src);
+            const float d =
+                sqrtf((dx * dx + dy * dy) + dz * dz) - __shfl_sync(active, mine.w, src);
+            if (d < best) best = d;
+          }
+        }
+        return best;
+      }
+#endif
+      for (int k = b; k < e; ++k) {
+        const float d = s.entry_dist(k, px, py, pz);
+        if (d < best) best = d;
+      }
+      return best;
+    });
+  }
+};
+
+// The sweep's "squared_cull": each entry (c, r) first tested on its squared
+// distance d2. It can lower the running min `best` only if fl(sqrt(d2)) -
+// r < best exactly (fl is monotone and best a float), i.e. sqrt(d2) <
+// (best + r) / (1 - u), u = 2^-24; the computed t = best + r, t * t and its
+// product with kCullSlack each lose at most a factor (1 - u), so an entry
+// with d2 > (t * t) * kCullSlack, kCullSlack >= (1 - u)^-6, cannot, and its
+// IEEE sqrt is skipped. t <= 0: no entry can (sqrt >= 0); t below 2^-60,
+// where t * t may be subnormal: none is skipped. The entries that pass
+// take GridScene's expression, so the min is GridScene's bitwise. A warp
+// skips the sqrt only when all its lanes do.
+template <class Cfg, class G>
+struct SquaredCullScene {
+  static constexpr float kCullSlack = 1.00000095367431640625f;  // 1 + 2^-20
+  const G& s;
+
+  __device__ __forceinline__ float shadow_dist(float px, float py, float pz) const {
+    return grid_shadow_dist<Cfg>(s, px, py, pz, [&](int b, int e, float best) {
+      for (int k = b; k < e; ++k) {
+        const float4 c = __ldg(s.grid.cells + k);
+        const float t = best + c.w;
+        if (!(t > 0.f)) continue;
+        const float dx = px - c.x, dy = py - c.y, dz = pz - c.z;
+        const float d2 = (dx * dx + dy * dy) + dz * dz;
+        if (t >= 0x1p-60f && d2 > (t * t) * kCullSlack) continue;
+        const float d = sqrtf(d2) - c.w;
+        if (d < best) best = d;
+      }
+      return best;
+    });
+  }
+};
+
+// The sweep's "batched": the list read four entries ahead, four 16-byte
+// loads issued before their four distances. Min is order-free.
+template <class Cfg, class G>
+struct BatchedScene {
+  const G& s;
+
+  __device__ __forceinline__ float shadow_dist(float px, float py, float pz) const {
+    return grid_shadow_dist<Cfg>(s, px, py, pz, [&](int b, int e, float best) {
+      int k = b;
+      for (; k + 4 <= e; k += 4) {
+        float4 c[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) c[j] = __ldg(s.grid.cells + k + j);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float dx = px - c[j].x, dy = py - c[j].y, dz = pz - c[j].z;
+          const float d = sqrtf((dx * dx + dy * dy) + dz * dz) - c[j].w;
+          if (d < best) best = d;
+        }
+      }
+      for (; k < e; ++k) {
+        const float d = s.entry_dist(k, px, py, pz);
+        if (d < best) best = d;
+      }
+      return best;
+    });
+  }
+};
+
+// rg_shadow_at over records gathered into sorted order beforehand (the
+// sweep's "gathered"): thread i reads record i of rec_sorted [7, n] and
+// writes (res, t*) to pixel perm[i].
+template <class Cfg, class Scene>
+__device__ __forceinline__ void rg_shadow_gathered_at(const Scene& scn,
+                                                      const float* __restrict__ rec_sorted,
+                                                      const long long* __restrict__ perm,
+                                                      float* __restrict__ out, size_t i,
+                                                      size_t n) {
+  const size_t p = (size_t)__ldg(perm + i);
+  const float* r = rec_sorted + i;
+  float t_star;
+  out[p] = shadow_ray<Cfg>(scn, __ldg(r), __ldg(r + n), __ldg(r + 2 * n), __ldg(r + 3 * n),
+                           __ldg(r + 4 * n), __ldg(r + 5 * n), __ldg(r + 6 * n), t_star);
+  out[n + p] = t_star;
+}
+
+// What a lol_rg_shadow launch marches through: the Scene itself, or one
+// of the views above over it.
+enum RgShadowView { kRgDirect, kRgWalkCounts, kRgGridCounts, kRgWarpList, kRgSquaredCull, kRgBatched };
+
+// lol_rg_shadow's launch shape: 1-D blocks, so that a warp is 32
+// consecutive records, and no minimum of blocks per SM (the sweep,
+// PERF.md).
 constexpr int kRgShadowBlock = 128;
+constexpr int kRgShadowMinBlocks = 1;
 
 #ifdef __CUDACC__
-template <class Cfg, class Scene>
+// Index: what the Scene's search takes beyond the tables (GridScene's cell
+// grid; nothing for the run walk), as instanced_fwd_kernel's.
+template <class Cfg, class Scene, class... Index>
 __global__ void __launch_bounds__(kInstBlockX * kInstBlockY)
     rg_march_kernel(const float* __restrict__ cam_in, const float* __restrict__ P,
                     InstancedTables tab, float* __restrict__ track, float* __restrict__ hitp,
-                    float* __restrict__ rec, int height, int full_height, int width) {
+                    float* __restrict__ rec, int height, int full_height, int width,
+                    Index... index) {
   extern __shared__ float4 s_groups[];
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   for (int i = tid; i < 2 * tab.num_groups; i += blockDim.x * blockDim.y)
@@ -177,16 +387,22 @@ __global__ void __launch_bounds__(kInstBlockX * kInstBlockY)
   float cam[kCamSize];
 #pragma unroll
   for (int i = 0; i < kCamSize; ++i) cam[i] = __ldg(cam_in + i);
-  const Scene scn(P, tab, s_groups);
+  const Scene scn(P, tab, s_groups, index...);
   rg_march_pixel<Cfg>(cam, scn, P, x, y, full_height, width, track, hitp, rec,
                       (size_t)height * width);
 }
 
-template <class Cfg, class Scene, bool kStats>
-__global__ void __launch_bounds__(kRgShadowBlock)
+// stats: per-thread count planes in record order, [3, n] for
+// kRgWalkCounts (CountingScene's), [5, n] for kRgGridCounts (searches,
+// fallbacks, entries read, distinct lists of the warp summed over its
+// steps, steps in one list); null otherwise.
+template <class Cfg, class Scene, int kView, int kBlock, int kMinBlocks, bool kGathered,
+          class... Index>
+__global__ void __launch_bounds__(kBlock, kMinBlocks)
     rg_shadow_kernel(const float* __restrict__ P, InstancedTables tab,
                      const float* __restrict__ rec, const long long* __restrict__ perm,
-                     float* __restrict__ out, float* __restrict__ stats, long long n) {
+                     float* __restrict__ out, float* __restrict__ stats, long long n,
+                     Index... index) {
   extern __shared__ float4 s_groups[];
   for (int i = threadIdx.x; i < 2 * tab.num_groups; i += blockDim.x)
     s_groups[i] = tab.groups[i];
@@ -194,13 +410,32 @@ __global__ void __launch_bounds__(kRgShadowBlock)
 
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const Scene scn(P, tab, s_groups);
-  if constexpr (kStats) {
+  const Scene scn(P, tab, s_groups, index...);
+  if constexpr (kView == kRgWalkCounts) {
     const CountingScene<Cfg, Scene> counting{scn};
     rg_shadow_at<Cfg>(counting, rec, perm, out, (size_t)i, (size_t)n);
     stats[i] = counting.evals;
     stats[n + i] = counting.runs_lane;
     stats[2 * n + i] = counting.runs_warp;
+  } else if constexpr (kView == kRgGridCounts) {
+    const GridCountingScene<Cfg, Scene> counting{scn};
+    rg_shadow_at<Cfg>(counting, rec, perm, out, (size_t)i, (size_t)n);
+    stats[i] = (float)scn.n_search;
+    stats[n + i] = (float)scn.n_fallback;
+    stats[2 * n + i] = (float)scn.n_read;
+    stats[3 * n + i] = counting.lists_warp;
+    stats[4 * n + i] = counting.one_list;
+  } else if constexpr (kView == kRgWarpList) {
+    const WarpListScene<Cfg, Scene> view{scn};
+    rg_shadow_at<Cfg>(view, rec, perm, out, (size_t)i, (size_t)n);
+  } else if constexpr (kView == kRgSquaredCull) {
+    const SquaredCullScene<Cfg, Scene> view{scn};
+    rg_shadow_at<Cfg>(view, rec, perm, out, (size_t)i, (size_t)n);
+  } else if constexpr (kView == kRgBatched) {
+    const BatchedScene<Cfg, Scene> view{scn};
+    rg_shadow_at<Cfg>(view, rec, perm, out, (size_t)i, (size_t)n);
+  } else if constexpr (kGathered) {
+    rg_shadow_gathered_at<Cfg>(scn, rec, perm, out, (size_t)i, (size_t)n);
   } else {
     rg_shadow_at<Cfg>(scn, rec, perm, out, (size_t)i, (size_t)n);
   }
@@ -239,29 +474,32 @@ inline int rg_smem(Kernel kernel, const InstancedTables& tab, int& smem) {
   return 0;
 }
 
-template <class Cfg, class Scene>
+template <class Cfg, class Scene, class... Index>
 int launch_rg_march(const float* cam, const float* fields, const InstancedTables& tab,
                     float* track, float* hitp, float* rec, int height, int full_height,
-                    int width, cudaStream_t stream) {
+                    int width, cudaStream_t stream, Index... index) {
   int smem;
-  if (const int e = rg_smem(rg_march_kernel<Cfg, Scene>, tab, smem)) return e;
+  if (const int e = rg_smem(rg_march_kernel<Cfg, Scene, Index...>, tab, smem)) return e;
   const dim3 block(kInstBlockX, kInstBlockY);
   const dim3 grid((width + kInstBlockX - 1) / kInstBlockX,
                   (height + kInstBlockY - 1) / kInstBlockY);
-  rg_march_kernel<Cfg, Scene><<<grid, block, smem, stream>>>(cam, fields, tab, track, hitp,
-                                                             rec, height, full_height, width);
+  rg_march_kernel<Cfg, Scene, Index...><<<grid, block, smem, stream>>>(
+      cam, fields, tab, track, hitp, rec, height, full_height, width, index...);
   return (int)cudaGetLastError();
 }
 
-template <class Cfg, class Scene, bool kStats>
+template <class Cfg, class Scene, int kView, int kBlock = kRgShadowBlock,
+          int kMinBlocks = kRgShadowMinBlocks, bool kGathered = false, class... Index>
 int launch_rg_shadow(const float* fields, const InstancedTables& tab, const float* rec,
                      const long long* perm, float* out, float* stats, long long n,
-                     cudaStream_t stream) {
+                     cudaStream_t stream, Index... index) {
+  const auto kernel = rg_shadow_kernel<Cfg, Scene, kView, kBlock, kMinBlocks, kGathered,
+                                       Index...>;
   int smem;
-  if (const int e = rg_smem(rg_shadow_kernel<Cfg, Scene, kStats>, tab, smem)) return e;
-  const long long blocks = (n + kRgShadowBlock - 1) / kRgShadowBlock;
-  rg_shadow_kernel<Cfg, Scene, kStats><<<(unsigned)blocks, kRgShadowBlock, smem, stream>>>(
-      fields, tab, rec, perm, out, stats, n);
+  if (const int e = rg_smem(kernel, tab, smem)) return e;
+  const long long blocks = (n + kBlock - 1) / kBlock;
+  kernel<<<(unsigned)blocks, kBlock, smem, stream>>>(fields, tab, rec, perm, out, stats, n,
+                                                     index...);
   return (int)cudaGetLastError();
 }
 

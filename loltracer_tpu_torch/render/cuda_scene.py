@@ -38,15 +38,18 @@ instanced training source: the forward with residuals (`lol_instanced_fwd`)
 and the backward of csrc/instanced_bwd.cuh (`lol_instanced_bwd`, with its
 reduce and scatter launches), whose SDF adjoint is the traversal's own
 `InstancedScene::dist_bwd`, not a generated one; the forward searches the
-grid, the backward (and K3i / K4i, K9) still walks the runs.
+grid, the backward (and K3i / K4i, K9c) still walks the runs.
 
 `generate_march_source(structure, cfg)` is the source of the value march
 kernels K3 and K4 (csrc/march.cuh) on the compiled `Scene` or, for an
 instanced structure, on the `InstancedScene`, one thread a ray, or a lane
 group a ray (csrc/coop_march.cuh, each width of MARCH_LANES): one library
 per structure and config holds both. `generate_regroup_source(structure,
-cfg)` is the source of the regrouped instanced forward K9 (csrc/regroup.cuh: lol_rg_march,
-lol_rg_shadow, lol_rg_shade), one text for every sphere count too.
+cfg)` is the source of the regrouped instanced forward K9 (csrc/regroup.cuh: lol_rg_march
+and lol_rg_shadow over the cell grid, with run-walk twins and counting
+entries, and lol_rg_shade on the run walk), one text for every sphere
+count too; `sweep=True` gives the sweep of lol_rg_shadow's launch shapes
+and reads (RG_SHADOW_VARIANTS).
 `generate_eval_source(structure, cfg)` is the source of K7
 (`lol_instanced_eval`, csrc/march.cuh): the instanced distance at points
 under cfg.step_clamp over the cell grid, its planes' heights read from a
@@ -886,44 +889,95 @@ def generate_eval_source(structure: SceneStructure, cfg: RenderConfig) -> str:
 
 
 RG_MARCH = "lol_rg_march"
+RG_MARCH_WALK = "lol_rg_march_walk"
 RG_SHADOW = "lol_rg_shadow"
+RG_SHADOW_WALK = "lol_rg_shadow_walk"
 RG_SHADOW_STATS = "lol_rg_shadow_stats"
+RG_SHADOW_GRID_STATS = "lol_rg_shadow_grid_stats"
+RG_SHADOW_VARIANT = "lol_rg_shadow_variant"
 RG_SHADE = "lol_rg_shade"
 
-_RG_ENTRIES = f"""\
-extern "C" int {RG_MARCH}(const void* cam, const void* fields, const void* spheres,
-                             const void* ids, const void* groups, const void* bbox,
-                             int num_spheres, int num_groups, void* track, void* hitp,
-                             void* rec, int height, int full_height, int width, void* stream) {{
+# The launch shapes and reads of lol_rg_shadow over the grid that the sweep
+# entry holds against each other (csrc/regroup.cuh; PERF.md records them):
+# name -> (view, threads per block, minimum blocks per SM, records gathered
+# into sorted order beforehand). "lanes" is lol_rg_shadow's own.
+RG_SHADOW_VARIANTS = {
+    "lanes": ("kRgDirect", 128, 1, False),
+    "warp_list": ("kRgWarpList", 128, 1, False),
+    "block64": ("kRgDirect", 64, 1, False),
+    "block256": ("kRgDirect", 256, 1, False),
+    "min_blocks12": ("kRgDirect", 128, 12, False),
+    "min_blocks16": ("kRgDirect", 128, 16, False),
+    "gathered": ("kRgDirect", 128, 1, True),
+    "squared_cull": ("kRgSquaredCull", 128, 1, False),
+    "batched": ("kRgBatched", 128, 1, False),
+}
+
+_RG_SHADOW_ARGS = """\
+const void* fields, const void* spheres, const void* ids, const void* groups,
+    const void* bbox, int num_spheres, int num_groups, const void* rec, const void* perm,
+    void* out"""
+
+_RG_SHADOW_CASTS = """\
+      static_cast<const float*>(fields), tab, static_cast<const float*>(rec),
+      static_cast<const long long*>(perm), static_cast<float*>(out)"""
+
+
+def _rg_march_entry(name: str, scene: str) -> str:
+    """A lol_rg_march entry over the search `scene` (a lol_gen alias), as
+    _instanced_render_entry."""
+    grid = scene != "Scene"
+    return f"""\
+extern "C" int {name}(const void* cam, const void* fields, const void* spheres,
+                      const void* ids, const void* groups, const void* bbox, int num_spheres,
+                      int num_groups, void* track, void* hitp, void* rec, int height,
+                      int full_height, int width, {_GRID_PARAMS + ", " if grid else ""}void* stream) {{
 {_TABLES}
-  return lol::launch_rg_march<lol_gen::Cfg, lol_gen::Scene>(
+{_GRID if grid else ""}
+  return lol::launch_rg_march<lol_gen::Cfg, lol_gen::{scene}>(
       static_cast<const float*>(cam), static_cast<const float*>(fields), tab,
       static_cast<float*>(track), static_cast<float*>(hitp), static_cast<float*>(rec),
-      height, full_height, width, static_cast<cudaStream_t>(stream));
-}}
+      height, full_height, width, static_cast<cudaStream_t>(stream){", grid" if grid else ""});
+}}"""
 
-extern "C" int {RG_SHADOW}(const void* fields, const void* spheres, const void* ids,
-                              const void* groups, const void* bbox, int num_spheres,
-                              int num_groups, const void* rec, const void* perm, void* out,
-                              long long n, void* stream) {{
+
+def _rg_shadow_entry(name: str, scene: str, view: str, stats: bool) -> str:
+    """A lol_rg_shadow entry over the search `scene` through `view`
+    (csrc/regroup.cuh RgShadowView), with the per-thread count planes
+    (`counts`) when `stats`, at lol_rg_shadow's launch shape."""
+    grid = scene != "Scene"
+    return f"""\
+extern "C" int {name}({_RG_SHADOW_ARGS}, {"void* counts, " if stats else ""}long long n,
+                      {_GRID_PARAMS + ", " if grid else ""}void* stream) {{
 {_TABLES}
-  return lol::launch_rg_shadow<lol_gen::Cfg, lol_gen::Scene, false>(
-      static_cast<const float*>(fields), tab, static_cast<const float*>(rec),
-      static_cast<const long long*>(perm), static_cast<float*>(out), nullptr, n,
-      static_cast<cudaStream_t>(stream));
-}}
+{_GRID if grid else ""}
+  return lol::launch_rg_shadow<lol_gen::Cfg, lol_gen::{scene}, lol::{view}>(
+{_RG_SHADOW_CASTS}, {"static_cast<float*>(counts)" if stats else "nullptr"}, n,
+      static_cast<cudaStream_t>(stream){", grid" if grid else ""});
+}}"""
 
-extern "C" int {RG_SHADOW_STATS}(const void* fields, const void* spheres, const void* ids,
-                                    const void* groups, const void* bbox, int num_spheres,
-                                    int num_groups, const void* rec, const void* perm,
-                                    void* out, void* stats, long long n, void* stream) {{
+
+def _rg_shadow_variant_entry() -> str:
+    """The sweep entry: lol_rg_shadow over the grid in RG_SHADOW_VARIANTS'
+    variant number `variant` (in its order); -1 for another number."""
+    cases = "\n".join(
+        f"    case {k}: return lol::launch_rg_shadow<lol_gen::Cfg, lol_gen::SceneOnGrid, "
+        f"lol::{view}, {block}, {min_blocks}, {'true' if gathered else 'false'}>(\n"
+        f"{_RG_SHADOW_CASTS}, nullptr, n, static_cast<cudaStream_t>(stream), grid);"
+        for k, (view, block, min_blocks, gathered) in enumerate(RG_SHADOW_VARIANTS.values()))
+    return f"""\
+extern "C" int {RG_SHADOW_VARIANT}(int variant, {_RG_SHADOW_ARGS}, long long n,
+                                   {_GRID_PARAMS}, void* stream) {{
 {_TABLES}
-  return lol::launch_rg_shadow<lol_gen::Cfg, lol_gen::Scene, true>(
-      static_cast<const float*>(fields), tab, static_cast<const float*>(rec),
-      static_cast<const long long*>(perm), static_cast<float*>(out),
-      static_cast<float*>(stats), n, static_cast<cudaStream_t>(stream));
-}}
+{_GRID}
+  switch (variant) {{
+{cases}
+    default: return -1;
+  }}
+}}"""
 
+
+_RG_SHADE_ENTRY = f"""\
 extern "C" int {RG_SHADE}(const void* cam, const void* fields, const void* spheres,
                              const void* ids, const void* groups, const void* bbox,
                              int num_spheres, int num_groups, const void* track,
@@ -937,19 +991,34 @@ extern "C" int {RG_SHADE}(const void* cam, const void* fields, const void* spher
       static_cast<cudaStream_t>(stream));
 }}"""
 
+_RG_ENTRIES = "\n\n".join([
+    _rg_march_entry(RG_MARCH, "SceneOnGrid"),
+    _rg_march_entry(RG_MARCH_WALK, "Scene"),
+    _rg_shadow_entry(RG_SHADOW, "SceneOnGrid", "kRgDirect", False),
+    _rg_shadow_entry(RG_SHADOW_WALK, "Scene", "kRgDirect", False),
+    _rg_shadow_entry(RG_SHADOW_STATS, "Scene", "kRgWalkCounts", True),
+    _rg_shadow_entry(RG_SHADOW_GRID_STATS, "SceneOnGridStats", "kRgGridCounts", True),
+    _RG_SHADE_ENTRY,
+])
 
-def generate_regroup_source(structure: SceneStructure, cfg: RenderConfig) -> str:
-    """The CUDA translation unit of the regrouped instanced forward K9
-    (`lol_rg_march`, `lol_rg_shadow` and its stats twin, `lol_rg_shade`)
-    for this instanced structure and config: csrc/fused_fwd.cuh (whose
-    march and shade halves they run), csrc/instanced_scene.cuh,
-    csrc/regroup.cuh, then the Cfg (both clamps) and the layout. One text
+
+def generate_regroup_source(structure: SceneStructure, cfg: RenderConfig,
+                            sweep: bool = False) -> str:
+    """The CUDA translation unit of the regrouped instanced forward K9 for
+    this instanced structure and config: csrc/fused_fwd.cuh (whose march
+    and shade halves they run), csrc/instanced_scene.cuh,
+    csrc/grid_scene.cuh, csrc/regroup.cuh, then the Cfg (both clamps) and
+    the layout. Its entries: `lol_rg_march` and `lol_rg_shadow` over the
+    cell grid, their run-walk twins (`_walk`), the counting launches of the
+    walk (`lol_rg_shadow_stats`) and of the grid
+    (`lol_rg_shadow_grid_stats`), and `lol_rg_shade` (the run walk); with
+    `sweep`, `lol_rg_shadow_variant` alone (RG_SHADOW_VARIANTS). One text
     for every sphere count; deterministic; holds no scene numbers. The
     device functions also compile as host C++."""
     require_instanced(structure)
     if not structure.num_spheres:
         raise ValueError("an instanced scene needs at least one sphere")
-    bodies = ["fused_fwd.cuh", "instanced_scene.cuh", "regroup.cuh"]
+    bodies = ["fused_fwd.cuh", "instanced_scene.cuh", "grid_scene.cuh", "regroup.cuh"]
     return "\n".join(
         [
             "// Generated by loltracer_tpu_torch.render.cuda_scene: the kernel",
@@ -960,10 +1029,11 @@ def generate_regroup_source(structure: SceneStructure, cfg: RenderConfig) -> str
             _cfg_source(cfg, residuals=False, instanced=True),
             "",
             _layout_source(structure),
+            _GRID_ALIASES,
             "}  // namespace lol_gen",
             "",
             "#ifdef __CUDACC__",
-            _RG_ENTRIES,
+            _rg_shadow_variant_entry() if sweep else _RG_ENTRIES,
             "#endif  // __CUDACC__",
             "",
         ]

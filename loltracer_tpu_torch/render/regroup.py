@@ -6,6 +6,9 @@ pixel's hit point, so a warp's shadow rays start wherever its 8x4 pixel
 tile's hit points lie. Here the forward render is split into three kernels
 with a sort in between (csrc/regroup.cuh):
 
+- the cell grid of candidate spheres (`cell_grid.grid_for`), built once
+  per frame and searched by the march and by every light's shadow launch,
+  as K5 searches it (the run walk its fallback);
 - `march_track` (lol_rg_march, per pixel): the march half of K5's pixel
   body -> track [3, H, W] (t_sh, hit, material), the shading points hitp
   [3, H, W], and per light the shadow records rec [L, 7, H, W] (origin,
@@ -17,7 +20,11 @@ with a sort in between (csrc/regroup.cuh):
   record perm[i] and writes (res, t*) back to pixel perm[i] -> shadow [L,
   2, H, W]; no gather of records and no inverse permutation;
 - `shade_planes` (lol_rg_shade, per pixel): the shade half of K5's body
-  over the frozen planes -> the image [H, W, 3].
+  over the frozen planes -> the image [H, W, 3]; it still walks the runs.
+
+`march_track(..., walk=True)` and `shadow_sorted(..., walk=True)` launch
+the run-walk twins (`lol_rg_march_walk`, `lol_rg_shadow_walk`): the check
+of the grid kernels, bitwise equal; nothing on the main path calls them.
 
 Each value depends only on its own pixel's ray, so the image is bitwise
 K5's (`lol_instanced_render`); the sort buys only locality.
@@ -30,7 +37,11 @@ plain instanced SDF and loops with the expressions of render_rays, so the
 plain pipeline is bitwise `instanced_fwd.instanced_forward_reference`.
 
 `shadow_gather_stats` measures what the sort does to one light's shadow
-rays, counted in a stats launch of lol_rg_shadow on the card.
+rays, counted in a stats launch on the card: over the grid (searches,
+fallbacks, list entries, distinct lists per warp step) or, with
+`walk=True`, over the run walk (runs reached per evaluation). `shadow_variant` launches
+the sweep of lol_rg_shadow's launch shapes and reads
+(`cuda_scene.RG_SHADOW_VARIANTS`), for the measurement only.
 
 `launches` counts kernel launches per entry; the plain versions never add
 to it. A failed build or launch raises; nothing falls back.
@@ -48,11 +59,18 @@ from loltracer_tpu_torch import _build
 from loltracer_tpu_torch.config import DEFAULT_CONFIG, RenderConfig
 from loltracer_tpu_torch.render.backend import resolve_backend, resolve_device
 from loltracer_tpu_torch.render.camera import CAM_SIZE, camera_pack, rays_from_pack
+from loltracer_tpu_torch.render.cell_grid import CellGrid, check_grid, grid_args, grid_for
 from loltracer_tpu_torch.render.cuda_scene import (
+    GRID_ARGTYPES,
     RG_MARCH,
+    RG_MARCH_WALK,
     RG_SHADE,
     RG_SHADOW,
+    RG_SHADOW_GRID_STATS,
     RG_SHADOW_STATS,
+    RG_SHADOW_VARIANT,
+    RG_SHADOW_VARIANTS,
+    RG_SHADOW_WALK,
     generate_regroup_source,
     pack_fields,
     packed_size,
@@ -70,6 +88,7 @@ from loltracer_tpu_torch.scene import SceneParams, SceneStructure, params_to, re
 
 __all__ = [
     "Track",
+    "grid_warp_stats",
     "launches",
     "library",
     "make_instanced_renderer_regrouped",
@@ -84,10 +103,13 @@ __all__ = [
     "shadow_order",
     "shadow_sorted",
     "shadow_sorted_reference",
+    "shadow_variant",
+    "sweep_library",
     "warp_stats",
 ]
 
-launches = {RG_MARCH: 0, RG_SHADOW: 0, RG_SHADE: 0, RG_SHADOW_STATS: 0}
+launches = {name: 0 for name in (RG_MARCH, RG_MARCH_WALK, RG_SHADOW, RG_SHADOW_WALK, RG_SHADE,
+                                 RG_SHADOW_STATS, RG_SHADOW_GRID_STATS, RG_SHADOW_VARIANT)}
 
 WARP = 32
 RECORD = 7  # floats per shadow record: origin (3), unit direction (3), distance
@@ -263,25 +285,43 @@ def regrouped_forward_reference(
 # --------------------------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=None)
-def library(cfg: RenderConfig, structure: SceneStructure) -> _build.Library:
-    """The built K9 library for this config and structure (compiled at
-    first use, then loaded from the build cache); structures that differ
-    only in their sphere count or material ids share one source."""
-    built = _build.build(generate_regroup_source(structure, cfg), "regroup")
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    tables = [ptr] * 4 + [i32] * 2
-    argtypes = {
-        RG_MARCH: [ptr, ptr] + tables + [ptr] * 3 + [i32] * 3 + [ptr],
-        RG_SHADOW: [ptr] + tables + [ptr] * 3 + [i64, ptr],
-        RG_SHADOW_STATS: [ptr] + tables + [ptr] * 4 + [i64, ptr],
-        RG_SHADE: [ptr, ptr] + tables + [ptr] * 3 + [i32] * 3 + [ptr],
-    }
+_PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_TABLE_TYPES = [_PTR] * 4 + [_I32] * 2
+_SHADOW_TYPES = [_PTR] + _TABLE_TYPES + [_PTR] * 3  # fields, tables, rec, perm, out
+
+
+def _bind(built: _build.Library, argtypes: Dict[str, list]) -> _build.Library:
     for name, args in argtypes.items():
         fn = getattr(built.lib, name)
         fn.argtypes = args
         fn.restype = ctypes.c_int
     return built
+
+
+@functools.lru_cache(maxsize=None)
+def library(cfg: RenderConfig, structure: SceneStructure) -> _build.Library:
+    """The built K9 library for this config and structure (compiled at
+    first use, then loaded from the build cache); structures that differ
+    only in their sphere count or material ids share one source."""
+    march = [_PTR, _PTR] + _TABLE_TYPES + [_PTR] * 3 + [_I32] * 3
+    return _bind(_build.build(generate_regroup_source(structure, cfg), "regroup"), {
+        RG_MARCH: march + GRID_ARGTYPES + [_PTR],
+        RG_MARCH_WALK: march + [_PTR],
+        RG_SHADOW: _SHADOW_TYPES + [_I64] + GRID_ARGTYPES + [_PTR],
+        RG_SHADOW_WALK: _SHADOW_TYPES + [_I64, _PTR],
+        RG_SHADOW_STATS: _SHADOW_TYPES + [_PTR, _I64, _PTR],
+        RG_SHADOW_GRID_STATS: _SHADOW_TYPES + [_PTR, _I64] + GRID_ARGTYPES + [_PTR],
+        RG_SHADE: [_PTR, _PTR] + _TABLE_TYPES + [_PTR] * 3 + [_I32] * 3 + [_PTR],
+    })
+
+
+@functools.lru_cache(maxsize=None)
+def sweep_library(cfg: RenderConfig, structure: SceneStructure) -> _build.Library:
+    """The built sweep of lol_rg_shadow's variants (`lol_rg_shadow_variant`,
+    cuda_scene.RG_SHADOW_VARIANTS) for this config and structure."""
+    return _bind(_build.build(generate_regroup_source(structure, cfg, sweep=True),
+                              "regroup_sweep"),
+                 {RG_SHADOW_VARIANT: [_I32] + _SHADOW_TYPES + [_I64] + GRID_ARGTYPES + [_PTR]})
 
 
 def _table_args(tables: InstancedTables):
@@ -290,7 +330,8 @@ def _table_args(tables: InstancedTables):
 
 
 def _launch(cfg, structure, name, device, *args):
-    fn = getattr(library(cfg, structure).lib, name)
+    lib = sweep_library if name == RG_SHADOW_VARIANT else library
+    fn = getattr(lib(cfg, structure).lib, name)
     with torch.cuda.device(device):
         rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
@@ -308,22 +349,42 @@ def _check_frame(structure, cam, fields, tables, height, width, full_height):
         raise ValueError(f"bad image size {height}x{width} of {full_height} rows")
 
 
+def _search(name: str, walk_name: str, cfg: RenderConfig, tables: InstancedTables,
+            grid: Optional[CellGrid], walk: bool, device) -> tuple:
+    """(entry, its grid arguments) of a launch on `device`: the grid entry
+    over `grid` (built now from the tables when None), or with `walk` its
+    run-walk twin."""
+    if walk:
+        return walk_name, ()
+    grid = grid_for(tables, cfg.step_clamp) if grid is None else grid
+    check_grid(grid, device)
+    return name, grid_args(grid)
+
+
 def march_track(
     structure: SceneStructure, cfg: RenderConfig, cam, fields, tables: InstancedTables,
     height: int, width: int, full_height: Optional[int] = None,
+    grid: Optional[CellGrid] = None, walk: bool = False,
 ) -> Track:
-    """lol_rg_march for CUDA tensors, march_track_reference for CPU ones."""
+    """lol_rg_march for CUDA tensors, searching `grid` (default:
+    `cell_grid.grid_for(tables, cfg.step_clamp)`, built now) or with `walk`
+    the run walk alone (lol_rg_march_walk); march_track_reference for CPU
+    ones. A grid on another device than the tensors raises."""
     require_instanced(structure)
     full_height = full_height or height
+    if grid is not None:
+        check_grid(grid, cam.device)
     if resolve_backend(cam, fields, *tables) == "torch":
         return march_track_reference(structure, cfg, cam, fields, tables, height, width,
                                      full_height)
     _check_frame(structure, cam, fields, tables, height, width, full_height)
+    name, index = _search(RG_MARCH, RG_MARCH_WALK, cfg, tables, grid, walk, cam.device)
     kw = dict(dtype=torch.float32, device=cam.device)
     out = Track(torch.empty((3, height, width), **kw), torch.empty((3, height, width), **kw),
                 torch.empty((structure.num_lights, RECORD, height, width), **kw))
-    _launch(cfg, structure, RG_MARCH, cam.device, cam.data_ptr(), fields.data_ptr(),
-            *_table_args(tables), *(t.data_ptr() for t in out), height, full_height, width)
+    _launch(cfg, structure, name, cam.device, cam.data_ptr(), fields.data_ptr(),
+            *_table_args(tables), *(t.data_ptr() for t in out), height, full_height, width,
+            *index)
     return out
 
 
@@ -340,24 +401,60 @@ def _check_shadow(structure, fields, tables, rec_l, perm) -> int:
     return n
 
 
-def shadow_sorted(
-    structure: SceneStructure, cfg: RenderConfig, fields, tables: InstancedTables,
-    rec_l: torch.Tensor, perm: torch.Tensor, out: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """lol_rg_shadow for CUDA tensors (into `out` [2, ...] when given), one
-    light's records rec_l [7, ...] in the order perm [n] (int64);
-    shadow_sorted_reference for CPU ones."""
-    require_instanced(structure)
-    if resolve_backend(fields, rec_l, perm, *tables) == "torch":
-        res = shadow_sorted_reference(structure, cfg, fields, tables, rec_l, perm)
-        return res if out is None else out.copy_(res)
-    n = _check_shadow(structure, fields, tables, rec_l, perm)
+def _shadow_out(rec_l, out):
     if out is None:
         out = torch.empty((2,) + tuple(rec_l.shape[1:]), dtype=torch.float32,
                           device=rec_l.device)
     _check("out", out, (2,) + tuple(rec_l.shape[1:]))
-    _launch(cfg, structure, RG_SHADOW, rec_l.device, fields.data_ptr(),
-            *_table_args(tables), rec_l.data_ptr(), perm.data_ptr(), out.data_ptr(), n)
+    return out
+
+
+def shadow_sorted(
+    structure: SceneStructure, cfg: RenderConfig, fields, tables: InstancedTables,
+    rec_l: torch.Tensor, perm: torch.Tensor, out: Optional[torch.Tensor] = None,
+    grid: Optional[CellGrid] = None, walk: bool = False,
+) -> torch.Tensor:
+    """lol_rg_shadow for CUDA tensors (into `out` [2, ...] when given), one
+    light's records rec_l [7, ...] in the order perm [n] (int64), searching
+    `grid` (default: built now, as march_track's) or with `walk` the run
+    walk alone (lol_rg_shadow_walk); shadow_sorted_reference for CPU ones.
+    A grid on another device than the records raises."""
+    require_instanced(structure)
+    if grid is not None:
+        check_grid(grid, rec_l.device)
+    if resolve_backend(fields, rec_l, perm, *tables) == "torch":
+        res = shadow_sorted_reference(structure, cfg, fields, tables, rec_l, perm)
+        return res if out is None else out.copy_(res)
+    n = _check_shadow(structure, fields, tables, rec_l, perm)
+    name, index = _search(RG_SHADOW, RG_SHADOW_WALK, cfg, tables, grid, walk, rec_l.device)
+    out = _shadow_out(rec_l, out)
+    _launch(cfg, structure, name, rec_l.device, fields.data_ptr(),
+            *_table_args(tables), rec_l.data_ptr(), perm.data_ptr(), out.data_ptr(), n, *index)
+    return out
+
+
+def shadow_variant(
+    structure: SceneStructure, cfg: RenderConfig, fields, tables: InstancedTables,
+    rec_l: torch.Tensor, perm: torch.Tensor, grid: CellGrid, variant: str,
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """lol_rg_shadow over `grid` in the sweep's `variant` (a key of
+    cuda_scene.RG_SHADOW_VARIANTS; "gathered" gathers the records into the
+    order perm first, here): the same planes as shadow_sorted's, for the
+    measurement of the variants on the card only (CUDA tensors)."""
+    require_instanced(structure)
+    if rec_l.device.type != "cuda":
+        raise ValueError("shadow_variant launches the sweep on the card: pass CUDA tensors")
+    n = _check_shadow(structure, fields, tables, rec_l, perm)
+    check_grid(grid, rec_l.device)
+    names = list(RG_SHADOW_VARIANTS)
+    if variant not in names:
+        raise ValueError(f"no lol_rg_shadow variant {variant!r}; the sweep holds {names}")
+    out = _shadow_out(rec_l, out)
+    src = rec_l.reshape(RECORD, -1)[:, perm] if RG_SHADOW_VARIANTS[variant][3] else rec_l
+    _launch(cfg, structure, RG_SHADOW_VARIANT, rec_l.device, names.index(variant),
+            fields.data_ptr(), *_table_args(tables), src.data_ptr(), perm.data_ptr(),
+            out.data_ptr(), n, *grid_args(grid))
     return out
 
 
@@ -387,21 +484,23 @@ def regrouped_forward(
     structure: SceneStructure, cfg: RenderConfig, cam, fields, tables: InstancedTables,
     height: int, width: int, full_height: Optional[int] = None,
 ) -> torch.Tensor:
-    """The regrouped frame [height, W, 3] (module docstring): lol_rg_march,
-    per light the Morton sort and lol_rg_shadow, lol_rg_shade for CUDA
-    tensors; regrouped_forward_reference for CPU ones."""
+    """The regrouped frame [height, W, 3] (module docstring): the cell grid,
+    lol_rg_march over it, per light the Morton sort and lol_rg_shadow over
+    the same grid, lol_rg_shade for CUDA tensors;
+    regrouped_forward_reference for CPU ones."""
     require_instanced(structure)
     full_height = full_height or height
     if resolve_backend(cam, fields, *tables) == "torch":
         return regrouped_forward_reference(structure, cfg, cam, fields, tables, height, width,
                                            full_height)
-    tr = march_track(structure, cfg, cam, fields, tables, height, width, full_height)
+    grid = grid_for(tables, cfg.step_clamp)  # one grid a frame, for K9a and every K9b
+    tr = march_track(structure, cfg, cam, fields, tables, height, width, full_height, grid=grid)
     lo, hi = hit_box(tr.hitp)
     shadow = torch.empty((structure.num_lights, 2, height, width), dtype=torch.float32,
                          device=cam.device)
     for li in range(structure.num_lights):
         shadow_sorted(structure, cfg, fields, tables, tr.rec[li],
-                      shadow_order(tr.rec[li], lo, hi), out=shadow[li])
+                      shadow_order(tr.rec[li], lo, hi), out=shadow[li], grid=grid)
     return shade_planes(structure, cfg, cam, fields, tables, tr.track, shadow, height, width,
                         full_height)
 
@@ -442,24 +541,27 @@ def make_instanced_renderer_regrouped(
 # --------------------------------------------------------------------------
 
 
+def _by_warp(x: torch.Tensor) -> torch.Tensor:
+    """[n] per-thread values -> [warps, 32], the last warp padded with 0."""
+    return torch.cat([x, x.new_zeros(-x.numel() % WARP)]).reshape(-1, WARP)
+
+
 def warp_stats(stats: torch.Tensor) -> Dict[str, float]:
-    """The sort's numbers from a stats launch's per-thread counts stats [3,
-    n] (threads in record order, a warp = 32 consecutive threads; the last
-    warp may be short): per ray the mean shadow evaluations; per warp the
-    worst lane's count, whose mean over the mean per ray is the warp's
-    lock-step cost (1 = no waste); per evaluation the runs of spheres a ray
-    reaches, against the distinct runs its warp reaches per warp step."""
+    """The sort's numbers from a walk stats launch's per-thread counts
+    stats [3, n] (threads in record order, a warp = 32 consecutive threads;
+    the last warp may be short): per ray the mean shadow evaluations; per
+    warp the worst lane's count, whose mean over the mean per ray is the
+    warp's lock-step cost (1 = no waste); per evaluation the runs of
+    spheres a ray reaches, against the distinct runs its warp reaches per
+    warp step."""
     evals, lane, warp = (s.double() for s in stats)
-    n = evals.numel()
-    pad = -n % WARP
-    ev = torch.cat([evals, evals.new_zeros(pad)]).reshape(-1, WARP)
-    wr = torch.cat([warp, warp.new_zeros(pad)]).reshape(-1, WARP)
+    ev, wr = _by_warp(evals), _by_warp(warp)
     worst, lead = ev.max(dim=1)
     # the worst lane is active at every step of its warp, so its warp count
     # sums the warp's distinct runs over all the warp's steps
     warp_runs = wr.gather(1, lead[:, None])[:, 0]
     return {
-        "rays": n,
+        "rays": evals.numel(),
         "warps": ev.shape[0],
         "evals_per_ray": float(evals.mean()),
         "worst_lane_evals_per_warp": float(worst.mean()),
@@ -469,17 +571,53 @@ def warp_stats(stats: torch.Tensor) -> Dict[str, float]:
     }
 
 
-def _shadow_stats(structure, cfg, fields, tables, rec_l, perm) -> torch.Tensor:
-    """The stats launch lol_rg_shadow_stats over CUDA tensors: lol_rg_shadow
-    with per-thread counts [3, n] f32 in record order: evaluations, runs
-    within reach summed over them, distinct such runs of the warp summed
-    over them (csrc/regroup.cuh CountingScene)."""
+def grid_warp_stats(stats: torch.Tensor) -> Dict[str, float]:
+    """The grid search's numbers from a grid stats launch's per-thread
+    counts stats [5, n] (searches, fallbacks, list entries read, distinct
+    lists of the warp summed over its steps, steps in one list; threads in
+    record order as warp_stats'): per ray the searches (the shadow
+    evaluations); the share that fell back to the run walk; entries read
+    per search; the worst lane's searches per warp and the lock-step cost;
+    per warp step the distinct lists over the active lanes and the share of
+    steps whose lanes all searched one list (read at the worst lane, which
+    is active at every step of its warp)."""
+    search, fall, read, lists, one = (s.double() for s in stats)
+    sw = _by_warp(search)
+    worst, lead = sw.max(dim=1)
+
+    def at_lead(x):
+        return _by_warp(x).gather(1, lead[:, None])[:, 0].sum()
+
+    return {
+        "rays": search.numel(),
+        "warps": sw.shape[0],
+        "searches_per_ray": float(search.mean()),
+        "fallback_share": float(fall.sum() / search.sum()),
+        "entries_per_search": float(read.sum() / search.sum()),
+        "worst_lane_searches_per_warp": float(worst.mean()),
+        "warp_efficiency": float(search.mean() / worst.mean()),
+        "lists_per_warp_step": float(at_lead(lists) / worst.sum()),
+        "one_list_share": float(at_lead(one) / worst.sum()),
+    }
+
+
+def _shadow_stats(structure, cfg, fields, tables, rec_l, perm, grid=None) -> torch.Tensor:
+    """A stats launch over CUDA tensors: lol_rg_shadow with per-thread
+    counts in record order, f32: over the run walk (grid None,
+    lol_rg_shadow_stats; csrc/regroup.cuh CountingScene) [3, n]:
+    evaluations, runs within reach summed over them, distinct such runs of
+    the warp summed over them; over `grid` (lol_rg_shadow_grid_stats,
+    GridCountingScene) [5, n], as grid_warp_stats reads them."""
     n = _check_shadow(structure, fields, tables, rec_l, perm)
     res = torch.empty((2,) + tuple(rec_l.shape[1:]), dtype=torch.float32, device=rec_l.device)
-    stats = torch.empty((3, n), dtype=torch.float32, device=rec_l.device)
-    _launch(cfg, structure, RG_SHADOW_STATS, rec_l.device, fields.data_ptr(),
-            *_table_args(tables), rec_l.data_ptr(), perm.data_ptr(), res.data_ptr(),
-            stats.data_ptr(), n)
+    stats = torch.empty((3 if grid is None else 5, n), dtype=torch.float32,
+                        device=rec_l.device)
+    if grid is not None:
+        check_grid(grid, rec_l.device)
+    name, index = ((RG_SHADOW_STATS, ()) if grid is None
+                   else (RG_SHADOW_GRID_STATS, grid_args(grid)))
+    _launch(cfg, structure, name, rec_l.device, fields.data_ptr(), *_table_args(tables),
+            rec_l.data_ptr(), perm.data_ptr(), res.data_ptr(), stats.data_ptr(), n, *index)
     return stats
 
 
@@ -492,15 +630,17 @@ def shadow_gather_stats(
     light: int = 0,
     sort: bool = True,
     device="cuda",
+    walk: bool = False,
 ) -> Dict:
     """What the Morton sort does to light `light`'s shadow rays at this
     size: the frame's records from lol_rg_march, ordered by the sort (or
     in pixel order without it), marched by a stats launch of lol_rg_shadow
-    (`warp_stats`' keys). The JAX package's keys (scratch rows gathered,
-    overflow, pre-lit fraction: its scratch gather and segment cull) do
-    not exist on this card, whose kernels have neither; "sorted" and
-    "tiles" (here: warps) keep their meaning. The counts run on the card
-    only: `device` must be a CUDA device."""
+    over the frame's cell grid (`grid_warp_stats`' keys) or, with `walk`,
+    over the run walk (`warp_stats`' keys). The JAX package's keys (scratch
+    rows gathered, overflow, pre-lit fraction: its scratch gather and
+    segment cull) do not exist on this card, whose kernels have neither;
+    "sorted" and "tiles" (here: warps) keep their meaning. The counts run
+    on the card only: `device` must be a CUDA device."""
     require_instanced(structure)
     device = resolve_device(device, "shadow_gather_stats")
     if device.type != "cuda":
@@ -509,9 +649,14 @@ def shadow_gather_stats(
     params = params_to(params, device=device, dtype=torch.float32)
     cam = camera_pack(params, height, width, cfg)
     fields, tables = pack_fields(structure, params), pack_instanced(structure, params)
-    tr = march_track(structure, cfg, cam, fields, tables, height, width)
+    grid = grid_for(tables, cfg.step_clamp)
+    tr = march_track(structure, cfg, cam, fields, tables, height, width, grid=grid)
     lo, hi = hit_box(tr.hitp)
     perm = shadow_order(tr.rec[light], lo, hi, sort)
-    out = warp_stats(_shadow_stats(structure, cfg, fields, tables, tr.rec[light], perm))
-    out.update(sorted=sort, tiles=out["warps"], light=light)
+    if walk:
+        out = warp_stats(_shadow_stats(structure, cfg, fields, tables, tr.rec[light], perm))
+    else:
+        out = grid_warp_stats(_shadow_stats(structure, cfg, fields, tables, tr.rec[light],
+                                            perm, grid))
+    out.update(sorted=sort, tiles=out["warps"], light=light, search="walk" if walk else "grid")
     return out

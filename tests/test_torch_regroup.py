@@ -13,7 +13,9 @@ tensors:
   material), `shadow_sorted_reference` on JAX's sorted records vs
   `lol_rg_shadow`'s (res, t*), `shade_planes_reference` on JAX's frozen
   planes vs `lol_rg_shade`'s image;
-- `warp_stats`' arithmetic; the entry point's contract.
+- `warp_stats`' and `grid_warp_stats`' arithmetic; the entry point's
+  contract; `march_track` / `shadow_sorted` taking a cell grid (`grid=`)
+  and refusing one on another device.
 
 Inputs are made with numpy and handed to both packages; the port runs
 under flush-denormal, as XLA on the CPU does."""
@@ -31,6 +33,7 @@ from loltracer_tpu.scenes import instanced_spheres as jax_instanced_spheres
 from loltracer_tpu_torch.config import RenderConfig
 from loltracer_tpu_torch.render import regroup
 from loltracer_tpu_torch.render.camera import camera_pack
+from loltracer_tpu_torch.render.cell_grid import grid_for
 from loltracer_tpu_torch.render.cuda_scene import pack_fields
 from loltracer_tpu_torch.render.instanced_fwd import instanced_forward_reference
 from loltracer_tpu_torch.render.instanced_pack import pack_instanced
@@ -217,6 +220,60 @@ def test_warp_stats_arithmetic():
     assert s["warp_efficiency"] == pytest.approx(float(evals.mean()) / ((9 + 4 + 6) / 3))
     assert s["runs_per_ray_eval"] == pytest.approx(3.0)
     assert s["runs_per_warp_step"] == pytest.approx((45 + 20 + 30) / (9 + 4 + 6))
+
+
+def test_grid_warp_stats_arithmetic():
+    """Two warps of 32 and a short one of 2: searches per ray, the fallback
+    share and entries per search over all lanes; distinct lists and
+    one-list steps per warp step read at each warp's worst lane."""
+    search = torch.tensor([2.0] * 31 + [10.0] + [5.0] * 32 + [1.0, 4.0])
+    fall = torch.zeros_like(search)
+    fall[3] = 2.0
+    read = search * 25.0
+    lists = torch.cat([torch.full((32,), 20.0), torch.full((32,), 5.0),
+                       torch.tensor([1.0, 6.0])])
+    one = torch.cat([torch.full((32,), 3.0), torch.full((32,), 5.0), torch.tensor([1.0, 2.0])])
+    s = regroup.grid_warp_stats(torch.stack([search, fall, read, lists, one]))
+    assert s["rays"] == 66 and s["warps"] == 3
+    assert s["searches_per_ray"] == pytest.approx(float(search.mean()))
+    assert s["fallback_share"] == pytest.approx(2.0 / float(search.sum()))
+    assert s["entries_per_search"] == pytest.approx(25.0)
+    assert s["worst_lane_searches_per_warp"] == pytest.approx((10 + 5 + 4) / 3)
+    assert s["warp_efficiency"] == pytest.approx(float(search.mean()) / ((10 + 5 + 4) / 3))
+    assert s["lists_per_warp_step"] == pytest.approx((20 + 5 + 6) / (10 + 5 + 4))
+    assert s["one_list_share"] == pytest.approx((3 + 5 + 2) / (10 + 5 + 4))
+
+
+def test_march_track_and_shadow_sorted_take_a_grid():
+    """march_track and shadow_sorted accept the frame's cell grid on the
+    tensors' device (the CPU takes the plain versions, whose values do not
+    depend on it) and refuse a grid on another device before anything
+    runs; the sweep entry runs on the card only."""
+    scene = instanced_spheres(n=40, seed=2, device="cpu")
+    st, cfg = scene.structure, RenderConfig(step_clamp=2.0)
+    cam = camera_pack(scene.params, 6, 10, cfg)
+    fields, tables = pack_fields(st, scene.params), pack_instanced(st, scene.params)
+    grid = grid_for(tables, cfg.step_clamp)
+    regroup.launches.update({k: 0 for k in regroup.launches})
+    tr = regroup.march_track(st, cfg, cam, fields, tables, 6, 10, grid=grid)
+    want = regroup.march_track_reference(st, cfg, cam, fields, tables, 6, 10)
+    for a, b in zip(tr, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    perm = regroup.shadow_order(tr.rec[0], *regroup.hit_box(tr.hitp))
+    got = regroup.shadow_sorted(st, cfg, fields, tables, tr.rec[0], perm, grid=grid)
+    torch.testing.assert_close(
+        got, regroup.shadow_sorted_reference(st, cfg, fields, tables, tr.rec[0], perm),
+        rtol=0, atol=0)
+    assert not any(regroup.launches.values())
+    away = grid._replace(cell_start=grid.cell_start.to("meta"),
+                         cell_rows=grid.cell_rows.to("meta"),
+                         cell_spheres=grid.cell_spheres.to("meta"))
+    with pytest.raises(ValueError, match="grid cell_start"):
+        regroup.march_track(st, cfg, cam, fields, tables, 6, 10, grid=away)
+    with pytest.raises(ValueError, match="grid cell_start"):
+        regroup.shadow_sorted(st, cfg, fields, tables, tr.rec[0], perm, grid=away)
+    with pytest.raises(ValueError, match="card"):
+        regroup.shadow_variant(st, cfg, fields, tables, tr.rec[0], perm, grid, "lanes")
 
 
 def test_regrouped_renderer_contract(monkeypatch, examples_dir):
