@@ -133,31 +133,27 @@ Phases, one line each:
    `lol_rg_shadow` over the cell grid, their run-walk twins, the counting
    launches of the walk and of the grid, `lol_rg_shade`; started with the
    other builds in phase 1) for clamp 2, exact, clamp 2 + AA and shadow
-   clamp 8, and the sweep of lol_rg_shadow's variants for clamp 2
-   (`cuda_scene.RG_SHADOW_VARIANTS`: the warp-list read, block sizes, a
-   minimum of blocks per SM, gathered records, the squared-distance cull,
-   batched loads), ptxas registers and spills of every kernel and variant;
+   clamp 8, ptxas registers and spills of every kernel;
    at 97x161, on phase 10's instanced cases, lol_rg_march and lol_rg_shadow
    over the grid bitwise their walk twins, each kernel against its plain
    version (`march_track_reference`: hit and material equal, the rest by
    phase 18's rule; `shadow_sorted_reference` per light over the Morton
-   order; `shade_planes_reference` by the phase-2 rule), every sweep
-   variant bitwise lol_rg_shadow (clamp 2), and the pipeline's image
-   bitwise `lol_instanced_render`'s;
+   order; `shade_planes_reference` by the phase-2 rule), and the
+   pipeline's image bitwise `lol_instanced_render`'s;
 23. main path D: `make_instanced_renderer_regrouped` of instanced:10000
    @1920x1080, clamp 2 and exact: one cell grid built, one lol_rg_march,
    one lol_rg_shadow per light and one lol_rg_shade, no walk twin and no
    lol_instanced_render; the image bitwise lol_instanced_render's. At
    clamp 2, lol_rg_march bitwise its walk twin and lol_rg_shadow's planes
    equal sorted and in pixel order (the identity permutation), over the
-   grid and the walk, and in every sweep variant. Then (CUDA events,
-   median of 3): lol_rg_march and its walk twin, the grid build, the glue
-   (`hit_box`, the Morton keys and argsorts), lol_rg_shade, the frame,
-   lol_rg_shadow per light sorted and unsorted over the grid and the walk,
-   lol_instanced_render in the same call, every sweep variant per light,
-   and the exact frame beside lol_instanced_render's; `shadow_gather_stats`
-   per light sorted and unsorted over the grid (searches, fallbacks, list
-   entries, distinct lists per warp step) and over the walk; device time
+   grid and the walk. Then (CUDA events, median of 3): lol_rg_march and
+   its walk twin, the grid build, the glue (`hit_box`, the Morton keys and
+   argsorts), lol_rg_shade, the frame, lol_rg_shadow per light sorted and
+   unsorted over the grid and the walk, lol_instanced_render in the same
+   call, and the exact frame beside lol_instanced_render's;
+   `shadow_gather_stats` per light sorted and unsorted over the grid
+   (searches, fallbacks, list entries, distinct lists per warp step) and
+   over the walk; device time
    by kernel and the idle share (`chip_smoke.py --profile-regroup`, a
    process of its own); the plain version on the middle 16-row band
    (through the pack's row0, the band launch bitwise the frame's rows),
@@ -223,7 +219,7 @@ in path C's frame (their `ms` per 16-row band at the rule's `lanes`,
 [band, half frame, frame] per width); the K9 kernels' those of path D's
 clamp-2 frame (their `ms` per launch, lol_rg_march's and lol_rg_shadow's
 over the grid beside `walk_ms`, lol_rg_shadow for light 0 sorted beside
-`unsorted_ms` and, under `lights`, each light's times, sweep and bound;
+`unsorted_ms` and, under `lights`, each light's times and bound;
 lol_rg_shade's entry carries the frame, the glue and K5's time);
 K8's those of `cli peak` (its `ms` the best full-size call, `device_ms`
 the profiler's, `plain_ms` at `plain_ms_iters` iterations); K7's those of
@@ -353,24 +349,19 @@ def time_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-# csrc/regroup.cuh RgShadowView, in order
-RG_VIEWS = ("direct", "walk counts", "grid counts", "warp_list", "squared_cull", "batched")
-
-
 def ptxas_lines(log: str):
     """(kernel, "N registers, M bytes spill stores, K bytes spill loads")
     per compiled entry function of an nvcc -Xptxas -v log."""
     out, name = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m and "rg_" in m.group(1):  # K9: the search, and for K9b its view and shape
+        if m and "rg_" in m.group(1):  # K9: the search, and whether it counts
             grid = re.search(r"GridSceneI\w*?Lb([01])E", m.group(1))
-            search = "walk" if not grid else "grid, counting" if grid.group(1) == "1" else "grid"
-            k = re.search(r"ELi(\d+)ELi(\d+)ELi(\d+)ELb([01])E", m.group(1))
+            view = re.search(r"Li(\d+)EJ", m.group(1))  # rg_shadow_kernel's RgShadowView
+            counting = grid.group(1) == "1" if grid else bool(view) and view.group(1) != "0"
             kind = next(x for x in ("rg_march", "rg_shadow", "rg_shade") if x in m.group(1))
-            name = f"{kind}_kernel ({search}" + (
-                f", {RG_VIEWS[int(k.group(1))]}, {k.group(2)} threads, min {k.group(3)} "
-                f"blocks{', gathered' if k.group(4) == '1' else ''}" if k else "") + ")"
+            name = (f"{kind}_kernel ({'grid' if grid else 'walk'}"
+                    f"{', counting' if counting else ''})")
         elif m and "march" in m.group(1):  # K3 / K4: march_kernel<kShadow, ...>
             coop = re.search(r"WarpGroupILi(\d+)E", m.group(1))  # the lane-group kernels
             lanes = coop.group(1) if coop else "1" if "instanced" in m.group(1) else None
@@ -1241,8 +1232,8 @@ def regroup_phases(dev, card, inst, inst_cfgs, regroup_built, t0, e_inst, evals_
                    ceiling):
     """Phases 22-24: the regrouped instanced forward K9 (lol_rg_march,
     lol_rg_shadow over the cell grid, their run-walk twins, lol_rg_shade)
-    and path D (module docstring). regroup_built: the four libraries, then
-    the sweep's; e_inst is phase 16's operations per instanced evaluation,
+    and path D (module docstring). regroup_built: the four libraries;
+    e_inst is phase 16's operations per instanced evaluation,
     evals_march phase 11's march evaluations per ray. Returns the three
     `kernels` entries."""
     import torch
@@ -1251,11 +1242,10 @@ def regroup_phases(dev, card, inst, inst_cfgs, regroup_built, t0, e_inst, evals_
     from loltracer_tpu_torch.render import instanced_fwd, regroup
     from loltracer_tpu_torch.render.camera import camera_pack
     from loltracer_tpu_torch.render.cell_grid import grid_for
-    from loltracer_tpu_torch.render.cuda_scene import RG_SHADOW_VARIANTS, pack_fields
+    from loltracer_tpu_torch.render.cuda_scene import pack_fields
     from loltracer_tpu_torch.render.instanced_pack import pack_instanced
 
     names = ("lol_rg_march", "lol_rg_shadow", "lol_rg_shade")
-    variants = list(RG_SHADOW_VARIANTS)
 
     def reset():
         for k in regroup.launches:
@@ -1264,12 +1254,9 @@ def regroup_phases(dev, card, inst, inst_cfgs, regroup_built, t0, e_inst, evals_
 
     # --- 22. build; K9 over the grid vs its walk twins and the plain versions --------
     built = [f.result() for f in regroup_built]
-    sweep = built.pop()
     print(f"[22] build: {len(built)} K9 libraries (clamp 2, exact, clamp 2 AA, shadow clamp 8) "
-          f"and the lol_rg_shadow sweep done {time.perf_counter() - t0:.1f} s after the builds "
-          f"started; ptxas (clamp 2): " + " | ".join(ptxas_lines(built[0].log)))
-    print("[22] ptxas of the sweep (lol_rg_shadow_variant, in RG_SHADOW_VARIANTS' order "
-          f"{variants}): " + " | ".join(ptxas_lines(sweep.log)))
+          f"done {time.perf_counter() - t0:.1f} s after the builds started; ptxas (clamp 2): "
+          + " | ".join(ptxas_lines(built[0].log)))
     h, w = 97, 161
     clamp2 = RenderConfig(step_clamp=2.0)
     errs = {k: 0.0 for k in names}
@@ -1310,13 +1297,6 @@ def regroup_phases(dev, card, inst, inst_cfgs, regroup_built, t0, e_inst, evals_
             errs["lol_rg_shadow"] = max(errs["lol_rg_shadow"], err)
             line.append(f"lol_rg_shadow light {li} bitwise its walk twin, vs plain max |diff| "
                         f"{err:.3g}, {differ} not bitwise")
-            if n == 10_000 and c == clamp2:
-                for v in variants:
-                    got_v = regroup.shadow_variant(st, c, fields, tab, got.rec[li], perm, grid, v)
-                    torch.cuda.synchronize()
-                    require(same_bits(got_v, shadow[li]),
-                            f"{what}: lol_rg_shadow variant {v} light {li} differs")
-                line.append(f"light {li}: every sweep variant bitwise")
         k_img = regroup.shade_planes(st, c, cam, fields, tab, got.track, shadow, h, w)
         p_img = regroup.shade_planes_reference(st, c, cam, fields, tab, got.track, shadow, h, w)
         torch.cuda.synchronize()
@@ -1398,15 +1378,8 @@ def regroup_phases(dev, card, inst, inst_cfgs, regroup_built, t0, e_inst, evals_
     shadow = planes[("sorted", False)]
     require(all(same_bits(v, shadow) for v in planes.values()),
             "lol_rg_shadow at 1080p: sorted / unsorted, grid / walk planes differ")
-    for li in range(L):
-        for v in variants:
-            got_v = regroup.shadow_variant(st, c, fields, tab, tr.rec[li], orders["sorted"][li],
-                                           grid, v)
-            torch.cuda.synchronize()
-            require(same_bits(got_v, shadow[li]),
-                    f"lol_rg_shadow variant {v} light {li} at 1080p differs")
     print("[23] 1080p clamp 2: lol_rg_march bitwise its walk twin; lol_rg_shadow's planes equal "
-          "sorted and unsorted, over the grid and the walk, and in every sweep variant")
+          "sorted and unsorted, over the grid and the walk")
 
     def glue():
         lo_, hi_ = regroup.hit_box(tr.hitp)
@@ -1441,14 +1414,6 @@ def regroup_phases(dev, card, inst, inst_cfgs, regroup_built, t0, e_inst, evals_
     print(f"[23] instanced:10000 clamp 2 {MAIN_W}x{MAIN_H} on {card}, CUDA events (median of 3): "
           + "; ".join(f"{k} {v:.3f} ms" for k, v in t.items())
           + f"; lol_instanced_render {k5_ms:.3f} ms in the same call")
-    sweep_ms = {}
-    for li in range(L):
-        for v in variants:
-            sweep_ms[(li, v)] = time_ms(lambda: regroup.shadow_variant(
-                st, c, fields, tab, tr.rec[li], orders["sorted"][li], grid, v, out=shadow[li]), 3)
-    print(f"[23] lol_rg_shadow sweep, sorted, CUDA events (median of 3), on {card}: "
-          + "; ".join(f"light {li}: " + ", ".join(f"{v} {sweep_ms[(li, v)]:.3f} ms"
-                                                  for v in variants) for li in range(L)))
     exact = RenderConfig()
     ecam = camera_pack(big.params, MAIN_H, MAIN_W, exact)
     exact_ms = {
@@ -1556,8 +1521,7 @@ def regroup_phases(dev, card, inst, inst_cfgs, regroup_built, t0, e_inst, evals_
                       "walk_ms": t[f"lol_rg_shadow_walk light {li} sorted"],
                       "walk_unsorted_ms": t[f"lol_rg_shadow_walk light {li} unsorted"],
                       "plain_ms": plain_pieces[f"lol_rg_shadow light {li}"],
-                      "bound_ms": rg_shadow_bounds[li][0], "bound_by": rg_shadow_bounds[li][1],
-                      "sweep_ms": {v: sweep_ms[(li, v)] for v in variants}}
+                      "bound_ms": rg_shadow_bounds[li][0], "bound_by": rg_shadow_bounds[li][1]}
                      for li in range(L)]),
         dict(entry("lol_rg_shade", src, "loltracer_tpu/render/pallas_regroup.py:266",
                    main_counts["lol_rg_shade"], errs["lol_rg_shade"], t["lol_rg_shade"],
@@ -2099,12 +2063,11 @@ def main() -> int:
                                               RenderConfig(step_clamp=2.0, shadow_step_clamp=8.0))]
     eval_clamps = (2.0, None, 8.0)  # K7 (phase 26): the one source per step clamp
     pool = ThreadPoolExecutor(max_workers=len(cases) + len(train_cases) + 2 * len(inst_cfgs)
-                              + len(inst_train_cfgs) + len(march_libs) + len(eval_clamps) + 2)
+                              + len(inst_train_cfgs) + len(march_libs) + len(eval_clamps) + 1)
     peak_built = pool.submit(peak.library)
     eval_built = [pool.submit(march_kernels.eval_library, inst[10_000].structure,
                               RenderConfig(step_clamp=c)) for c in eval_clamps]
-    regroup_built = ([pool.submit(regroup.library, c, inst[10_000].structure) for c in inst_cfgs]
-                     + [pool.submit(regroup.sweep_library, clamp2, inst[10_000].structure)])
+    regroup_built = [pool.submit(regroup.library, c, inst[10_000].structure) for c in inst_cfgs]
     march_built = [pool.submit(march_kernels.library, st, c) for st, c in march_libs]
     inst_train_built = [pool.submit(instanced_train.library, c, inst[10_000].structure)
                         for c in inst_train_cfgs]

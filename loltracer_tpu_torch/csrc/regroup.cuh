@@ -44,13 +44,15 @@
 // 16-byte load and ~10 FP32 / SFU operations, behind two dependent loads
 // (the cell's start, then its entries). The Morton order puts 32 shadow
 // origins that are neighbours in 3-D, marching toward one light, in a warp:
-// at most steps its active lanes search one list, so each entry's load is a
-// broadcast and the lanes' loops run in step. `lol_rg_shadow_grid_stats`
-// counts that (distinct lists per warp step, `GridCountingScene`), and the
-// sweep entry `lol_rg_shadow_variant` holds what was tried against it: the
-// warp reading its shared list once, coalesced, and passing the spheres by
-// shuffles (`WarpListScene`); the block size and a minimum of blocks per SM;
-// the records gathered into sorted order beforehand. PERF.md records each.
+// its active lanes search few distinct lists a step, so an entry's load is
+// mostly a broadcast, and they take about the same number of steps, which
+// is what the sort buys here (PERF.md). `lol_rg_shadow_grid_stats` counts
+// that (distinct lists per warp step, `GridCountingScene`). The entry loop
+// is issue-bound, not load-bound, so the sorted records are
+// read through perm and each lane reads its list on its own: reading a
+// shared list once and passing it by shuffles, other block sizes, a
+// minimum of blocks per SM, records gathered into sorted order, a
+// squared-distance cull and batched loads measured no faster (PERF.md).
 //
 // The TPU's (8, 128) tiles and 16x32 patches, its scratch gathers
 // (cfg.shadow_scratch, cfg.scratch_window) and the segment cull
@@ -211,160 +213,13 @@ struct GridCountingScene {
   }
 };
 
-// GridScene G's shadow distance with the min over the list [b, e) taken by
-// list_min(b, e, best) from the cut `best`: the rest (the cut, the list,
-// the fallback to the run walk, the planes) is GridScene::dist_under's,
-// so a list_min that returns GridScene's min gives its value bitwise. The
-// sweep's views below differ only in list_min.
-template <class Cfg, class G, class ListMin>
-__device__ __forceinline__ float grid_shadow_dist(const G& s, float px, float py, float pz,
-                                                  ListMin list_min) {
-  constexpr bool kHasClamp = Cfg::has_shadow_clamp;
-  const float d_box = s.box_dist(px, py, pz);
-  float best = kHasClamp ? jmax(d_box, Cfg::shadow_clamp) : INFINITY;  // the cut
-  int b, e;
-  const int where = s.locate(px, py, pz, d_box, b, e);
-  best = list_min(b, e, best);
-  if (s.falls_back(where, best, px, py, pz, d_box, e - b)) {
-    best = (kHasClamp || best < INFINITY) ? s.template walk<false>(px, py, pz, best)
-                                          : s.template walk<true>(px, py, pz, best);
-  }
-  return s.planes(py, best);
-}
-
-// The sweep's "warp_list": when every active lane takes the same list,
-// active lane k of n loads entries b + k, b + n + k, ... (one coalesced
-// read per n entries) and each sphere reaches every lane by __shfl_sync;
-// else each lane reads its own list, as GridScene does. The same
-// expression per entry, and min is order-free.
-template <class Cfg, class G>
-struct WarpListScene {
-  const G& s;
-
-  __device__ __forceinline__ float shadow_dist(float px, float py, float pz) const {
-    return grid_shadow_dist<Cfg>(s, px, py, pz, [&](int b, int e, float best) {
-#ifdef __CUDA_ARCH__
-      const unsigned active = __activemask();
-      if (__match_any_sync(active, ((unsigned long long)(unsigned)b << 32) | (unsigned)e) ==
-          active) {
-        unsigned lt;
-        asm("mov.u32 %0, %%lanemask_lt;" : "=r"(lt));
-        const int rank = __popc(active & lt), lanes = __popc(active);
-        for (int base = b; base < e; base += lanes) {
-          const float4 mine = base + rank < e ? __ldg(s.grid.cells + base + rank)
-                                              : make_float4(0.f, 0.f, 0.f, 0.f);
-          const int count = e - base < lanes ? e - base : lanes;
-          unsigned m = active;
-          for (int k = 0; k < count; ++k) {
-            const int src = __ffs(m) - 1;  // the k-th active lane loaded entry base + k
-            m &= m - 1;
-            const float dx = px - __shfl_sync(active, mine.x, src);
-            const float dy = py - __shfl_sync(active, mine.y, src);
-            const float dz = pz - __shfl_sync(active, mine.z, src);
-            const float d =
-                sqrtf((dx * dx + dy * dy) + dz * dz) - __shfl_sync(active, mine.w, src);
-            if (d < best) best = d;
-          }
-        }
-        return best;
-      }
-#endif
-      for (int k = b; k < e; ++k) {
-        const float d = s.entry_dist(k, px, py, pz);
-        if (d < best) best = d;
-      }
-      return best;
-    });
-  }
-};
-
-// The sweep's "squared_cull": each entry (c, r) first tested on its squared
-// distance d2. It can lower the running min `best` only if fl(sqrt(d2)) -
-// r < best exactly (fl is monotone and best a float), i.e. sqrt(d2) <
-// (best + r) / (1 - u), u = 2^-24; the computed t = best + r, t * t and its
-// product with kCullSlack each lose at most a factor (1 - u), so an entry
-// with d2 > (t * t) * kCullSlack, kCullSlack >= (1 - u)^-6, cannot, and its
-// IEEE sqrt is skipped. t <= 0: no entry can (sqrt >= 0); t below 2^-60,
-// where t * t may be subnormal: none is skipped. The entries that pass
-// take GridScene's expression, so the min is GridScene's bitwise. A warp
-// skips the sqrt only when all its lanes do.
-template <class Cfg, class G>
-struct SquaredCullScene {
-  static constexpr float kCullSlack = 1.00000095367431640625f;  // 1 + 2^-20
-  const G& s;
-
-  __device__ __forceinline__ float shadow_dist(float px, float py, float pz) const {
-    return grid_shadow_dist<Cfg>(s, px, py, pz, [&](int b, int e, float best) {
-      for (int k = b; k < e; ++k) {
-        const float4 c = __ldg(s.grid.cells + k);
-        const float t = best + c.w;
-        if (!(t > 0.f)) continue;
-        const float dx = px - c.x, dy = py - c.y, dz = pz - c.z;
-        const float d2 = (dx * dx + dy * dy) + dz * dz;
-        if (t >= 0x1p-60f && d2 > (t * t) * kCullSlack) continue;
-        const float d = sqrtf(d2) - c.w;
-        if (d < best) best = d;
-      }
-      return best;
-    });
-  }
-};
-
-// The sweep's "batched": the list read four entries ahead, four 16-byte
-// loads issued before their four distances. Min is order-free.
-template <class Cfg, class G>
-struct BatchedScene {
-  const G& s;
-
-  __device__ __forceinline__ float shadow_dist(float px, float py, float pz) const {
-    return grid_shadow_dist<Cfg>(s, px, py, pz, [&](int b, int e, float best) {
-      int k = b;
-      for (; k + 4 <= e; k += 4) {
-        float4 c[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) c[j] = __ldg(s.grid.cells + k + j);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float dx = px - c[j].x, dy = py - c[j].y, dz = pz - c[j].z;
-          const float d = sqrtf((dx * dx + dy * dy) + dz * dz) - c[j].w;
-          if (d < best) best = d;
-        }
-      }
-      for (; k < e; ++k) {
-        const float d = s.entry_dist(k, px, py, pz);
-        if (d < best) best = d;
-      }
-      return best;
-    });
-  }
-};
-
-// rg_shadow_at over records gathered into sorted order beforehand (the
-// sweep's "gathered"): thread i reads record i of rec_sorted [7, n] and
-// writes (res, t*) to pixel perm[i].
-template <class Cfg, class Scene>
-__device__ __forceinline__ void rg_shadow_gathered_at(const Scene& scn,
-                                                      const float* __restrict__ rec_sorted,
-                                                      const long long* __restrict__ perm,
-                                                      float* __restrict__ out, size_t i,
-                                                      size_t n) {
-  const size_t p = (size_t)__ldg(perm + i);
-  const float* r = rec_sorted + i;
-  float t_star;
-  out[p] = shadow_ray<Cfg>(scn, __ldg(r), __ldg(r + n), __ldg(r + 2 * n), __ldg(r + 3 * n),
-                           __ldg(r + 4 * n), __ldg(r + 5 * n), __ldg(r + 6 * n), t_star);
-  out[n + p] = t_star;
-}
-
 // What a lol_rg_shadow launch marches through: the Scene itself, or one
-// of the views above over it.
-enum RgShadowView { kRgDirect, kRgWalkCounts, kRgGridCounts, kRgWarpList, kRgSquaredCull, kRgBatched };
+// of the counting views above over it.
+enum RgShadowView { kRgDirect, kRgWalkCounts, kRgGridCounts };
 
-// lol_rg_shadow's launch shape: 1-D blocks, so that a warp is 32
-// consecutive records, and no minimum of blocks per SM (the sweep,
-// PERF.md).
+// Threads per block of lol_rg_shadow: 1-D, so that a warp is 32
+// consecutive records.
 constexpr int kRgShadowBlock = 128;
-constexpr int kRgShadowMinBlocks = 1;
 
 #ifdef __CUDACC__
 // Index: what the Scene's search takes beyond the tables (GridScene's cell
@@ -396,9 +251,8 @@ __global__ void __launch_bounds__(kInstBlockX * kInstBlockY)
 // kRgWalkCounts (CountingScene's), [5, n] for kRgGridCounts (searches,
 // fallbacks, entries read, distinct lists of the warp summed over its
 // steps, steps in one list); null otherwise.
-template <class Cfg, class Scene, int kView, int kBlock, int kMinBlocks, bool kGathered,
-          class... Index>
-__global__ void __launch_bounds__(kBlock, kMinBlocks)
+template <class Cfg, class Scene, int kView, class... Index>
+__global__ void __launch_bounds__(kRgShadowBlock)
     rg_shadow_kernel(const float* __restrict__ P, InstancedTables tab,
                      const float* __restrict__ rec, const long long* __restrict__ perm,
                      float* __restrict__ out, float* __restrict__ stats, long long n,
@@ -425,17 +279,6 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
     stats[2 * n + i] = (float)scn.n_read;
     stats[3 * n + i] = counting.lists_warp;
     stats[4 * n + i] = counting.one_list;
-  } else if constexpr (kView == kRgWarpList) {
-    const WarpListScene<Cfg, Scene> view{scn};
-    rg_shadow_at<Cfg>(view, rec, perm, out, (size_t)i, (size_t)n);
-  } else if constexpr (kView == kRgSquaredCull) {
-    const SquaredCullScene<Cfg, Scene> view{scn};
-    rg_shadow_at<Cfg>(view, rec, perm, out, (size_t)i, (size_t)n);
-  } else if constexpr (kView == kRgBatched) {
-    const BatchedScene<Cfg, Scene> view{scn};
-    rg_shadow_at<Cfg>(view, rec, perm, out, (size_t)i, (size_t)n);
-  } else if constexpr (kGathered) {
-    rg_shadow_gathered_at<Cfg>(scn, rec, perm, out, (size_t)i, (size_t)n);
   } else {
     rg_shadow_at<Cfg>(scn, rec, perm, out, (size_t)i, (size_t)n);
   }
@@ -488,18 +331,16 @@ int launch_rg_march(const float* cam, const float* fields, const InstancedTables
   return (int)cudaGetLastError();
 }
 
-template <class Cfg, class Scene, int kView, int kBlock = kRgShadowBlock,
-          int kMinBlocks = kRgShadowMinBlocks, bool kGathered = false, class... Index>
+template <class Cfg, class Scene, int kView, class... Index>
 int launch_rg_shadow(const float* fields, const InstancedTables& tab, const float* rec,
                      const long long* perm, float* out, float* stats, long long n,
                      cudaStream_t stream, Index... index) {
-  const auto kernel = rg_shadow_kernel<Cfg, Scene, kView, kBlock, kMinBlocks, kGathered,
-                                       Index...>;
+  const auto kernel = rg_shadow_kernel<Cfg, Scene, kView, Index...>;
   int smem;
   if (const int e = rg_smem(kernel, tab, smem)) return e;
-  const long long blocks = (n + kBlock - 1) / kBlock;
-  kernel<<<(unsigned)blocks, kBlock, smem, stream>>>(fields, tab, rec, perm, out, stats, n,
-                                                     index...);
+  const long long blocks = (n + kRgShadowBlock - 1) / kRgShadowBlock;
+  kernel<<<(unsigned)blocks, kRgShadowBlock, smem, stream>>>(fields, tab, rec, perm, out,
+                                                             stats, n, index...);
   return (int)cudaGetLastError();
 }
 

@@ -48,8 +48,7 @@ per structure and config holds both. `generate_regroup_source(structure,
 cfg)` is the source of the regrouped instanced forward K9 (csrc/regroup.cuh: lol_rg_march
 and lol_rg_shadow over the cell grid, with run-walk twins and counting
 entries, and lol_rg_shade on the run walk), one text for every sphere
-count too; `sweep=True` gives the sweep of lol_rg_shadow's launch shapes
-and reads (RG_SHADOW_VARIANTS).
+count too.
 `generate_eval_source(structure, cfg)` is the source of K7
 (`lol_instanced_eval`, csrc/march.cuh): the instanced distance at points
 under cfg.step_clamp over the cell grid, its planes' heights read from a
@@ -894,34 +893,7 @@ RG_SHADOW = "lol_rg_shadow"
 RG_SHADOW_WALK = "lol_rg_shadow_walk"
 RG_SHADOW_STATS = "lol_rg_shadow_stats"
 RG_SHADOW_GRID_STATS = "lol_rg_shadow_grid_stats"
-RG_SHADOW_VARIANT = "lol_rg_shadow_variant"
 RG_SHADE = "lol_rg_shade"
-
-# The launch shapes and reads of lol_rg_shadow over the grid that the sweep
-# entry holds against each other (csrc/regroup.cuh; PERF.md records them):
-# name -> (view, threads per block, minimum blocks per SM, records gathered
-# into sorted order beforehand). "lanes" is lol_rg_shadow's own.
-RG_SHADOW_VARIANTS = {
-    "lanes": ("kRgDirect", 128, 1, False),
-    "warp_list": ("kRgWarpList", 128, 1, False),
-    "block64": ("kRgDirect", 64, 1, False),
-    "block256": ("kRgDirect", 256, 1, False),
-    "min_blocks12": ("kRgDirect", 128, 12, False),
-    "min_blocks16": ("kRgDirect", 128, 16, False),
-    "gathered": ("kRgDirect", 128, 1, True),
-    "squared_cull": ("kRgSquaredCull", 128, 1, False),
-    "batched": ("kRgBatched", 128, 1, False),
-}
-
-_RG_SHADOW_ARGS = """\
-const void* fields, const void* spheres, const void* ids, const void* groups,
-    const void* bbox, int num_spheres, int num_groups, const void* rec, const void* perm,
-    void* out"""
-
-_RG_SHADOW_CASTS = """\
-      static_cast<const float*>(fields), tab, static_cast<const float*>(rec),
-      static_cast<const long long*>(perm), static_cast<float*>(out)"""
-
 
 def _rg_march_entry(name: str, scene: str) -> str:
     """A lol_rg_march entry over the search `scene` (a lol_gen alias), as
@@ -944,36 +916,21 @@ extern "C" int {name}(const void* cam, const void* fields, const void* spheres,
 def _rg_shadow_entry(name: str, scene: str, view: str, stats: bool) -> str:
     """A lol_rg_shadow entry over the search `scene` through `view`
     (csrc/regroup.cuh RgShadowView), with the per-thread count planes
-    (`counts`) when `stats`, at lol_rg_shadow's launch shape."""
+    (`counts`) when `stats`."""
     grid = scene != "Scene"
     return f"""\
-extern "C" int {name}({_RG_SHADOW_ARGS}, {"void* counts, " if stats else ""}long long n,
+extern "C" int {name}(const void* fields, const void* spheres, const void* ids,
+                      const void* groups, const void* bbox, int num_spheres, int num_groups,
+                      const void* rec, const void* perm, void* out,
+                      {"void* counts, " if stats else ""}long long n,
                       {_GRID_PARAMS + ", " if grid else ""}void* stream) {{
 {_TABLES}
 {_GRID if grid else ""}
   return lol::launch_rg_shadow<lol_gen::Cfg, lol_gen::{scene}, lol::{view}>(
-{_RG_SHADOW_CASTS}, {"static_cast<float*>(counts)" if stats else "nullptr"}, n,
+      static_cast<const float*>(fields), tab, static_cast<const float*>(rec),
+      static_cast<const long long*>(perm), static_cast<float*>(out),
+      {"static_cast<float*>(counts)" if stats else "nullptr"}, n,
       static_cast<cudaStream_t>(stream){", grid" if grid else ""});
-}}"""
-
-
-def _rg_shadow_variant_entry() -> str:
-    """The sweep entry: lol_rg_shadow over the grid in RG_SHADOW_VARIANTS'
-    variant number `variant` (in its order); -1 for another number."""
-    cases = "\n".join(
-        f"    case {k}: return lol::launch_rg_shadow<lol_gen::Cfg, lol_gen::SceneOnGrid, "
-        f"lol::{view}, {block}, {min_blocks}, {'true' if gathered else 'false'}>(\n"
-        f"{_RG_SHADOW_CASTS}, nullptr, n, static_cast<cudaStream_t>(stream), grid);"
-        for k, (view, block, min_blocks, gathered) in enumerate(RG_SHADOW_VARIANTS.values()))
-    return f"""\
-extern "C" int {RG_SHADOW_VARIANT}(int variant, {_RG_SHADOW_ARGS}, long long n,
-                                   {_GRID_PARAMS}, void* stream) {{
-{_TABLES}
-{_GRID}
-  switch (variant) {{
-{cases}
-    default: return -1;
-  }}
 }}"""
 
 
@@ -1002,8 +959,7 @@ _RG_ENTRIES = "\n\n".join([
 ])
 
 
-def generate_regroup_source(structure: SceneStructure, cfg: RenderConfig,
-                            sweep: bool = False) -> str:
+def generate_regroup_source(structure: SceneStructure, cfg: RenderConfig) -> str:
     """The CUDA translation unit of the regrouped instanced forward K9 for
     this instanced structure and config: csrc/fused_fwd.cuh (whose march
     and shade halves they run), csrc/instanced_scene.cuh,
@@ -1011,8 +967,7 @@ def generate_regroup_source(structure: SceneStructure, cfg: RenderConfig,
     the layout. Its entries: `lol_rg_march` and `lol_rg_shadow` over the
     cell grid, their run-walk twins (`_walk`), the counting launches of the
     walk (`lol_rg_shadow_stats`) and of the grid
-    (`lol_rg_shadow_grid_stats`), and `lol_rg_shade` (the run walk); with
-    `sweep`, `lol_rg_shadow_variant` alone (RG_SHADOW_VARIANTS). One text
+    (`lol_rg_shadow_grid_stats`), and `lol_rg_shade` (the run walk). One text
     for every sphere count; deterministic; holds no scene numbers. The
     device functions also compile as host C++."""
     require_instanced(structure)
@@ -1033,7 +988,7 @@ def generate_regroup_source(structure: SceneStructure, cfg: RenderConfig,
             "}  // namespace lol_gen",
             "",
             "#ifdef __CUDACC__",
-            _rg_shadow_variant_entry() if sweep else _RG_ENTRIES,
+            _RG_ENTRIES,
             "#endif  // __CUDACC__",
             "",
         ]

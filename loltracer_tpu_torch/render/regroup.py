@@ -39,9 +39,7 @@ plain pipeline is bitwise `instanced_fwd.instanced_forward_reference`.
 `shadow_gather_stats` measures what the sort does to one light's shadow
 rays, counted in a stats launch on the card: over the grid (searches,
 fallbacks, list entries, distinct lists per warp step) or, with
-`walk=True`, over the run walk (runs reached per evaluation). `shadow_variant` launches
-the sweep of lol_rg_shadow's launch shapes and reads
-(`cuda_scene.RG_SHADOW_VARIANTS`), for the measurement only.
+`walk=True`, over the run walk (runs reached per evaluation).
 
 `launches` counts kernel launches per entry; the plain versions never add
 to it. A failed build or launch raises; nothing falls back.
@@ -68,8 +66,6 @@ from loltracer_tpu_torch.render.cuda_scene import (
     RG_SHADOW,
     RG_SHADOW_GRID_STATS,
     RG_SHADOW_STATS,
-    RG_SHADOW_VARIANT,
-    RG_SHADOW_VARIANTS,
     RG_SHADOW_WALK,
     generate_regroup_source,
     pack_fields,
@@ -103,13 +99,11 @@ __all__ = [
     "shadow_order",
     "shadow_sorted",
     "shadow_sorted_reference",
-    "shadow_variant",
-    "sweep_library",
     "warp_stats",
 ]
 
 launches = {name: 0 for name in (RG_MARCH, RG_MARCH_WALK, RG_SHADOW, RG_SHADOW_WALK, RG_SHADE,
-                                 RG_SHADOW_STATS, RG_SHADOW_GRID_STATS, RG_SHADOW_VARIANT)}
+                                 RG_SHADOW_STATS, RG_SHADOW_GRID_STATS)}
 
 WARP = 32
 RECORD = 7  # floats per shadow record: origin (3), unit direction (3), distance
@@ -285,43 +279,30 @@ def regrouped_forward_reference(
 # --------------------------------------------------------------------------
 
 
-_PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_TABLE_TYPES = [_PTR] * 4 + [_I32] * 2
-_SHADOW_TYPES = [_PTR] + _TABLE_TYPES + [_PTR] * 3  # fields, tables, rec, perm, out
-
-
-def _bind(built: _build.Library, argtypes: Dict[str, list]) -> _build.Library:
-    for name, args in argtypes.items():
-        fn = getattr(built.lib, name)
-        fn.argtypes = args
-        fn.restype = ctypes.c_int
-    return built
-
-
 @functools.lru_cache(maxsize=None)
 def library(cfg: RenderConfig, structure: SceneStructure) -> _build.Library:
     """The built K9 library for this config and structure (compiled at
     first use, then loaded from the build cache); structures that differ
     only in their sphere count or material ids share one source."""
-    march = [_PTR, _PTR] + _TABLE_TYPES + [_PTR] * 3 + [_I32] * 3
-    return _bind(_build.build(generate_regroup_source(structure, cfg), "regroup"), {
-        RG_MARCH: march + GRID_ARGTYPES + [_PTR],
-        RG_MARCH_WALK: march + [_PTR],
-        RG_SHADOW: _SHADOW_TYPES + [_I64] + GRID_ARGTYPES + [_PTR],
-        RG_SHADOW_WALK: _SHADOW_TYPES + [_I64, _PTR],
-        RG_SHADOW_STATS: _SHADOW_TYPES + [_PTR, _I64, _PTR],
-        RG_SHADOW_GRID_STATS: _SHADOW_TYPES + [_PTR, _I64] + GRID_ARGTYPES + [_PTR],
-        RG_SHADE: [_PTR, _PTR] + _TABLE_TYPES + [_PTR] * 3 + [_I32] * 3 + [_PTR],
-    })
-
-
-@functools.lru_cache(maxsize=None)
-def sweep_library(cfg: RenderConfig, structure: SceneStructure) -> _build.Library:
-    """The built sweep of lol_rg_shadow's variants (`lol_rg_shadow_variant`,
-    cuda_scene.RG_SHADOW_VARIANTS) for this config and structure."""
-    return _bind(_build.build(generate_regroup_source(structure, cfg, sweep=True),
-                              "regroup_sweep"),
-                 {RG_SHADOW_VARIANT: [_I32] + _SHADOW_TYPES + [_I64] + GRID_ARGTYPES + [_PTR]})
+    built = _build.build(generate_regroup_source(structure, cfg), "regroup")
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    tables = [ptr] * 4 + [i32] * 2
+    march = [ptr, ptr] + tables + [ptr] * 3 + [i32] * 3
+    shadow = [ptr] + tables + [ptr] * 3  # fields, tables, rec, perm, out
+    argtypes = {
+        RG_MARCH: march + GRID_ARGTYPES + [ptr],
+        RG_MARCH_WALK: march + [ptr],
+        RG_SHADOW: shadow + [i64] + GRID_ARGTYPES + [ptr],
+        RG_SHADOW_WALK: shadow + [i64, ptr],
+        RG_SHADOW_STATS: shadow + [ptr, i64, ptr],
+        RG_SHADOW_GRID_STATS: shadow + [ptr, i64] + GRID_ARGTYPES + [ptr],
+        RG_SHADE: [ptr, ptr] + tables + [ptr] * 3 + [i32] * 3 + [ptr],
+    }
+    for name, args in argtypes.items():
+        fn = getattr(built.lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    return built
 
 
 def _table_args(tables: InstancedTables):
@@ -330,8 +311,7 @@ def _table_args(tables: InstancedTables):
 
 
 def _launch(cfg, structure, name, device, *args):
-    lib = sweep_library if name == RG_SHADOW_VARIANT else library
-    fn = getattr(lib(cfg, structure).lib, name)
+    fn = getattr(library(cfg, structure).lib, name)
     with torch.cuda.device(device):
         rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
@@ -401,14 +381,6 @@ def _check_shadow(structure, fields, tables, rec_l, perm) -> int:
     return n
 
 
-def _shadow_out(rec_l, out):
-    if out is None:
-        out = torch.empty((2,) + tuple(rec_l.shape[1:]), dtype=torch.float32,
-                          device=rec_l.device)
-    _check("out", out, (2,) + tuple(rec_l.shape[1:]))
-    return out
-
-
 def shadow_sorted(
     structure: SceneStructure, cfg: RenderConfig, fields, tables: InstancedTables,
     rec_l: torch.Tensor, perm: torch.Tensor, out: Optional[torch.Tensor] = None,
@@ -427,34 +399,12 @@ def shadow_sorted(
         return res if out is None else out.copy_(res)
     n = _check_shadow(structure, fields, tables, rec_l, perm)
     name, index = _search(RG_SHADOW, RG_SHADOW_WALK, cfg, tables, grid, walk, rec_l.device)
-    out = _shadow_out(rec_l, out)
+    if out is None:
+        out = torch.empty((2,) + tuple(rec_l.shape[1:]), dtype=torch.float32,
+                          device=rec_l.device)
+    _check("out", out, (2,) + tuple(rec_l.shape[1:]))
     _launch(cfg, structure, name, rec_l.device, fields.data_ptr(),
             *_table_args(tables), rec_l.data_ptr(), perm.data_ptr(), out.data_ptr(), n, *index)
-    return out
-
-
-def shadow_variant(
-    structure: SceneStructure, cfg: RenderConfig, fields, tables: InstancedTables,
-    rec_l: torch.Tensor, perm: torch.Tensor, grid: CellGrid, variant: str,
-    out: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """lol_rg_shadow over `grid` in the sweep's `variant` (a key of
-    cuda_scene.RG_SHADOW_VARIANTS; "gathered" gathers the records into the
-    order perm first, here): the same planes as shadow_sorted's, for the
-    measurement of the variants on the card only (CUDA tensors)."""
-    require_instanced(structure)
-    if rec_l.device.type != "cuda":
-        raise ValueError("shadow_variant launches the sweep on the card: pass CUDA tensors")
-    n = _check_shadow(structure, fields, tables, rec_l, perm)
-    check_grid(grid, rec_l.device)
-    names = list(RG_SHADOW_VARIANTS)
-    if variant not in names:
-        raise ValueError(f"no lol_rg_shadow variant {variant!r}; the sweep holds {names}")
-    out = _shadow_out(rec_l, out)
-    src = rec_l.reshape(RECORD, -1)[:, perm] if RG_SHADOW_VARIANTS[variant][3] else rec_l
-    _launch(cfg, structure, RG_SHADOW_VARIANT, rec_l.device, names.index(variant),
-            fields.data_ptr(), *_table_args(tables), src.data_ptr(), perm.data_ptr(),
-            out.data_ptr(), n, *grid_args(grid))
     return out
 
 

@@ -248,7 +248,7 @@ def test_march_track_and_shadow_sorted_take_a_grid():
     """march_track and shadow_sorted accept the frame's cell grid on the
     tensors' device (the CPU takes the plain versions, whose values do not
     depend on it) and refuse a grid on another device before anything
-    runs; the sweep entry runs on the card only."""
+    runs."""
     scene = instanced_spheres(n=40, seed=2, device="cpu")
     st, cfg = scene.structure, RenderConfig(step_clamp=2.0)
     cam = camera_pack(scene.params, 6, 10, cfg)
@@ -272,8 +272,6 @@ def test_march_track_and_shadow_sorted_take_a_grid():
         regroup.march_track(st, cfg, cam, fields, tables, 6, 10, grid=away)
     with pytest.raises(ValueError, match="grid cell_start"):
         regroup.shadow_sorted(st, cfg, fields, tables, tr.rec[0], perm, grid=away)
-    with pytest.raises(ValueError, match="card"):
-        regroup.shadow_variant(st, cfg, fields, tables, tr.rec[0], perm, grid, "lanes")
 
 
 def test_regrouped_renderer_contract(monkeypatch, examples_dir):

@@ -8,9 +8,8 @@ places them), at clamp 2, exact, clamp 2 with AA and shadow clamp 8:
 
 - `rg_march_pixel` over the grid bitwise the same function over the run
   walk (`InstancedScene`);
-- `rg_shadow_at` over the grid (and through the sweep's views: the
-  warp-list read, records gathered into sorted order) bitwise the same
-  over the run walk, the records in the Morton order and in pixel order;
+- `rg_shadow_at` over the grid bitwise the same over the run walk, the
+  records in the Morton order and in pixel order;
 - the whole per-pixel pipeline over the grid (the march, each light's
   sorted shadows, the shade half) bitwise `render_pixel` over the walk;
 - the grid counting view's searches per ray equal to the plain shadow
@@ -49,7 +48,7 @@ CFGS = {
 }
 
 # the search of a host launch
-WALK, GRID, WARP_LIST, GATHERED, SQUARED_CULL = 0, 1, 2, 3, 4
+WALK, GRID = 0, 1
 
 _ENTRIES = r"""
 using lol_gen::Cfg;
@@ -85,14 +84,11 @@ extern "C" void host_rg_march(int search, const float* cam, const float* P, TABL
     }
 }
 
-// lol_rg_shadow's body over the walk (0), the grid (1), the warp-list view
-// (2), records gathered into the order perm (3) or the squared-distance
-// cull (4); with counts [5, n], the grid counting view instead
+// lol_rg_shadow's body over the walk (0) or the grid (1); with counts
+// [5, n], the grid counting view instead
 extern "C" void host_rg_shadow(int search, const float* P, TABLES, GRID, const float* rec,
                                const long long* perm, float* out, float* counts, int n) {
   SCENES;
-  const lol::WarpListScene<Cfg, SceneOnGrid> warp_list{grid};
-  const lol::SquaredCullScene<Cfg, SceneOnGrid> cull{grid};
   for (int i = 0; i < n; ++i) {
     if (counts) {
       const SceneOnGridStats counted(P, tab, grp, gt);
@@ -103,31 +99,11 @@ extern "C" void host_rg_shadow(int search, const float* P, TABLES, GRID, const f
       counts[2 * n + i] = (float)counted.n_read;
       counts[3 * n + i] = view.lists_warp;
       counts[4 * n + i] = view.one_list;
-    } else if (search == 4) {
-      lol::rg_shadow_at<Cfg>(cull, rec, perm, out, i, n);
-    } else if (search == 3) {
-      lol::rg_shadow_gathered_at<Cfg>(grid, rec, perm, out, i, n);
-    } else if (search == 2) {
-      lol::rg_shadow_at<Cfg>(warp_list, rec, perm, out, i, n);
     } else if (search == 1) {
       lol::rg_shadow_at<Cfg>(grid, rec, perm, out, i, n);
     } else {
       lol::rg_shadow_at<Cfg>(walk, rec, perm, out, i, n);
     }
-  }
-}
-
-// shadow_dist at points over the walk, the grid and the squared-distance
-// cull (rows of 3)
-extern "C" void host_shadow_dist(const float* P, TABLES, GRID, const float* pts, int n,
-                                 float* out) {
-  SCENES;
-  const lol::SquaredCullScene<Cfg, SceneOnGrid> cull{grid};
-  for (int i = 0; i < n; ++i) {
-    const float* p = pts + 3 * i;
-    out[3 * i] = walk.shadow_dist(p[0], p[1], p[2]);
-    out[3 * i + 1] = grid.shadow_dist(p[0], p[1], p[2]);
-    out[3 * i + 2] = cull.shadow_dist(p[0], p[1], p[2]);
   }
 }
 
@@ -207,8 +183,6 @@ def _march(case, search):
 def _shadow(case, search, rec_l, perm, counts=None):
     n = H * W
     rec_l = np.ascontiguousarray(rec_l.reshape(7, n))
-    if search == GATHERED:
-        rec_l = np.ascontiguousarray(rec_l[:, perm])
     out = np.zeros((2, n), np.float32)
     case["lib"].host_rg_shadow(search, *case["args"], _ptr(rec_l), _ptr(perm), _ptr(out),
                                None if counts is None else _ptr(counts), n)
@@ -238,18 +212,15 @@ def test_rg_march_over_the_grid_is_the_walks(case):
 
 
 def test_rg_shadow_over_the_grid_is_the_walks(case):
-    """rg_shadow_at over GridScene, through the warp-list view, over
-    records gathered into sorted order and through the squared-distance
-    cull, bitwise over the run walk, for
-    every light, sorted and in pixel order; the planes are the same in both
+    """rg_shadow_at over GridScene bitwise over the run walk, for every
+    light, sorted and in pixel order; the planes are the same in both
     orders."""
     _, hitp, rec = _march(case, GRID)
     planes = {}
     for li, order, perm in _orders(hitp, rec):
         want = _shadow(case, WALK, rec[li], perm)
-        for search in (GRID, WARP_LIST, GATHERED, SQUARED_CULL):
-            np.testing.assert_array_equal(_shadow(case, search, rec[li], perm), want,
-                                          err_msg=f"light {li} {order} search {search}")
+        np.testing.assert_array_equal(_shadow(case, GRID, rec[li], perm), want,
+                                      err_msg=f"light {li} {order}")
         planes.setdefault(li, []).append(want)
     for li, (a, b) in planes.items():
         np.testing.assert_array_equal(a, b)
@@ -306,29 +277,3 @@ def test_grid_counting_view_counts_the_plain_loop(case):
     if cfg.shadow_step_clamp is None and cfg.step_clamp is not None:
         assert fall.sum() < 0.05 * search.sum()
 
-
-def test_squared_cull_is_the_grids_at_points(case):
-    """SquaredCullScene::shadow_dist bitwise GridScene's and the run walk's
-    at the grid host test's points (near every sphere, on cell faces,
-    outside the AABB), on sphere surfaces (|p - c| = r up to rounding:
-    entries whose distance ties the running min) and at each sphere's
-    centre (negative distances)."""
-    from test_torch_grid_host import _face_points, _outside_points
-    from test_torch_instanced_host import _points
-
-    scene, grid = case["scene"], case["grid"]
-    pos = scene.params.sphere_point.numpy().astype(np.float64)
-    rad = scene.params.sphere_radius.numpy().astype(np.float64)
-    rng = np.random.default_rng(4)
-    u = rng.normal(size=(len(pos), 3))
-    u /= np.linalg.norm(u, axis=1, keepdims=True)
-    pts = np.concatenate([
-        _points(scene), _face_points(grid, 300, 2),
-        _outside_points(case["keep"][4], 200, 2),
-        (pos + u * rad[:, None]).astype(np.float32), pos.astype(np.float32),
-    ]).astype(np.float32)
-    out = np.zeros((len(pts), 3), np.float32)
-    case["lib"].host_shadow_dist(*case["args"], _ptr(pts), len(pts), _ptr(out))
-    np.testing.assert_array_equal(out[:, 1], out[:, 0])
-    np.testing.assert_array_equal(out[:, 2], out[:, 0])
-    assert (out[:, 0] < 0).sum() >= len(pos) - 5

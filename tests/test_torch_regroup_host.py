@@ -6,7 +6,7 @@ tests/test_torch_instanced_host.py):
 
 - the regroup source: deterministic, one text for every sphere count, its
   entry points (the grid kernels, their walk twins, the two counting
-  launches, the shade kernel) and the sweep's;
+  launches, the shade kernel);
 - `render_pixel` (march half + shade half) against the function as it was
   written before the split (kept below, verbatim but for its name): image
   and residual planes bitwise, on scene4 with AA (K1, K1r) and on
@@ -40,7 +40,6 @@ from loltracer_tpu_torch.render import regroup
 from loltracer_tpu_torch.render.camera import camera_pack
 from loltracer_tpu_torch.render.cuda_scene import (
     CSRC,
-    RG_SHADOW_VARIANTS,
     generate_instanced_source,
     generate_regroup_source,
     generate_source,
@@ -370,14 +369,8 @@ def test_regroup_source_entries_and_determinism():
     for name in ("lol_rg_march", "lol_rg_march_walk", "lol_rg_shadow", "lol_rg_shadow_walk",
                  "lol_rg_shadow_stats", "lol_rg_shadow_grid_stats", "lol_rg_shade"):
         assert f"int {name}(" in entries
-    assert "lol_rg_shadow_variant" not in entries
     for body in ("grid_scene.cuh", "regroup.cuh"):
         assert (CSRC / body).read_text() in src
-    sweep = generate_regroup_source(a.structure, cfg, sweep=True)
-    assert sweep == generate_regroup_source(b.structure, cfg, sweep=True)
-    sweep_entries = sweep.rsplit("#ifdef __CUDACC__", 1)[1]
-    assert "int lol_rg_shadow_variant(" in sweep_entries and "int lol_rg_shadow(" not in sweep_entries
-    assert sweep_entries.count("case ") == len(RG_SHADOW_VARIANTS)
     assert src != generate_regroup_source(a.structure, RenderConfig())
     with pytest.raises(ValueError):
         generate_regroup_source(build_scene(parse_scene_file(
