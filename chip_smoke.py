@@ -64,27 +64,37 @@ Phases, one line each:
    process of its own: `chip_smoke.py --profile-instanced`), the plain
    version's time on one band, and the bound;
 13. build lol_instanced_fwd and lol_instanced_bwd (the instanced training
-   pair, started with the other builds in phase 1) for clamp 2, exact and
-   clamp 2 + AA with envelope shadows; ptxas registers and spills;
+   pair, both over the cell grid, with lol_instanced_bwd's run-walk and
+   counting twins; started with the other builds in phase 1) for clamp 2,
+   exact and clamp 2 + AA with envelope shadows; ptxas registers and
+   spills;
 14. at 97x161, instanced:10000 in those three configs and instanced:300
    and :1 at clamp 2: lol_instanced_fwd's image bitwise
    lol_instanced_render's, its residual planes by the phase-6 rule against
-   the plain version; lol_instanced_bwd vs the plain version on the
-   kernel's residuals and a seeded cotangent by the phase-7 rule, the
-   sphere table (x y z r per sorted row) included, and two launches
-   bitwise equal;
+   the plain version; lol_instanced_bwd over the grid bitwise
+   lol_instanced_bwd_walk and a second launch in its records, grads and
+   sphere table, the sphere table bitwise its records summed per row in
+   increasing record index (`serial_row_sums`), and vs the plain version
+   on the kernel's residuals and a seeded cotangent by the phase-7 rule,
+   the sphere table (x y z r per sorted row) included;
 15. the main path: `fit_scene` on instanced:10000 @1920x1080, clamp 2,
    envelope shadows, sphere points trainable, 3 Adam steps against K5's
-   render with the spheres moved: one launch of each kernel per step, and
-   the loss falls. Then both kernels against the plain version on two
-   full-width 16-row bands through the camera pack's row0 (the bands'
-   launches bitwise the frame's rows), and lol_instanced_bwd's full-frame
-   launch against the plain version run on every 16-row band of the frame
-   and summed, by the phase-7 rule;
-16. one fwd+bwd step of `make_instanced_training_renderer` timed (median of
-   3, CUDA events), its two kernels timed apart, device time
-   (`chip_smoke.py --profile-instanced-train`, a process of its own), peak
-   memory, the plain versions on one band, and the bounds;
+   render with the spheres moved: one launch of each kernel and one cell
+   grid built per step, and the loss falls. Then both kernels against the
+   plain version on two full-width 16-row bands through the camera pack's
+   row0 (the bands' launches bitwise the frame's rows), and
+   lol_instanced_bwd's full-frame launch, held as in phase 14 against its
+   walk twin and its records, and against the plain version run on every
+   16-row band of the frame and summed, by the phase-7 rule;
+16. one fwd+bwd step of `make_instanced_training_renderer` (one grid
+   built in it) timed (median of 3, CUDA events); over a built grid its
+   two kernels timed apart, lol_instanced_bwd_walk in turns around them,
+   the grid build apart; lol_instanced_bwd's grid searches (its counting
+   twin: searches, fallbacks, entries read), the records per sphere-table
+   row, its ptxas lines; device time (`chip_smoke.py
+   --profile-instanced-train`, a process of its own, with the kernel's and
+   the scatter's device time apart), peak memory, the plain versions on
+   one band, and the bounds;
 17. build the value march kernels (K3 `lol_march` and K4 `lol_shadow_march`
    for the four examples; `lol_march_instanced` and
    `lol_shadow_march_instanced` for clamp 2, exact and shadow clamp 8, at
@@ -129,13 +139,13 @@ Phases, one line each:
    step, one round of the four march kernels and path C's middle band, and
    one path B step's peak memory by allocating line.
 
-22. build the regrouped instanced forward K9 (`lol_rg_march` and
-   `lol_rg_shadow` over the cell grid, their run-walk twins, the counting
-   launches of the walk and of the grid, `lol_rg_shade`; started with the
-   other builds in phase 1) for clamp 2, exact, clamp 2 + AA and shadow
+22. build the regrouped instanced forward K9 (`lol_rg_march`,
+   `lol_rg_shadow` and `lol_rg_shade` over the cell grid, their run-walk
+   twins, the counting launches of the walk and of the grid; started with
+   the other builds in phase 1) for clamp 2, exact, clamp 2 + AA and shadow
    clamp 8, ptxas registers and spills of every kernel;
-   at 97x161, on phase 10's instanced cases, lol_rg_march and lol_rg_shadow
-   over the grid bitwise their walk twins, each kernel against its plain
+   at 97x161, on phase 10's instanced cases, the three kernels over the
+   grid bitwise their walk twins, each kernel against its plain
    version (`march_track_reference`: hit and material equal, the rest by
    phase 18's rule; `shadow_sorted_reference` per light over the Morton
    order; `shade_planes_reference` by the phase-2 rule), and the
@@ -144,11 +154,13 @@ Phases, one line each:
    @1920x1080, clamp 2 and exact: one cell grid built, one lol_rg_march,
    one lol_rg_shadow per light and one lol_rg_shade, no walk twin and no
    lol_instanced_render; the image bitwise lol_instanced_render's. At
-   clamp 2, lol_rg_march bitwise its walk twin and lol_rg_shadow's planes
-   equal sorted and in pixel order (the identity permutation), over the
-   grid and the walk. Then (CUDA events, median of 3): lol_rg_march and
-   its walk twin, the grid build, the glue (`hit_box`, the Morton keys and
-   argsorts), lol_rg_shade, the frame, lol_rg_shadow per light sorted and
+   clamp 2, lol_rg_march and lol_rg_shade bitwise their walk twins and
+   lol_rg_shadow's planes equal sorted and in pixel order (the identity
+   permutation), over the grid and the walk; lol_rg_shade's grid searches
+   at clamp 2, clamp 2 + AA and exact (its counting twin). Then (CUDA
+   events, median of 3): lol_rg_march and its walk twin, the grid build,
+   the glue (`hit_box`, the Morton keys and argsorts), lol_rg_shade and
+   its walk twin, the frame, lol_rg_shadow per light sorted and
    unsorted over the grid and the walk, lol_instanced_render in the same
    call, and the exact frame beside lol_instanced_render's;
    `shadow_gather_stats` per light sorted and unsorted over the grid
@@ -216,11 +228,15 @@ The march kernels' launches in the `kernels` line are those of their main
 paths: lol_march in path A, lol_shadow_march in path B, the instanced pair
 in path C's frame (their `ms` per 16-row band at the rule's `lanes`,
 `frame_ms` one full-frame launch at the rule's `frame_lanes`, `sweep_ms`
-[band, half frame, frame] per width); the K9 kernels' those of path D's
-clamp-2 frame (their `ms` per launch, lol_rg_march's and lol_rg_shadow's
-over the grid beside `walk_ms`, lol_rg_shadow for light 0 sorted beside
-`unsorted_ms` and, under `lights`, each light's times and bound;
-lol_rg_shade's entry carries the frame, the glue and K5's time);
+[band, half frame, frame] per width); the instanced training pair's those
+of phase 15's `fit_scene` (their `ms` over a built grid, `grid_build_ms`
+beside; lol_instanced_bwd's walk twin's under `walk_ms`, before and
+after, with its fallback share and entries per search); the K9 kernels'
+those of path D's clamp-2 frame (their `ms` per launch over the grid
+beside their walk twins' `walk_ms`, lol_rg_shadow for light 0 sorted
+beside `unsorted_ms` and, under `lights`, each light's times and bound;
+lol_rg_shade's entry carries the frame, the glue, K5's time, the exact
+frame's and the fallback shares of its searches);
 K8's those of `cli peak` (its `ms` the best full-size call, `device_ms`
 the profiler's, `plain_ms` at `plain_ms_iters` iterations); K7's those of
 phase 27's frame (its `ms` one launch at the frame's hit points, beside
@@ -372,10 +388,11 @@ def ptxas_lines(log: str):
                                     "instanced_eval_kernel",
                                     "fused_fwd_kernel", "fused_bwd_kernel",
                                     "bwd_reduce_kernel", "rec_count_kernel",
-                                    "rec_scan_kernel", "rec_place_kernel",
+                                    "rec_part_kernel", "rec_row_kernel", "rec_start_kernel",
+                                    "rec_cursor_kernel", "rec_place_kernel",
                                     "rec_sum_kernel", m.group(1))
                         if k in m.group(1))
-            if name in ("instanced_fwd_kernel", "instanced_eval_kernel"):
+            if name in ("instanced_fwd_kernel", "instanced_bwd_kernel", "instanced_eval_kernel"):
                 # the search: the cell grid (its counting twin), or the run walk
                 grid = re.search(r"GridSceneI\w*?Lb([01])E", m.group(1))
                 name += (" (walk)" if not grid else
@@ -404,12 +421,14 @@ def sdf_ops(structure) -> int:
     return sum(node(n) for n in structure.objects) + len(structure.objects) - 1
 
 
-def profile_steps(step, n: int) -> str:
+def profile_steps(step, n: int, split=()) -> str:
     """Device time per step by kernel (torch.profiler, CUPTI), the wall
-    time per step on the host clock, and the device's idle share. One
-    more step runs first, traced and dropped (the profiler's warm-up): a
-    profile's first kernel was seen missing from its records (the fused
-    FMA chain of `--profile-peak`, the first of its three launches)."""
+    time per step on the host clock, and the device's idle share; for each
+    name part in `split`, the device time of the kernels whose names hold
+    it. One more step runs first, traced and dropped (the profiler's
+    warm-up): a profile's first kernel was seen missing from its records
+    (the fused FMA chain of `--profile-peak`, the first of its three
+    launches)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -438,8 +457,11 @@ def profile_steps(step, n: int) -> str:
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     top = "; ".join(f"{ms:.4f} ms x{cnt} {key[:60]}" for ms, cnt, key in rows[:6])
+    parts = "".join(
+        f"; {part}: {sum(r[0] for r in rows if part in r[2]):.4f} ms in "
+        f"{sum(r[1] for r in rows if part in r[2])} kernels" for part in split)
     return (f"wall {wall:.3f} ms/step, device busy {busy:.3f} ms/step in "
-            f"{sum(r[1] for r in rows)} kernels, idle {1 - busy / wall:.1%}; top: {top}")
+            f"{sum(r[1] for r in rows)} kernels, idle {1 - busy / wall:.1%}; top: {top}{parts}")
 
 
 def profile_instanced(train: bool) -> int:
@@ -481,7 +503,10 @@ def profile_instanced(train: bool) -> int:
             instanced_fwd.instanced_forward(sc.structure, cfg, cam, fields, tab, MAIN_H, MAIN_W)
 
     frame()
-    print(profile_steps(frame, 1))
+    # lol_instanced_bwd's kernel apart from its scatter's (rec_*, and the
+    # memset of its counts)
+    print(profile_steps(frame, 1, split=("instanced_bwd_kernel", "rec_", "Memset")
+                        if train else ()))
     return 0
 
 
@@ -1228,6 +1253,36 @@ def same_bits(a, b) -> bool:
                                               b.contiguous().view(torch.int32))
 
 
+def same_backward(a, b) -> bool:
+    """Whether two lol_instanced_bwd results with their records (dcam,
+    dfields, dsph, rows, vals) are bitwise equal: the gradients, every
+    record's row, and the vals of the slots that hold a row (the others
+    are never written)."""
+    import torch
+
+    rows, other = a[3], b[3]
+    return (all(same_bits(x, y) for x, y in zip(a[:3], b[:3])) and torch.equal(rows, other)
+            and same_bits(a[4][rows >= 0], b[4][other >= 0]))
+
+
+def serial_row_sums(rows, vals, ns: int):
+    """[ns, 4] f32 on the host: per sphere-table row the sum of its records
+    in increasing record index, added one by one from 0 (numpy's float32
+    cumsum, np.add.accumulate, is sequential): the scatter's contract."""
+    import numpy as np
+
+    r = rows.reshape(-1).cpu().numpy()
+    keep = np.flatnonzero(r >= 0)
+    order = keep[np.argsort(r[keep], kind="stable")]
+    v = vals.reshape(-1, 4).cpu().numpy()[order]
+    ends = np.cumsum(np.bincount(r[keep], minlength=ns))
+    out = np.zeros((ns, 4), np.float32)
+    for row in np.flatnonzero(np.diff(ends, prepend=0)):
+        out[row] = np.cumsum(v[(ends[row - 1] if row else 0):ends[row]], axis=0,
+                             dtype=np.float32)[-1]
+    return out
+
+
 def regroup_phases(dev, card, inst, inst_cfgs, regroup_built, t0, e_inst, evals_march,
                    ceiling):
     """Phases 22-24: the regrouped instanced forward K9 (lol_rg_march,
@@ -1239,7 +1294,7 @@ def regroup_phases(dev, card, inst, inst_cfgs, regroup_built, t0, e_inst, evals_
     import torch
 
     from loltracer_tpu_torch.config import RenderConfig
-    from loltracer_tpu_torch.render import instanced_fwd, regroup
+    from loltracer_tpu_torch.render import cell_grid, instanced_fwd, regroup
     from loltracer_tpu_torch.render.camera import camera_pack
     from loltracer_tpu_torch.render.cell_grid import grid_for
     from loltracer_tpu_torch.render.cuda_scene import pack_fields
@@ -1297,9 +1352,14 @@ def regroup_phases(dev, card, inst, inst_cfgs, regroup_built, t0, e_inst, evals_
             errs["lol_rg_shadow"] = max(errs["lol_rg_shadow"], err)
             line.append(f"lol_rg_shadow light {li} bitwise its walk twin, vs plain max |diff| "
                         f"{err:.3g}, {differ} not bitwise")
-        k_img = regroup.shade_planes(st, c, cam, fields, tab, got.track, shadow, h, w)
+        k_img = regroup.shade_planes(st, c, cam, fields, tab, got.track, shadow, h, w,
+                                     grid=grid)
+        walk_img = regroup.shade_planes(st, c, cam, fields, tab, got.track, shadow, h, w,
+                                        walk=True)
         p_img = regroup.shade_planes_reference(st, c, cam, fields, tab, got.track, shadow, h, w)
         torch.cuda.synchronize()
+        require(same_bits(k_img, walk_img),
+                f"{what}: lol_rg_shade differs from lol_rg_shade_walk")
         err, over = compare(k_img, p_img, f"{what} lol_rg_shade")
         errs["lol_rg_shade"] = max(errs["lol_rg_shade"], err)
         k5 = instanced_fwd.instanced_forward(st, c, cam, fields, tab, h, w)
@@ -1308,8 +1368,8 @@ def regroup_phases(dev, card, inst, inst_cfgs, regroup_built, t0, e_inst, evals_
         require(torch.equal(pipe, k5) and torch.equal(k_img, k5),
                 f"{what}: the regrouped image differs from lol_instanced_render's (max |diff| "
                 f"{float((pipe - k5).abs().max()):.3g})")
-        line.append(f"lol_rg_shade max |diff| {err:.3g}, {over} px over {ATOL}; image bitwise "
-                    f"lol_instanced_render's")
+        line.append(f"lol_rg_shade bitwise its walk twin, vs plain max |diff| {err:.3g}, "
+                    f"{over} px over {ATOL}; image bitwise lol_instanced_render's")
         print(f"[22] {what} {h}x{w}: " + "; ".join(line))
 
     # --- 23. path D: the regrouped renderer at 1080p --------------------------------
@@ -1317,28 +1377,17 @@ def regroup_phases(dev, card, inst, inst_cfgs, regroup_built, t0, e_inst, evals_
     st = big.structure
     L = st.num_lights
     k5_imgs = {}
-    builds = []
-    real_grid_for = regroup.grid_for
-
-    def counting_grid_for(*a, **k):
-        builds.append(1)
-        return real_grid_for(*a, **k)
-
     for tag, c in (("clamp 2", clamp2), ("exact", RenderConfig())):
         render = regroup.make_instanced_renderer_regrouped(st, MAIN_H, MAIN_W, c, device=dev)
         reset()
-        builds.clear()
-        regroup.grid_for = counting_grid_for
-        try:
-            img = render(big.params)
-        finally:
-            regroup.grid_for = real_grid_for
+        cell_grid.builds = 0
+        img = render(big.params)
         torch.cuda.synchronize()
         d_counts = {k: v for k, v in regroup.launches.items() if v}
         require(d_counts == {"lol_rg_march": 1, "lol_rg_shadow": L, "lol_rg_shade": 1}
-                and instanced_fwd.launches == 0 and len(builds) == 1,
+                and instanced_fwd.launches == 0 and cell_grid.builds == 1,
                 f"path D ({tag}) launched {d_counts}, lol_instanced_render "
-                f"{instanced_fwd.launches} times, and built {len(builds)} grids")
+                f"{instanced_fwd.launches} times, and built {cell_grid.builds} grids")
         if tag == "clamp 2":
             main_counts = d_counts
         cam, fields, tab = (camera_pack(big.params, MAIN_H, MAIN_W, c),
@@ -1378,8 +1427,40 @@ def regroup_phases(dev, card, inst, inst_cfgs, regroup_built, t0, e_inst, evals_
     shadow = planes[("sorted", False)]
     require(all(same_bits(v, shadow) for v in planes.values()),
             "lol_rg_shadow at 1080p: sorted / unsorted, grid / walk planes differ")
-    print("[23] 1080p clamp 2: lol_rg_march bitwise its walk twin; lol_rg_shadow's planes equal "
-          "sorted and unsorted, over the grid and the walk")
+    shaded = regroup.shade_planes(st, c, cam, fields, tab, tr.track, shadow, MAIN_H, MAIN_W,
+                                  grid=grid)
+    require(same_bits(shaded, regroup.shade_planes(st, c, cam, fields, tab, tr.track, shadow,
+                                                   MAIN_H, MAIN_W, walk=True)),
+            "lol_rg_shade at 1080p differs from lol_rg_shade_walk")
+    print("[23] 1080p clamp 2: lol_rg_march and lol_rg_shade bitwise their walk twins; "
+          "lol_rg_shadow's planes equal sorted and unsorted, over the grid and the walk")
+    # the shade's grid searches (lol_rg_shade_stats, bitwise lol_rg_shade):
+    # the normal taps, and with AA a miss's material lookup, which is
+    # unbounded
+    shade_stats = {}
+    for tag, sc_cfg in (("clamp 2", c), ("clamp 2 AA", RenderConfig(step_clamp=2.0,
+                                                                    antialias=True)),
+                        ("exact", RenderConfig())):
+        scam = camera_pack(big.params, MAIN_H, MAIN_W, sc_cfg)
+        sgrid = grid_for(tab, sc_cfg.step_clamp)
+        str_ = regroup.march_track(st, sc_cfg, scam, fields, tab, MAIN_H, MAIN_W, grid=sgrid)
+        slo, shi = regroup.hit_box(str_.hitp)
+        sshadow = torch.stack([regroup.shadow_sorted(
+            st, sc_cfg, fields, tab, str_.rec[li], regroup.shadow_order(str_.rec[li], slo, shi),
+            grid=sgrid) for li in range(L)])
+        counts = torch.zeros(3, dtype=torch.int64, device=dev)
+        counted = regroup.shade_planes(st, sc_cfg, scam, fields, tab, str_.track, sshadow,
+                                       MAIN_H, MAIN_W, grid=sgrid, stats=counts)
+        require(same_bits(counted, regroup.shade_planes(st, sc_cfg, scam, fields, tab,
+                                                        str_.track, sshadow, MAIN_H, MAIN_W,
+                                                        grid=sgrid)),
+                f"{tag}: lol_rg_shade_stats differs from lol_rg_shade")
+        n_search, n_fall, n_read = counts.tolist()
+        shade_stats[tag] = (n_fall / max(n_search, 1), n_read / max(n_search, 1),
+                            n_search / (MAIN_W * MAIN_H))
+    print("[23] lol_rg_shade's grid searches at 1080p (the counting twin, bitwise the kernel): "
+          + "; ".join(f"{k}: {v[2]:.2f} searches a pixel, {v[0]:.4%} fell back to the walk, "
+                      f"{v[1]:.2f} list entries read a search" for k, v in shade_stats.items()))
 
     def glue():
         lo_, hi_ = regroup.hit_box(tr.hitp)
@@ -1401,8 +1482,10 @@ def regroup_phases(dev, card, inst, inst_cfgs, regroup_built, t0, e_inst, evals_
             st, c, cam, fields, tab, MAIN_H, MAIN_W, walk=True), 3),
         "grid build": time_ms(lambda: grid_for(tab, c.step_clamp), 3),
         "glue": time_ms(glue, 3),
-        "lol_rg_shade": time_ms(lambda: regroup.shade_planes(st, c, cam, fields, tab, tr.track,
-                                                             shadow, MAIN_H, MAIN_W), 3),
+        "lol_rg_shade_walk": time_ms(lambda: regroup.shade_planes(
+            st, c, cam, fields, tab, tr.track, shadow, MAIN_H, MAIN_W, walk=True), 3),
+        "lol_rg_shade": time_ms(lambda: regroup.shade_planes(
+            st, c, cam, fields, tab, tr.track, shadow, MAIN_H, MAIN_W, grid=grid), 3),
         "frame": time_ms(frame, 3),
     }
     for li in range(L):
@@ -1526,7 +1609,10 @@ def regroup_phases(dev, card, inst, inst_cfgs, regroup_built, t0, e_inst, evals_
         dict(entry("lol_rg_shade", src, "loltracer_tpu/render/pallas_regroup.py:266",
                    main_counts["lol_rg_shade"], errs["lol_rg_shade"], t["lol_rg_shade"],
                    plain_pieces["lol_rg_shade"], rg_shade_bound), plain_ms_rows=BAND,
-             frame_ms=t["frame"], glue_ms=t["glue"], k5_ms=k5_ms),
+             walk_ms=t["lol_rg_shade_walk"], frame_ms=t["frame"], glue_ms=t["glue"],
+             k5_ms=k5_ms, exact_frame_ms=exact_ms["frame"],
+             exact_k5_ms=exact_ms["lol_instanced_render"],
+             fallback_share={k: v[0] for k, v in shade_stats.items()}),
     ]
 
 
@@ -2005,7 +2091,7 @@ def main() -> int:
     from loltracer_tpu_torch.lol import parse_scene_file
     from loltracer_tpu_torch.opt import fit_scene
     from loltracer_tpu_torch.render import fused_fwd, fused_train, instanced_fwd, instanced_train
-    from loltracer_tpu_torch.render import march_kernels, regroup
+    from loltracer_tpu_torch.render import cell_grid, march_kernels, regroup
     from loltracer_tpu_torch.utils import peak
     from loltracer_tpu_torch.render.cell_grid import grid_for
     from loltracer_tpu_torch.render.instanced_pack import GROUP, pack_instanced, sphere_bbox
@@ -2520,15 +2606,28 @@ def main() -> int:
 
     # --- 14. lol_instanced_fwd / lol_instanced_bwd vs the plain versions --------------
     def check_inst_bwd(sc, c, cam, fields, tab, res, hh, full_h, what, ref_rows=None):
-        # ref_rows: run the plain version on bands of that many rows (the
-        # pack's row0 moved down by each band's offset) and add their
-        # gradients up: the VJP is a sum over pixels
+        # lol_instanced_bwd over the cell grid: bitwise a second launch and
+        # lol_instanced_bwd_walk (records, grads, dsph), dsph bitwise the
+        # records summed per row in increasing record index, and against
+        # the plain version by the phase-7 rule. ref_rows: run the plain
+        # version on bands of that many rows (the pack's row0 moved down
+        # by each band's offset) and add their gradients up: the VJP is a
+        # sum over pixels
         gen = np.random.default_rng(0)
         ct = torch.from_numpy(gen.uniform(-1, 1, (hh, res.shape[2], 3)).astype(np.float32)).to(dev)
-        got = instanced_train.instanced_train_backward(sc.structure, c, cam, fields, tab, res,
-                                                       ct, full_h)
-        again = instanced_train.instanced_train_backward(sc.structure, c, cam, fields, tab, res,
-                                                         ct, full_h)
+        grid = grid_for(tab, c.step_clamp)
+        got, again, walked = (instanced_train.instanced_train_backward(
+            sc.structure, c, cam, fields, tab, res, ct, full_h, grid=grid, records=True, walk=walk)
+            for walk in (False, False, True))
+        torch.cuda.synchronize()
+        require(same_backward(got, again), f"{what}: two lol_instanced_bwd launches differ")
+        require(same_backward(got, walked), f"{what}: lol_instanced_bwd over the grid differs "
+                "from lol_instanced_bwd_walk (records, grads or dsph)")
+        serial = serial_row_sums(got[3], got[4], sc.structure.num_spheres)
+        require(same_bits(got[2].cpu(), torch.from_numpy(serial)),
+                f"{what}: dsph is not its records summed per row in increasing record index")
+        n_rec = int((got[3] >= 0).sum())
+        got = got[:3]
         want, step = None, ref_rows or hh
         for r in range(0, hh, step):
             rcam = cam.clone()
@@ -2537,8 +2636,6 @@ def main() -> int:
                 sc.structure, c, rcam, fields, tab, res[:, r:r + step], ct[r:r + step], full_h)
             want = part if want is None else tuple(a + b for a, b in zip(want, part))
         torch.cuda.synchronize()
-        require(all(torch.equal(a, b) for a, b in zip(got, again)),
-                f"{what}: two lol_instanced_bwd launches differ")
         require(all(bool(torch.isfinite(g).all()) for g in got), f"{what}: non-finite gradients")
         pairs = [(f, unpack_fields(sc.structure, got[1])[f], v)
                  for f, v in unpack_fields(sc.structure, want[1]).items()]
@@ -2556,7 +2653,7 @@ def main() -> int:
         atol = 1e-5 * max(1.0, float(pcam.abs().max()))
         require(bool((cam_err <= atol + 2e-3 * pcam.abs()).all()),
                 f"{what}: dcam {dcam.tolist()} vs plain {pcam.tolist()}")
-        return worst, worst_abs, float(cam_err.max())
+        return worst, worst_abs, float(cam_err.max()), n_rec
 
     it_cases = [(10_000, c) for c in inst_train_cfgs] + [(300, clamp2_env), (1, clamp2_env)]
     for n, c in it_cases:
@@ -2573,11 +2670,13 @@ def main() -> int:
                 f"{what}: lol_instanced_fwd image != lol_instanced_render's")
         err, over = compare(k_img, p_img, what)
         res_over = check_residuals(k_res, p_res, what)
-        worst, _, cam_err = check_inst_bwd(sc, c, cam, fields, tab, k_res, h, h, what)
+        worst, _, cam_err, n_rec = check_inst_bwd(sc, c, cam, fields, tab, k_res, h, h, what)
         print(f"[14] {what} {h}x{w}: image = lol_instanced_render bitwise; vs plain max |diff| "
               f"{err:.3g}, {over} px over {ATOL}; residual planes: {res_over}; "
-              f"lol_instanced_bwd fields and sphere table max |diff| / max|grad| {worst:.3g}, "
-              f"dcam max |diff| {cam_err:.3g}; two launches bitwise equal")
+              f"lol_instanced_bwd (grid) = lol_instanced_bwd_walk bitwise in its {n_rec} "
+              f"records, grads and dsph, dsph = its records summed in record order; fields and "
+              f"sphere table max |diff| / max|grad| {worst:.3g} vs plain, dcam max |diff| "
+              f"{cam_err:.3g}; two launches bitwise equal")
 
     # --- 15. main path: fit_scene on instanced:10000 ------------------------------------
     st10 = big.structure
@@ -2587,19 +2686,22 @@ def main() -> int:
     it_target = make_cuda_renderer(st10, MAIN_H, MAIN_W, clamp2_env, device=dev)(
         dataclasses.replace(big.params, sphere_point=moved))
     fit_steps = 3
-    instanced_train.launches_fwd = instanced_train.launches_bwd = 0
+    instanced_train.launches_fwd = instanced_train.launches_bwd = cell_grid.builds = 0
     it_fit = fit_scene(st10, big.params, it_target, steps=fit_steps, learning_rate=1e-2,
                        trainable=("sphere_point",), cfg=clamp2_env, device=dev)
     it_fwd_launches, it_bwd_launches = instanced_train.launches_fwd, instanced_train.launches_bwd
-    require(it_fwd_launches == fit_steps and it_bwd_launches == fit_steps,
+    it_builds = cell_grid.builds
+    require(it_fwd_launches == fit_steps and it_bwd_launches == fit_steps
+            and it_builds == fit_steps,
             f"fit_scene ({fit_steps} steps) launched lol_instanced_fwd {it_fwd_launches}, "
-            f"lol_instanced_bwd {it_bwd_launches} times")
+            f"lol_instanced_bwd {it_bwd_launches} times and built {it_builds} cell grids")
     it_losses = [float(v) for v in it_fit.losses]
     require(all(map(math.isfinite, it_losses)), f"non-finite loss: {it_losses}")
     require(it_losses[-1] < it_losses[0], f"the loss did not fall: {it_losses}")
     print(f"[15] main path: fit_scene instanced:10000 clamp 2 envelope {MAIN_W}x{MAIN_H}, "
           f"{fit_steps} Adam steps on sphere_point -> lol_instanced_fwd x{it_fwd_launches}, "
-          f"lol_instanced_bwd x{it_bwd_launches}; losses {it_losses}")
+          f"lol_instanced_bwd x{it_bwd_launches}, {it_builds} cell grids built (one a step, "
+          f"searched by both); losses {it_losses}")
 
     cam_it, fields_it, tab_it = inst_inputs(big, clamp2_env, MAIN_H, MAIN_W)
     img_it, res_it = instanced_train.instanced_train_forward(st10, clamp2_env, cam_it, fields_it,
@@ -2619,25 +2721,27 @@ def main() -> int:
                 f"{what}: the band launch differs from its frame's rows")
         err, over = compare(k_band, p_band, what)
         res_over = check_residuals(k_bres, p_bres, what)
-        worst, werr, cam_err = check_inst_bwd(big, clamp2_env, bcam, fields_it, tab_it, k_bres,
-                                              BAND, MAIN_H, what)
+        worst, werr, cam_err, _ = check_inst_bwd(big, clamp2_env, bcam, fields_it, tab_it,
+                                                 k_bres, BAND, MAIN_H, what)
         it_fwd_err, it_bwd_err = max(it_fwd_err, err), max(it_bwd_err, werr)
         print(f"[15] {name} band (rows {r0}-{r0 + BAND - 1}): lol_instanced_fwd = frame rows "
               f"bitwise, vs plain max |diff| {err:.3g}, {over} px over; residual planes: "
-              f"{res_over}; lol_instanced_bwd max |diff| / max|grad| {worst:.3g} (max |diff| "
-              f"{werr:.3g}), dcam max |diff| {cam_err:.3g}; two launches bitwise equal")
+              f"{res_over}; lol_instanced_bwd = its walk twin bitwise, max |diff| / max|grad| "
+              f"{worst:.3g} (max |diff| {werr:.3g}), dcam max |diff| {cam_err:.3g}; two "
+              f"launches bitwise equal")
     # lol_instanced_bwd at the main path's shape: one launch over the whole
     # frame (its reduce and scatter sum across all of it), the plain version
     # band by band on the same residuals and cotangent
     t_full = time.perf_counter()
-    worst, werr, cam_err = check_inst_bwd(big, clamp2_env, cam_it, fields_it, tab_it, res_it,
-                                          MAIN_H, MAIN_H, "instanced:10000 training full frame",
-                                          ref_rows=BAND)
+    worst, werr, cam_err, n_rec = check_inst_bwd(
+        big, clamp2_env, cam_it, fields_it, tab_it, res_it, MAIN_H, MAIN_H,
+        "instanced:10000 training full frame", ref_rows=BAND)
     it_bwd_err = max(it_bwd_err, werr)
-    print(f"[15] full frame {MAIN_W}x{MAIN_H}: lol_instanced_bwd vs the plain version summed "
-          f"over {-(-MAIN_H // BAND)} bands of {BAND} rows: max |diff| / max|grad| {worst:.3g} "
-          f"(max |diff| {werr:.3g}), dcam max |diff| {cam_err:.3g}; two launches bitwise equal "
-          f"({time.perf_counter() - t_full:.1f} s)")
+    print(f"[15] full frame {MAIN_W}x{MAIN_H}: lol_instanced_bwd (grid) = lol_instanced_bwd_walk "
+          f"bitwise in its {n_rec} records, grads and dsph, dsph = its records summed in record "
+          f"order; vs the plain version summed over {-(-MAIN_H // BAND)} bands of {BAND} rows: "
+          f"max |diff| / max|grad| {worst:.3g} (max |diff| {werr:.3g}), dcam max |diff| "
+          f"{cam_err:.3g}; two launches bitwise equal ({time.perf_counter() - t_full:.1f} s)")
 
     # --- 16. the instanced training step: times, memory, bounds ----------------------
     it_render = instanced_train.make_instanced_training_renderer(st10, MAIN_H, MAIN_W,
@@ -2652,13 +2756,15 @@ def main() -> int:
     ct_it = torch.from_numpy(np.random.default_rng(0).uniform(
         -1e-3, 1e-3, (MAIN_H, MAIN_W, 3)).astype(np.float32)).to(dev)
 
+    grid_it = grid_for(tab_it, 2.0)
+
     def k5r():
         instanced_train.instanced_train_forward(st10, clamp2_env, cam_it, fields_it, tab_it,
-                                                MAIN_H, MAIN_W)
+                                                MAIN_H, MAIN_W, grid=grid_it)
 
-    def k6():
+    def k6(walk=False):
         instanced_train.instanced_train_backward(st10, clamp2_env, cam_it, fields_it, tab_it,
-                                                 res_it, ct_it)
+                                                 res_it, ct_it, grid=grid_it, walk=walk)
 
     bcam = camera_pack(big.params, MAIN_H, MAIN_W, clamp2_env, row0=bands["middle"])
     _, bres = instanced_train.instanced_train_forward(st10, clamp2_env, bcam, fields_it, tab_it,
@@ -2673,18 +2779,47 @@ def main() -> int:
         instanced_train.instanced_train_backward_reference(
             st10, clamp2_env, bcam, fields_it, tab_it, bres, ct_band, MAIN_H)
 
-    it_step(), k6()
+    it_step(), k6(), k6(walk=True)
     torch.cuda.synchronize()
+    cell_grid.builds = 0
+    it_step()
+    require(cell_grid.builds == 1, f"one training step built {cell_grid.builds} cell grids")
     torch.cuda.reset_peak_memory_stats()
     it_step_ms = time_ms(it_step, 3)
     it_peak = torch.cuda.max_memory_allocated()
+    # turns: walk, grid, grid, walk (one card, one call)
+    k6_walk_ms = [time_ms(lambda: k6(walk=True), 2)]
     k5r_ms, k6_ms = time_ms(k5r, 3), time_ms(k6, 3)
+    k6_walk_ms.append(time_ms(lambda: k6(walk=True), 2))
+    it_build_ms = time_ms(lambda: grid_for(tab_it, 2.0), 3)
+    counts = torch.zeros(3, dtype=torch.int64, device=dev)
+    s_out = instanced_train.instanced_train_backward(st10, clamp2_env, cam_it, fields_it,
+                                                     tab_it, res_it, ct_it, grid=grid_it,
+                                                     stats=counts, records=True)
+    k_out = instanced_train.instanced_train_backward(st10, clamp2_env, cam_it, fields_it,
+                                                     tab_it, res_it, ct_it, grid=grid_it,
+                                                     records=True)
+    torch.cuda.synchronize()
+    require(same_backward(s_out, k_out), "lol_instanced_bwd_stats differs from lol_instanced_bwd")
+    n_search, n_fall, n_read = counts.tolist()
+    k6_stats = (n_fall / n_search, n_read / n_search, n_search / (MAIN_W * MAIN_H))
+    row_recs = torch.bincount(k_out[3][k_out[3] >= 0].long(), minlength=st10.num_spheres)
+    del s_out, k_out
     it_pf_ms, it_pb_ms = time_ms(it_plain_fwd, 1), time_ms(it_plain_bwd, 1)
     it_profile = run_profile("--profile-instanced-train")
     print(f"[16] instanced:10000 clamp 2 envelope {MAIN_W}x{MAIN_H} on {card}: fwd+bwd step "
-          f"{it_step_ms:.3f} ms (peak {it_peak / 2**20:.0f} MiB allocated); lol_instanced_fwd "
-          f"{k5r_ms:.3f} ms, lol_instanced_bwd {k6_ms:.3f} ms; plain fwd {it_pf_ms:.1f} ms, "
-          f"plain bwd {it_pb_ms:.1f} ms for one {BAND}-row band")
+          f"{it_step_ms:.3f} ms with one cell grid built (peak {it_peak / 2**20:.0f} MiB "
+          f"allocated); over a built grid lol_instanced_fwd {k5r_ms:.3f} ms, lol_instanced_bwd "
+          f"{k6_ms:.3f} ms (its walk twin {k6_walk_ms[0]:.3f} / {k6_walk_ms[1]:.3f} ms before / "
+          f"after); the grid build {it_build_ms:.3f} ms; plain fwd {it_pf_ms:.1f} ms, plain bwd "
+          f"{it_pb_ms:.1f} ms for one {BAND}-row band")
+    print(f"[16] lol_instanced_bwd's grid searches (the counting twin, bitwise the kernel): "
+          f"{k6_stats[2]:.2f} searches a pixel, {k6_stats[0]:.4%} fell back to the walk, "
+          f"{k6_stats[1]:.2f} list entries read a search; records per sphere-table row: "
+          f"max {int(row_recs.max())}, mean {float(row_recs.float().mean()):.1f} (the sum's "
+          f"longest chain); ptxas (clamp 2): "
+          + " | ".join(l for l in ptxas_lines(inst_train_built[0].log)
+                       if "instanced_bwd" in l or "rec_" in l))
     print(f"[16] torch.profiler over one step: {it_profile}")
 
     # Bounds on K5's work model (phase 12): an evaluation costs 9 operations
@@ -2747,11 +2882,12 @@ def main() -> int:
         dict(entry("lol_instanced_fwd", "loltracer_tpu_torch/csrc/grid_scene.cuh",
                    "loltracer_tpu/render/pallas_train.py:840", it_fwd_launches, it_fwd_err,
                    k5r_ms, it_pf_ms, k5r_bound),
-             plain_ms_rows=BAND, step_ms=it_step_ms),
+             plain_ms_rows=BAND, step_ms=it_step_ms, grid_build_ms=it_build_ms),
         dict(entry("lol_instanced_bwd", "loltracer_tpu_torch/csrc/instanced_bwd.cuh",
                    "loltracer_tpu/render/pallas_train.py:1314", it_bwd_launches, it_bwd_err,
                    k6_ms, it_pb_ms, k6_bound),
-             plain_ms_rows=BAND),
+             plain_ms_rows=BAND, walk_ms=k6_walk_ms, grid_build_ms=it_build_ms,
+             fallback_share=k6_stats[0], entries_per_search=k6_stats[1]),
         *march_entries,
         *regroup_entries,
         *peak_entries,

@@ -1,6 +1,8 @@
 // GridScene: the instanced distance search of lol_instanced_render /
-// lol_instanced_fwd (K5, K5r) and lol_instanced_eval (K7) over a cell grid
-// of candidate spheres (render/cell_grid.py), with InstancedScene's run walk
+// lol_instanced_fwd (K5, K5r), lol_instanced_bwd (K6, its SDF adjoint
+// `dist_bwd` through `winner`), lol_instanced_eval (K7) and lol_rg_march /
+// lol_rg_shadow / lol_rg_shade (K9a-c) over a cell grid of candidate spheres
+// (render/cell_grid.py), with InstancedScene's run walk
 // (csrc/instanced_scene.cuh) as its fallback.
 //
 // Why: the run walk costs every evaluation a pass over the ~157 run balls
@@ -113,9 +115,11 @@ struct GridScene : InstancedScene<L, C, GridScene<L, C, kCount>> {
   GridTables grid;
   mutable unsigned long long n_search = 0, n_fallback = 0, n_read = 0;
 
+  // records: where dist_bwd<true> records (K6), as InstancedScene's
   __device__ __forceinline__ GridScene(const float* __restrict__ P_, const InstancedTables& t,
-                                       const float4* groups, const GridTables& g)
-      : Base(P_, t, groups), grid(g) {}
+                                       const float4* groups, const GridTables& g,
+                                       RecordSink* records = nullptr)
+      : Base(P_, t, groups, records), grid(g) {}
 
   // [b, e) of grid.rows: the list of the cell of (x, y, z); false (and an
   // empty list) when the point lies outside the grid (NaN included)

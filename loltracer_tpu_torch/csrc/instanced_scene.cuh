@@ -6,10 +6,10 @@
 // with residuals off (the Pallas call named `lol_instanced_render`) and on
 // (`lol_instanced_fwd`). The pixel body is csrc/fused_fwd.cuh's
 // `render_pixel`; this file supplies the instanced `Scene`, the run walk
-// below, and the kernel that launches it. K5 and K5r search through
-// csrc/grid_scene.cuh's `GridScene` (a cell grid, this walk its fallback);
-// the walk alone is their check entry and the search of K6, K3i / K4i and
-// K9. With residuals, the IFT denominator is the
+// below, and the kernel that launches it. K5, K5r, K6, K7 and K9 search
+// through csrc/grid_scene.cuh's `GridScene` (a cell grid, this walk its
+// fallback); the walk alone is their check entry and the search of K3i /
+// K4i. With residuals, the IFT denominator is the
 // winner's normal . rd from `dist_bwd` (pallas_train.py:947-967), and the
 // image stays bitwise the residuals-off kernel's.
 //

@@ -31,11 +31,14 @@
 // warp, i.e. how far a warp's rays diverge in the cells they search and in
 // their step counts.
 //
-// The search. lol_rg_march and lol_rg_shadow search csrc/grid_scene.cuh's
-// `GridScene` (the cell grid of render/cell_grid.py, built once a frame and
-// shared by the march and every light's shadow launch), with the run walk
-// as its fallback, as K5 does; their `_walk` twins (`InstancedScene` alone)
-// are the check and the yardstick. lol_rg_shade keeps the run walk.
+// The search. All three search csrc/grid_scene.cuh's `GridScene` (the cell
+// grid of render/cell_grid.py, built once a frame and shared by the march,
+// every light's shadow launch and the shade), with the run walk as its
+// fallback, as K5 does; their `_walk` twins (`InstancedScene` alone) are
+// the check and the yardstick. The shade's searches are its four normal
+// taps under the primary clamp and, under AA, a miss's `sdf_mat`, which is
+// unbounded and falls back where no listed sphere is near;
+// `lol_rg_shade_stats` counts them.
 //
 // What bounds them on this card: as K5, FP32 / SFU issue, not bytes
 // (lol_rg_march writes 24 + 28 L B per pixel, lol_rg_shadow reads 28 B and
@@ -284,12 +287,12 @@ __global__ void __launch_bounds__(kRgShadowBlock)
   }
 }
 
-template <class Cfg, class Scene>
+template <class Cfg, class Scene, class... Index>
 __global__ void __launch_bounds__(kInstBlockX * kInstBlockY)
     rg_shade_kernel(const float* __restrict__ cam_in, const float* __restrict__ P,
                     InstancedTables tab, const float* __restrict__ track,
                     const float* __restrict__ shadow, float* __restrict__ img, int height,
-                    int full_height, int width) {
+                    int full_height, int width, Index... index) {
   extern __shared__ float4 s_groups[];
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   for (int i = tid; i < 2 * tab.num_groups; i += blockDim.x * blockDim.y)
@@ -302,9 +305,10 @@ __global__ void __launch_bounds__(kInstBlockX * kInstBlockY)
   float cam[kCamSize];
 #pragma unroll
   for (int i = 0; i < kCamSize; ++i) cam[i] = __ldg(cam_in + i);
-  const Scene scn(P, tab, s_groups);
+  const Scene scn(P, tab, s_groups, index...);
   rg_shade_pixel<Cfg>(cam, scn, P, x, y, full_height, width, track, shadow, img,
                       (size_t)height * width);
+  if constexpr (Scene::kStats) scn.flush();
 }
 
 // The group table in dynamic shared memory, above 48 KB only after opting in.
@@ -344,17 +348,17 @@ int launch_rg_shadow(const float* fields, const InstancedTables& tab, const floa
   return (int)cudaGetLastError();
 }
 
-template <class Cfg, class Scene>
+template <class Cfg, class Scene, class... Index>
 int launch_rg_shade(const float* cam, const float* fields, const InstancedTables& tab,
                     const float* track, const float* shadow, float* img, int height,
-                    int full_height, int width, cudaStream_t stream) {
+                    int full_height, int width, cudaStream_t stream, Index... index) {
   int smem;
-  if (const int e = rg_smem(rg_shade_kernel<Cfg, Scene>, tab, smem)) return e;
+  if (const int e = rg_smem(rg_shade_kernel<Cfg, Scene, Index...>, tab, smem)) return e;
   const dim3 block(kInstBlockX, kInstBlockY);
   const dim3 grid((width + kInstBlockX - 1) / kInstBlockX,
                   (height + kInstBlockY - 1) / kInstBlockY);
-  rg_shade_kernel<Cfg, Scene><<<grid, block, smem, stream>>>(cam, fields, tab, track, shadow,
-                                                             img, height, full_height, width);
+  rg_shade_kernel<Cfg, Scene, Index...><<<grid, block, smem, stream>>>(
+      cam, fields, tab, track, shadow, img, height, full_height, width, index...);
   return (int)cudaGetLastError();
 }
 #endif  // __CUDACC__

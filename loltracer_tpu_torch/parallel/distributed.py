@@ -17,13 +17,20 @@ environment variables, before `make_mesh()`:
 
 Without either it does nothing and returns False. The backend follows the
 devices: NCCL when CUDA is there and each rank on this host has a card of
-its own (LOCAL_WORLD_SIZE, else the world size, at most the card count),
-gloo otherwise: on the CPU, and for ranks that share one card, whose
-collectives gloo carries through the host.
+its own (`local_ranks` at most the card count), gloo otherwise: on the
+CPU, and for ranks that share one card, whose collectives gloo carries
+through the host. The ranks on this host are LOCAL_WORLD_SIZE where a
+launcher sets it. With explicit coordinates they are the whole world when
+the coordinator is a loopback address (every rank is on this host), else
+the length of LOLTRACE_LOCAL_DEVICE_IDS when it is set, else one a card:
+a world of 2 hosts x 8 cards (16 ranks) takes NCCL. A one-host launch of
+more ranks than cards over another address sets LOCAL_WORLD_SIZE. In the
+`env://` path without LOCAL_WORLD_SIZE they are the world size.
 """
 
 from __future__ import annotations
 
+import ipaddress
 import os
 from typing import Optional
 
@@ -41,12 +48,37 @@ def _int_env(name: str, default: Optional[str] = None) -> int:
         raise ValueError(f"{name}={value!r} is not an integer") from None
 
 
-def choose_backend(world_size: int) -> str:
+def _loopback(coordinator: str) -> bool:
+    """Whether the host of `coordinator` (host:port) is this machine's
+    loopback."""
+    host = coordinator.rsplit(":", 1)[0].strip("[]")
+    if host == "localhost":
+        return True
+    try:
+        return ipaddress.ip_address(host).is_loopback
+    except ValueError:
+        return False
+
+
+def local_ranks(world_size: int, coordinator: Optional[str] = None) -> int:
+    """The ranks on this host (module docstring): LOCAL_WORLD_SIZE when set;
+    with explicit coordinates (`coordinator`) the world size for a loopback
+    coordinator, else the length of LOLTRACE_LOCAL_DEVICE_IDS, else the
+    card count; in the `env://` path the world size."""
+    if "LOCAL_WORLD_SIZE" in os.environ:
+        return _int_env("LOCAL_WORLD_SIZE")
+    if coordinator is None or _loopback(coordinator):
+        return world_size
+    ids = os.environ.get("LOLTRACE_LOCAL_DEVICE_IDS")
+    return len(ids.split(",")) if ids else torch.cuda.device_count()
+
+
+def choose_backend(world_size: int, coordinator: Optional[str] = None) -> str:
     """"nccl" when CUDA is available and every rank on this host has a card
-    of its own, else "gloo"."""
+    of its own (`local_ranks`), else "gloo"."""
     if not torch.cuda.is_available() or not dist.is_nccl_available():
         return "gloo"
-    local = int(os.environ.get("LOCAL_WORLD_SIZE", world_size))
+    local = local_ranks(world_size, coordinator)
     return "nccl" if local <= torch.cuda.device_count() else "gloo"
 
 
@@ -78,7 +110,8 @@ def maybe_initialize() -> bool:
             raise ValueError(f"LOLTRACE_LOCAL_DEVICE_IDS={local!r} is not a list of "
                              "integers") from None
         _select_card(ids[0] if ids else None)
-        dist.init_process_group(choose_backend(num), init_method=f"tcp://{coordinator}",
+        dist.init_process_group(choose_backend(num, coordinator),
+                                init_method=f"tcp://{coordinator}",
                                 world_size=num, rank=pid)
         return True
     _select_card(_int_env("LOCAL_RANK") if "LOCAL_RANK" in os.environ else None)

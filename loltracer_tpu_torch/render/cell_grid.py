@@ -22,7 +22,8 @@ the floor's rounding), the exact box test on every (sphere, cell) pair,
 then one sort of the unique keys cell * Ns + row and a search for each
 cell's first entry. No atomics: two builds are bitwise equal. It syncs with
 the host a few times (the box, the pairs' count), so it is set-up work, not
-a kernel: this table has no TPU kernel to port.
+a kernel: this table has no TPU kernel to port. `builds` counts the calls
+of `build_cell_grid` (one a training step, one a regrouped frame).
 """
 
 from __future__ import annotations
@@ -52,6 +53,8 @@ MAX_CELLS = 1 << 24
 # Candidate (sphere, cell) pairs per step of the build: bounds its
 # temporaries (~50 bytes a pair).
 CHUNK = 1 << 24
+
+builds = 0
 
 
 class CellGrid(NamedTuple):
@@ -108,6 +111,8 @@ def build_cell_grid(tables, reach: float, cell: float = CELL) -> CellGrid:
     """The CellGrid of `tables.spheres` ([Ns, 4] f32 x y z r, Morton-sorted;
     InstancedTables or march_kernels.EvalTables) for `reach`, on its device
     (module docstring)."""
+    global builds
+    builds += 1
     sph = tables.spheres.detach()
     dev, ns = sph.device, sph.shape[0]
     pos, rad = sph[:, :3], sph[:, 3]

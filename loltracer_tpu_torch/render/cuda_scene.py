@@ -36,19 +36,20 @@ the sphere count nor the material ids, so `instanced:300` and
 `instanced:10000` share one library. With `residuals=True` it is the
 instanced training source: the forward with residuals (`lol_instanced_fwd`)
 and the backward of csrc/instanced_bwd.cuh (`lol_instanced_bwd`, with its
-reduce and scatter launches), whose SDF adjoint is the traversal's own
-`InstancedScene::dist_bwd`, not a generated one; the forward searches the
-grid, the backward (and K3i / K4i, K9c) still walks the runs.
+reduce and scatter launches), whose SDF adjoint is the search's own
+`InstancedScene::dist_bwd`, not a generated one; both search the cell grid
+(the backward the one its step's forward searched), with the run walk
+(`lol_instanced_bwd_walk`) and the counting grid (`lol_instanced_bwd_stats`)
+as the backward's check entries. K3i / K4i still walk the runs.
 
 `generate_march_source(structure, cfg)` is the source of the value march
 kernels K3 and K4 (csrc/march.cuh) on the compiled `Scene` or, for an
 instanced structure, on the `InstancedScene`, one thread a ray, or a lane
 group a ray (csrc/coop_march.cuh, each width of MARCH_LANES): one library
 per structure and config holds both. `generate_regroup_source(structure,
-cfg)` is the source of the regrouped instanced forward K9 (csrc/regroup.cuh: lol_rg_march
-and lol_rg_shadow over the cell grid, with run-walk twins and counting
-entries, and lol_rg_shade on the run walk), one text for every sphere
-count too.
+cfg)` is the source of the regrouped instanced forward K9 (csrc/regroup.cuh: lol_rg_march,
+lol_rg_shadow and lol_rg_shade over the cell grid, with run-walk twins and
+counting entries), one text for every sphere count too.
 `generate_eval_source(structure, cfg)` is the source of K7
 (`lol_instanced_eval`, csrc/march.cuh): the instanced distance at points
 under cfg.step_clamp over the cell grid, its planes' heights read from a
@@ -509,8 +510,10 @@ INSTANCED_WALK = "lol_instanced_render_walk"
 INSTANCED_STATS = "lol_instanced_render_stats"
 INSTANCED_FWD = "lol_instanced_fwd"
 INSTANCED_BWD = "lol_instanced_bwd"
+INSTANCED_BWD_WALK = "lol_instanced_bwd_walk"
+INSTANCED_BWD_STATS = "lol_instanced_bwd_stats"
 INSTANCED_BLOCKS = "lol_instanced_bwd_blocks"
-INSTANCED_CHUNKS = "lol_instanced_rec_chunks"
+INSTANCED_HIST_ROWS = "lol_instanced_rec_hist_rows"
 TRAIN_FWD = "lol_train_fwd"
 TRAIN_BWD = "lol_train_bwd"
 TRAIN_REDUCE = "lol_train_bwd_reduce"
@@ -608,7 +611,31 @@ _INSTANCED_ENTRY = "\n\n".join([
     _instanced_render_entry(INSTANCED_STATS, "SceneOnGridStats"),
 ])
 
-_INSTANCED_TRAIN_ENTRIES = f"""\
+def _instanced_bwd_entry(name: str, scene: str) -> str:
+    """A K6 entry over the search `scene` (a lol_gen alias), as
+    _instanced_render_entry."""
+    grid = scene != "Scene"
+    return f"""\
+extern "C" int {name}(const void* cam, const void* fields, const void* spheres,
+                      const void* ids, const void* groups, const void* bbox, int num_spheres,
+                      int num_groups, const void* res, const void* ct, void* partials,
+                      void* grads, void* rec_rows, void* rec_vals, void* hist, void* start,
+                      void* count, void* order, void* dsph, int height, int full_height,
+                      int width, {_GRID_PARAMS + ", " if grid else ""}void* stream) {{
+{_TABLES}
+{_GRID if grid else ""}
+  return lol::launch_instanced_bwd<lol_gen::Cfg, lol_gen::{scene}>(
+      static_cast<const float*>(cam), static_cast<const float*>(fields), tab,
+      static_cast<const float*>(res), static_cast<const float*>(ct),
+      static_cast<float*>(partials), static_cast<float*>(grads),
+      static_cast<int*>(rec_rows), static_cast<float4*>(rec_vals), static_cast<int*>(hist),
+      static_cast<int*>(start), static_cast<int*>(count), static_cast<int*>(order),
+      static_cast<float4*>(dsph), height, full_height, width,
+      static_cast<cudaStream_t>(stream){", grid" if grid else ""});
+}}"""
+
+
+_INSTANCED_TRAIN_ENTRIES = "\n\n".join([f"""\
 extern "C" int {INSTANCED_FWD}(const void* cam, const void* fields, const void* spheres,
                                  const void* ids, const void* groups, const void* bbox,
                                  int num_spheres, int num_groups, void* img, void* res,
@@ -626,27 +653,13 @@ extern "C" int {INSTANCED_BLOCKS}(int height, int width) {{
   return lol::inst_bwd_num_blocks(height, width);
 }}
 
-extern "C" int {INSTANCED_CHUNKS}(long long records) {{
-  return lol::rec_num_chunks(records);
-}}
-
-extern "C" int {INSTANCED_BWD}(const void* cam, const void* fields, const void* spheres,
-                                 const void* ids, const void* groups, const void* bbox,
-                                 int num_spheres, int num_groups, const void* res,
-                                 const void* ct, void* partials, void* grads, void* rec_rows,
-                                 void* rec_vals, void* hist, void* start, void* count,
-                                 void* order, void* dsph, int height, int full_height,
-                                 int width, void* stream) {{
-{_TABLES}
-  return lol::launch_instanced_bwd<lol_gen::Cfg, lol_gen::Scene>(
-      static_cast<const float*>(cam), static_cast<const float*>(fields), tab,
-      static_cast<const float*>(res), static_cast<const float*>(ct),
-      static_cast<float*>(partials), static_cast<float*>(grads),
-      static_cast<int*>(rec_rows), static_cast<float4*>(rec_vals), static_cast<int*>(hist),
-      static_cast<int*>(start), static_cast<int*>(count), static_cast<int*>(order),
-      static_cast<float4*>(dsph), height, full_height, width,
-      static_cast<cudaStream_t>(stream));
-}}"""
+extern "C" int {INSTANCED_HIST_ROWS}(long long records) {{
+  return lol::rec_hist_rows(records);
+}}""",
+    _instanced_bwd_entry(INSTANCED_BWD, "SceneOnGrid"),
+    _instanced_bwd_entry(INSTANCED_BWD_WALK, "Scene"),
+    _instanced_bwd_entry(INSTANCED_BWD_STATS, "SceneOnGridStats"),
+])
 
 
 def generate_instanced_source(
@@ -658,7 +671,8 @@ def generate_instanced_source(
     and csrc/grid_scene.cuh, then the Cfg (both clamps) and the layout.
     With `residuals`, the training pair instead: `lol_instanced_fwd` and
     `lol_instanced_bwd` (csrc/fused_bwd.cuh and csrc/instanced_bwd.cuh
-    join the bodies; the backward keeps the run walk). Deterministic; holds
+    join the bodies), both over the cell grid, and the backward's check
+    entries `lol_instanced_bwd_walk` and `lol_instanced_bwd_stats`. Deterministic; holds
     no scene numbers, no sphere count and no material ids. The device
     functions also compile as host C++."""
     require_instanced(structure)
@@ -894,6 +908,8 @@ RG_SHADOW_WALK = "lol_rg_shadow_walk"
 RG_SHADOW_STATS = "lol_rg_shadow_stats"
 RG_SHADOW_GRID_STATS = "lol_rg_shadow_grid_stats"
 RG_SHADE = "lol_rg_shade"
+RG_SHADE_WALK = "lol_rg_shade_walk"
+RG_SHADE_STATS = "lol_rg_shade_stats"
 
 def _rg_march_entry(name: str, scene: str) -> str:
     """A lol_rg_march entry over the search `scene` (a lol_gen alias), as
@@ -934,18 +950,23 @@ extern "C" int {name}(const void* fields, const void* spheres, const void* ids,
 }}"""
 
 
-_RG_SHADE_ENTRY = f"""\
-extern "C" int {RG_SHADE}(const void* cam, const void* fields, const void* spheres,
-                             const void* ids, const void* groups, const void* bbox,
-                             int num_spheres, int num_groups, const void* track,
-                             const void* shadow, void* img, int height, int full_height,
-                             int width, void* stream) {{
+def _rg_shade_entry(name: str, scene: str) -> str:
+    """A lol_rg_shade entry over the search `scene` (a lol_gen alias), as
+    _instanced_render_entry."""
+    grid = scene != "Scene"
+    return f"""\
+extern "C" int {name}(const void* cam, const void* fields, const void* spheres,
+                      const void* ids, const void* groups, const void* bbox, int num_spheres,
+                      int num_groups, const void* track, const void* shadow, void* img,
+                      int height, int full_height, int width,
+                      {_GRID_PARAMS + ", " if grid else ""}void* stream) {{
 {_TABLES}
-  return lol::launch_rg_shade<lol_gen::Cfg, lol_gen::Scene>(
+{_GRID if grid else ""}
+  return lol::launch_rg_shade<lol_gen::Cfg, lol_gen::{scene}>(
       static_cast<const float*>(cam), static_cast<const float*>(fields), tab,
       static_cast<const float*>(track), static_cast<const float*>(shadow),
       static_cast<float*>(img), height, full_height, width,
-      static_cast<cudaStream_t>(stream));
+      static_cast<cudaStream_t>(stream){", grid" if grid else ""});
 }}"""
 
 _RG_ENTRIES = "\n\n".join([
@@ -955,7 +976,9 @@ _RG_ENTRIES = "\n\n".join([
     _rg_shadow_entry(RG_SHADOW_WALK, "Scene", "kRgDirect", False),
     _rg_shadow_entry(RG_SHADOW_STATS, "Scene", "kRgWalkCounts", True),
     _rg_shadow_entry(RG_SHADOW_GRID_STATS, "SceneOnGridStats", "kRgGridCounts", True),
-    _RG_SHADE_ENTRY,
+    _rg_shade_entry(RG_SHADE, "SceneOnGrid"),
+    _rg_shade_entry(RG_SHADE_WALK, "Scene"),
+    _rg_shade_entry(RG_SHADE_STATS, "SceneOnGridStats"),
 ])
 
 
@@ -964,10 +987,10 @@ def generate_regroup_source(structure: SceneStructure, cfg: RenderConfig) -> str
     this instanced structure and config: csrc/fused_fwd.cuh (whose march
     and shade halves they run), csrc/instanced_scene.cuh,
     csrc/grid_scene.cuh, csrc/regroup.cuh, then the Cfg (both clamps) and
-    the layout. Its entries: `lol_rg_march` and `lol_rg_shadow` over the
-    cell grid, their run-walk twins (`_walk`), the counting launches of the
-    walk (`lol_rg_shadow_stats`) and of the grid
-    (`lol_rg_shadow_grid_stats`), and `lol_rg_shade` (the run walk). One text
+    the layout. Its entries: `lol_rg_march`, `lol_rg_shadow` and
+    `lol_rg_shade` over the cell grid, their run-walk twins (`_walk`), the
+    counting launches of the walk (`lol_rg_shadow_stats`) and of the grid
+    (`lol_rg_shadow_grid_stats`, `lol_rg_shade_stats`). One text
     for every sphere count; deterministic; holds no scene numbers. The
     device functions also compile as host C++."""
     require_instanced(structure)

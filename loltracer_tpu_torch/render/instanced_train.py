@@ -8,21 +8,25 @@
   fused_train (t_sh, hit, material, IFT denominator, per light res and t*).
   CUDA tensors launch `lol_instanced_fwd` (csrc/instanced_scene.cuh with
   Cfg::with_residuals, the port of `_instanced_fwd_kernel` with residuals
-  on; it searches a cell grid built from the tables at each call,
-  csrc/grid_scene.cuh, as lol_instanced_render does); CPU tensors take
-  `instanced_train_forward_reference`.
+  on; it searches the cell grid `grid`, csrc/grid_scene.cuh, as
+  lol_instanced_render does, built from the tables when none is given);
+  CPU tensors take `instanced_train_forward_reference`.
 - `instanced_train_backward(structure, cfg, cam, fields, tables, res, ct)
   -> (dcam [16], dfields [packed_size], dsph [Ns, 4])`: the vector-Jacobian
   product of `instanced_shade_from_frozen` at the residuals, dsph per
   Morton-sorted row of the sphere table (x y z r). CUDA tensors launch
   `lol_instanced_bwd` with its reduce and its deterministic scatter
-  (csrc/instanced_bwd.cuh, the port of `_instanced_bwd_kernel`); CPU
+  (csrc/instanced_bwd.cuh, the port of `_instanced_bwd_kernel`), over the
+  same kind of grid; `walk=True` launches its run-walk twin
+  (`lol_instanced_bwd_walk`, the check), `stats=` its counting twin; CPU
   tensors take `instanced_train_backward_reference`.
 - `make_instanced_training_renderer(structure, H, W, cfg, device) ->
   params -> img`, differentiable in every SceneParams field: the camera
   pack, the packed buffer and the sphere table (a gather through the Morton
   order, render/instanced_pack.py) are plain differentiable torch, so
-  autograd chains dcam, dfields and dsph back to the fields.
+  autograd chains dcam, dfields and dsph back to the fields. Its
+  `InstancedTrainRender` builds one cell grid a step, searched by the
+  forward and by the backward.
 
 Both take a band of an image through `full_height` and the pack's row0.
 The gradient is K6's: at every SDF site the instanced distance under the
@@ -45,13 +49,15 @@ from loltracer_tpu_torch import _build
 from loltracer_tpu_torch.config import DEFAULT_CONFIG, RenderConfig
 from loltracer_tpu_torch.render.backend import resolve_backend, resolve_device
 from loltracer_tpu_torch.render.camera import CAM_SIZE, camera_pack, rays_from_pack
-from loltracer_tpu_torch.render.cell_grid import check_grid, grid_args, grid_for
+from loltracer_tpu_torch.render.cell_grid import CellGrid, check_grid, grid_args, grid_for
 from loltracer_tpu_torch.render.cuda_scene import (
     GRID_ARGTYPES,
     INSTANCED_BLOCKS,
     INSTANCED_BWD,
-    INSTANCED_CHUNKS,
+    INSTANCED_BWD_STATS,
+    INSTANCED_BWD_WALK,
     INSTANCED_FWD,
+    INSTANCED_HIST_ROWS,
     generate_instanced_source,
     pack_fields,
     packed_size,
@@ -225,11 +231,14 @@ def library(cfg: RenderConfig, structure: SceneStructure) -> _build.Library:
     built = _build.build(generate_instanced_source(structure, cfg, residuals=True),
                          "instanced_train")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    bwd = [ptr] * 6 + [i32] * 2 + [ptr] * 11 + [i32] * 3
     for name, args in (
         (INSTANCED_FWD, [ptr] * 6 + [i32] * 2 + [ptr] * 2 + [i32] * 3 + GRID_ARGTYPES + [ptr]),
-        (INSTANCED_BWD, [ptr] * 6 + [i32] * 2 + [ptr] * 11 + [i32] * 3 + [ptr]),
+        (INSTANCED_BWD, bwd + GRID_ARGTYPES + [ptr]),
+        (INSTANCED_BWD_WALK, bwd + [ptr]),
+        (INSTANCED_BWD_STATS, bwd + GRID_ARGTYPES + [ptr]),
         (INSTANCED_BLOCKS, [i32, i32]),
-        (INSTANCED_CHUNKS, [ctypes.c_longlong]),
+        (INSTANCED_HIST_ROWS, [ctypes.c_longlong]),
     ):
         fn = getattr(built.lib, name)
         fn.argtypes = args
@@ -259,9 +268,12 @@ def instanced_train_forward(
     height: int,
     width: int,
     full_height: Optional[int] = None,
+    grid: Optional[CellGrid] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(img [H, W, 3], res [R, H, W]): lol_instanced_fwd for CUDA tensors,
-    the plain version for CPU tensors."""
+    searching `grid` (default: `cell_grid.grid_for(tables,
+    cfg.step_clamp)`, built now from the tables, whose spheres may have
+    moved since the last step), the plain version for CPU tensors."""
     require_instanced(structure)
     full_height = full_height or height
     if resolve_backend(cam, fields, *tables) == "torch":
@@ -271,7 +283,7 @@ def instanced_train_forward(
     if height <= 0 or width <= 0 or full_height < height:
         raise ValueError(f"bad image size {height}x{width} of {full_height} rows")
     lib = library(cfg, structure).lib
-    grid = grid_for(tables, cfg.step_clamp)  # the spheres may have moved since the last step
+    grid = grid_for(tables, cfg.step_clamp) if grid is None else grid
     check_grid(grid, cam.device)
     img = torch.empty((height, width, 3), dtype=torch.float32, device=cam.device)
     res = torch.empty((num_residuals(structure), height, width), dtype=torch.float32,
@@ -298,10 +310,21 @@ def instanced_train_backward(
     res: torch.Tensor,
     ct: torch.Tensor,
     full_height: Optional[int] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    grid: Optional[CellGrid] = None,
+    walk: bool = False,
+    stats: Optional[torch.Tensor] = None,
+    records: bool = False,
+) -> Tuple[torch.Tensor, ...]:
     """(dcam [16], dfields [packed_size], dsph [Ns, 4]) at the residuals for
     the image cotangent ct [H, W, 3]: lol_instanced_bwd (with its reduce and
-    scatter) for CUDA tensors, the plain version for CPU tensors."""
+    scatter) for CUDA tensors, the plain version for CPU tensors. On CUDA
+    the kernel searches `grid` (default: built now, as
+    instanced_train_forward's; InstancedTrainRender passes its forward's),
+    or with `walk` the run walk alone; `stats` (int64 [3] on the device)
+    takes the grid search's counts: searches, fallbacks, list entries read.
+    With `records`, the record buffer follows: rows [sites, H, W] int32
+    (-1 for none) and vals [sites, H, W, 4], what dsph sums per row in
+    increasing record index."""
     require_instanced(structure)
     if resolve_backend(cam, fields, *tables, res, ct) == "torch":
         return instanced_train_backward_reference(structure, cfg, cam, fields, tables, res,
@@ -317,12 +340,19 @@ def instanced_train_backward(
     _check("res", res, (num_residuals(structure), height, width))
     if not cam.device == res.device == ct.device:
         raise ValueError("cam, res and ct must be on one device")
+    if walk:
+        name, index = INSTANCED_BWD_WALK, ()
+    else:
+        grid = grid_for(tables, cfg.step_clamp) if grid is None else grid
+        check_grid(grid, cam.device, stats)
+        name, index = (INSTANCED_BWD if stats is None else INSTANCED_BWD_STATS,
+                       grid_args(grid, stats))
     lib = library(cfg, structure).lib
-    ns, dev = structure.num_spheres, cam.device
-    records = num_sites(structure) * height * width
-    if records >= 2**31:
-        raise ValueError(f"{records} records: the scatter indexes them with int32")
-    chunks = getattr(lib, INSTANCED_CHUNKS)(records)
+    ns, dev, sites = structure.num_spheres, cam.device, num_sites(structure)
+    n_rec = sites * height * width
+    if n_rec >= 2**31:
+        raise ValueError(f"{n_rec} records: the scatter indexes them with int32")
+    hist_rows = getattr(lib, INSTANCED_HIST_ROWS)(n_rec)
     blocks = getattr(lib, INSTANCED_BLOCKS)(height, width)
     n = CAM_SIZE + packed_size(structure)
 
@@ -333,34 +363,41 @@ def instanced_train_backward(
         return torch.empty(shape, dtype=torch.int32, device=dev)
 
     partials, grads, dsph = f32(blocks, n), f32(n), f32(ns, 4)
-    work = (i32(records), f32(records, 4), i32(chunks, ns), i32(ns), i32(ns), i32(records))
+    work = (i32(n_rec), f32(n_rec, 4), i32(hist_rows, ns), i32(ns), i32(ns), i32(n_rec))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, INSTANCED_BWD)(
+        rc = getattr(lib, name)(
             cam.data_ptr(), fields.data_ptr(), *_table_args(tables), res.data_ptr(),
             ct.data_ptr(), partials.data_ptr(), grads.data_ptr(),
             *(w.data_ptr() for w in work), dsph.data_ptr(), height, full_height, width,
-            stream,
+            *index, stream,
         )
     if rc != 0:
-        raise RuntimeError(f"{INSTANCED_BWD} launch failed: cudaError {rc}")
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
     global launches_bwd
     launches_bwd += 1
-    return grads[:CAM_SIZE], grads[CAM_SIZE:], dsph
+    out = grads[:CAM_SIZE], grads[CAM_SIZE:], dsph
+    if records:
+        out += (work[0].view(sites, height, width), work[1].view(sites, height, width, 4))
+    return out
 
 
 class InstancedTrainRender(torch.autograd.Function):
     """img = render(cam, fields, spheres): instanced_train_forward in
     forward, instanced_train_backward in backward (the custom_vjp of
-    pallas_train.make_instanced_training_renderer). ids, groups and bbox
-    are the tables' search structures: not differentiated."""
+    pallas_train.make_instanced_training_renderer), both over the one cell
+    grid that forward builds from the step's tables (the plain versions,
+    on CPU tensors, ignore it). ids, groups and bbox are the tables'
+    search structures: not differentiated."""
 
     @staticmethod
     def forward(ctx, cam, fields, spheres, ids, groups, bbox, structure, cfg, height, width):
         tables = InstancedTables(spheres, ids, groups, bbox)
-        img, res = instanced_train_forward(structure, cfg, cam, fields, tables, height, width)
+        grid = grid_for(tables, cfg.step_clamp)  # one grid a step, for K5r and K6
+        img, res = instanced_train_forward(structure, cfg, cam, fields, tables, height, width,
+                                           grid=grid)
         ctx.save_for_backward(cam, fields, spheres, ids, groups, bbox, res)
-        ctx.structure, ctx.cfg = structure, cfg
+        ctx.structure, ctx.cfg, ctx.grid = structure, cfg, grid
         return img
 
     @staticmethod
@@ -368,8 +405,9 @@ class InstancedTrainRender(torch.autograd.Function):
         cam, fields, spheres, ids, groups, bbox, res = ctx.saved_tensors
         dcam, dfields, dsph = instanced_train_backward(
             ctx.structure, ctx.cfg, cam, fields, InstancedTables(spheres, ids, groups, bbox),
-            res, ct.contiguous(),
+            res, ct.contiguous(), grid=ctx.grid,
         )
+        ctx.grid = None  # the step's grid goes with its backward
         return (dcam, dfields, dsph) + (None,) * 7
 
 

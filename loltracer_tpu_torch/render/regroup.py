@@ -20,11 +20,15 @@ with a sort in between (csrc/regroup.cuh):
   record perm[i] and writes (res, t*) back to pixel perm[i] -> shadow [L,
   2, H, W]; no gather of records and no inverse permutation;
 - `shade_planes` (lol_rg_shade, per pixel): the shade half of K5's body
-  over the frozen planes -> the image [H, W, 3]; it still walks the runs.
+  over the frozen planes -> the image [H, W, 3], its normal taps (and,
+  under AA, a miss's material lookup) over the same grid.
 
-`march_track(..., walk=True)` and `shadow_sorted(..., walk=True)` launch
-the run-walk twins (`lol_rg_march_walk`, `lol_rg_shadow_walk`): the check
+`march_track(..., walk=True)`, `shadow_sorted(..., walk=True)` and
+`shade_planes(..., walk=True)` launch the run-walk twins
+(`lol_rg_march_walk`, `lol_rg_shadow_walk`, `lol_rg_shade_walk`): the check
 of the grid kernels, bitwise equal; nothing on the main path calls them.
+`shade_planes(..., stats=)` launches `lol_rg_shade_stats`, which counts the
+shade's grid searches.
 
 Each value depends only on its own pixel's ray, so the image is bitwise
 K5's (`lol_instanced_render`); the sort buys only locality.
@@ -63,6 +67,8 @@ from loltracer_tpu_torch.render.cuda_scene import (
     RG_MARCH,
     RG_MARCH_WALK,
     RG_SHADE,
+    RG_SHADE_STATS,
+    RG_SHADE_WALK,
     RG_SHADOW,
     RG_SHADOW_GRID_STATS,
     RG_SHADOW_STATS,
@@ -103,7 +109,8 @@ __all__ = [
 ]
 
 launches = {name: 0 for name in (RG_MARCH, RG_MARCH_WALK, RG_SHADOW, RG_SHADOW_WALK, RG_SHADE,
-                                 RG_SHADOW_STATS, RG_SHADOW_GRID_STATS)}
+                                 RG_SHADE_WALK, RG_SHADOW_STATS, RG_SHADOW_GRID_STATS,
+                                 RG_SHADE_STATS)}
 
 WARP = 32
 RECORD = 7  # floats per shadow record: origin (3), unit direction (3), distance
@@ -289,6 +296,7 @@ def library(cfg: RenderConfig, structure: SceneStructure) -> _build.Library:
     tables = [ptr] * 4 + [i32] * 2
     march = [ptr, ptr] + tables + [ptr] * 3 + [i32] * 3
     shadow = [ptr] + tables + [ptr] * 3  # fields, tables, rec, perm, out
+    shade = [ptr, ptr] + tables + [ptr] * 3 + [i32] * 3
     argtypes = {
         RG_MARCH: march + GRID_ARGTYPES + [ptr],
         RG_MARCH_WALK: march + [ptr],
@@ -296,7 +304,9 @@ def library(cfg: RenderConfig, structure: SceneStructure) -> _build.Library:
         RG_SHADOW_WALK: shadow + [i64, ptr],
         RG_SHADOW_STATS: shadow + [ptr, i64, ptr],
         RG_SHADOW_GRID_STATS: shadow + [ptr, i64] + GRID_ARGTYPES + [ptr],
-        RG_SHADE: [ptr, ptr] + tables + [ptr] * 3 + [i32] * 3 + [ptr],
+        RG_SHADE: shade + GRID_ARGTYPES + [ptr],
+        RG_SHADE_WALK: shade + [ptr],
+        RG_SHADE_STATS: shade + GRID_ARGTYPES + [ptr],
     }
     for name, args in argtypes.items():
         fn = getattr(built.lib, name)
@@ -330,15 +340,17 @@ def _check_frame(structure, cam, fields, tables, height, width, full_height):
 
 
 def _search(name: str, walk_name: str, cfg: RenderConfig, tables: InstancedTables,
-            grid: Optional[CellGrid], walk: bool, device) -> tuple:
+            grid: Optional[CellGrid], walk: bool, device, stats=None,
+            stats_name: Optional[str] = None) -> tuple:
     """(entry, its grid arguments) of a launch on `device`: the grid entry
-    over `grid` (built now from the tables when None), or with `walk` its
+    over `grid` (built now from the tables when None), its counting twin
+    `stats_name` when `stats` (int64 [3]) is given, or with `walk` its
     run-walk twin."""
     if walk:
         return walk_name, ()
     grid = grid_for(tables, cfg.step_clamp) if grid is None else grid
-    check_grid(grid, device)
-    return name, grid_args(grid)
+    check_grid(grid, device, stats)
+    return (name if stats is None else stats_name), grid_args(grid, stats)
 
 
 def march_track(
@@ -411,22 +423,32 @@ def shadow_sorted(
 def shade_planes(
     structure: SceneStructure, cfg: RenderConfig, cam, fields, tables: InstancedTables,
     track: torch.Tensor, shadow: torch.Tensor, height: int, width: int,
-    full_height: Optional[int] = None,
+    full_height: Optional[int] = None, grid: Optional[CellGrid] = None,
+    walk: bool = False, stats: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """lol_rg_shade for CUDA tensors, shade_planes_reference for CPU ones:
-    the image [height, W, 3] from the frozen planes."""
+    the image [height, W, 3] from the frozen planes. On CUDA it searches
+    `grid` (default: built now, as march_track's), or with `walk` the run
+    walk alone (lol_rg_shade_walk); `stats` (int64 [3] on the device)
+    takes the grid search's counts (lol_rg_shade_stats): searches,
+    fallbacks, list entries read. A grid on another device than the
+    tensors raises."""
     require_instanced(structure)
     full_height = full_height or height
+    if grid is not None:
+        check_grid(grid, cam.device)
     if resolve_backend(cam, fields, track, shadow, *tables) == "torch":
         return shade_planes_reference(structure, cfg, cam, fields, tables, track, shadow,
                                       height, width, full_height)
     _check_frame(structure, cam, fields, tables, height, width, full_height)
     _check("track", track, (3, height, width))
     _check("shadow", shadow, (structure.num_lights, 2, height, width))
+    name, index = _search(RG_SHADE, RG_SHADE_WALK, cfg, tables, grid, walk, cam.device, stats,
+                          RG_SHADE_STATS)
     img = torch.empty((height, width, 3), dtype=torch.float32, device=cam.device)
-    _launch(cfg, structure, RG_SHADE, cam.device, cam.data_ptr(), fields.data_ptr(),
+    _launch(cfg, structure, name, cam.device, cam.data_ptr(), fields.data_ptr(),
             *_table_args(tables), track.data_ptr(), shadow.data_ptr(), img.data_ptr(),
-            height, full_height, width)
+            height, full_height, width, *index)
     return img
 
 
@@ -436,14 +458,14 @@ def regrouped_forward(
 ) -> torch.Tensor:
     """The regrouped frame [height, W, 3] (module docstring): the cell grid,
     lol_rg_march over it, per light the Morton sort and lol_rg_shadow over
-    the same grid, lol_rg_shade for CUDA tensors;
+    the same grid, and lol_rg_shade over it too, for CUDA tensors;
     regrouped_forward_reference for CPU ones."""
     require_instanced(structure)
     full_height = full_height or height
     if resolve_backend(cam, fields, *tables) == "torch":
         return regrouped_forward_reference(structure, cfg, cam, fields, tables, height, width,
                                            full_height)
-    grid = grid_for(tables, cfg.step_clamp)  # one grid a frame, for K9a and every K9b
+    grid = grid_for(tables, cfg.step_clamp)  # one grid a frame, for K9a, every K9b and K9c
     tr = march_track(structure, cfg, cam, fields, tables, height, width, full_height, grid=grid)
     lo, hi = hit_box(tr.hitp)
     shadow = torch.empty((structure.num_lights, 2, height, width), dtype=torch.float32,
@@ -452,7 +474,7 @@ def regrouped_forward(
         shadow_sorted(structure, cfg, fields, tables, tr.rec[li],
                       shadow_order(tr.rec[li], lo, hi), out=shadow[li], grid=grid)
     return shade_planes(structure, cfg, cam, fields, tables, tr.track, shadow, height, width,
-                        full_height)
+                        full_height, grid=grid)
 
 
 def make_instanced_renderer_regrouped(

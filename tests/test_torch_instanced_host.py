@@ -81,9 +81,12 @@ def test_instanced_source_is_one_text_for_every_count_and_seed():
     for text in ("300", "10000", "299", "9999"):
         assert text not in train.split("namespace lol_gen {", 1)[1]
     entries = train.rsplit("#ifdef __CUDACC__", 1)[1]
-    for name in ("lol_instanced_fwd", "lol_instanced_bwd", "lol_instanced_bwd_blocks",
-                 "lol_instanced_rec_chunks"):
+    for name in ("lol_instanced_fwd", "lol_instanced_bwd", "lol_instanced_bwd_walk",
+                 "lol_instanced_bwd_stats", "lol_instanced_bwd_blocks",
+                 "lol_instanced_rec_hist_rows"):
         assert f"int {name}(" in entries
+    assert "launch_instanced_bwd<lol_gen::Cfg, lol_gen::SceneOnGrid>" in entries
+    assert "launch_instanced_bwd<lol_gen::Cfg, lol_gen::Scene>" in entries
     assert "lol_instanced_render" not in entries
     assert "with_residuals = true;" in train and "with_residuals = false;" in src
     assert (CSRC / "instanced_bwd.cuh").read_text() in train

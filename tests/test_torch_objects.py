@@ -398,6 +398,73 @@ def test_maybe_initialize_rejects_malformed_variables(no_dist_env, var, value):
     assert not dist.is_initialized()
 
 
+# (variables, world size, coordinator, backend) on a host with 8 cards
+_BACKEND_CASES = [
+    # explicit coordinates across hosts: the ranks here are this rank's
+    # cards, or one a card
+    ({"LOLTRACE_LOCAL_DEVICE_IDS": "3"}, 16, "10.0.0.1:29500", "nccl"),
+    ({}, 16, "10.0.0.1:29500", "nccl"),
+    ({"LOLTRACE_LOCAL_DEVICE_IDS": ",".join(map(str, range(9)))}, 16, "node0:29500", "gloo"),
+    # a loopback coordinator: every rank is on this host
+    ({}, 8, "127.0.0.1:29500", "nccl"),
+    ({}, 16, "127.0.0.1:29500", "gloo"),
+    ({"LOLTRACE_LOCAL_DEVICE_IDS": "0"}, 9, "localhost:29500", "gloo"),
+    # LOCAL_WORLD_SIZE keeps its answer
+    ({"LOCAL_WORLD_SIZE": "8"}, 16, "10.0.0.1:29500", "nccl"),
+    ({"LOCAL_WORLD_SIZE": "9"}, 16, "10.0.0.1:29500", "gloo"),
+    ({"LOCAL_WORLD_SIZE": "8"}, 16, None, "nccl"),
+    ({"LOCAL_WORLD_SIZE": "9"}, 9, None, "gloo"),
+    # env:// without LOCAL_WORLD_SIZE: the world size
+    ({}, 8, None, "nccl"),
+    ({}, 16, None, "gloo"),
+]
+
+
+@pytest.mark.parametrize("env, world, coordinator, want", _BACKEND_CASES)
+def test_choose_backend_counts_the_ranks_on_this_host(no_dist_env, env, world, coordinator,
+                                                      want):
+    """choose_backend on a host of 8 cards (torch.cuda and NCCL patched in):
+    NCCL when this host's ranks have a card each (distributed.local_ranks),
+    gloo otherwise; without CUDA always gloo."""
+    import torch.distributed as dist
+
+    from loltracer_tpu_torch.parallel import distributed
+
+    no_dist_env.delenv("LOCAL_WORLD_SIZE", raising=False)
+    for k, v in env.items():
+        no_dist_env.setenv(k, v)
+    no_dist_env.setattr(torch.cuda, "device_count", lambda: 8)
+    no_dist_env.setattr(dist, "is_nccl_available", lambda: True)
+    no_dist_env.setattr(torch.cuda, "is_available", lambda: False)
+    assert distributed.choose_backend(world, coordinator) == "gloo"
+    no_dist_env.setattr(torch.cuda, "is_available", lambda: True)
+    assert distributed.choose_backend(world, coordinator) == want
+
+
+def test_maybe_initialize_takes_nccl_for_two_hosts_of_eight_cards(no_dist_env):
+    """Rank 11 of 16 (2 hosts x 8 cards), explicit coordinates and its card
+    named: maybe_initialize selects card 3 and starts NCCL over tcp (the
+    process group itself patched out)."""
+    import torch.distributed as dist
+
+    from loltracer_tpu_torch.parallel import maybe_initialize
+
+    no_dist_env.delenv("LOCAL_WORLD_SIZE", raising=False)
+    for k, v in {"LOLTRACE_COORDINATOR": "10.0.0.1:29500", "LOLTRACE_NUM_PROCESSES": "16",
+                 "LOLTRACE_PROCESS_ID": "11", "LOLTRACE_LOCAL_DEVICE_IDS": "3"}.items():
+        no_dist_env.setenv(k, v)
+    seen = {}
+    no_dist_env.setattr(torch.cuda, "is_available", lambda: True)
+    no_dist_env.setattr(torch.cuda, "device_count", lambda: 8)
+    no_dist_env.setattr(torch.cuda, "set_device", lambda d: seen.update(card=d))
+    no_dist_env.setattr(dist, "is_nccl_available", lambda: True)
+    no_dist_env.setattr(dist, "init_process_group",
+                        lambda backend, **kw: seen.update(backend=backend, **kw))
+    assert maybe_initialize() is True
+    assert seen == {"card": 3, "backend": "nccl", "init_method": "tcp://10.0.0.1:29500",
+                    "world_size": 16, "rank": 11}
+
+
 def test_process_info_has_jax_keys(no_dist_env):
     import torch.distributed as dist
 

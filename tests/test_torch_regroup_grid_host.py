@@ -1,5 +1,5 @@
 """Host side of the regrouped instanced forward over the cell grid
-(csrc/regroup.cuh's `lol_rg_march` and `lol_rg_shadow` on
+(csrc/regroup.cuh's `lol_rg_march`, `lol_rg_shadow` and `lol_rg_shade` on
 csrc/grid_scene.cuh's `GridScene`), on a machine without CUDA: the
 generated regroup source built for the host with g++ through the shim of
 tests/test_torch_regroup_host.py, on instanced:300 (seed 9) with sphere 200
@@ -10,6 +10,9 @@ places them), at clamp 2, exact, clamp 2 with AA and shadow clamp 8:
   walk (`InstancedScene`);
 - `rg_shadow_at` over the grid bitwise the same over the run walk, the
   records in the Morton order and in pixel order;
+- `rg_shade_pixel` over the grid bitwise the same over the run walk (with
+  AA a miss's material lookup too), the counting grid's bitwise the
+  grid's;
 - the whole per-pixel pipeline over the grid (the march, each light's
   sorted shadows, the shade half) bitwise `render_pixel` over the walk;
 - the grid counting view's searches per ray equal to the plain shadow
@@ -107,15 +110,27 @@ extern "C" void host_rg_shadow(int search, const float* P, TABLES, GRID, const f
   }
 }
 
-// lol_rg_shade's body (the run walk)
-extern "C" void host_rg_shade(const float* cam, const float* P, TABLES, GRID,
+// lol_rg_shade's body over the walk (search 0), the grid (1) or the
+// counting grid (2, its counts into counts [3])
+extern "C" void host_rg_shade(int search, const float* cam, const float* P, TABLES, GRID,
                               const float* track, const float* shadow, float* img, int height,
-                              int width) {
+                              int width, long long* counts) {
   SCENES;
   for (int y = 0; y < height; ++y)
-    for (int x = 0; x < width; ++x)
-      lol::rg_shade_pixel<Cfg>(cam, walk, P, x, y, height, width, track, shadow, img,
-                               (size_t)height * width);
+    for (int x = 0; x < width; ++x) {
+      const size_t n = (size_t)height * width;
+      if (search == 2) {
+        const SceneOnGridStats counted(P, tab, grp, gt);
+        lol::rg_shade_pixel<Cfg>(cam, counted, P, x, y, height, width, track, shadow, img, n);
+        counts[0] += (long long)counted.n_search;
+        counts[1] += (long long)counted.n_fallback;
+        counts[2] += (long long)counted.n_read;
+      } else if (search == 1) {
+        lol::rg_shade_pixel<Cfg>(cam, grid, P, x, y, height, width, track, shadow, img, n);
+      } else {
+        lol::rg_shade_pixel<Cfg>(cam, walk, P, x, y, height, width, track, shadow, img, n);
+      }
+    }
 }
 
 // render_pixel over the run walk: K5's walk image
@@ -189,6 +204,24 @@ def _shadow(case, search, rec_l, perm, counts=None):
     return out.reshape(2, H, W)
 
 
+def _shade(case, search, track, shadow, counts=None):
+    img = np.zeros((H, W, 3), np.float32)
+    counts = np.zeros(3, np.int64) if counts is None else counts
+    case["lib"].host_rg_shade(search, _ptr(case["cam"]), *case["args"], _ptr(track),
+                              _ptr(shadow), _ptr(img), H, W, _ptr(counts))
+    return img
+
+
+def _sorted_shadows(case, track, hitp, rec):
+    """Each light's planes [L, 2, H, W], marched over the grid in the Morton
+    order."""
+    shadow = np.zeros((rec.shape[0], 2, H, W), np.float32)
+    for li, order, perm in _orders(hitp, rec):
+        if order == "sorted":
+            shadow[li] = _shadow(case, GRID, rec[li], perm)
+    return shadow
+
+
 def _orders(hitp, rec):
     """Per light, the Morton order of its records and pixel order."""
     lo, hi = regroup.hit_box(torch.from_numpy(hitp))
@@ -227,20 +260,34 @@ def test_rg_shadow_over_the_grid_is_the_walks(case):
         assert (a[0] < 1).any()  # some record is shadowed
 
 
+def test_rg_shade_over_the_grid_is_the_walks(case):
+    """rg_shade_pixel over GridScene bitwise over the run walk, from the
+    same frozen planes, and the counting grid's bitwise the grid's: four
+    normal taps a hit pixel, under AA a material lookup a miss; at clamp 2
+    without AA no search falls back, and the counts stay consistent
+    (fallbacks at most the searches)."""
+    track, hitp, rec = _march(case, GRID)
+    shadow = _sorted_shadows(case, track, hitp, rec)
+    want = _shade(case, WALK, track, shadow)
+    counts = np.zeros(3, np.int64)
+    np.testing.assert_array_equal(_shade(case, GRID, track, shadow), want)
+    np.testing.assert_array_equal(_shade(case, 2, track, shadow, counts), want)
+    search, fell, read = counts
+    hits = int(track[1].sum())
+    assert search >= 4 * hits and fell <= search and read > 0
+    if case["cfg"].antialias:
+        assert search > 4 * hits  # the misses' material lookups
+    elif case["cfg"].step_clamp is not None:
+        assert fell == 0
+
+
 def test_grid_pipeline_is_render_pixel(case):
     """The pipeline over the grid (rg_march_pixel, each light's Morton
     order, rg_shadow_at, rg_shade_pixel) bitwise render_pixel over the
     run walk: path D's image is K5's."""
     lib = case["lib"]
     track, hitp, rec = _march(case, GRID)
-    L = rec.shape[0]
-    shadow = np.zeros((L, 2, H, W), np.float32)
-    for li, order, perm in _orders(hitp, rec):
-        if order == "sorted":
-            shadow[li] = _shadow(case, GRID, rec[li], perm)
-    img = np.zeros((H, W, 3), np.float32)
-    lib.host_rg_shade(_ptr(case["cam"]), *case["args"], _ptr(track), _ptr(shadow), _ptr(img),
-                      H, W)
+    img = _shade(case, GRID, track, _sorted_shadows(case, track, hitp, rec))
     want = np.zeros((H, W, 3), np.float32)
     lib.host_render(_ptr(case["cam"]), *case["args"], _ptr(want), H, W)
     np.testing.assert_array_equal(img, want)

@@ -367,8 +367,11 @@ def test_regroup_source_entries_and_determinism():
         assert text not in src.split("namespace lol_gen {", 1)[1]
     entries = src.rsplit("#ifdef __CUDACC__", 1)[1]
     for name in ("lol_rg_march", "lol_rg_march_walk", "lol_rg_shadow", "lol_rg_shadow_walk",
-                 "lol_rg_shadow_stats", "lol_rg_shadow_grid_stats", "lol_rg_shade"):
+                 "lol_rg_shadow_stats", "lol_rg_shadow_grid_stats", "lol_rg_shade",
+                 "lol_rg_shade_walk", "lol_rg_shade_stats"):
         assert f"int {name}(" in entries
+    assert "launch_rg_shade<lol_gen::Cfg, lol_gen::SceneOnGrid>" in entries
+    assert "launch_rg_shade<lol_gen::Cfg, lol_gen::Scene>" in entries
     for body in ("grid_scene.cuh", "regroup.cuh"):
         assert (CSRC / body).read_text() in src
     assert src != generate_regroup_source(a.structure, RenderConfig())
