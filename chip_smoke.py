@@ -8,38 +8,53 @@ Phases, one line each:
 
 0. the card (nvidia-smi name and power limit) and the torch / CUDA versions;
 1. build the fused forward kernel for the four example structures (nvcc,
-   at first use, into loltracer_tpu_torch/_build/);
+   at first use, into loltracer_tpu_torch/_build/), and its twins built
+   with `shadow_cull=False` (the shadow segment cull left out);
 2. kernel vs its plain PyTorch version on the card: the four examples at
    97x161 (ragged edges), scene4 with antialiasing and scene2 with a custom
-   config; |diff| <= 5e-5 on every pixel but at most max(2, 1e-4 * pixels);
+   config; |diff| <= 5e-5 on every pixel but at most max(2, 1e-4 * pixels)
+   (and whether it is bitwise); the image bitwise its shadow_cull=False
+   twin's; the share of lanes the cull skips per light (the plain flags);
 3. the main path: `loltracer_tpu_torch.cli render examples/scene4.lol
    --size 1920x1080`, which must launch the kernel; its image must be
-   finite, in [0, 1], and match the plain version at 1920x1080 to the
-   tolerance of phase 2;
-4. frame times at scene4 @1920x1080: the kernel (median of 10 warm frames)
-   and the plain version (once, warm), CUDA events;
+   finite, in [0, 1], bitwise the twin's and match the plain version at
+   1920x1080 to the tolerance of phase 2;
+4. frame times at scene4 @1920x1080: the kernel in turns with its
+   shadow_cull=False twin (twin, kernel, kernel, twin; median of 10 warm
+   frames each) and the plain version (once, warm), CUDA events; the
+   culled share of lanes per light, the plain loops' SDF evaluations a
+   ray with the cull (culled lanes started done) and without; each warp
+   tile shape of `cuda_scene.FWD_TILES` timed (twice, in turns) beside the
+   warp efficiency the per-ray counts give it;
 5. build the training kernels (lol_train_fwd, lol_train_bwd and its reduce)
    for the four example structures with envelope shadows and for scene4
-   with antialiasing; all builds start together in phase 1, one nvcc each;
-   ptxas registers and spills of scene4's kernels;
-6. lol_train_fwd vs lol_render_fused and vs its plain version at 97x161 on
-   those five cases: the image bitwise equal to lol_render_fused's and
-   within the phase-2 rule of the plain one; hit and material equal and
-   t_sh, res, t* within 1e-4 * max(1, |x|) on all but max(2, 1e-4 *
-   pixels) pixels; the IFT denominator within rtol 1e-4 on hit pixels with
-   |den| > 1e-2;
+   with antialiasing, and their shadow_cull=False twins; all builds start
+   together in phase 1, one nvcc each; ptxas registers and spills of
+   scene4's kernels and of scene4 AA's lol_train_bwd, whose resident warps
+   a SM the occupancy calculator gives;
+6. lol_train_fwd vs lol_render_fused, its twin and its plain version at
+   97x161 on those five cases: the image bitwise equal to lol_render_fused's,
+   image and residual planes bitwise the twin's, and within the phase-2
+   rule of the plain one; hit and material equal and t_sh, res, t* within
+   1e-4 * max(1, |x|) on all but max(2, 1e-4 * pixels) pixels; the IFT
+   denominator within rtol 1e-4 on hit pixels with |den| > 1e-2;
 7. lol_train_fwd at the main path's shape, scene4 AA at 1920x1080, held
-   the same way as in phase 6; then lol_train_bwd vs its plain version on
-   the kernel's own residuals and a seeded cotangent, the five cases at
-   97x161 and scene4 AA at 1920x1080: every field within 1e-4 *
-   max|grad|, dcam within rtol 2e-3 (atol 1e-5 * max(1, max|dcam|)), and
-   two launches bitwise equal;
+   the same way as in phase 6 (its culled share printed); then
+   lol_train_bwd vs its plain version on the kernel's own residuals and a
+   seeded cotangent, the five cases at 97x161 and scene4 AA at 1920x1080:
+   every field within 1e-4 * max|grad|, dcam within rtol 2e-3 (atol 1e-5
+   * max(1, max|dcam|)), and two launches bitwise equal;
 8. the training path: `fit_scene` on scene4 @1920x1080 with antialiasing
    and envelope shadows, sphere points trainable, 5 Adam steps, against the
    port's render of scene4 with its sphere points moved; it must launch
    both training kernels and lower the loss. Then one fwd+bwd step of
    `make_training_renderer` timed (median of 10, CUDA events), its two
-   kernels timed apart, the plain versions (once, warm), peak memory;
+   kernels timed apart (lol_train_fwd in turns with its twin), the plain
+   versions (once, warm), peak memory; device time by kernel over 5 steps
+   (lol_train_fwd, lol_train_bwd and its reduce apart) and over one
+   lol_render_fused frame (`chip_smoke.py --profile-fused`, a process of
+   its own); the bounds by the operation model and with each IEEE sqrtf
+   at the FMA slots phase 25 measures;
 9. build lol_instanced_render (the instanced tier, started with the other
    builds in phase 1; its search the cell grid of csrc/grid_scene.cuh, with
    the run walk alone and the counting grid as check entries) for clamp 2,
@@ -219,7 +234,9 @@ The CLI phases (3, 11) pass `--backend pallas`: `cli render` defaults to
 the differentiable renderer, as the JAX package's does.
 
 Then a JSON line with each kernel's launches on its main path, error,
-times and bound, and last the line {"ok": true, "device": {...}}. Any
+times and bound (K1 / K1r / K2 also with their device times, twins' times,
+culled shares, sqrt-weighted bounds, tile sweep and K2's ptxas line and
+warps a SM), and last the line {"ok": true, "device": {...}}. Any
 failure raises: the traceback is printed, the exit code is not 0 and the
 last line is not printed. Without CUDA, or without the package beside this
 file, it fails the same way.
@@ -419,6 +436,67 @@ def sdf_ops(structure) -> int:
         return {"sphere": 10, "box": 23, "plane": 1}[kind]
 
     return sum(node(n) for n in structure.objects) + len(structure.objects) - 1
+
+
+def sdf_sqrts(structure) -> int:
+    """IEEE sqrtf of one SDF evaluation of the generated code: one a sphere
+    or box."""
+    def node(n):
+        if n[0] == "smin":
+            return node(n[2]) + node(n[3])
+        return 1 if n[0] in ("sphere", "box") else 0
+
+    return sum(node(n) for n in structure.objects)
+
+
+def seg_cost(structure):
+    """(operations, sqrtf) of one Scene::segment_lit, counted on the
+    generated code as sdf_ops counts: seg_dist 22 with 1 sqrt, a sphere 23,
+    a box 30 with 2 sqrt, smooth-min 3 on top of its children, a plane 8,
+    and 4 a bounded object for its test."""
+    def node(n):
+        kind = n[0]
+        if kind == "smin":
+            a, b = node(n[2]), node(n[3])
+            return 3 + a[0] + b[0], a[1] + b[1]
+        return {"sphere": (23, 1), "box": (30, 2), "plane": (8, 0)}[kind]
+
+    costs = [node(n) for n in structure.objects]
+    bounded = sum(1 for n in structure.objects if n[0] != "plane")
+    return sum(c[0] for c in costs) + 4 * bounded, sum(c[1] for c in costs)
+
+
+def culled_shares(structure, cam, fields, res, cfg):
+    """Per light, the share of a frame's lanes whose shadow march the
+    segment cull skips: the plain flags (shading.segment_lit) on the shadow
+    rays from the residual planes' shading distance res[0]."""
+    import torch
+
+    from loltracer_tpu_torch.render.camera import rays_from_pack
+    from loltracer_tpu_torch.render.fused_train import _params_of
+    from loltracer_tpu_torch.render.shading import segment_lit
+
+    params = _params_of(structure, cam, fields)
+    ro, rd = rays_from_pack(cam, torch.arange(res.shape[1], device=cam.device), res.shape[1],
+                            res.shape[2])
+    with torch.no_grad():
+        return [float(segment_lit(structure, params, so, ld, dist, cfg.shadow_w).float().mean())
+                for so, ld, dist in shadow_rays(params, ro, rd, res[0], cfg)]
+
+
+def warp_efficiency(counts, tile_w: int) -> float:
+    """The share of a warp's lane-steps that do work when each warp of 32
+    lanes is a tile_w x (32 / tile_w) tile of the per-ray SDF evaluation
+    counts [H, W] and runs as long as its longest ray (lanes past the
+    frame's edge idle): sum / (32 x the sum over warps of their max)."""
+    import torch
+
+    th = 32 // tile_w
+    h, w = counts.shape
+    c = torch.nn.functional.pad(counts.float(), (0, -w % tile_w, 0, -h % th))
+    c = c.reshape(c.shape[0] // th, th, c.shape[1] // tile_w, tile_w)
+    worst = c.amax(dim=(1, 3))
+    return float(counts.sum()) / float(32 * worst.sum())
 
 
 def profile_steps(step, n: int, split=()) -> str:
@@ -1136,9 +1214,10 @@ def peak_phase(dev, card, peak_built):
     128 lanes x 2 flops x the card's maximum SM clock, the chain kernels
     bitwise the plain chains on the full lane count at 8 iterations, and
     the device time of one full-size call of each chain. Returns the K8
-    `kernels` entries and the ceiling every bound divides by (FP32
-    operations per ms): the modelled one, which the measured rate
-    confirms."""
+    `kernels` entries, the ceiling every bound divides by (FP32
+    operations per ms: the modelled one, which the measured rate
+    confirms) and the FMA slots one IEEE sqrt costs (the measured rates'
+    ratio, which the sqrt-weighted bounds use)."""
     import torch
 
     from loltracer_tpu_torch import cli
@@ -1221,7 +1300,35 @@ def peak_phase(dev, card, peak_built):
                    det["sqrt"]["best_seconds"] * 1e3, plain_ms["sqrt"],
                    bound(8.0 * sqrt_lanes, sqrt_ops, ceiling)),
              ms_iters=its["sqrt"], plain_ms_iters=iters, device_ms=dev_ms["sqrt"]),
-    ], ceiling
+    ], ceiling, rec["transcendental_weight"]
+
+
+def profile_fused() -> int:
+    """`chip_smoke.py --profile-fused`: torch.profiler over one frame of
+    lol_render_fused (scene4, MAIN_W x MAIN_H), one line on stdout. Phase 8
+    runs it as a process of its own (its own profile covers the training
+    step, whose lol_train_fwd shares lol_render_fused's kernel name)."""
+    import torch
+
+    require(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    sys.path.insert(0, str(ROOT))
+    from loltracer_tpu_torch.config import RenderConfig
+    from loltracer_tpu_torch.lol import parse_scene_file
+    from loltracer_tpu_torch.render import fused_fwd
+    from loltracer_tpu_torch.render.camera import camera_pack
+    from loltracer_tpu_torch.render.cuda_scene import pack_fields
+    from loltracer_tpu_torch.scene import build_scene
+
+    s4 = build_scene(parse_scene_file(str(EXAMPLES / "scene4.lol")), device=torch.device("cuda", 0))
+    cfg = RenderConfig()
+    cam, fields = camera_pack(s4.params, MAIN_H, MAIN_W, cfg), pack_fields(s4.structure, s4.params)
+
+    def frame():
+        fused_fwd.fused_forward(s4.structure, cfg, cam, fields, MAIN_H, MAIN_W)
+
+    frame()
+    print(profile_steps(frame, 3))
+    return 0
 
 
 def profile_peak(iters) -> int:
@@ -2099,7 +2206,12 @@ def main() -> int:
     from loltracer_tpu_torch.scenes import instanced_spheres
     from loltracer_tpu_torch.render.camera import camera_pack
     from loltracer_tpu_torch.render.cuda_renderer import make_cuda_renderer
-    from loltracer_tpu_torch.render.cuda_scene import pack_fields, packed_size, unpack_fields
+    from loltracer_tpu_torch.render.cuda_scene import (
+        FWD_TILES,
+        pack_fields,
+        packed_size,
+        unpack_fields,
+    )
     from loltracer_tpu_torch.scene import build_scene
     from loltracer_tpu_torch.utils.image import image_to_u8, read_png
 
@@ -2123,6 +2235,9 @@ def main() -> int:
         ("scene4.lol", RenderConfig(antialias=True)),
         ("scene2.lol", RenderConfig(max_steps=64, shadow_steps=32, gamma=1.0)),
     ]
+
+    def no_cull(c):
+        return c.replace(shadow_cull=False)
 
     env = RenderConfig(shadow_grad="envelope")
     train_cases = [(n, env) for n in SCENES] + [
@@ -2148,8 +2263,9 @@ def main() -> int:
         (inst[10_000].structure, c) for c in (clamp2, RenderConfig(),
                                               RenderConfig(step_clamp=2.0, shadow_step_clamp=8.0))]
     eval_clamps = (2.0, None, 8.0)  # K7 (phase 26): the one source per step clamp
-    pool = ThreadPoolExecutor(max_workers=len(cases) + len(train_cases) + 2 * len(inst_cfgs)
-                              + len(inst_train_cfgs) + len(march_libs) + len(eval_clamps) + 1)
+    pool = ThreadPoolExecutor(max_workers=2 * len(cases) + 2 * len(train_cases)
+                              + 2 * len(inst_cfgs) + len(inst_train_cfgs) + len(march_libs)
+                              + len(eval_clamps) + 1)
     peak_built = pool.submit(peak.library)
     eval_built = [pool.submit(march_kernels.eval_library, inst[10_000].structure,
                               RenderConfig(step_clamp=c)) for c in eval_clamps]
@@ -2159,18 +2275,26 @@ def main() -> int:
                         for c in inst_train_cfgs]
     train_built = [pool.submit(fused_train.library, scenes[n].structure, c)
                    for n, c in train_cases]
+    # K1 / K1r built without the shadow segment cull: the bitwise twins of
+    # phases 2-8 (cfg.shadow_cull, the JAX package's own A/B knob)
+    train_twin_built = [pool.submit(fused_train.library, scenes[n].structure, no_cull(c))
+                        for n, c in train_cases]
+    twin_built = [pool.submit(fused_fwd.library, scenes[n].structure, no_cull(c))
+                  for n, c in cases]
     inst_built = [pool.submit(instanced_fwd.library, c, inst[10_000].structure)
                   for c in inst_cfgs]
     built = [f.result() for f in
              [pool.submit(fused_fwd.library, scenes[n].structure, c) for n, c in cases]]
+    twin_built = [f.result() for f in twin_built]
     build_s = time.perf_counter() - t0
     regs = [l.split(":", 1)[-1].strip() for l in built[3].log.splitlines()
             if "registers" in l or "spill" in l]
     print(f"[1] build: {len(built)} kernels ({len(SCENES)} structures + AA + custom "
-          f"config) in {build_s:.1f} s; scene4 ptxas: {' | '.join(regs)}")
+          f"config) and their shadow_cull=False twins in {build_s:.1f} s; scene4 ptxas: "
+          f"{' | '.join(regs)}")
 
     # --- 25. path E: cli peak, the measured ceiling (before any bound) --------------
-    peak_entries, ceiling = peak_phase(dev, card, peak_built)
+    peak_entries, ceiling, sqrt_slots = peak_phase(dev, card, peak_built)
 
     # --- 2. kernel vs plain version on the card ------------------------------
     h, w = 97, 161
@@ -2179,12 +2303,19 @@ def main() -> int:
         cam = camera_pack(s.params, h, w, cfg)
         fields = pack_fields(s.structure, s.params)
         k_img = fused_fwd.fused_forward(s.structure, cfg, cam, fields, h, w)
+        t_img = fused_fwd.fused_forward(s.structure, no_cull(cfg), cam, fields, h, w)
         p_img = fused_fwd.fused_forward_reference(s.structure, cfg, cam, fields, h, w)
+        _, p_res = fused_train.train_forward_reference(s.structure, cfg, cam, fields, h, w)
         torch.cuda.synchronize()
-        err, over = compare(k_img, p_img, f"{name} antialias={cfg.antialias} max_steps={cfg.max_steps}")
+        what = f"{name} antialias={cfg.antialias} max_steps={cfg.max_steps}"
+        require(torch.equal(k_img, t_img), f"{what}: image != its shadow_cull=False twin's")
+        err, over = compare(k_img, p_img, what)
+        shares = culled_shares(s.structure, cam, fields, p_res, cfg)
         tag = ("aa" if cfg.antialias else
                "custom" if cfg.max_steps != RenderConfig().max_steps else "default")
-        print(f"[2] {name} {tag} {h}x{w}: max |diff| {err:.3g}, {over} px over {ATOL}")
+        print(f"[2] {name} {tag} {h}x{w}: = the shadow_cull=False twin bitwise; max |diff| "
+              f"{err:.3g} ({'bitwise' if torch.equal(k_img, p_img) else 'not bitwise'}), "
+              f"{over} px over {ATOL}; lanes culled per light {[round(v, 4) for v in shares]}")
 
     # --- 3. main path --------------------------------------------------------
     s4 = scenes["scene4.lol"]
@@ -2208,9 +2339,14 @@ def main() -> int:
     require((image_to_u8(k_img.cpu().numpy()) == png).all(),
             "the CLI's PNG differs from the kernel's image")
     main_err, main_over = compare(k_img, p_img, "scene4 1920x1080")
+    t_img = fused_fwd.fused_forward(s4.structure, no_cull(cfg), cam, fields, MAIN_H, MAIN_W)
+    torch.cuda.synchronize()
+    require(torch.equal(k_img, t_img), "scene4 1920x1080: image != its shadow_cull=False twin's")
     print(f"[3] main path: cli render scene4 {MAIN_W}x{MAIN_H} -> {main_launches} "
-          f"launch(es); PNG = kernel image; vs plain: max |diff| {main_err:.3g}, "
-          f"{main_over} px over {ATOL}")
+          f"launch(es); PNG = kernel image = the shadow_cull=False twin's bitwise; vs plain: "
+          f"max |diff| {main_err:.3g} ({'bitwise' if torch.equal(k_img, p_img) else 'not bitwise'})"
+          f", {main_over} px over {ATOL}")
+    del t_img
 
     # --- 4. frame times ------------------------------------------------------
     def kernel():
@@ -2219,22 +2355,61 @@ def main() -> int:
     def plain():
         fused_fwd.fused_forward_reference(s4.structure, cfg, cam, fields, MAIN_H, MAIN_W)
 
+    def twin():
+        fused_fwd.fused_forward(s4.structure, no_cull(cfg), cam, fields, MAIN_H, MAIN_W)
+
     for _ in range(3):
-        kernel()
-    k_ms = time_ms(kernel, 10)
+        kernel(), twin()
+    # in turns: twin, kernel, kernel, twin
+    twin_ms = [time_ms(twin, 10)]
+    k_runs = [time_ms(kernel, 10), time_ms(kernel, 10)]
+    twin_ms.append(time_ms(twin, 10))
+    k_ms = statistics.median(k_runs)
     plain()
     p_ms = time_ms(plain, 1)
     rays = MAIN_W * MAIN_H
     print(f"[4] scene4 {MAIN_W}x{MAIN_H} on {card}: kernel {k_ms:.3f} ms/frame "
-          f"({rays / k_ms / 1e3:.1f} M rays/s), plain {p_ms:.1f} ms/frame "
+          f"({rays / k_ms / 1e3:.1f} M rays/s; runs {k_runs}), its shadow_cull=False twin "
+          f"{twin_ms} in turns around it, plain {p_ms:.1f} ms/frame "
           f"({rays / p_ms / 1e3:.2f} M rays/s), kernel {p_ms / k_ms:.0f}x faster")
+    # the plain loops' SDF evaluations with the cull (culled lanes started
+    # done, as the kernel skips them) and without, per ray
+    live_main, live_twin = ({"march": [], "shadow": [], "rays": torch.zeros(
+        (MAIN_H, MAIN_W), dtype=torch.int32, device=dev)} for _ in range(2))
+    _, res_main = fused_train.train_forward_reference(s4.structure, cfg, cam, fields, MAIN_H,
+                                                      MAIN_W, live=live_main)
+    fused_train.train_forward_reference(s4.structure, no_cull(cfg), cam, fields, MAIN_H,
+                                        MAIN_W, live=live_twin)
+    main_shares = culled_shares(s4.structure, cam, fields, res_main, cfg)
+    del res_main
+    tile_ms = {}
+    for tw in FWD_TILES:
+        fused_fwd.fused_forward(s4.structure, cfg, cam, fields, MAIN_H, MAIN_W, tile_w=tw)
+    for tw in FWD_TILES + FWD_TILES[::-1]:
+        tile_ms.setdefault(tw, []).append(time_ms(
+            lambda tw=tw: fused_fwd.fused_forward(s4.structure, cfg, cam, fields, MAIN_H, MAIN_W,
+                                                  tile_w=tw), 10))
+    tile_eff = {tw: warp_efficiency(live_main["rays"], tw) for tw in FWD_TILES}
+    print(f"[4] the segment cull: lanes culled per light {[round(v, 4) for v in main_shares]}; "
+          f"SDF evaluations a ray, march + shadow: {sum(live_main['march']) / rays:.2f} + "
+          f"{sum(live_main['shadow']) / rays:.2f} with the cull, "
+          f"{sum(live_twin['march']) / rays:.2f} + {sum(live_twin['shadow']) / rays:.2f} "
+          f"without; warp tiles (tile_w x 32 / tile_w): "
+          + "; ".join(f"{tw}x{32 // tw} {tile_ms[tw]} ms, warp efficiency {tile_eff[tw]:.4f} "
+                      f"(without the cull {warp_efficiency(live_twin['rays'], tw):.4f})"
+                      for tw in FWD_TILES))
 
     # --- 5. build the training kernels ------------------------------------------
     train_built = [f.result() for f in train_built]
+    train_twin_built = [f.result() for f in train_twin_built]
     train_s = time.perf_counter() - t0
-    print(f"[5] build: {len(train_built)} training libraries (4 structures + scene4 AA) "
-          f"done {train_s:.1f} s after the builds started; scene4 ptxas: "
-          + " | ".join(ptxas_lines(train_built[3].log)))
+    bwd_ptxas = [l for l in ptxas_lines(train_built[4].log) if "fused_bwd_kernel" in l]
+    bwd_warps = 4 * fused_train.bwd_blocks_per_sm(s4.structure, train_cases[-1][1])
+    print(f"[5] build: {len(train_built)} training libraries (4 structures + scene4 AA) and "
+          f"their shadow_cull=False twins done {train_s:.1f} s after the builds started; "
+          f"scene4 ptxas: " + " | ".join(ptxas_lines(train_built[3].log))
+          + f"; scene4 AA lol_train_bwd: {' | '.join(bwd_ptxas)}, {bwd_warps} warps resident "
+          f"a SM (the occupancy calculator: {bwd_warps // 4} blocks of 4 warps)")
 
     # --- 6. lol_train_fwd vs lol_render_fused and the plain version -------------
     residuals = {}
@@ -2243,16 +2418,21 @@ def main() -> int:
         cam = camera_pack(s.params, h, w, c)
         fields = pack_fields(s.structure, s.params)
         k_img, k_res = fused_train.train_forward(s.structure, c, cam, fields, h, w)
+        t_img, t_res = fused_train.train_forward(s.structure, no_cull(c), cam, fields, h, w)
         f_img = fused_fwd.fused_forward(s.structure, c, cam, fields, h, w)
         p_img, p_res = fused_train.train_forward_reference(s.structure, c, cam, fields, h, w)
         torch.cuda.synchronize()
         what = f"{name} antialias={c.antialias}"
         require(torch.equal(k_img, f_img), f"{what}: lol_train_fwd image != lol_render_fused's")
+        require(torch.equal(k_img, t_img) and torch.equal(k_res, t_res),
+                f"{what}: lol_train_fwd image or residuals != its shadow_cull=False twin's")
         err, over = compare(k_img, p_img, what)
         res_over = check_residuals(k_res, p_res, what)
         residuals[(name, c.antialias)] = (cam, fields, k_res)
-        print(f"[6] {what} {h}x{w}: image = lol_render_fused bitwise; vs plain max |diff| "
-              f"{err:.3g}, {over} px over {ATOL}; residual planes: {res_over}")
+        print(f"[6] {what} {h}x{w}: image = lol_render_fused bitwise, image and residual planes"
+              f" = the shadow_cull=False twin's bitwise; vs plain max |diff| {err:.3g}, {over} px"
+              f" over {ATOL}; residual planes: {res_over}"
+              f"{' (all bitwise)' if torch.equal(k_res, p_res) else ''}")
 
     # --- 7. lol_train_bwd vs the plain version -------------------------------------
     def check_bwd(s, c, cam, fields, res, hh, ww, what):
@@ -2291,6 +2471,8 @@ def main() -> int:
     cam4 = camera_pack(s4.params, MAIN_H, MAIN_W, c_aa)
     fields4 = pack_fields(s4.structure, s4.params)
     img4, res4 = fused_train.train_forward(s4.structure, c_aa, cam4, fields4, MAIN_H, MAIN_W)
+    t_img4, t_res4 = fused_train.train_forward(s4.structure, no_cull(c_aa), cam4, fields4, MAIN_H,
+                                               MAIN_W)
     f_img4 = fused_fwd.fused_forward(s4.structure, c_aa, cam4, fields4, MAIN_H, MAIN_W)
     live_aa = {"march": [], "shadow": []}
     p_img4, p_res4 = fused_train.train_forward_reference(
@@ -2299,11 +2481,18 @@ def main() -> int:
     what = f"scene4 AA {MAIN_W}x{MAIN_H}"
     require(tuple(img4.shape) == (MAIN_H, MAIN_W, 3), f"{what}: image shape {tuple(img4.shape)}")
     require(torch.equal(img4, f_img4), f"{what}: lol_train_fwd image != lol_render_fused's")
+    require(torch.equal(img4, t_img4) and torch.equal(res4, t_res4),
+            f"{what}: lol_train_fwd image or residuals != its shadow_cull=False twin's")
     fwd_err, over = compare(img4, p_img4, what)
     res_over = check_residuals(res4, p_res4, what)
-    del f_img4, p_img4, p_res4
-    print(f"[7] lol_train_fwd {what}: image = lol_render_fused bitwise; vs plain max |diff| "
-          f"{fwd_err:.3g}, {over} px over {ATOL}; residual planes: {res_over}")
+    aa_shares = culled_shares(s4.structure, cam4, fields4, res4, c_aa)
+    res_bitwise = torch.equal(res4, p_res4)
+    del f_img4, p_img4, p_res4, t_img4, t_res4
+    print(f"[7] lol_train_fwd {what}: image = lol_render_fused bitwise, image and residual "
+          f"planes = the shadow_cull=False twin's bitwise; vs plain max |diff| {fwd_err:.3g}, "
+          f"{over} px over {ATOL}; residual planes: {res_over}"
+          f"{' (all bitwise)' if res_bitwise else ''}; lanes culled per light "
+          f"{[round(v, 4) for v in aa_shares]}")
     worst, bwd_err, cam_err, ct4 = check_bwd(s4, c_aa, cam4, fields4, res4, MAIN_H, MAIN_W,
                                              "scene4 AA 1920x1080")
     print(f"[7] scene4 AA {MAIN_W}x{MAIN_H}: fields max |diff| / max|grad| {worst:.3g}, "
@@ -2340,6 +2529,9 @@ def main() -> int:
     def k1r():
         fused_train.train_forward(s4.structure, c_aa, cam4, fields4, MAIN_H, MAIN_W)
 
+    def k1r_twin():
+        fused_train.train_forward(s4.structure, no_cull(c_aa), cam4, fields4, MAIN_H, MAIN_W)
+
     def k2():
         fused_train.train_backward(s4.structure, c_aa, cam4, fields4, res4, ct4)
 
@@ -2350,51 +2542,83 @@ def main() -> int:
         fused_train.train_backward_reference(s4.structure, c_aa, cam4, fields4, res4, ct4)
 
     for _ in range(3):
-        step(), k1r(), k2()
+        step(), k1r(), k1r_twin(), k2()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     step_ms = time_ms(step, 10)
     peak = torch.cuda.max_memory_allocated()
-    k1r_ms, k2_ms = time_ms(k1r, 10), time_ms(k2, 10)
+    # lol_train_fwd in turns with its shadow_cull=False twin: twin, K1r, K1r, twin
+    k1r_twin_ms = [time_ms(k1r_twin, 10)]
+    k1r_runs = [time_ms(k1r, 10), time_ms(k1r, 10)]
+    k1r_twin_ms.append(time_ms(k1r_twin, 10))
+    k1r_ms, k2_ms = statistics.median(k1r_runs), time_ms(k2, 10)
     plain_fwd()
     pf_ms = time_ms(plain_fwd, 1)
     plain_bwd()
     pb_ms = time_ms(plain_bwd, 1)
-    breakdown = profile_steps(step, 5)
+    split = ("fused_fwd_kernel", "fused_bwd_kernel", "bwd_reduce_kernel")
+    breakdown = profile_steps(step, 5, split=split)
+    dev_ms = {k: float(v) for k, v in re.findall(r"; (\w+): ([\d.]+) ms in", breakdown)}
+    require(set(dev_ms) == set(split), f"no device time of K1r, K2 and its reduce in: {breakdown}")
+    k1_prof = run_profile("--profile-fused")
+    k1_dev = float(re.search(r"device busy ([\d.]+) ms/step", k1_prof).group(1))
     print(f"[8] scene4 AA {MAIN_W}x{MAIN_H} on {card}: fwd+bwd step {step_ms:.3f} ms "
-          f"(peak {peak / 2**20:.0f} MiB allocated); lol_train_fwd {k1r_ms:.3f} ms, "
-          f"lol_train_bwd {k2_ms:.3f} ms; plain fwd {pf_ms:.1f} ms, plain bwd {pb_ms:.1f} ms")
-    print(f"[8] torch.profiler over 5 steps: {breakdown}")
+          f"(peak {peak / 2**20:.0f} MiB allocated); lol_train_fwd {k1r_ms:.3f} ms (runs "
+          f"{k1r_runs}; its shadow_cull=False twin {k1r_twin_ms} in turns around it), "
+          f"lol_train_bwd {k2_ms:.3f} ms (kernel + reduce, with the wrapper); plain fwd "
+          f"{pf_ms:.1f} ms, plain bwd {pb_ms:.1f} ms")
+    print(f"[8] torch.profiler over 5 steps: {breakdown}; device ms a step: lol_train_fwd "
+          f"{dev_ms['fused_fwd_kernel']:.4f}, lol_train_bwd {dev_ms['fused_bwd_kernel']:.4f} and "
+          f"its reduce {dev_ms['bwd_reduce_kernel']:.4f}")
+    print(f"[8] torch.profiler over one lol_render_fused frame (`chip_smoke.py "
+          f"--profile-fused`): {k1_prof}")
 
     # --- bounds from this run's data ------------------------------------------------
     st = s4.structure
     ops_eval = sdf_ops(st)
     L, px4 = st.num_lights, MAIN_H * MAIN_W
     small_bytes = 4 * (16 + packed_size(st))
-    cam_main = camera_pack(s4.params, MAIN_H, MAIN_W, cfg)  # phase 3's config
-    live_main = {"march": [], "shadow": []}
-    fused_train.train_forward_reference(st, cfg, cam_main, fields4, MAIN_H, MAIN_W,
-                                        live=live_main)
+    # phase 4's counts (phase 3's config), with the cull as the kernel runs
     m_fwd, sh_fwd = sum(live_main["march"]), sum(live_main["shadow"])
     m_aa, sh_aa = sum(live_aa["march"]), sum(live_aa["shadow"])
     # Operation model, counted on csrc/fused_fwd.cuh and csrc/fused_bwd.cuh
     # around E = sdf_ops per evaluation: per ray the camera ray 33, per
     # march step E + 9 (+ 6 with AA), per shadow step E + 15 (+ 2 for t*),
     # 4 normal taps E + 12 each and their normalize 10, the material
-    # lookup E + 10, Phong 70 per light, the output 30; the IFT denominator
-    # one SDF adjoint (3 E: its forward and reverse) + 15.
-    E, aa = ops_eval, 6
+    # lookup E + 10, Phong 70 per light, the output 30; per light the
+    # segment cull's bound (seg_cost); the IFT denominator one SDF adjoint
+    # (3 E: its forward and reverse) + 15. The sqrt-weighted bound counts
+    # each IEEE sqrtf at K8's measured cost in FMA slots (phase 25):
+    # sdf_sqrts a evaluation, twice that an adjoint, and the normalizes
+    # and light distances (1 each).
+    E, aa, S = ops_eval, 6, sdf_sqrts(st)
+    seg_ops, seg_sqrts = seg_cost(st)
 
     def fwd_ops(march, shadow, with_aa, residuals):
-        per_ray = 33 + 4 * (E + 12) + 10 + (E + 10) + 70 * L + 30
+        per_ray = 33 + 4 * (E + 12) + 10 + (E + 10) + 70 * L + 30 + L * seg_ops
         if residuals:
             per_ray += 3 * E + 15
         return (march * (E + 9 + (aa if with_aa else 0))
                 + shadow * (E + 15 + (2 if residuals else 0)) + px4 * per_ray)
 
-    k1_bound = bound(small_bytes + 12 * px4, fwd_ops(m_fwd, sh_fwd, False, False), ceiling)
+    def fwd_sqrts(march, shadow, residuals):
+        # camera, normal and camera-direction normalizes, the material
+        # lookup and 4 taps, per light its distance, normalize and bound
+        per_ray = 3 + 5 * S + L * (2 + seg_sqrts) + (2 * S if residuals else 0)
+        return (march + shadow) * S + px4 * per_ray
+
+    def weighted(ops, sqrts):
+        return ops + (sqrt_slots - 1.0) * sqrts
+
+    k1_ops = fwd_ops(m_fwd, sh_fwd, False, False)
+    k1_bound = bound(small_bytes + 12 * px4, k1_ops, ceiling)
+    k1_bound_sqrt = bound(small_bytes + 12 * px4,
+                          weighted(k1_ops, fwd_sqrts(m_fwd, sh_fwd, False)), ceiling)
     n_res = fused_train.num_residuals(st)
-    k1r_bound = bound(small_bytes + (12 + 4 * n_res) * px4, fwd_ops(m_aa, sh_aa, True, True), ceiling)
+    k1r_ops = fwd_ops(m_aa, sh_aa, True, True)
+    k1r_bound = bound(small_bytes + (12 + 4 * n_res) * px4, k1r_ops, ceiling)
+    k1r_bound_sqrt = bound(small_bytes + (12 + 4 * n_res) * px4,
+                           weighted(k1r_ops, fwd_sqrts(m_aa, sh_aa, True)), ceiling)
     hit = res4[1] > 0.5
     live_fat = int((hit | (res4[0] > 0)).sum())
     valid = sum(int(((res4[5 + 2 * l] > 0) & (res4[4 + 2 * l] > 0) & (res4[4 + 2 * l] < 1)).sum())
@@ -2407,11 +2631,21 @@ def main() -> int:
                      + 110 * L + 4 * (3 * E + 10) + 20 + 40)
               + live_fat * (3 * E + 6) + valid * (3 * E + 20))
     k2_bound = bound(small_bytes * 2 + 4 * (n_res + 3) * px4, k2_ops, ceiling)
-    print(f"[8] bounds: SDF evaluation {ops_eval} ops; scene4 march {m_fwd / px4:.1f} + "
-          f"shadow {sh_fwd / px4:.1f} evaluations per ray (AA: {m_aa / px4:.1f} + "
-          f"{sh_aa / px4:.1f}); lol_render_fused {k1_bound[0]:.4f} ms, lol_train_fwd "
-          f"{k1r_bound[0]:.4f} ms, lol_train_bwd {k2_bound[0]:.4f} ms, all by "
-          f"{k1_bound[1]} / {k1r_bound[1]} / {k2_bound[1]}")
+    # K2's sqrtf per pixel: forward 3 normalizes, 4 taps, L light normalizes;
+    # reverse L light normalizes and their adjoints, 2 normalize adjoints,
+    # 4 tap adjoints (2 S each), the ray's; a live f_at 3 S, a valid
+    # penumbra 2 S
+    k2_sqrts = px4 * (3 + 4 * S + 3 * L + 3 + 8 * S) + live_fat * 3 * S + valid * 2 * S
+    k2_bound_sqrt = bound(small_bytes * 2 + 4 * (n_res + 3) * px4, weighted(k2_ops, k2_sqrts),
+                          ceiling)
+    print(f"[8] bounds: SDF evaluation {ops_eval} ops, {S} of them sqrtf; the segment bound "
+          f"{seg_ops} ops, {seg_sqrts} sqrtf a light; scene4 march {m_fwd / px4:.1f} + "
+          f"shadow {sh_fwd / px4:.1f} evaluations per ray with the cull (AA: "
+          f"{m_aa / px4:.1f} + {sh_aa / px4:.1f}); operation model: lol_render_fused "
+          f"{k1_bound[0]:.4f} ms, lol_train_fwd {k1r_bound[0]:.4f} ms, lol_train_bwd "
+          f"{k2_bound[0]:.4f} ms, by {k1_bound[1]} / {k1r_bound[1]} / {k2_bound[1]}; each sqrtf "
+          f"at {sqrt_slots:.3f} FMA slots (phase 25): {k1_bound_sqrt[0]:.4f} / "
+          f"{k1r_bound_sqrt[0]:.4f} / {k2_bound_sqrt[0]:.4f} ms")
 
     # --- 9. build the instanced kernel -----------------------------------------------
     inst_built = [f.result() for f in inst_built]
@@ -2865,15 +3099,26 @@ def main() -> int:
     grid_phase(dev, card, inst, hit_pts)
 
     print(json.dumps({"kernels": [
-        entry("lol_render_fused", "loltracer_tpu_torch/csrc/fused_fwd.cuh",
-              "loltracer_tpu/render/pallas_train.py:346", main_launches, main_err,
-              k_ms, p_ms, k1_bound),
-        entry("lol_train_fwd", "loltracer_tpu_torch/csrc/fused_fwd.cuh",
-              "loltracer_tpu/render/pallas_train.py:346", fwd_launches, fwd_err,
-              k1r_ms, pf_ms, k1r_bound),
-        entry("lol_train_bwd", "loltracer_tpu_torch/csrc/fused_bwd.cuh",
-              "loltracer_tpu/render/pallas_train.py:469", bwd_launches, bwd_err,
-              k2_ms, pb_ms, k2_bound),
+        dict(entry("lol_render_fused", "loltracer_tpu_torch/csrc/fused_fwd.cuh",
+                   "loltracer_tpu/render/pallas_train.py:346", main_launches, main_err,
+                   k_ms, p_ms, k1_bound),
+             device_ms=k1_dev, twin_ms=twin_ms, bound_sqrt_ms=k1_bound_sqrt[0],
+             culled_share=main_shares,
+             shadow_evals_per_ray={"cull": sum(live_main["shadow"]) / rays,
+                                   "twin": sum(live_twin["shadow"]) / rays},
+             tile_ms={str(tw): v for tw, v in tile_ms.items()},
+             warp_efficiency={str(tw): v for tw, v in tile_eff.items()}),
+        dict(entry("lol_train_fwd", "loltracer_tpu_torch/csrc/fused_fwd.cuh",
+                   "loltracer_tpu/render/pallas_train.py:346", fwd_launches, fwd_err,
+                   k1r_ms, pf_ms, k1r_bound),
+             device_ms=dev_ms["fused_fwd_kernel"], twin_ms=k1r_twin_ms,
+             bound_sqrt_ms=k1r_bound_sqrt[0], culled_share=aa_shares),
+        dict(entry("lol_train_bwd", "loltracer_tpu_torch/csrc/fused_bwd.cuh",
+                   "loltracer_tpu/render/pallas_train.py:469", bwd_launches, bwd_err,
+                   k2_ms, pb_ms, k2_bound),
+             device_ms=dev_ms["fused_bwd_kernel"], reduce_device_ms=dev_ms["bwd_reduce_kernel"],
+             bound_sqrt_ms=k2_bound_sqrt[0], ptxas=bwd_ptxas, warps_per_sm=bwd_warps,
+             step_ms=step_ms),
         dict(entry("lol_instanced_render", "loltracer_tpu_torch/csrc/grid_scene.cuh",
                    "loltracer_tpu/render/pallas_train.py:840", inst_launches, inst_err,
                    inst_ms, inst_plain_ms, k5_bound),
@@ -2908,6 +3153,8 @@ if __name__ == "__main__":
         sys.exit(profile_regroup())
     if sys.argv[1:2] == ["--profile-peak"]:
         sys.exit(profile_peak(sys.argv[2:]))
+    if sys.argv[1:] == ["--profile-fused"]:
+        sys.exit(profile_fused())
     if sys.argv[1:] == ["--profile-objects"]:
         sys.exit(profile_objects())
     if sys.argv[1:2] == ["--objects-rank"]:

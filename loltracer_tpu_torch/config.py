@@ -124,14 +124,17 @@ class RenderConfig:
     # current points. Off exists for A/B measurement.
     scratch_window: bool = True
 
-    # Shadow-march segment culling (instanced Pallas tier): before each
-    # per-light shadow march, a conservative segment-vs-block bound
-    # (pallas_scene.InstancedScene.segment_lit) marks rays whose penumbra
-    # value provably stays > 1 along the whole ray; those lanes start the
-    # march pre-done with res = 1.0 / t_star = 0 — bitwise what the march
-    # would have produced — and fully-lit patches skip the 128-step loop
-    # entirely. Value-exact (the bound is one-sided), so this is purely a
-    # speed knob; off exists for A/B measurement.
+    # Shadow-march segment culling: before each per-light shadow march, a
+    # conservative segment bound (the JAX package's
+    # pallas_scene.InstancedScene.segment_lit / ScalarScene.segment_lit;
+    # here render/shading.py segment_lit, and the generated
+    # Scene::segment_lit that the fused kernels K1 / K1r read for compiled
+    # structures) marks rays whose penumbra value provably stays > 1 along
+    # the whole ray; those lanes start the march pre-done with res = 1.0 /
+    # t_star = 0 — bitwise what the march would have produced — and skip
+    # it. Value-exact (the bound is one-sided), so this is purely a speed
+    # knob; off builds the kernels without it, for A/B measurement and as
+    # their bitwise check.
     shadow_cull: bool = True
 
     # Step clamp for INSTANCED scenes (None = exact full SDF): the march

@@ -18,18 +18,27 @@
 // pixel's own material, plus material 0's ambient through the AA blend.
 //
 // The TPU kernel sums over a sequential grid. Here blocks run in no order,
-// so the sum is deterministic by construction instead: each block reduces
-// its 256 threads in a fixed order (warp shuffles, then its 8 warps through
-// shared memory) into one row of partials [num_blocks, 16 + fields], and a
-// second launch (lol_train_bwd_reduce) sums each column over the blocks in
-// a fixed order. No float atomics: two launches give bitwise equal
-// gradients.
+// so the sum is deterministic by construction instead: each thread adds its
+// pixels' gradients, in the order of its tiles, into its own column of a
+// [slot][thread] array in shared memory; each block reduces its 128 threads
+// in a fixed order (warp shuffles, then its 4 warps through shared memory)
+// into one row of partials [blocks, 16 + fields]; and a second launch
+// (lol_train_bwd_reduce) sums each column over the blocks in a fixed order.
+// The grid is a fixed number of blocks (at most kBwdMaxBlocks) striding over
+// 32 x 4 pixel tiles, so a block reduces once and the reduce reads a few
+// hundred rows. No float atomics: two launches give bitwise equal gradients.
 //
 // What bounds it on this card: FP32 and SFU issue of 1 + 4 + L SDF
-// evaluations, each forward plus reverse, per pixel, and register pressure
-// (16 + fields accumulators per thread, ~90 for scene4, spill to local
-// memory). Bytes are small: (4 + 2L + 3) floats read per pixel and
-// 4 * (16 + fields) bytes written per block.
+// evaluations, each forward plus reverse, with IEEE sqrt and divides in
+// each, per pixel, and the latency of those chains at few warps a SM. The
+// 16 + fields accumulators a thread (92 for scene4) held in registers
+// spilled at 255 registers with 8 warps a SM. In shared memory, [slot]
+// [thread], an update is a load and a store (a warp's lanes touch 32
+// consecutive words: no bank conflict), and with the taps' loops rolled the
+// rest fits 128 registers without spills: 4 blocks of 4 warps a SM, the
+// most the accumulators' 47 KB a block allow for scene4. Bytes are small:
+// (4 + 2L + 3) floats read per pixel and 4 * (16 + fields) bytes written
+// per block.
 //
 // Not compiled on its own: render/cuda_scene.py emits it after
 // csrc/fused_fwd.cuh and before the generated Cfg and Scene.
@@ -124,19 +133,23 @@ __device__ __forceinline__ void normalize3_bwd(float x, float y, float z,
 
 // --- one pixel: recompute _shade_from_frozen, then its reverse -------------
 
-// acc[0..15] takes d/dcam, acc[16 + i] d/dfields[i]. r points at the
+// acc[0..15] takes d/dcam, acc[16 + i] d/dfields[i]: a float array of the
+// thread's own (K6), or K2's StridedAcc over shared memory. r points at the
 // pixel's residual plane 0 (planes H*W apart); ct at its 3 cotangents.
-template <class Cfg, class Scene>
+// kRolled keeps the two loops over the normal taps rolled (K2: one copy of
+// the taps' SDF and SDF adjoint in the code, and no spill at its 128
+// registers); K6 unrolls them.
+template <class Cfg, class Scene, bool kRolled = false, class Acc>
 __device__ __forceinline__ void pixel_bwd(const float* cam, const Scene& scn,
                                           const float* __restrict__ P, int x,
                                           int y, int height, int width,
                                           const float* __restrict__ r,
                                           size_t plane,
                                           const float* __restrict__ ct,
-                                          float* acc) {
+                                          Acc acc) {
   constexpr int L = Scene::kNumLights;
   constexpr int M = Scene::kNumMaterials;
-  float* const gP = acc + kCamSize;
+  const auto gP = acc + kCamSize;
 
   const float t_sh = __ldg(r);
   const bool hit = __ldg(r + plane) > 0.5f;
@@ -173,7 +186,7 @@ __device__ __forceinline__ void pixel_bwd(const float* cam, const Scene& scn,
 
   const float h = t_sh * Cfg::normal_h_scale;
   float nrx = 0.f, nry = 0.f, nrz = 0.f;
-#pragma unroll
+#pragma unroll(kRolled ? 1 : 4)
   for (int k = 0; k < 4; ++k) {
     const float kx = (k == 0 || k == 3) ? 1.f : -1.f;
     const float ky = (k >= 2) ? 1.f : -1.f;
@@ -380,7 +393,7 @@ __device__ __forceinline__ void pixel_bwd(const float* cam, const Scene& scn,
   float g_nrx = 0.f, g_nry = 0.f, g_nrz = 0.f;
   normalize3_bwd(nrx, nry, nrz, g_nx, g_ny, g_nz, g_nrx, g_nry, g_nrz);
   float g_h = 0.f;
-#pragma unroll
+#pragma unroll(kRolled ? 1 : 4)
   for (int k = 0; k < 4; ++k) {
     const float kx = (k == 0 || k == 3) ? 1.f : -1.f;
     const float ky = (k >= 2) ? 1.f : -1.f;
@@ -446,14 +459,88 @@ __device__ __forceinline__ void pixel_bwd(const float* cam, const Scene& scn,
   acc[15] += -(g_sy * cam[13]) / (float)height * 2.f;
 }
 
-#ifdef __CUDACC__
-constexpr int kBwdThreads = kBlockX * kBlockY;
-constexpr int kBwdWarps = kBwdThreads / 32;
+// --- lol_train_bwd: accumulators in shared memory, a few blocks a SM ------
 
-__host__ __device__ inline int bwd_num_blocks(int height, int width) {
-  return ((width + kBlockX - 1) / kBlockX) * ((height + kBlockY - 1) / kBlockY);
+// One thread's accumulator slots, a column of a [slot][thread] array in
+// shared memory: slot k of thread t sits at k * kStride + t, so a warp
+// touching one slot hits 32 consecutive words (no bank conflict), and each
+// thread reads and writes only its own column (no atomics). pixel_bwd and
+// the generated Scene::dist_bwd index it with constant slots, as a float
+// array.
+template <int kStride>
+struct StridedAcc {
+  float* col;
+  __device__ __forceinline__ float& operator[](int slot) const { return col[slot * kStride]; }
+  __device__ __forceinline__ StridedAcc operator+(int slots) const {
+    return {col + slots * kStride};
+  }
+};
+
+// A block is 128 threads, one pixel each of a 32 x 4 tile (a warp a row),
+// and walks the tiles b, b + B, b + 2B, ... of the image (B blocks, at
+// most kBwdMaxBlocks: four a SM of the H100's 132, a fixed number, so the
+// order of the sums is the same on any card). Its partial sums are
+// reduced once, after its last tile.
+constexpr int kBwdThreads = 128;
+constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr int kBwdTileW = 32;
+constexpr int kBwdTileH = kBwdThreads / kBwdTileW;
+constexpr int kBwdMaxBlocks = 528;
+constexpr int kBwdMinBlocks = 4;  // resident blocks a SM that ptxas must allow
+
+__host__ __device__ inline int bwd_num_tiles(int height, int width) {
+  return ((width + kBwdTileW - 1) / kBwdTileW) * ((height + kBwdTileH - 1) / kBwdTileH);
 }
 
+__host__ __device__ inline int bwd_num_blocks(int height, int width) {
+  const int tiles = bwd_num_tiles(height, width);
+  return tiles < kBwdMaxBlocks ? tiles : kBwdMaxBlocks;
+}
+
+// Thread `tid` of block `block` of `blocks`: pixel_bwd of its pixel of each
+// of the block's tiles, in order, into acc.
+template <class Cfg, class Scene, class Acc>
+__device__ __forceinline__ void bwd_pixels(const float* cam, const Scene& scn,
+                                           const float* __restrict__ P,
+                                           const float* __restrict__ res,
+                                           const float* __restrict__ ct, int block, int blocks,
+                                           int tid, int height, int width, Acc acc) {
+  const int tiles_x = (width + kBwdTileW - 1) / kBwdTileW;
+  const int tiles = bwd_num_tiles(height, width);
+  const size_t plane = (size_t)height * width;
+  for (int tile = block; tile < tiles; tile += blocks) {
+    const int x = (tile % tiles_x) * kBwdTileW + tid % kBwdTileW;
+    const int y = (tile / tiles_x) * kBwdTileH + tid / kBwdTileW;
+    if (x < width && y < height) {
+      const size_t pix = (size_t)y * width + x;
+      pixel_bwd<Cfg, Scene, true>(cam, scn, P, x, y, height, width, res + pix, plane,
+                                  ct + 3 * pix, acc);
+    }
+  }
+}
+
+// Thread `tid` of block `block`: its accumulators (the column at col of
+// the block's [slot][thread] array, zeroed here) over its pixels; on
+// return the column holds every slot's sum.
+template <class Cfg, class Scene>
+__device__ __forceinline__ void bwd_thread(const float* cam, const Scene& scn,
+                                           const float* __restrict__ P,
+                                           const float* __restrict__ res,
+                                           const float* __restrict__ ct, int block, int blocks,
+                                           int tid, int height, int width, float* col) {
+  constexpr int N = kCamSize + Scene::kNumFields;
+  for (int j = 0; j < N; ++j) col[j * kBwdThreads] = 0.f;
+  bwd_pixels<Cfg, Scene>(cam, scn, P, res, ct, block, blocks, tid, height, width,
+                         StridedAcc<kBwdThreads>{col});
+}
+
+// Shared memory of one lol_train_bwd block's accumulators.
+template <class Scene>
+constexpr size_t bwd_smem_bytes() {
+  return sizeof(float) * (kCamSize + Scene::kNumFields) * kBwdThreads;
+}
+
+#ifdef __CUDACC__
 // Sum of v over the warp, lane 0 holding it; the same shuffle tree every
 // time, so the order of the additions is fixed.
 __device__ __forceinline__ float warp_sum(float v) {
@@ -465,8 +552,8 @@ __device__ __forceinline__ float warp_sum(float v) {
 // The block's sum of acc[0..N) over its kThreads threads, in a fixed order
 // (warp shuffles, then the warps in order through shared memory), written
 // to the block's row of partials [num_blocks, N]. Every thread calls it.
-template <int N, int kThreads>
-__device__ __forceinline__ void block_partials(const float* acc,
+template <int N, int kThreads, class Acc>
+__device__ __forceinline__ void block_partials(const Acc& acc,
                                                float* __restrict__ partials) {
   constexpr int kWarps = kThreads / 32;
   __shared__ float warp_part[kWarps][N];
@@ -488,28 +575,21 @@ __device__ __forceinline__ void block_partials(const float* acc,
 }
 
 template <class Cfg, class Scene>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
     fused_bwd_kernel(const float* __restrict__ cam_in,
                      const float* __restrict__ P, const float* __restrict__ res,
                      const float* __restrict__ ct, float* __restrict__ partials,
                      int height, int width) {
   constexpr int N = kCamSize + Scene::kNumFields;
-  float acc[N];
-#pragma unroll
-  for (int j = 0; j < N; ++j) acc[j] = 0.f;
-
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x < width && y < height) {  // no early return: all threads reduce
-    float cam[kCamSize];
-#pragma unroll
-    for (int i = 0; i < kCamSize; ++i) cam[i] = __ldg(cam_in + i);
-    const Scene scn(P);
-    const size_t pix = (size_t)y * width + x;
-    pixel_bwd<Cfg, Scene>(cam, scn, P, x, y, height, width, res + pix,
-                          (size_t)height * width, ct + 3 * pix, acc);
-  }
-  block_partials<N, kBwdThreads>(acc, partials);
+  extern __shared__ float acc_cols[];  // [N][kBwdThreads]
+  __shared__ float cam[kCamSize];
+  const int tid = threadIdx.x;
+  if (tid < kCamSize) cam[tid] = __ldg(cam_in + tid);
+  __syncthreads();
+  const Scene scn(P);
+  bwd_thread<Cfg, Scene>(cam, scn, P, res, ct, blockIdx.x, gridDim.x, tid, height, width,
+                         acc_cols + tid);
+  block_partials<N, kBwdThreads>(StridedAcc<kBwdThreads>{acc_cols + tid}, partials);
 }
 
 // grads[j] = sum over blocks of partials[:, j]: one block per column, each
@@ -537,12 +617,27 @@ template <class Cfg, class Scene>
 int launch_fused_bwd(const float* cam, const float* fields, const float* res,
                      const float* ct, float* partials, int height, int width,
                      cudaStream_t stream) {
-  const dim3 block(kBlockX, kBlockY);
-  const dim3 grid((width + kBlockX - 1) / kBlockX,
-                  (height + kBlockY - 1) / kBlockY);
-  fused_bwd_kernel<Cfg, Scene><<<grid, block, 0, stream>>>(
+  constexpr size_t smem = bwd_smem_bytes<Scene>();
+  const cudaError_t e = cudaFuncSetAttribute(
+      fused_bwd_kernel<Cfg, Scene>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  fused_bwd_kernel<Cfg, Scene><<<bwd_num_blocks(height, width), kBwdThreads, smem, stream>>>(
       cam, fields, res, ct, partials, height, width);
   return (int)cudaGetLastError();
+}
+
+// lol_train_bwd's resident blocks a SM (the occupancy calculator, at its
+// shared memory), or -1 on an error.
+template <class Cfg, class Scene>
+int bwd_blocks_per_sm() {
+  constexpr size_t smem = bwd_smem_bytes<Scene>();
+  int n = 0;
+  if (cudaFuncSetAttribute(fused_bwd_kernel<Cfg, Scene>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fused_bwd_kernel<Cfg, Scene>,
+                                                    kBwdThreads, smem) != cudaSuccess)
+    return -1;
+  return n;
 }
 
 template <class Scene>

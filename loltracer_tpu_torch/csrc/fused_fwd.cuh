@@ -23,8 +23,14 @@
 // and warp divergence, not bytes: it reads ~100 scene floats once per
 // thread and writes 12 B per ray. The TPU kernel marched (64, 128) tiles
 // until the tile's worst lane finished; here each thread leaves its loop
-// when its own ray is done, so a warp of 32 neighbouring pixels waits only
-// for its own worst ray, and finished warps free their slots for others.
+// when its own ray is done, so a warp waits only for its own worst ray, and
+// finished warps free their slots for others. A warp is a tile of 8 x 4
+// pixels (tile_pixel), whose rays and shadow rays stay closer together than
+// a row of 32's. Like the TPU kernel, it skips the shadow march of a ray
+// that the Scene's segment bound (the generated Scene::segment_lit, under
+// Cfg::shadow_cull) proves lit: the longest shadow marches walk all the
+// way to the light, and the skipped lane's res = 1, t* = 0 are what its
+// march would give.
 //
 // This file is not compiled on its own: render/cuda_scene.py emits, after
 // it, the per-structure `Cfg` and `Scene` types (the straight-line SDF of
@@ -49,6 +55,7 @@
 #include <cuda_runtime.h>
 #endif
 #include <math.h>
+#include <type_traits>
 
 namespace lol {
 
@@ -84,6 +91,35 @@ __device__ __forceinline__ void normalize3(float& x, float& y, float& z) {
   y = y / n;
   z = z / n;
 }
+
+// Slack of the shadow segment cull's bound (the JAX package's
+// pallas_scene.BOUND_MARGIN; render/shading.py BOUND_MARGIN): it absorbs the
+// float32 rounding of the bound's short chains.
+constexpr float kBoundMargin = 0.0625f;
+
+// Distance from the point c to the segment so + t l, t in [0, T]
+// (pallas_scene.ScalarScene._node_seg_bound's segdist; render/shading.py):
+// the generated Scene::segment_lit bounds each sphere and box with it.
+__device__ __forceinline__ float seg_dist(float cx, float cy, float cz, float sox, float soy,
+                                          float soz, float lx, float ly, float lz, float T) {
+  const float dx = cx - sox, dy = cy - soy, dz = cz - soz;
+  const float proj = dx * lx + dy * ly + dz * lz;
+  const float tcl = jclip(proj, 0.f, T);
+  const float ex = dx - tcl * lx, ey = dy - tcl * ly, ez = dz - tcl * lz;
+  return sqrtf(ex * ex + ey * ey + ez * ez);
+}
+
+// Whether render_pixel skips the shadow marches that the Scene's segment
+// bound proves lit: Cfg::shadow_cull (cfg.shadow_cull, emitted for compiled
+// structures) and Scene::kHasSegmentBound (the generated compiled Scene
+// when its structure allows the bound). InstancedScene and GridScene have
+// no such bound, so K5 / K5r / K9 march every shadow ray.
+template <class Cfg, class Scene, class = void>
+struct SegmentCull : std::false_type {};
+template <class Cfg, class Scene>
+struct SegmentCull<Cfg, Scene,
+                   std::void_t<decltype(Cfg::shadow_cull), decltype(Scene::kHasSegmentBound)>>
+    : std::integral_constant<bool, Cfg::shadow_cull && Scene::kHasSegmentBound> {};
 
 // Camera pack layout (render/camera.py camera_pack):
 // ro(3) right(3) up(3) fwd(3) half_w half_h pixel_rad row0.
@@ -347,9 +383,20 @@ __device__ __forceinline__ void render_pixel(const float* cam, const Scene& scn,
     rp[2 * plane] = (float)m.mat;
   }
 
-  // soft-shadow march (shading.py soft_shadow)
+  // soft-shadow march (shading.py soft_shadow); a ray the segment bound
+  // proves lit keeps res = 1 and t* = 0, what its march gives it (the JAX
+  // kernel's init_done lanes)
   const auto shadow_of = [&](int l, float sox, float soy, float soz, float lx, float ly,
                              float lz, float light_dist) {
+    if constexpr (SegmentCull<Cfg, Scene>::value) {
+      if (scn.segment_lit(sox, soy, soz, lx, ly, lz, light_dist)) {
+        if constexpr (Cfg::with_residuals) {
+          rp[(4 + 2 * l) * plane] = 1.f;
+          rp[(5 + 2 * l) * plane] = 0.f;
+        }
+        return 1.f;
+      }
+    }
     float t_star;
     const float res = shadow_ray<Cfg>(scn, sox, soy, soz, lx, ly, lz, light_dist, t_star);
     if constexpr (Cfg::with_residuals) {
@@ -361,17 +408,35 @@ __device__ __forceinline__ void render_pixel(const float* cam, const Scene& scn,
   shade_pixel<Cfg>(cam, scn, P, m, img, x, y, width, shadow_of);
 }
 
+// A block is 256 threads over 32 x 8 pixels; each warp of it takes a tile
+// of kTileW x (32 / kTileW) pixels: kTileW = 32 is a row of 32, 8 a tile of
+// 8 x 4 (K5's warp). kFwdTileW is the shape the entries launch, FWD_TILES in
+// render/cuda_scene.py the shapes `lol_render_fused_tile` sweeps.
 constexpr int kBlockX = 32;
 constexpr int kBlockY = 8;
+constexpr int kFwdTileW = 8;
+
+// Pixel (x, y) of this thread: warp w of the block takes tile (w % (32 /
+// kTileW), w / (32 / kTileW)) of the block's 32 x 8 pixels, lane i pixel
+// (i % kTileW, i / kTileW) of that tile.
+template <int kTileW>
+__device__ __forceinline__ void tile_pixel(int bx, int by, int tid, int& x, int& y) {
+  static_assert(32 % kTileW == 0 && kBlockX % kTileW == 0 && kBlockY * kTileW % 32 == 0,
+                "the block's warps must tile its 32 x 8 pixels");
+  constexpr int kTileH = 32 / kTileW, kTilesX = kBlockX / kTileW;
+  const int lane = tid & 31, warp = tid >> 5;
+  x = bx * kBlockX + (warp % kTilesX) * kTileW + lane % kTileW;
+  y = by * kBlockY + (warp / kTilesX) * kTileH + lane / kTileW;
+}
 
 #ifdef __CUDACC__
-template <class Cfg, class Scene>
+template <class Cfg, class Scene, int kTileW>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
     fused_fwd_kernel(const float* __restrict__ cam_in,
                      const float* __restrict__ P, float* __restrict__ img,
                      float* __restrict__ res, int height, int width) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  int x, y;
+  tile_pixel<kTileW>(blockIdx.x, blockIdx.y, threadIdx.y * blockDim.x + threadIdx.x, x, y);
   if (x >= width || y >= height) return;
 
   float cam[kCamSize];
@@ -382,13 +447,13 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
                            (size_t)height * width);
 }
 
-template <class Cfg, class Scene>
+template <class Cfg, class Scene, int kTileW = kFwdTileW>
 int launch_fused_fwd(const float* cam, const float* fields, float* img,
                      float* res, int height, int width, cudaStream_t stream) {
   const dim3 block(kBlockX, kBlockY);
   const dim3 grid((width + kBlockX - 1) / kBlockX,
                   (height + kBlockY - 1) / kBlockY);
-  fused_fwd_kernel<Cfg, Scene>
+  fused_fwd_kernel<Cfg, Scene, kTileW>
       <<<grid, block, 0, stream>>>(cam, fields, img, res, height, width);
   return (int)cudaGetLastError();
 }

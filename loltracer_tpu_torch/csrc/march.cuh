@@ -15,8 +15,9 @@
 //   t, t_query, s_min, t_close as four planes [4, n].
 // - K4: per ray from so along ld up to max_dist, `shadow_ray`: res and its
 //   first-wins argmin t* as two planes [2, n]. The TPU kernel's segment
-//   cull (cfg.shadow_cull) is value-exact and speed only; like K1 and K5,
-//   K4 leaves it out (ROADMAP.md perf queue).
+//   cull (cfg.shadow_cull) is value-exact and speed only; K1 / K1r run it
+//   (csrc/fused_fwd.cuh render_pixel), K4, like K5, leaves it out for now
+//   (ROADMAP.md).
 //
 // The loops are K1's and K5's own (`march_ray`, `shadow_ray`), so a ray
 // marched here and inside render_pixel takes the same steps, and each

@@ -71,6 +71,7 @@ import torch
 
 from loltracer_tpu_torch.config import RenderConfig
 from loltracer_tpu_torch.render.instanced_pack import GROUP
+from loltracer_tpu_torch.render.shading import segment_allowed
 from loltracer_tpu_torch.scene import (
     Node,
     SceneParams,
@@ -223,7 +224,11 @@ def _cfg_source(cfg: RenderConfig, residuals: bool, instanced: bool = False) -> 
     lines.append(
         f"  static constexpr bool with_residuals = {'true' if residuals else 'false'};"
     )
-    if instanced:
+    if not instanced:
+        lines.append(
+            f"  static constexpr bool shadow_cull = {'true' if cfg.shadow_cull else 'false'};"
+        )
+    else:
         for name, clamp in (("clamp", cfg.step_clamp),
                             ("shadow_clamp", cfg.effective_shadow_clamp())):
             has = "true" if clamp is not None else "false"
@@ -354,7 +359,8 @@ class _AdjointEmitter(_NodeEmitter):
 def _adjoint_source(structure: SceneStructure) -> str:
     """`Scene::dist_bwd`: the distance at p and, for its cotangent gd, the
     point gradient (gx, gy, gz) and, when kParams, the geometry gradient
-    added into gP[] (indexed like the packed buffer). The min over objects
+    added into gP[] (indexed like the packed buffer: a float pointer, or
+    csrc/fused_bwd.cuh's StridedAcc over shared memory). The min over objects
     passes gd to the smaller operand (a tie splits it, as torch.minimum
     does); an object that gets no cotangent skips its reverse."""
     off = field_offsets(structure)
@@ -379,10 +385,10 @@ def _adjoint_source(structure: SceneStructure) -> str:
         )
     lines = [
         "  // reverse-mode adjoint of dist (generated object by object)",
-        "  template <bool kParams>",
+        "  template <bool kParams, class G>",
         "  __device__ __forceinline__ float dist_bwd(float px, float py, float pz, float gd,",
         "                                            float& gx, float& gy, float& gz,",
-        "                                            float* __restrict__ gP) const {",
+        "                                            G gP) const {",
     ]
     lines += [f"    {s}" for s in fwd + chain]
     lines += ["    gx = 0.f; gy = 0.f; gz = 0.f;"]
@@ -391,7 +397,86 @@ def _adjoint_source(structure: SceneStructure) -> str:
     return "\n".join(lines)
 
 
-def _scene_source(structure: SceneStructure, residuals: bool) -> str:
+class _BoundEmitter:
+    """Emits one object's segment bound (render/shading.py
+    `_node_seg_bound`) as straight-line statements over the geometry
+    registers g[]; `emit` returns None for a plane and a smooth-min over
+    one."""
+
+    def __init__(self, offsets: Dict[str, int], prefix: str):
+        self.off = offsets
+        self.prefix = prefix
+        self.lines: List[str] = []
+        self.n = 0
+
+    def emit(self, node: Node):
+        kind, off = node[0], self.off
+        seg = "sox, soy, soz, lx, ly, lz, T"
+        if kind == "plane":
+            return None
+        if kind == "smin":
+            _, k, a, b = node
+            va, vb = self.emit(a), self.emit(b)
+            if va is None or vb is None:
+                return None
+        self.n += 1
+        out = f"{self.prefix}b{self.n}"
+        if kind == "sphere":
+            c, r = off["sphere_point"] + 3 * node[1], off["sphere_radius"] + node[1]
+            self.lines.append(
+                f"const float {out} = seg_dist(g[{c}], g[{c + 1}], g[{c + 2}], {seg}) - g[{r}];"
+            )
+        elif kind == "box":
+            c, h = off["box_point"] + 3 * node[1], off["box_half"] + 3 * node[1]
+            r = off["box_radius"] + node[1]
+            self.lines.append(
+                f"const float {out} = seg_dist(g[{c}], g[{c + 1}], g[{c + 2}], {seg}) - "
+                f"sqrtf(g[{h}] * g[{h}] + g[{h + 1}] * g[{h + 1}] + g[{h + 2}] * g[{h + 2}])"
+                f" - g[{r}];"
+            )
+        elif kind == "smin":
+            self.lines.append(
+                f"const float {out} = jmin({va}, {vb}) - g[{off['smooth_k'] + node[1]}] / 4.f;"
+            )
+        else:
+            raise ValueError(f"unknown node {node!r}")
+        return out
+
+
+def _segment_source(structure: SceneStructure) -> str:
+    """`Scene::segment_lit` (render/shading.py `segment_lit`, op for op):
+    whether the shadow ray from so along unit l over [0, T] provably keeps
+    every penumbra value w d / t above 1, so that render_pixel may skip its
+    march. Only for a structure segment_allowed passes."""
+    off = field_offsets(structure)
+    lines = [
+        "  // the shadow segment cull (render/shading.py segment_lit)",
+        "  static constexpr bool kHasSegmentBound = true;",
+        "  __device__ __forceinline__ bool segment_lit(float sox, float soy, float soz, float lx,",
+        "                                              float ly, float lz, float T) const {",
+        "    bool lit = true;",
+    ]
+    for i, node in enumerate(structure.objects):
+        lines.append(f"    // object {i + 1}: {node[0]}")
+        if node[0] == "plane":
+            lines += [
+                f"    {{ const float a = soy - g[{off['plane_y'] + node[1]}];",
+                "      lit = lit & (a >= kBoundMargin) &",
+                "            (Cfg::shadow_w * (a + ly * T) > T + Cfg::shadow_w * kBoundMargin); }",
+            ]
+            continue
+        em = _BoundEmitter(off, f"o{i}")
+        out = em.emit(node)
+        lines += [f"    {s}" for s in em.lines]
+        lines.append(f"    lit = lit & (Cfg::shadow_w * ({out} - kBoundMargin) > T);")
+    lines += ["    return lit;", "  }"]
+    return "\n".join(lines)
+
+
+def _scene_source(structure: SceneStructure, residuals: bool, cull: bool = False) -> str:
+    """The compiled structure's `Scene`; with `cull`, and when the structure
+    allows the bound (render/shading.py segment_allowed), its
+    `segment_lit`, which render_pixel's shadows read under Cfg::shadow_cull."""
     require_compiled(structure)
     if not structure.objects:
         raise ValueError("a scene needs at least one object")
@@ -468,6 +553,8 @@ def _scene_source(structure: SceneStructure, residuals: bool) -> str:
             f"    d = obj{i}(px, py, pz); if (d < dmin) {{ dmin = d; mat = {m}; }}"
         )
     lines += ["    return mat;", "  }"]
+    if cull and segment_allowed(structure):
+        lines += ["", _segment_source(structure)]
     if residuals:
         lines += ["", _adjoint_source(structure)]
     lines += ["};"]
@@ -518,6 +605,23 @@ TRAIN_FWD = "lol_train_fwd"
 TRAIN_BWD = "lol_train_bwd"
 TRAIN_REDUCE = "lol_train_bwd_reduce"
 TRAIN_BLOCKS = "lol_train_bwd_blocks"
+TRAIN_BLOCKS_PER_SM = "lol_train_bwd_blocks_per_sm"
+FWD_TILE = "lol_render_fused_tile"
+
+# The warp tile widths `lol_render_fused_tile` is compiled for (a warp of 32
+# lanes over kTileW x 32 / kTileW pixels, csrc/fused_fwd.cuh tile_pixel);
+# the entries launch kFwdTileW. Another width is refused
+# (cudaErrorInvalidValue).
+FWD_TILES = (32, 16, 8)
+
+
+def _fwd_tile_case(w: int) -> str:
+    return f"""\
+    case {w}:
+      return lol::launch_fused_fwd<lol_gen::Cfg, lol_gen::Scene, {w}>(
+          static_cast<const float*>(cam), static_cast<const float*>(fields),
+          static_cast<float*>(img), nullptr, height, width, static_cast<cudaStream_t>(stream));"""
+
 
 _FWD_ENTRY = f"""\
 extern "C" int {ENTRY}(const void* cam, const void* fields, void* img,
@@ -526,6 +630,15 @@ extern "C" int {ENTRY}(const void* cam, const void* fields, void* img,
       static_cast<const float*>(cam), static_cast<const float*>(fields),
       static_cast<float*>(img), nullptr, height, width,
       static_cast<cudaStream_t>(stream));
+}}
+
+extern "C" int {FWD_TILE}(const void* cam, const void* fields, void* img, int height,
+                                     int width, int tile_w, void* stream) {{
+  switch (tile_w) {{
+{chr(10).join(_fwd_tile_case(w) for w in FWD_TILES)}
+    default:
+      return (int)cudaErrorInvalidValue;
+  }}
 }}"""
 
 _TRAIN_ENTRIES = f"""\
@@ -539,6 +652,10 @@ extern "C" int {TRAIN_FWD}(const void* cam, const void* fields, void* img,
 
 extern "C" int {TRAIN_BLOCKS}(int height, int width) {{
   return lol::bwd_num_blocks(height, width);
+}}
+
+extern "C" int {TRAIN_BLOCKS_PER_SM}() {{
+  return lol::bwd_blocks_per_sm<lol_gen::Cfg, lol_gen::Scene>();
 }}
 
 extern "C" int {TRAIN_BWD}(const void* cam, const void* fields, const void* res,
@@ -1040,7 +1157,7 @@ def generate_source(
             "using namespace lol;",
             _cfg_source(cfg, residuals),
             "",
-            _scene_source(structure, residuals),
+            _scene_source(structure, residuals, cull=cfg.shadow_cull),
             "}  // namespace lol_gen",
             "",
             "#ifdef __CUDACC__",

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -31,6 +32,8 @@ from loltracer_tpu_torch.render.backend import resolve_backend
 from loltracer_tpu_torch.render.camera import CAM_SIZE, camera_pack, rays_from_pack
 from loltracer_tpu_torch.render.cuda_scene import (
     ENTRY,
+    FWD_TILE,
+    FWD_TILES,
     generate_source,
     packed_size,
     unpack_fields,
@@ -82,9 +85,10 @@ def library(structure: SceneStructure, cfg: RenderConfig) -> _build.Library:
     """The built kernel for this structure and config (compiled at first
     use, then loaded from the build cache)."""
     built = _build.build(generate_source(structure, cfg), "fused_fwd")
-    fn = getattr(built.lib, ENTRY)
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for name, ints in ((ENTRY, 2), (FWD_TILE, 3)):
+        fn = getattr(built.lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * ints + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return built
 
 
@@ -106,9 +110,15 @@ def fused_forward(
     fields: torch.Tensor,
     height: int,
     width: int,
+    tile_w: Optional[int] = None,
 ) -> torch.Tensor:
     """Render [H, W, 3] f32: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors (render/backend.py)."""
+    version for CPU tensors (render/backend.py). `tile_w`, one of
+    cuda_scene.FWD_TILES, launches the kernel with warps of that tile width
+    (`lol_render_fused_tile`, for sweeps and checks); None launches the
+    entry's own shape. The image does not depend on it."""
+    if tile_w is not None and tile_w not in FWD_TILES:
+        raise ValueError(f"tile_w {tile_w} is not one of the compiled {FWD_TILES}")
     if resolve_backend(cam, fields) == "torch":
         return fused_forward_reference(structure, cfg, cam, fields, height, width)
     _check("cam", cam, (CAM_SIZE,))
@@ -117,13 +127,15 @@ def fused_forward(
         raise ValueError(f"cam on {cam.device}, fields on {fields.device}")
     if height <= 0 or width <= 0:
         raise ValueError(f"bad image size {height}x{width}")
-    fn = getattr(library(structure, cfg).lib, ENTRY)
+    lib = library(structure, cfg).lib
     img = torch.empty((height, width, 3), dtype=torch.float32, device=cam.device)
+    name, tile = (ENTRY, ()) if tile_w is None else (FWD_TILE, (tile_w,))
     with torch.cuda.device(cam.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(cam.data_ptr(), fields.data_ptr(), img.data_ptr(), height, width, stream)
+        rc = getattr(lib, name)(cam.data_ptr(), fields.data_ptr(), img.data_ptr(), height,
+                                width, *tile, stream)
     if rc != 0:
-        raise RuntimeError(f"{ENTRY} launch failed: cudaError {rc}")
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
     global launches
     launches += 1
     return img

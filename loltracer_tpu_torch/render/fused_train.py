@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -39,6 +39,7 @@ from loltracer_tpu_torch.render.backend import resolve_backend, resolve_device
 from loltracer_tpu_torch.render.camera import CAM_SIZE, camera_pack, rays_from_pack
 from loltracer_tpu_torch.render.cuda_scene import (
     TRAIN_BLOCKS,
+    TRAIN_BLOCKS_PER_SM,
     TRAIN_BWD,
     TRAIN_FWD,
     TRAIN_REDUCE,
@@ -54,6 +55,7 @@ from loltracer_tpu_torch.render.shading import (
     envelope_reattach,
     get_normal,
     phong,
+    segment_lit,
     shadow_march,
 )
 from loltracer_tpu_torch.render.torch_renderer import gamma_encode
@@ -167,20 +169,23 @@ def train_forward_reference(
     fields: torch.Tensor,
     height: int,
     width: int,
-    live: Optional[Dict[str, List[int]]] = None,
+    live: Optional[Dict] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version of lol_train_fwd on the tensors' device: the plain
-    march and shadow marches (with t*), the denominator by autograd, the
-    image from shade_from_frozen. Returns (img [H, W, 3], res [R, H, W]).
-    With `live` = {"march": [], "shadow": []}, the loops append their
-    live-ray counts per step there (march.march's `live`)."""
+    march and shadow marches (with t*; under cfg.shadow_cull the rays
+    shading.segment_lit marks start done, as the kernel skips them), the
+    denominator by autograd, the image from shade_from_frozen. Returns
+    (img [H, W, 3], res [R, H, W]). With `live` = {"march": [], "shadow":
+    []}, the loops append their live-ray counts per step there
+    (march.march's `live`); with "rays", an integer tensor [H, W], they add
+    up each ray's SDF evaluations in it."""
     with torch.no_grad():
         cam, fields = cam.detach(), fields.detach()
         params = _params_of(structure, cam, fields)
         sdf = make_scene_sdf(structure)
         ro, rd = rays_from_pack(cam, torch.arange(height), height, width)
         res = residual_planes(structure, cfg, params, ro, rd, sdf, sdf, sdf,
-                              make_scene_sdf_with_id(structure), live)
+                              make_scene_sdf_with_id(structure), live, cull=cfg.shadow_cull)
         img = shade_from_frozen(structure, cfg, cam, fields, res, height, width)
     return img, res
 
@@ -195,15 +200,20 @@ def residual_planes(
     shadow_sdf: Callable,
     den_sdf: Callable,
     sdf_id: Callable,
-    live: Optional[Dict[str, List[int]]] = None,
+    live: Optional[Dict] = None,
+    cull: bool = False,
 ) -> torch.Tensor:
     """The residual planes [R, H, W] of the rays (ro, rd [H, W, 3]): the
     march over `sdf`, the material of `sdf_id`'s argmin at the query point,
     the IFT denominator by autograd of `den_sdf`, and per light the shadow
-    march over `shadow_sdf` (res, t*). With `live` = {"march": [],
-    "shadow": []}, the loops append their live-ray counts per step there."""
+    march over `shadow_sdf` (res, t*), started done where `cull` is set and
+    shading.segment_lit marks the ray (a compiled structure's). With `live`
+    = {"march": [], "shadow": []}, the loops append their live-ray counts
+    per step there; with "rays", an integer tensor [H, W], they add up each
+    ray's SDF evaluations in it."""
     live = live or {}
-    m = march(sdf, params, ro, rd, cfg, live.get("march"))
+    rays = live.get("rays")
+    m = march(sdf, params, ro, rd, cfg, live.get("march"), counts=rays)
     hit = m.t < cfg.max_dist
     if cfg.antialias:
         t_q = torch.where(hit, m.t_query, m.t_close)
@@ -222,8 +232,10 @@ def residual_planes(
         light_dist = torch.sqrt(dot(to_light, to_light))
         light_dir = normalize(to_light)
         shadow_ro = p + light_dir * cfg.shadow_offset
+        lit = (segment_lit(structure, params, shadow_ro, light_dir, light_dist, cfg.shadow_w)
+               if cull else None)
         planes += list(shadow_march(shadow_sdf, params, shadow_ro, light_dir, light_dist, cfg,
-                                    live.get("shadow")))
+                                    live.get("shadow"), init_done=lit, counts=rays))
     return torch.stack(planes)
 
 
@@ -261,11 +273,21 @@ def library(structure: SceneStructure, cfg: RenderConfig) -> _build.Library:
         (TRAIN_BWD, [ptr] * 5 + [i32] * 2 + [ptr]),
         (TRAIN_REDUCE, [ptr, i32, ptr, ptr]),
         (TRAIN_BLOCKS, [i32, i32]),
+        (TRAIN_BLOCKS_PER_SM, []),
     ):
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = ctypes.c_int
     return built
+
+
+def bwd_blocks_per_sm(structure: SceneStructure, cfg: RenderConfig) -> int:
+    """lol_train_bwd's resident blocks a SM at its shared memory, from the
+    CUDA occupancy calculator (the card's; a block is 4 warps)."""
+    n = getattr(library(structure, cfg).lib, TRAIN_BLOCKS_PER_SM)()
+    if n < 0:
+        raise RuntimeError(f"{TRAIN_BLOCKS_PER_SM} failed")
+    return n
 
 
 def _check_cuda_inputs(structure, cam, fields):

@@ -37,14 +37,16 @@ class MarchResult(NamedTuple):
 
 def march(
     sdf: Callable, params, ro, rd, cfg: RenderConfig, live: Optional[List[int]] = None,
-    probe: Optional[Callable] = None,
+    probe: Optional[Callable] = None, counts: Optional[torch.Tensor] = None,
 ) -> MarchResult:
     """Masked march of rays ro [..., 3] (broadcastable) along unit rd
     [..., 3]; also tracks the angular closest approach min_i d_i/t_i for
     soft-coverage antialiasing. If `live` is a list, the number of rays
     still marching at each step (the SDF evaluations a thread-per-ray
     kernel makes) is appended to it; `probe`, if given, is called at each
-    step with the points [n, 3] of those rays."""
+    step with the points [n, 3] of those rays; `counts`, an integer tensor
+    of the batch's shape, gets one added for each ray at each step it
+    evaluates."""
     batch = torch.broadcast_shapes(ro.shape[:-1], rd.shape[:-1])
     kw = dict(dtype=rd.dtype, device=rd.device)
     t = torch.zeros(batch, **kw)
@@ -57,6 +59,8 @@ def march(
             break
         if live is not None:
             live.append(int((~done).sum()))
+        if counts is not None:
+            counts += ~done
         p = ro + t[..., None] * rd
         if probe is not None:
             probe(p[~done])

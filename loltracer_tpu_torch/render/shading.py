@@ -55,6 +55,7 @@ def _shadow_step(sdf: Callable, params, ro, rd, max_dist, cfg: RenderConfig,
 def shadow_march(
     sdf: Callable, params, ro, rd, max_dist, cfg: RenderConfig,
     live: Optional[List[int]] = None, probe: Optional[Callable] = None,
+    init_done: Optional[torch.Tensor] = None, counts: Optional[torch.Tensor] = None,
 ):
     """(res, t*) of the shadow march from the (already offset) origin ro
     along rd, up to `max_dist` (the distance to the light): the running
@@ -64,14 +65,21 @@ def shadow_march(
     checkpointed (the values and the gradients are those of the loop
     differentiated straight). If `live` is a list, the number of
     rays still marching at each step is appended; `probe`, if given, is
-    called at each step with those rays' points."""
+    called at each step with those rays' points; `counts`, an integer
+    tensor of the batch's shape, gets one added for each ray at each step
+    it evaluates. Rays set in `init_done` (the segment cull's flags) start
+    done with res = 1 and t* = 0, what the march gives them when the cull
+    is sound."""
     batch = torch.broadcast_shapes(ro.shape[:-1], rd.shape[:-1], max_dist.shape)
     kw = dict(dtype=rd.dtype, device=rd.device)
+    done0 = torch.zeros(batch, dtype=torch.bool, device=rd.device)
+    if init_done is not None:
+        done0 = done0 | init_done
     carry = (
         torch.ones(batch, **kw),  # res
         torch.zeros(batch, **kw),  # t
         torch.zeros(batch, **kw),  # t*
-        torch.zeros(batch, dtype=torch.bool, device=rd.device),  # done
+        done0,  # done
     )
     step = functools.partial(_shadow_step, sdf, params, ro, rd, max_dist, cfg)
     remat = torch.is_grad_enabled()
@@ -81,6 +89,8 @@ def shadow_march(
             break
         if live is not None:
             live.append(int((~done).sum()))
+        if counts is not None:
+            counts += ~done
         if probe is not None:
             probe((ro + carry[1][..., None] * rd)[~done])
         if remat:
@@ -88,6 +98,82 @@ def shadow_march(
         else:
             carry = step(*carry)
     return carry[0], carry[2]
+
+
+# Slack of the segment bound (`loltracer_tpu/render/pallas_scene.py`
+# BOUND_MARGIN): it absorbs the float32 rounding of the bound's short chains.
+BOUND_MARGIN = 0.0625
+
+
+def _node_seg_bound(node, params: SceneParams, so, ld, seg_len):
+    """A lower bound, per ray, of the object's distance over the segment
+    so + t ld, t in [0, seg_len] (`ScalarScene._node_seg_bound`, op for op):
+    a sphere's exact segment-to-centre distance minus its radius, a box's
+    circumscribed sphere, a smooth-min the min of its children's bounds
+    less k / 4. None for a plane and for a smooth-min over one."""
+    kind = node[0]
+    if kind == "plane":
+        return None
+
+    def segdist(c):
+        dx, dy, dz = c[0] - so[..., 0], c[1] - so[..., 1], c[2] - so[..., 2]
+        proj = dx * ld[..., 0] + dy * ld[..., 1] + dz * ld[..., 2]
+        tcl = torch.minimum(maximum(proj, 0.0), seg_len)
+        ex = dx - tcl * ld[..., 0]
+        ey = dy - tcl * ld[..., 1]
+        ez = dz - tcl * ld[..., 2]
+        return torch.sqrt(ex * ex + ey * ey + ez * ez)
+
+    if kind == "sphere":
+        return segdist(params.sphere_point[node[1]]) - params.sphere_radius[node[1]]
+    if kind == "box":
+        b = params.box_half[node[1]]
+        hb = torch.sqrt(b[0] * b[0] + b[1] * b[1] + b[2] * b[2])
+        return segdist(params.box_point[node[1]]) - hb - params.box_radius[node[1]]
+    if kind == "smin":
+        _, k, a, b = node
+        ba = _node_seg_bound(a, params, so, ld, seg_len)
+        bb = _node_seg_bound(b, params, so, ld, seg_len)
+        if ba is None or bb is None:
+            return None
+        return torch.minimum(ba, bb) - params.smooth_k[k] / 4.0
+    raise ValueError(f"unknown node {node!r}")
+
+
+def segment_allowed(structure: SceneStructure) -> bool:
+    """Whether segment_lit can mark any ray of this compiled structure: not
+    when a smooth-min has a plane under it (its bound gives up)."""
+
+    def ok(node):
+        if node[0] == "smin":
+            return all(n[0] != "plane" and ok(n) for n in node[2:])
+        return True
+
+    return all(ok(n) for n in structure.objects)
+
+
+def segment_lit(structure: SceneStructure, params: SceneParams, so, ld, seg_len,
+                shadow_w: float):
+    """The shadow segment cull of a compiled structure
+    (`ScalarScene.segment_lit`, op for op): bool per ray, set where the
+    shadow ray from so [..., 3] along unit ld [..., 3] over [0, seg_len]
+    provably keeps every penumbra value w d / t above 1, so that its march
+    gives res = 1 and t* = 0. Per object, a bounded one needs
+    w (bound - BOUND_MARGIN) > seg_len; a plane the monotone rule
+    a >= BOUND_MARGIN and w (a + ld_y seg_len) > seg_len + w BOUND_MARGIN,
+    a the origin's height above it. A smooth-min over a plane culls no ray."""
+    lit = torch.ones(seg_len.shape, dtype=torch.bool, device=seg_len.device)
+    for node in structure.objects:
+        bound = _node_seg_bound(node, params, so, ld, seg_len)
+        if bound is None:
+            if node[0] != "plane":
+                return torch.zeros_like(lit)
+            a = so[..., 1] - params.plane_y[node[1]]
+            lit = lit & (a >= BOUND_MARGIN) & (
+                shadow_w * (a + ld[..., 1] * seg_len) > seg_len + shadow_w * BOUND_MARGIN)
+        else:
+            lit = lit & (shadow_w * (bound - BOUND_MARGIN) > seg_len)
+    return lit
 
 
 def envelope_reattach(sdf: Callable, params, ro, rd, res0, t_star, cfg: RenderConfig):

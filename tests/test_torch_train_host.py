@@ -24,7 +24,7 @@ import pytest
 import torch
 
 from loltracer_tpu_torch.config import RenderConfig
-from loltracer_tpu_torch.lol import parse_scene_file
+from loltracer_tpu_torch.lol import parse_scene, parse_scene_file
 from loltracer_tpu_torch.opt import (
     DEFAULT_TRAINABLE,
     default_project,
@@ -37,7 +37,10 @@ from loltracer_tpu_torch.render import cuda_scene, fused_train
 from loltracer_tpu_torch.render.camera import CAM_SIZE, camera_pack
 from loltracer_tpu_torch.render.cuda_scene import generate_source, pack_fields, packed_size
 from loltracer_tpu_torch.render.fused_fwd import fused_forward_reference
+from loltracer_tpu_torch.render.camera import rays_from_pack
 from loltracer_tpu_torch.render.sdf import make_scene_sdf
+from loltracer_tpu_torch.render.shading import segment_lit
+from loltracer_tpu_torch.render.vecmath import dot, normalize
 from loltracer_tpu_torch.scene import FIELDS, SceneParams, build_scene, params_to_numpy
 
 from test_torch_kernel_host import _f32, _numbers, _structured
@@ -90,6 +93,46 @@ def test_training_source_differs_only_in_training_parts(examples, name):
     assert "lol_train" not in entries and "res" not in entries.split("{")[0]
 
 
+def test_segment_cull_is_emitted_only_where_it_applies(examples):
+    """Scene::segment_lit and its flag are emitted for a compiled structure
+    whose bound exists (no smooth-min over a plane) under cfg.shadow_cull,
+    in the fused and the training sources alike; Cfg::shadow_cull carries
+    the knob for compiled structures only; K3 / K4's source and the
+    instanced sources never carry the bound. The emitted bound holds
+    offsets, not numbers."""
+    from loltracer_tpu_torch.render.cuda_scene import (
+        generate_instanced_source,
+        generate_march_source,
+    )
+    from loltracer_tpu_torch.scenes import instanced_spheres
+
+    from test_torch_segment_cull import _SMIN_PLANE
+
+    marker = "kHasSegmentBound = true;"
+    s4 = examples["scene4.lol"].structure
+    no_cull = CFG.replace(shadow_cull=False)
+    for residuals in (False, True):
+        on = generate_source(s4, CFG, residuals)
+        off = generate_source(s4, no_cull, residuals)
+        assert marker in on and "shadow_cull = true;" in on
+        assert marker not in off and "shadow_cull = false;" in off
+        assert on.replace("\n\n" + cuda_scene._segment_source(s4), "").replace(
+            "shadow_cull = true;", "shadow_cull = false;") == off
+    smin_plane = build_scene(parse_scene(_SMIN_PLANE), device="cpu").structure
+    assert marker not in generate_source(smin_plane, CFG)
+    assert marker not in generate_march_source(s4, CFG)
+    inst = instanced_spheres(n=4, device="cpu").structure
+    for src in (generate_instanced_source(inst, CFG), generate_instanced_source(inst, CFG, True)):
+        assert "shadow_cull =" not in src and marker not in src
+    a, b = _structured(1), _structured(2)
+    src = generate_source(a.structure, CFG)
+    assert marker in src and src == generate_source(b.structure, CFG)
+    bound = cuda_scene._segment_source(a.structure)
+    for seed in (1, 2):
+        for text in _numbers(seed).values():
+            assert text not in bound and _f32(float(text)) not in bound
+
+
 # --- the generated device code, compiled for the host ------------------------
 
 _SHIM = r"""
@@ -128,6 +171,47 @@ extern "C" void host_train_fwd(const float* cam, const float* P, float* img, flo
                                     (size_t)height * width);
 }
 
+// the segment cull's flags of n shadow rays (so, l: rows of 3; T), -1 where
+// the Scene has no cull
+template <class S>
+int seg_lit(const S& scn, const float* so, const float* l, float T) {
+  if constexpr (lol::SegmentCull<Cfg, S>::value)
+    return scn.segment_lit(so[0], so[1], so[2], l[0], l[1], l[2], T);
+  else
+    return -1;
+}
+
+extern "C" void host_segment_lit(const float* P, const float* so, const float* l, const float* T,
+                                 int n, int* out) {
+  const Scene scn(P);
+  for (int i = 0; i < n; ++i) out[i] = seg_lit(scn, so + 3 * i, l + 3 * i, T[i]);
+}
+
+// lol_train_bwd's blocks, one after another (`blocks` of them, or the
+// kernel's grid, bwd_num_blocks, when 0): block b walks its tiles thread by
+// thread (bwd_thread), each thread's accumulators a column of a
+// [kN][kBwdThreads] array; then per slot the sum over the block's threads
+// in thread order, a row of partials [blocks, kN]
+extern "C" int host_train_bwd_blocks(const float* cam, const float* P, const float* res,
+                                     const float* ct, float* partials, int height, int width,
+                                     int blocks) {
+  constexpr int T = lol::kBwdThreads;
+  const Scene scn(P);
+  if (blocks == 0) blocks = lol::bwd_num_blocks(height, width);
+  static float cols[kN * T];
+  for (int b = 0; b < blocks; ++b) {
+    for (int i = 0; i < kN * T; ++i) cols[i] = NAN;
+    for (int t = 0; t < T; ++t)
+      lol::bwd_thread<Cfg, Scene>(cam, scn, P, res, ct, b, blocks, t, height, width, cols + t);
+    for (int j = 0; j < kN; ++j) {
+      float s = 0.f;
+      for (int t = 0; t < T; ++t) s += cols[j * T + t];
+      partials[(size_t)b * kN + j] = s;
+    }
+  }
+  return blocks;
+}
+
 extern "C" void host_train_bwd(const float* cam, const float* P, const float* res,
                                const float* ct, double* grads, int height, int width) {
   const Scene scn(P);
@@ -143,14 +227,14 @@ extern "C" void host_train_bwd(const float* cam, const float* P, const float* re
 """
 
 
-def _host_library(structure, cfg, tmp_path):
+def _host_library(structure, cfg, tmp_path, name="train_host"):
     """The training source's device functions built for the host (g++,
     IEEE arithmetic without contraction, as nvcc's --fmad=false)."""
     if shutil.which("g++") is None:
         pytest.skip("g++ is not installed: the host build of the generated CUDA source needs it")
-    src = tmp_path / "train_host.cpp"
+    src = tmp_path / f"{name}.cpp"
     src.write_text(_SHIM + generate_source(structure, cfg, residuals=True) + _HOST_ENTRIES)
-    so = tmp_path / "train_host.so"
+    so = tmp_path / f"{name}.so"
     subprocess.run(
         ["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
          "-o", str(so), str(src)],
@@ -240,6 +324,99 @@ def test_host_built_kernels_match_plain_versions(examples, name, cfg, tmp_path):
                                    rtol=0, err_msg=f)
 
 
+def _shadow_rays(structure, params, res, cam, h, w, cfg):
+    """Per light, the shadow rays render_pixel marches from the residuals'
+    shading distance: (origin, unit direction, distance to the light)."""
+    ro, rd = rays_from_pack(cam, torch.arange(h), h, w)
+    p = ro + res[0][..., None] * rd
+    out = []
+    for li in range(structure.num_lights):
+        to_light = params.light_point[li] - p
+        ld = normalize(to_light)
+        out.append((p + ld * cfg.shadow_offset, ld, torch.sqrt(dot(to_light, to_light))))
+    return out
+
+
+@pytest.mark.parametrize(
+    "name,cfg",
+    [("scene.lol", CFG_AA), ("scene2.lol", CFG), ("scene4.lol", CFG_AA)],
+    ids=["scene_aa", "scene2", "scene4_aa"],
+)
+def test_host_built_segment_cull(examples, name, cfg, tmp_path):
+    """The generated Scene::segment_lit bitwise the plain flags
+    (shading.segment_lit) on every light's shadow rays of a 12x40 frame,
+    and render_pixel under Cfg::shadow_cull bitwise the build without the
+    cull (cfg.shadow_cull=False) in the image and every residual plane."""
+    scene = examples[name]
+    st = scene.structure
+    h, w = 12, 40
+    on = _host_library(st, cfg, tmp_path, "cull_on")
+    off = _host_library(st, cfg.replace(shadow_cull=False), tmp_path, "cull_off")
+    cam_t = camera_pack(scene.params, h, w, cfg)
+    cam, fields = cam_t.numpy(), pack_fields(st, scene.params).numpy()
+    out = {}
+    for key, lib in (("on", on), ("off", off)):
+        img = np.zeros((h, w, 3), np.float32)
+        res = np.zeros((fused_train.num_residuals(st), h, w), np.float32)
+        lib.host_train_fwd(_ptr(cam), _ptr(fields), _ptr(img), _ptr(res), h, w)
+        out[key] = img, res
+    np.testing.assert_array_equal(out["on"][0], out["off"][0])
+    np.testing.assert_array_equal(out["on"][1], out["off"][1])
+
+    culled = 0
+    for so, ld, dist in _shadow_rays(st, scene.params, torch.from_numpy(out["on"][1]), cam_t,
+                                     h, w, cfg):
+        so, ld, dist = (a.reshape(-1, *a.shape[2:]).contiguous().numpy() for a in (so, ld, dist))
+        want = segment_lit(st, scene.params, torch.from_numpy(so), torch.from_numpy(ld),
+                           torch.from_numpy(dist), cfg.shadow_w).numpy()
+        for lib, expect in ((on, want.astype(np.int32)), (off, np.full(len(dist), -1, np.int32))):
+            got = np.zeros(len(dist), np.int32)
+            lib.host_segment_lit(_ptr(fields), _ptr(so), _ptr(ld), _ptr(dist), len(dist),
+                                 _ptr(got))
+            np.testing.assert_array_equal(got, expect)
+        culled += int(want.sum())
+    assert culled > 0, "no shadow ray of the frame is culled"
+
+
+def test_host_built_shared_accumulators_match_plain_version(examples, tmp_path):
+    """lol_train_bwd's blocks (bwd_pixels over StridedAcc columns, the
+    block's fixed-order sum) built for the host, scene4 AA at 12x40 (six
+    tiles of 32 x 4): on the kernel's grid of six blocks and on four (two
+    of them walking two tiles), the partials summed within 1e-4 *
+    max|grad| per field of train_backward_reference (dcam rtol 2e-3), and
+    two runs bitwise equal."""
+    scene = examples["scene4.lol"]
+    st = scene.structure
+    h, w = 12, 40
+    lib = _host_library(st, CFG_AA, tmp_path)
+    cam_t = camera_pack(scene.params, h, w, CFG_AA)
+    fields_t = pack_fields(st, scene.params)
+    _, res_t = fused_train.train_forward_reference(st, CFG_AA, cam_t, fields_t, h, w)
+    cam, fields, res = cam_t.numpy(), fields_t.numpy(), res_t.numpy()
+    ct = np.random.default_rng(1).uniform(-1, 1, (h, w, 3)).astype(np.float32)
+    n = CAM_SIZE + packed_size(st)
+    dcam, dfields = fused_train.train_backward_reference(
+        st, CFG_AA, cam_t, fields_t, res_t, torch.from_numpy(ct))
+    dcam = dcam.numpy()
+    for grid in (0, 4):
+        runs = []
+        for _ in range(2):
+            partials = np.full((64, n), np.nan, np.float32)
+            blocks = lib.host_train_bwd_blocks(_ptr(cam), _ptr(fields), _ptr(res), _ptr(ct),
+                                               _ptr(partials), h, w, grid)
+            runs.append(partials[:blocks])
+        assert blocks == (grid or 6)
+        np.testing.assert_array_equal(runs[0], runs[1])
+        grads = runs[0].astype(np.float64).sum(0)
+        np.testing.assert_allclose(
+            grads[:CAM_SIZE], dcam, rtol=2e-3, atol=1e-5 * max(1.0, np.abs(dcam).max()))
+        for f, sl in _field_slices(st).items():
+            want = dfields.numpy()[sl]
+            scale = max(np.abs(want).max(), 1e-6)
+            np.testing.assert_allclose(grads[CAM_SIZE:][sl], want, atol=1e-4 * scale, rtol=0,
+                                       err_msg=f)
+
+
 def _field_slices(structure):
     off = cuda_scene.field_offsets(structure)
     return {
@@ -294,19 +471,27 @@ def test_cpu_tensors_take_plain_versions_and_launch_nothing():
 @pytest.mark.parametrize("cfg", [CFG, CFG_AA], ids=["parity", "aa"])
 def test_plain_loops_count_live_rays_without_changing_values(examples, cfg):
     """train_forward_reference's `live` counts (the SDF evaluations a
-    thread-per-ray kernel makes, which chip_smoke.py's bounds use): every
-    ray evaluates at the first step of the march and of each light's
-    shadow march, the counts never rise within a loop, and the outputs
-    are bitwise those of a call without counting."""
+    thread-per-ray kernel makes, which chip_smoke.py's bounds use): without
+    the segment cull every ray evaluates at the first step of the march and
+    of each light's shadow march; the counts never rise within a loop; the
+    per-ray counts ("rays") add up to them; under cfg.shadow_cull the march
+    counts are the same, the shadow counts no more and the culled rays
+    evaluate nothing in their shadow march; and the outputs are bitwise
+    those of a call without counting, the cull on or off."""
     s = examples["scene4.lol"]
     h, w = 6, 10
     cam = camera_pack(s.params, h, w, cfg)
     fields = pack_fields(s.structure, s.params)
-    live = {"march": [], "shadow": []}
-    img, res = fused_train.train_forward_reference(s.structure, cfg, cam, fields, h, w,
+    no_cull = cfg.replace(shadow_cull=False)
+    live = {"march": [], "shadow": [], "rays": torch.zeros((h, w), dtype=torch.int32)}
+    img, res = fused_train.train_forward_reference(s.structure, no_cull, cam, fields, h, w,
                                                    live=live)
     img0, res0 = fused_train.train_forward_reference(s.structure, cfg, cam, fields, h, w)
+    live_c = {"march": [], "shadow": [], "rays": torch.zeros((h, w), dtype=torch.int32)}
+    img_c, res_c = fused_train.train_forward_reference(s.structure, cfg, cam, fields, h, w,
+                                                       live=live_c)
     assert torch.equal(img, img0) and torch.equal(res, res0)
+    assert torch.equal(img_c, img0) and torch.equal(res_c, res0)
     march = live["march"]
     assert march[0] == h * w and all(a >= b > 0 for a, b in zip(march, march[1:]))
     assert len(march) <= cfg.max_steps
@@ -314,6 +499,10 @@ def test_plain_loops_count_live_rays_without_changing_values(examples, cfg):
     assert starts[0] == 0 and len(starts) >= s.structure.num_lights
     assert all(0 < n <= h * w for n in live["shadow"])
     assert len(live["shadow"]) <= s.structure.num_lights * cfg.shadow_steps
+    for lv in (live, live_c):
+        assert int(lv["rays"].sum()) == sum(lv["march"]) + sum(lv["shadow"])
+    assert live_c["march"] == march and sum(live_c["shadow"]) <= sum(live["shadow"])
+    assert bool((live_c["rays"] <= live["rays"]).all())
 
 
 # --- the optimizer ---------------------------------------------------------------
