@@ -3,6 +3,7 @@
 NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --march-ab   # K3 / K4 alone: checks, times, host time
 
 Phases, one line each:
 
@@ -110,19 +111,24 @@ Phases, one line each:
    --profile-instanced-train`, a process of its own, with the kernel's and
    the scatter's device time apart), peak memory, the plain versions on
    one band, and the bounds;
-17. build the value march kernels (K3 `lol_march` and K4 `lol_shadow_march`
-   for the four examples; `lol_march_instanced` and
+17. build the value march kernels (K3 `lol_march` and K4 `lol_shadow_march`,
+   with their `_tile` sweeps over `cuda_scene.MARCH_TILES`, for the four
+   examples and their `shadow_cull=False` twins; `lol_march_instanced` and
    `lol_shadow_march_instanced` for clamp 2, exact and shadow clamp 8, at
    every lane-group width of `cuda_scene.MARCH_LANES`; all started with
-   the other builds in phase 1); ptxas registers and spills per width (a
-   lane group must not spill);
+   the other builds in phase 1); ptxas registers and spills per tile
+   width (scene4 and its twin) and per lane width (a lane group must not
+   spill);
 18. at 97x161 (instanced:10000 at 49x81), K3 vs its plain version
    (`march_values_reference`) on the camera rays and K4 vs its plain
    version (`shadow_values_reference`) on the real shadow rays of each
-   light: the four examples, scene4 AA, instanced:10000 at clamp 2, exact
-   and shadow clamp 8, instanced:300 and :1 at clamp 2, the instanced ones
-   at every compiled width; bitwise expected, else within atol/rtol 1e-4
-   on all but max(2, 1e-4 * rays);
+   light: the four examples and scene4 AA bitwise, K3 and K4 at
+   lol_march's tile width and every swept one, K4 also its
+   shadow_cull=False twin, the culled plain loops bitwise the unculled,
+   with the share of lanes culled per light; instanced:10000 at clamp 2,
+   exact and shadow clamp 8, instanced:300 and :1 at clamp 2 at every
+   compiled lane width, bitwise expected, else within atol/rtol 1e-4 on
+   all but max(2, 1e-4 * rays);
 19. main path A: `loltracer_tpu_torch.cli fit examples/scene4.lol --target
    T.npy --steps 3 -o ...` (AA, exact shadows; sphere points trainable,
    lr 3e-2) against scene4 with its sphere points moved, rendered by
@@ -133,9 +139,18 @@ Phases, one line each:
    the phase-2 rule of lol_render_fused's; MSE gradients, the penumbra band
    masked out of the loss (tests/_penumbra.py), within 2e-2 * max|grad|
    per field of make_training_renderer's (K1r/K2). Then path A's step
-   (once) and path B's (median of 2) timed; K3 and K4 at path B's
-   rays held against their plain versions and timed (median of 10; plain
-   median of 2), their bounds from the plain loops' live counts;
+   (once) and path B's (median of 2) timed; K3 and, per light, K4 at path
+   B's rays held bitwise against their plain versions at every tile width
+   (K4 also its shadow_cull=False twin), the plain loops counting each
+   ray's SDF evaluations with the cull and without (the culled share and
+   the warp efficiency per tile width from them); CUDA events (median of
+   10): K3 twice, each light's K4 in turns with its twin (twin, kernel,
+   kernel, twin), the tile sweep (each width twice, in turns), the plain
+   versions once; the host time per call of march_values, shadow_values
+   and the renderer's march and shadow functions (`host_us`, 100 calls);
+   device time of K3 and of each light's K4 and twin (`chip_smoke.py
+   --profile-march`, a process of its own); their bounds by operations
+   and sqrt-weighted (K4's counting the segment bound on every lane);
 21. main path C: `render_image_banded` of instanced:10000, clamp 2, envelope
    @1920x1080 in 16-row bands without autograd: 68 lol_march_instanced and
    136 lol_shadow_march_instanced launches, the image within the phase-2
@@ -150,9 +165,9 @@ Phases, one line each:
    the frame and the whole frame (the camera rays and light 0's shadow
    rays; held against width 1), timed (band median of 5, the others of 3),
    with the width the rule picks at each size; device time by kernel
-   (`chip_smoke.py --profile-march`, a process of its own) over one path B
-   step, one round of the four march kernels and path C's middle band, and
-   one path B step's peak memory by allocating line.
+   (the `--profile-march` process of phase 20) over one path B step, one
+   round of the four march kernels and path C's middle band, and one path
+   B step's peak memory by allocating line.
 
 22. build the regrouped instanced forward K9 (`lol_rg_march`,
    `lol_rg_shadow` and `lol_rg_shade` over the cell grid, their run-walk
@@ -242,7 +257,11 @@ last line is not printed. Without CUDA, or without the package beside this
 file, it fails the same way.
 
 The march kernels' launches in the `kernels` line are those of their main
-paths: lol_march in path A, lol_shadow_march in path B, the instanced pair
+paths: lol_march in path A, lol_shadow_march in path B (its `ms`,
+`plain_ms`, `device_ms` and bounds the mean of the two lights' launches,
+each light's under `lights`, with its twin's times, culled share,
+evaluations a ray and warp efficiency; both with their device times,
+sqrt-weighted bounds, tile sweeps and wrapper host times), the instanced pair
 in path C's frame (their `ms` per 16-row band at the rule's `lanes`,
 `frame_ms` one full-frame launch at the rule's `frame_lanes`, `sweep_ms`
 [band, half frame, frame] per width); the instanced training pair's those
@@ -274,6 +293,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import math
@@ -398,8 +418,10 @@ def ptxas_lines(log: str):
         elif m and "march" in m.group(1):  # K3 / K4: march_kernel<kShadow, ...>
             coop = re.search(r"WarpGroupILi(\d+)E", m.group(1))  # the lane-group kernels
             lanes = coop.group(1) if coop else "1" if "instanced" in m.group(1) else None
+            tile = re.search(r"SceneELi(\d+)E", m.group(1))  # the compiled warp tile width
             name = ("lol_shadow_march" if "ILb1E" in m.group(1) else "lol_march") + (
-                f"_instanced @{lanes} lanes" if lanes else "")
+                f"_instanced @{lanes} lanes" if lanes else
+                f" @{tile.group(1)}x{32 // int(tile.group(1))}" if tile else "")
         elif m:
             name = next(k for k in ("instanced_fwd_kernel", "instanced_bwd_kernel",
                                     "instanced_eval_kernel",
@@ -627,8 +649,11 @@ def profile_march() -> int:
     lol_shadow_march_instanced for light 0 on the middle 16-row band of
     instanced:10000 at clamp 2); then one path B step under the allocator's
     history (peak_breakdown); then path C's band body (`render_rays`, no
-    autograd) on that middle band. One line on stdout, the four joined by
-    " || "."""
+    autograd) on that middle band; then, a session each (3 calls; a
+    session that records no device event is run again, at most three
+    times), the device ms of lol_march and of lol_shadow_march on each
+    light of path B's rays, with the cull and its shadow_cull=False twin,
+    as a JSON object. One line on stdout, the five joined by " || "."""
     import torch
 
     require(torch.cuda.is_available(), "torch.cuda.is_available() is false")
@@ -672,9 +697,31 @@ def profile_march() -> int:
         with torch.no_grad():
             render_rays(big.structure, big.params, ro, rd, c_cfg, march_scene=scene)
 
+    lights = shadow_rays(s4.params, ro4, rd4, t_sh, b_cfg)
+    twin = b_cfg.replace(shadow_cull=False)
+
+    def busy(fn, tries: int = 3) -> float:
+        # a session now and then records no device event (seen on the K3
+        # session, the fifth of this process): measure again, at most
+        # `tries` sessions; the parent fails on a 0 that remains
+        for _ in range(tries):
+            line = profile_steps(fn, 3)
+            ms = float(re.search(r"device busy ([\d.]+) ms/step", line).group(1))
+            if ms > 0:
+                break
+        return ms
+
+    def k4(li, c):
+        return lambda: mk.shadow_values(s4.structure, c, *lights[li], scene4)
+
     step(), band(), band_c()
-    print(profile_steps(step, 1) + " || " + profile_steps(band, 1) + " || "
-          + peak_breakdown(step) + " || " + profile_steps(band_c, 1))
+    parts = [profile_steps(step, 1), profile_steps(band, 1), peak_breakdown(step),
+             profile_steps(band_c, 1)]
+    parts.append(json.dumps({
+        "k3": busy(lambda: mk.march_values(s4.structure, b_cfg, ro4, rd4, scene4)),
+        "k4": [busy(k4(li, b_cfg)) for li in range(len(lights))],
+        "k4_twin": [busy(k4(li, twin)) for li in range(len(lights))]}))
+    print(" || ".join(parts))
     return 0
 
 
@@ -745,6 +792,118 @@ def check_values(got, want, what: str):
     return worst, differ
 
 
+def same_planes(got, want, what: str) -> None:
+    """A march kernel's planes bitwise its reference's (NaNs and -0
+    included); raises naming the first plane that differs."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        require(same_bits(a, b), f"{what}: plane {i} not bitwise "
+                                 f"({int((a != b).sum())} values differ)")
+
+
+def host_us(fn, calls: int = 100) -> float:
+    """Host time per call of fn in microseconds: the host clock over
+    `calls` calls with no synchronisation inside (the card's queue
+    absorbs the launches), the card synchronised before and after."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / calls
+    torch.cuda.synchronize()
+    return us
+
+
+def march_inputs(dev):
+    """Path B's march inputs at MAIN_W x MAIN_H (scene4, AA, envelope):
+    (scene, cfg, packed MarchScene, ro, rd, the kernel's march, each
+    light's shadow rays (origin, direction, distance) from its hits)."""
+    import torch
+
+    from loltracer_tpu_torch.config import RenderConfig
+    from loltracer_tpu_torch.lol import parse_scene_file
+    from loltracer_tpu_torch.render import march_kernels as mk
+    from loltracer_tpu_torch.render.camera import camera_rays
+    from loltracer_tpu_torch.scene import build_scene
+
+    s4 = build_scene(parse_scene_file(str(EXAMPLES / "scene4.lol")), device=dev)
+    cfg = RenderConfig(antialias=True, shadow_grad="envelope")
+    ro, rd = camera_rays(s4.params, MAIN_H, MAIN_W, cfg)
+    scene = mk.pack_march_scene(s4.structure, s4.params)
+    m = mk.march_values(s4.structure, cfg, ro, rd, scene)
+    t_sh = torch.where(m.t < cfg.max_dist, m.t, m.t_close)
+    return s4, cfg, scene, ro, rd, m, shadow_rays(s4.params, ro, rd, t_sh, cfg)
+
+
+def march_ab() -> int:
+    """`chip_smoke.py --march-ab`: K3 and K4 (each light) of the package
+    beside this file at path B's rays, held bitwise against their plain
+    versions (and, where the package has them, every warp tile width and
+    K4's shadow_cull=False twin), timed with CUDA events (median of 10, in
+    turns) and by the host clock per call (host_us) through march_values /
+    shadow_values and through make_cuda_march / make_cuda_shadow_march's
+    functions. One JSON line on stdout. Run from a checkout of another
+    commit with this file copied into it, it times that commit's wrappers
+    and kernels the same way (the before / after of PERF.md)."""
+    import torch
+
+    require(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    sys.path.insert(0, str(ROOT))
+    from loltracer_tpu_torch.render import cuda_scene
+    from loltracer_tpu_torch.render import march_kernels as mk
+
+    dev = torch.device("cuda", 0)
+    s4, cfg, scene, ro, rd, m, lights = march_inputs(dev)
+    st = s4.structure
+    tiles = getattr(cuda_scene, "MARCH_TILES", ())
+    twin = cfg.replace(shadow_cull=False)
+    same_planes(m, mk.march_values_reference(st, cfg, ro, rd, scene), "lol_march")
+    for tw in tiles:
+        same_planes(mk.march_values(st, cfg, ro, rd, scene, tile_w=tw),
+                    mk.march_values_reference(st, cfg, ro, rd, scene), f"lol_march @{tw}")
+    for li, (so, ld, dist) in enumerate(lights):
+        want = mk.shadow_values_reference(st, cfg, so, ld, dist, scene)
+        same_planes(mk.shadow_values(st, cfg, so, ld, dist, scene), want,
+                    f"lol_shadow_march light {li}")
+        if tiles:
+            same_planes(mk.shadow_values(st, twin, so, ld, dist, scene), want,
+                        f"lol_shadow_march twin light {li}")
+        for tw in tiles:
+            same_planes(mk.shadow_values(st, cfg, so, ld, dist, scene, tile_w=tw), want,
+                        f"lol_shadow_march @{tw} light {li}")
+    out = {"card": card_line(), "tiles": list(tiles)}
+
+    def k3():
+        mk.march_values(st, cfg, ro, rd, scene)
+
+    def k4(li, c=cfg, **kw):
+        return lambda: mk.shadow_values(st, c, *lights[li], scene, **kw)
+
+    k3(), k4(0)(), k4(1)()
+    k3_ms = [time_ms(k3, 10)]
+    k4_ms = {li: [time_ms(k4(li), 10)] for li in (0, 1)}
+    k4_ms = {li: v + [time_ms(k4(li), 10)] for li, v in k4_ms.items()}
+    k3_ms.append(time_ms(k3, 10))
+    out.update(k3_ms=k3_ms, k4_ms=[k4_ms[0], k4_ms[1]])
+    if tiles:
+        out["k4_twin_ms"] = [[time_ms(k4(li, twin), 10) for _ in range(2)] for li in (0, 1)]
+        out["tile_ms"] = {tw: {"k3": time_ms(lambda: mk.march_values(st, cfg, ro, rd, scene,
+                                                                     tile_w=tw), 10),
+                               "k4": [time_ms(k4(li, tile_w=tw), 10) for li in (0, 1)]}
+                          for tw in tiles}
+    march_fn = functools.partial(mk.make_cuda_march(st, cfg), scene=scene)
+    shadow_fn = functools.partial(mk.make_cuda_shadow_march(st, cfg), scene=scene)
+    march_fn(s4.params, ro, rd), shadow_fn(s4.params, *lights[0])
+    out["host_us"] = {
+        "march_values": host_us(k3), "shadow_values": host_us(k4(0)),
+        "march_fn": host_us(lambda: march_fn(s4.params, ro, rd)),
+        "shadow_fn": host_us(lambda: shadow_fn(s4.params, *lights[0])),
+    }
+    print(json.dumps(out))
+    return 0
+
+
 def shadow_rays(params, ro, rd, t_sh, cfg):
     """Per light, the rays shading.phong hands the shadow march from the
     shading points at t_sh: (origin, direction, distance to the light)."""
@@ -792,7 +951,8 @@ def check_grads(got, want, what: str) -> float:
     return worst
 
 
-def march_phases(dev, card, scenes, inst, march_built, t0, e_inst, it_target, ceiling):
+def march_phases(dev, card, scenes, inst, march_built, t0, e_inst, it_target, ceiling,
+                 sqrt_slots):
     """Phases 17-21: the value march kernels K3 / K4 and the three paths
     that run them (module docstring). Returns their four `kernels`
     entries."""
@@ -806,7 +966,14 @@ def march_phases(dev, card, scenes, inst, march_built, t0, e_inst, it_target, ce
     from loltracer_tpu_torch.render import march_kernels as mk
     from loltracer_tpu_torch.render.camera import camera_pack, camera_rays, camera_rays_for_rows
     from loltracer_tpu_torch.render.cuda_renderer import make_cuda_renderer
-    from loltracer_tpu_torch.render.cuda_scene import MARCH_LANES, pack_fields, packed_size
+    from loltracer_tpu_torch.render.cuda_scene import (
+        MARCH_LANES,
+        MARCH_TILE_W,
+        MARCH_TILES,
+        pack_fields,
+        packed_size,
+    )
+    from loltracer_tpu_torch.render.shading import segment_lit
     from loltracer_tpu_torch.render.instanced_pack import pack_instanced
     from loltracer_tpu_torch.render.torch_renderer import (
         render_image,
@@ -827,14 +994,51 @@ def march_phases(dev, card, scenes, inst, march_built, t0, e_inst, it_target, ce
 
     clamp2 = RenderConfig(step_clamp=2.0)
 
+    def compiled_case(what, sc, c, h=97, w=161):
+        """Phase 18 on a compiled structure: K3 at lol_march's tile and
+        every swept width bitwise its plain version; per light K4 (with the
+        segment cull) at every width, its shadow_cull=False twin and its
+        plain version (culled rays started done) all bitwise the plain
+        loops without the cull; prints the culled share per light."""
+        st, twin = sc.structure, c.replace(shadow_cull=False)
+        scene = mk.pack_march_scene(st, sc.params)
+        ro, rd = camera_rays(sc.params, h, w, c)
+        want = mk.march_values_reference(st, c, ro, rd, scene)
+        for tw in (None,) + MARCH_TILES:
+            same_planes(mk.march_values(st, c, ro, rd, scene, tile_w=tw), want,
+                        f"{what} lol_march tile {tw}")
+        t_sh = torch.where(want.t < c.max_dist, want.t, want.t_close) if c.antialias else want.t
+        shares = []
+        for li, (so, ld, dist) in enumerate(shadow_rays(sc.params, ro, rd, t_sh, c)):
+            plain = mk.shadow_values_reference(st, twin, so, ld, dist, scene)
+            same_planes(mk.shadow_values_reference(st, c, so, ld, dist, scene), plain,
+                        f"{what} light {li}: the culled plain loops vs the unculled")
+            same_planes(mk.shadow_values(st, twin, so, ld, dist, scene), plain,
+                        f"{what} light {li}: the shadow_cull=False twin")
+            for tw in (None,) + MARCH_TILES:
+                same_planes(mk.shadow_values(st, c, so, ld, dist, scene, tile_w=tw), plain,
+                            f"{what} light {li}: lol_shadow_march tile {tw}")
+            shares.append(float(segment_lit(st, sc.params, so, ld, dist,
+                                            c.shadow_w).float().mean()))
+        print(f"[18] {what} {h}x{w}: lol_march (tile width {MARCH_TILE_W}) and lol_march_tile "
+              f"at {MARCH_TILES} bitwise the plain version; per light lol_shadow_march with "
+              f"the segment cull at every width, its shadow_cull=False twin and the culled "
+              f"plain loops bitwise the plain loops; lanes culled per light "
+              f"{[round(v, 4) for v in shares]}")
+
     # --- 17. build ----------------------------------------------------------------
     built = [f.result() for f in march_built]
-    print(f"[17] build: {len(built)} march libraries (lol_march + lol_shadow_march for the 4 "
-          f"examples; lol_march_instanced + lol_shadow_march_instanced for clamp 2, exact, "
+    k34_ptxas = {"cull": ptxas_lines(built[3].log), "twin": ptxas_lines(built[7 + 3].log)}
+    require(all(len(v) == 2 * len(MARCH_TILES) for v in k34_ptxas.values()),
+            f"scene4's march libraries: ptxas reported {k34_ptxas}")
+    print(f"[17] build: {len(built)} march libraries (lol_march + lol_shadow_march and their "
+          f"_tile sweeps over {MARCH_TILES} for the 4 examples and their shadow_cull=False twins; "
+          f"lol_march_instanced + lol_shadow_march_instanced for clamp 2, exact, "
           f"shadow clamp 8, each at lane widths {MARCH_LANES}) done "
           f"{time.perf_counter() - t0:.1f} s after the builds started; "
-          f"ptxas scene4: " + " | ".join(ptxas_lines(built[3].log)))
-    for tag, lib in zip(("clamp 2", "exact", "shadow clamp 8"), built[4:]):
+          f"ptxas scene4, per tile width: " + " | ".join(k34_ptxas["cull"])
+          + "; its twin: " + " | ".join(k34_ptxas["twin"]))
+    for tag, lib in zip(("clamp 2", "exact", "shadow clamp 8"), built[4:7]):
         lines = ptxas_lines(lib.log)
         require(len(lines) == 2 * len(MARCH_LANES), f"instanced {tag}: ptxas reported {lines}")
         # one lane a ray is csrc/march.cuh's kernel as it was (32 registers
@@ -853,6 +1057,9 @@ def march_phases(dev, card, scenes, inst, march_built, t0, e_inst, it_target, ce
              + [(f"instanced:{n} clamp 2", inst[n], clamp2) for n in (300, 1)])
     errs = {name: 0.0 for name in mk.launches}
     for what, sc, c in cases:
+        if not sc.structure.instanced:
+            compiled_case(what, sc, c)
+            continue
         # the plain loops over 10 000 spheres take seconds a case: those at 49x81
         ch, cw = (49, 81) if sc.structure.num_spheres == 10_000 else (97, 161)
         k3_name = "lol_march_instanced" if sc.structure.instanced else "lol_march"
@@ -969,43 +1176,133 @@ def march_phases(dev, card, scenes, inst, march_built, t0, e_inst, it_target, ce
 
     b_step_ms = time_ms(step_b, 2)
 
-    # K3 and K4 at the main shape (path B's rays), held and timed
+    # K3 and K4 at the main shape (path B's rays): every swept tile width and
+    # K4's shadow_cull=False twin held bitwise against the plain versions,
+    # per light, the plain loops counting each ray's SDF evaluations (with
+    # the cull and without); then the times
     ro, rd = camera_rays(s4.params, MAIN_H, MAIN_W, b_cfg)
     scene_b = mk.pack_march_scene(st4, s4.params)
-    live = {"march": [], "shadow": []}
+    twin_b = b_cfg.replace(shadow_cull=False)
+    rays = MAIN_W * MAIN_H
+
+    def ray_counts():
+        return torch.zeros((MAIN_H, MAIN_W), dtype=torch.int32, device=dev)
+
+    k3_live, k3_counts = [], ray_counts()
     k3 = mk.march_values(st4, b_cfg, ro, rd, scene_b)
-    p3 = mk.march_values_reference(st4, b_cfg, ro, rd, scene_b, live["march"])
-    torch.cuda.synchronize()
-    err, _ = check_values(k3, p3, "lol_march 1080p")
-    errs["lol_march"] = max(errs["lol_march"], err)
+    p3 = mk.march_values_reference(st4, b_cfg, ro, rd, scene_b, k3_live, counts=k3_counts)
+    for tw in (None,) + MARCH_TILES:
+        same_planes(mk.march_values(st4, b_cfg, ro, rd, scene_b, tile_w=tw), p3,
+                    f"lol_march 1080p tile {tw}")
     t_sh = torch.where(k3.t < b_cfg.max_dist, k3.t, k3.t_close)
-    so, ld, dist = shadow_rays(s4.params, ro, rd, t_sh, b_cfg)[0]
-    k4 = mk.shadow_values(st4, b_cfg, so, ld, dist, scene_b)
-    p4 = mk.shadow_values_reference(st4, b_cfg, so, ld, dist, scene_b, live["shadow"])
-    torch.cuda.synchronize()
-    err, _ = check_values(k4, p4, "lol_shadow_march 1080p light 0")
-    errs["lol_shadow_march"] = max(errs["lol_shadow_march"], err)
-    k3_ms = time_ms(lambda: mk.march_values(st4, b_cfg, ro, rd, scene_b), 10)
-    k4_ms = time_ms(lambda: mk.shadow_values(st4, b_cfg, so, ld, dist, scene_b), 10)
-    p3_ms = time_ms(lambda: mk.march_values_reference(st4, b_cfg, ro, rd, scene_b), 2)
-    p4_ms = time_ms(lambda: mk.shadow_values_reference(st4, b_cfg, so, ld, dist, scene_b), 2)
+    b_rays = shadow_rays(s4.params, ro, rd, t_sh, b_cfg)
+    del k3, p3, t_sh
+
+    def k3_call(tw=None):
+        return lambda: mk.march_values(st4, b_cfg, ro, rd, scene_b, tile_w=tw)
+
+    def k4_call(li, c=b_cfg, tw=None):
+        return lambda: mk.shadow_values(st4, c, *b_rays[li], scene_b, tile_w=tw)
+
+    k4_lights = []
+    for li, (so, ld, dist) in enumerate(b_rays):
+        live_c, live_t, cnt_c, cnt_t = [], [], ray_counts(), ray_counts()
+        p4 = mk.shadow_values_reference(st4, b_cfg, so, ld, dist, scene_b, live_c, counts=cnt_c)
+        p4t = mk.shadow_values_reference(st4, twin_b, so, ld, dist, scene_b, live_t,
+                                         counts=cnt_t)
+        same_planes(p4, p4t, f"light {li} 1080p: the culled plain loops vs the unculled")
+        same_planes(mk.shadow_values(st4, twin_b, so, ld, dist, scene_b), p4t,
+                    f"light {li} 1080p: the shadow_cull=False twin")
+        for tw in (None,) + MARCH_TILES:
+            same_planes(mk.shadow_values(st4, b_cfg, so, ld, dist, scene_b, tile_w=tw), p4t,
+                        f"light {li} 1080p: lol_shadow_march tile {tw}")
+        del p4, p4t
+        share = float(segment_lit(st4, s4.params, so, ld, dist, b_cfg.shadow_w).float().mean())
+        k4_lights.append(dict(culled_share=share, evals=sum(live_c) / rays,
+                              twin_evals=sum(live_t) / rays, live=sum(live_c),
+                              warp_efficiency={tw: warp_efficiency(cnt_c, tw) for tw in MARCH_TILES},
+                              twin_warp_efficiency={tw: warp_efficiency(cnt_t, tw)
+                                                    for tw in MARCH_TILES}))
+    # times: each light's K4 in turns with its twin (twin, kernel, kernel,
+    # twin; median of 10 each), then the tile sweep (each width twice, in
+    # turns), then the plain versions (once, warm)
+    for fn in (k3_call(), k4_call(0), k4_call(1), k4_call(0, twin_b), k4_call(1, twin_b)):
+        fn()
+    k3_runs = [time_ms(k3_call(), 10), time_ms(k3_call(), 10)]
+    k3_ms = statistics.median(k3_runs)
+    for li, d in enumerate(k4_lights):
+        d["twin_ms"] = [time_ms(k4_call(li, twin_b), 10)]
+        d["runs"] = [time_ms(k4_call(li), 10), time_ms(k4_call(li), 10)]
+        d["twin_ms"].append(time_ms(k4_call(li, twin_b), 10))
+        d["ms"] = statistics.median(d["runs"])
+    tile_ms = {tw: {"k3": [], "k4": [[], []]} for tw in MARCH_TILES}
+    for tw in MARCH_TILES + MARCH_TILES[::-1]:
+        tile_ms[tw]["k3"].append(time_ms(k3_call(tw), 10))
+        for li in (0, 1):
+            tile_ms[tw]["k4"][li].append(time_ms(k4_call(li, tw=tw), 10))
+    k3_eff = {tw: warp_efficiency(k3_counts, tw) for tw in MARCH_TILES}
+    p3_ms = time_ms(lambda: mk.march_values_reference(st4, b_cfg, ro, rd, scene_b), 1)
+    for li, d in enumerate(k4_lights):
+        d["plain_ms"] = time_ms(lambda: mk.shadow_values_reference(st4, b_cfg, *b_rays[li],
+                                                                   scene_b), 1)
+    # host time per call (host_us): the helpers and the renderer's functions
+    march_fn = functools.partial(mk.make_cuda_march(st4, b_cfg), scene=scene_b)
+    shadow_fn = functools.partial(mk.make_cuda_shadow_march(st4, b_cfg), scene=scene_b)
+    march_fn(s4.params, ro, rd), shadow_fn(s4.params, *b_rays[0])
+    wrapper_us = {"march_values": host_us(k3_call()), "shadow_values": host_us(k4_call(0)),
+                  "march_fn": host_us(lambda: march_fn(s4.params, ro, rd)),
+                  "shadow_fn": host_us(lambda: shadow_fn(s4.params, *b_rays[0]))}
     # Operation model (csrc/march.cuh over the generated Scene): per march
     # step E + 15 (the step and the closest-approach tracking), per shadow
-    # step E + 17 (the penumbra value and its argmin), E = sdf_ops; bytes:
+    # step E + 17 (the penumbra value and its argmin), E = sdf_ops; K4's
+    # segment bound (seg_cost) on every lane, its loop on the lanes it does
+    # not cull; the sqrt-weighted bound counts each IEEE sqrtf (sdf_sqrts an
+    # evaluation, seg_cost's in the bound) at phase 25's FMA slots. Bytes:
     # K3 reads 12 B and writes 16 B per ray, K4 reads 28 B and writes 8 B
-    E, rays = sdf_ops(st4), MAIN_W * MAIN_H
+    E, S = sdf_ops(st4), sdf_sqrts(st4)
+    seg_ops, seg_sqrts = seg_cost(st4)
     small = 4 * (3 + packed_size(st4))
-    k3_bound = bound(small + 28 * rays, sum(live["march"]) * (E + 15), ceiling)
-    k4_bound = bound(small + 36 * rays, sum(live["shadow"]) * (E + 17), ceiling)
+    k3_evals = sum(k3_live)
+    k3_bound = bound(small + 28 * rays, k3_evals * (E + 15), ceiling)
+    k3_bound_sqrt = bound(small + 28 * rays,
+                          k3_evals * (E + 15) + (sqrt_slots - 1.0) * k3_evals * S, ceiling)
+    for d in k4_lights:
+        ops = rays * seg_ops + d["live"] * (E + 17)
+        sqrts = rays * seg_sqrts + d["live"] * S
+        d["bound"] = bound(small + 36 * rays, ops, ceiling)
+        d["bound_sqrt"] = bound(small + 36 * rays, ops + (sqrt_slots - 1.0) * sqrts, ceiling)
+        d["bound_ms"], d["bound_sqrt_ms"] = d["bound"][0], d["bound_sqrt"][0]
+    march_prof = run_profile("--profile-march").split(" || ")
+    dev_ms = json.loads(march_prof[4])
+    require(dev_ms["k3"] > 0 and all(v > 0 for v in dev_ms["k4"] + dev_ms["k4_twin"]),
+            f"the profile saw no device time of K3 / K4: {dev_ms}")
+    for li, d in enumerate(k4_lights):
+        d.update(device_ms=dev_ms["k4"][li], twin_device_ms=dev_ms["k4_twin"][li])
     print(f"[20] scene4 AA {MAIN_W}x{MAIN_H} on {card}: path A step (exact) {a_step_ms:.1f} ms, "
-          f"path B fwd+bwd (envelope) {b_step_ms:.1f} ms; lol_march {k3_ms:.4f} ms (plain "
-          f"{p3_ms:.1f} ms, bound {k3_bound[0]:.4f} ms by {k3_bound[1]}, "
-          f"{sum(live['march']) / rays:.1f} evaluations per ray), lol_shadow_march light 0 "
-          f"{k4_ms:.4f} ms (plain {p4_ms:.1f} ms, bound {k4_bound[0]:.4f} ms by {k4_bound[1]}, "
-          f"{sum(live['shadow']) / rays:.1f} evaluations per ray); max |diff| vs plain here "
-          f"and in phase 18: lol_march {errs['lol_march']:.3g}, lol_shadow_march "
-          f"{errs['lol_shadow_march']:.3g}")
-    del a_leaves, b_leaves, k_leaves, img_b, k3, p3, k4, p4
+          f"path B fwd+bwd (envelope) {b_step_ms:.1f} ms; lol_march {k3_ms:.4f} ms (runs "
+          f"{k3_runs}; device {dev_ms['k3']:.4f}; plain {p3_ms:.1f} ms; bound {k3_bound[0]:.4f} "
+          f"ms by {k3_bound[1]}, sqrt-weighted {k3_bound_sqrt[0]:.4f}; "
+          f"{k3_evals / rays:.2f} evaluations per ray); lol_march and lol_shadow_march at every "
+          f"tile width bitwise the plain versions, lol_shadow_march bitwise its "
+          f"shadow_cull=False twin on both lights")
+    for li, d in enumerate(k4_lights):
+        print(f"[20] lol_shadow_march light {li}: {d['ms']:.4f} ms (runs {d['runs']}; device "
+              f"{d['device_ms']:.4f}), its shadow_cull=False twin {d['twin_ms']} in turns "
+              f"around it (device {d['twin_device_ms']:.4f}); plain {d['plain_ms']:.1f} ms; "
+              f"lanes culled {d['culled_share']:.4f}; SDF evaluations a ray {d['evals']:.2f} "
+              f"with the cull, {d['twin_evals']:.2f} without; bound {d['bound'][0]:.4f} ms by "
+              f"{d['bound'][1]}, sqrt-weighted {d['bound_sqrt'][0]:.4f}; warp efficiency per "
+              f"tile width " + ", ".join(
+                  f"{tw}x{32 // tw} {d['warp_efficiency'][tw]:.4f} (twin "
+                  f"{d['twin_warp_efficiency'][tw]:.4f})" for tw in MARCH_TILES))
+    print(f"[20] tile sweep (each width twice, in turns; lol_march / lol_shadow_march launch "
+          f"{MARCH_TILE_W}x{32 // MARCH_TILE_W}): " + "; ".join(
+              f"{tw}x{32 // tw}: K3 {tile_ms[tw]['k3']} ms (warp efficiency {k3_eff[tw]:.4f}), "
+              f"K4 light 0 {tile_ms[tw]['k4'][0]}, light 1 {tile_ms[tw]['k4'][1]}"
+              for tw in MARCH_TILES))
+    print(f"[20] host time per call (host clock over 100 calls, no sync inside): "
+          + ", ".join(f"{k} {v:.1f} us" for k, v in wrapper_us.items()))
+    del a_leaves, b_leaves, k_leaves, img_b
 
     # --- 21. path C: render_image_banded over instanced:10000 ---------------------------
     big = inst[10_000]
@@ -1173,25 +1470,44 @@ def march_phases(dev, card, scenes, inst, march_built, t0, e_inst, it_target, ce
     print(f"[21] the rule's frame widths against width 1: K3i "
           f"{k3f_ms / sweep[1]['frame_k3']:.4f}x, K4i {k4f_ms / sweep[1]['frame_k4']:.4f}x")
     del sizes
-
-    march_profile = run_profile("--profile-march").split(" || ")
-    print(f"[21] torch.profiler (`chip_smoke.py --profile-march`) over one path B step: "
-          f"{march_profile[0]}")
+    print(f"[21] torch.profiler (`chip_smoke.py --profile-march`, run in phase 20) over one "
+          f"path B step: {march_prof[0]}")
     print(f"[21] torch.profiler over one round of the four march kernels (K3, K4 light 0 at "
-          f"path B's rays; the instanced pair on the middle band): {march_profile[1]}")
+          f"path B's rays; the instanced pair on the middle band): {march_prof[1]}")
     print(f"[21] one path B step in a process of its own, under the allocator's history: "
-          f"{march_profile[2]}")
+          f"{march_prof[2]}")
     print(f"[21] torch.profiler over path C's band body on the middle band (no autograd): "
-          f"{march_profile[3]}")
+          f"{march_prof[3]}")
 
+
+    def per_launch(key):  # K4's per-light numbers, averaged over path B's two launches
+        return statistics.mean(d[key] for d in k4_lights)
+
+    k4_mean_bound = (per_launch("bound_ms"), k4_lights[0]["bound"][1])
     return [
-        entry("lol_march", "loltracer_tpu_torch/csrc/march.cuh",
-              "loltracer_tpu/render/pallas_march.py:94", a_counts["lol_march"], errs["lol_march"],
-              k3_ms, p3_ms, k3_bound),
-        entry("lol_shadow_march", "loltracer_tpu_torch/csrc/march.cuh",
-              "loltracer_tpu/render/pallas_march.py:111", b_counts["lol_shadow_march"],
-              errs["lol_shadow_march"],
-              k4_ms, p4_ms, k4_bound),
+        dict(entry("lol_march", "loltracer_tpu_torch/csrc/march.cuh",
+                   "loltracer_tpu/render/pallas_march.py:94", a_counts["lol_march"],
+                   errs["lol_march"], k3_ms, p3_ms, k3_bound),
+             device_ms=dev_ms["k3"], bound_sqrt_ms=k3_bound_sqrt[0], tile_w=MARCH_TILE_W,
+             tile_ms={str(tw): v["k3"] for tw, v in tile_ms.items()},
+             warp_efficiency={str(tw): v for tw, v in k3_eff.items()},
+             evals_per_ray=k3_evals / (MAIN_W * MAIN_H), host_us=wrapper_us),
+        dict(entry("lol_shadow_march", "loltracer_tpu_torch/csrc/march.cuh",
+                   "loltracer_tpu/render/pallas_march.py:111", b_counts["lol_shadow_march"],
+                   errs["lol_shadow_march"], per_launch("ms"), per_launch("plain_ms"),
+                   k4_mean_bound),
+             ms_is="the mean of the two lights' launches", device_ms=per_launch("device_ms"),
+             bound_sqrt_ms=per_launch("bound_sqrt_ms"), tile_w=MARCH_TILE_W,
+             tile_ms={str(tw): v["k4"] for tw, v in tile_ms.items()},
+             culled_share_per_light=[d["culled_share"] for d in k4_lights],
+             lights=[{k: d[k] for k in ("ms", "runs", "twin_ms", "device_ms", "twin_device_ms",
+                                         "plain_ms", "culled_share", "evals", "twin_evals",
+                                         "bound_ms", "bound_sqrt_ms")}
+                     | {"warp_efficiency": {str(tw): v for tw, v in d["warp_efficiency"].items()},
+                        "twin_warp_efficiency": {str(tw): v for tw, v in
+                                                 d["twin_warp_efficiency"].items()}}
+                     for d in k4_lights],
+             host_us=wrapper_us),
         dict(entry("lol_march_instanced", "loltracer_tpu_torch/csrc/coop_march.cuh",
                    "loltracer_tpu/render/pallas_march.py:94",
                    c_counts["lol_march_instanced"], errs["lol_march_instanced"], k3i_ms, p3i_ms,
@@ -2258,10 +2574,12 @@ def main() -> int:
     t0 = time.perf_counter()
     # the march kernels (phase 17): one library per structure for the four
     # examples (AA and the estimator are not compiled in), per clamp for
-    # instanced structures (one text for every sphere count)
+    # instanced structures (one text for every sphere count), and the
+    # examples' shadow_cull=False twins (K4 without the segment cull)
     march_libs = [(scenes[n].structure, RenderConfig()) for n in SCENES] + [
         (inst[10_000].structure, c) for c in (clamp2, RenderConfig(),
-                                              RenderConfig(step_clamp=2.0, shadow_step_clamp=8.0))]
+                                              RenderConfig(step_clamp=2.0, shadow_step_clamp=8.0))
+    ] + [(scenes[n].structure, RenderConfig(shadow_cull=False)) for n in SCENES]
     eval_clamps = (2.0, None, 8.0)  # K7 (phase 26): the one source per step clamp
     pool = ThreadPoolExecutor(max_workers=2 * len(cases) + 2 * len(train_cases)
                               + 2 * len(inst_cfgs) + len(inst_train_cfgs) + len(march_libs)
@@ -3092,7 +3410,7 @@ def main() -> int:
           f"not counted in the bound")
 
     march_entries = march_phases(dev, card, scenes, inst, march_built, t0, e_inst, it_target,
-                                 ceiling)
+                                 ceiling, sqrt_slots)
     regroup_entries = regroup_phases(dev, card, inst, inst_cfgs, regroup_built, t0, e_inst,
                                      m_inst / band_px, ceiling)
     objects_entry, hit_pts = objects_phases(dev, card, inst, eval_built, t0, ceiling)
@@ -3149,6 +3467,8 @@ if __name__ == "__main__":
         sys.exit(profile_instanced(train=sys.argv[1].endswith("-train")))
     if sys.argv[1:] == ["--profile-march"]:
         sys.exit(profile_march())
+    if sys.argv[1:] == ["--march-ab"]:
+        sys.exit(march_ab())
     if sys.argv[1:] == ["--profile-regroup"]:
         sys.exit(profile_regroup())
     if sys.argv[1:2] == ["--profile-peak"]:

@@ -14,10 +14,14 @@
 //   (the Pallas kernel passes track_aa=True whatever cfg.antialias is):
 //   t, t_query, s_min, t_close as four planes [4, n].
 // - K4: per ray from so along ld up to max_dist, `shadow_ray`: res and its
-//   first-wins argmin t* as two planes [2, n]. The TPU kernel's segment
-//   cull (cfg.shadow_cull) is value-exact and speed only; K1 / K1r run it
-//   (csrc/fused_fwd.cuh render_pixel), K4, like K5, leaves it out for now
-//   (ROADMAP.md).
+//   first-wins argmin t* as two planes [2, n]. Like the TPU kernel, a ray
+//   that the compiled Scene's segment bound proves lit (the generated
+//   Scene::segment_lit over [0, max_dist], under Cfg::shadow_cull: the
+//   trait SegmentCull of csrc/fused_fwd.cuh) skips its march and writes
+//   res = 1, t* = 0, what the march gives it (JAX's init_done lanes,
+//   render_pixel's shadow_of). The cull is value-exact and speed only;
+//   `RenderConfig(shadow_cull=False)` builds the twin without it, the
+//   bitwise check. The instanced entries have no bound and march every ray.
 //
 // The loops are K1's and K5's own (`march_ray`, `shadow_ray`), so a ray
 // marched here and inside render_pixel takes the same steps, and each
@@ -26,19 +30,30 @@
 // `shadow_dist` (the shadow clamp) in K4.
 //
 // Layout: ray i of n lies at row i / width, column i % width of the
-// caller's [rows, width] batch (the last batch dimension is the width), and
-// a block covers a 2-D tile of it, as K1 (32 x 8) and K5 (8 x 16) do, so a
-// warp marches neighbouring pixels; a batch of one row takes 1-D blocks.
-// The instanced entries take a lane-group width: at more than one lane a
-// group of a warp's lanes marches each ray (csrc/coop_march.cuh).
+// caller's [rows, width] batch (the last batch dimension is the width). A
+// compiled block is 32 x 8 rays and each warp of it a tile of kTileW x
+// (32 / kTileW) of them, K1's mapping (tile_pixel): kMarchTileW = 8, a tile
+// of 8 x 4, so a warp's rays and shadow rays stay closer together than a
+// row of 32's; `lol_march_tile` / `lol_shadow_march_tile` launch each width
+// of MARCH_TILES (render/cuda_scene.py) for the sweep. A batch of one row
+// takes 1-D blocks of 256 rays (march_ray_xy). Instanced blocks are 8 x 16
+// rays as K5's; the instanced entries take a lane-group width: at more than
+// one lane a group of a warp's lanes marches each ray (csrc/coop_march.cuh).
 // The ragged edge is masked; nothing is padded. The TPU's (8, 128) tiles,
 // lane-packed 16x32 patches and edge padding are not carried over.
 //
-// What bounds them on this card: FP32 and SFU issue in the SDF and warp
-// divergence, as K1 and K5; bytes are small (K3 reads 12 B and writes 16 B
+// What bounds them on this card: FP32 and SFU issue in the SDF (five IEEE
+// sqrtf an evaluation of scene4), not bytes (K3 reads 12 B and writes 16 B
 // per ray, K4 28 B and 8 B). Each thread leaves its loop when its own ray
-// is done, so a warp waits only for its own worst ray; instanced blocks
-// keep the run balls in shared memory, loaded once per block.
+// is done, so a warp waits only for its own worst ray. On scene4 AA at
+// 1920x1080 (PERF.md, an H100 SXM at 700 W) K3 runs at ~27 % of its
+// sqrt-weighted bound and K4 at 18 % (light 0) and 30 % (light 1). The cull
+// takes half of light 0's lanes, which march few steps anyway, and a
+// quarter of light 1's: light 0's device time falls 19 %, light 1's 4 %.
+// The 8 x 4 tile lifts the loops' warp efficiency (K3 0.855 -> 0.928) but
+// the time by 0-3 % over a row of 32: divergence is not what holds these
+// loops back. Instanced blocks keep the run balls in shared memory, loaded
+// once per block.
 //
 // K7, lol_instanced_eval: one evaluation of the instanced scene's distance
 // at arbitrary points, under one step clamp whose cut takes the AABB it is
@@ -95,12 +110,22 @@ __device__ __forceinline__ void march_at(const Scene& scn, const MarchArgs& a, s
   a.out[3 * n + i] = t_close;
 }
 
-// K4's work for ray i of n, written only with `write`.
+// K4's work for ray i of n, written only with `write`; a ray the segment
+// bound proves lit writes res = 1, t* = 0 without its march.
 template <class Cfg, class Scene>
 __device__ __forceinline__ void shadow_at(const Scene& scn, const MarchArgs& a, size_t i,
                                           size_t n, bool write = true) {
   const float* o = a.ro + (size_t)a.ro_stride * i;
   const float* d = a.rd + 3 * i;
+  if constexpr (SegmentCull<Cfg, Scene>::value) {
+    if (scn.segment_lit(__ldg(o), __ldg(o + 1), __ldg(o + 2), __ldg(d), __ldg(d + 1),
+                        __ldg(d + 2), __ldg(a.max_dist + i))) {
+      if (!write) return;
+      a.out[i] = 1.f;
+      a.out[n + i] = 0.f;
+      return;
+    }
+  }
   float t_star;
   const float res = shadow_ray<Cfg>(scn, __ldg(o), __ldg(o + 1), __ldg(o + 2), __ldg(d),
                                     __ldg(d + 1), __ldg(d + 2), __ldg(a.max_dist + i), t_star);
@@ -127,30 +152,61 @@ __device__ __forceinline__ void eval_at(const Scene& scn, const float* __restric
   out[i] = scn.dist(__ldg(q), __ldg(q + 1), __ldg(q + 2));
 }
 
-#ifdef __CUDACC__
-// A [rows, width] batch in blocks of bx x by threads; a single row in 1-D
-// blocks of bx * by.
-inline void march_grid(int rows, int width, int bx, int by, dim3& grid, dim3& block) {
-  block = rows == 1 ? dim3(bx * by, 1) : dim3(bx, by);
-  grid = dim3((width + block.x - 1) / block.x, (rows + block.y - 1) / block.y);
+// The warp tile width of lol_march / lol_shadow_march (8 x 4 rays a warp);
+// MARCH_TILES in render/cuda_scene.py are the widths the `_tile` entries
+// sweep.
+constexpr int kMarchTileW = 8;
+
+// The launch shape of a [rows, width] batch in blocks of bx x by threads: a
+// grid of gx x gy blocks of tx x ty threads; a single row in 1-D blocks of
+// bx * by threads.
+inline void march_shape(int rows, int width, int bx, int by, int& gx, int& gy, int& tx,
+                        int& ty) {
+  tx = rows == 1 ? bx * by : bx;
+  ty = rows == 1 ? 1 : by;
+  gx = (width + tx - 1) / tx;
+  gy = (rows + ty - 1) / ty;
 }
 
-template <bool kShadow, class Cfg, class Scene>
+// Ray (x, y) of thread tid of compiled block (bx, by) (march_shape over
+// kBlockX x kBlockY): a warp tile of tile_pixel<kTileW>, or in a one-row
+// batch ray bx * 256 + tid. The caller masks x >= width, y >= rows.
+template <int kTileW>
+__device__ __forceinline__ void march_ray_xy(int rows, int bx, int by, int tid, int& x, int& y) {
+  if (rows == 1) {
+    x = bx * (kBlockX * kBlockY) + tid;
+    y = by;
+    return;
+  }
+  tile_pixel<kTileW>(bx, by, tid, x, y);
+}
+
+#ifdef __CUDACC__
+// march_shape as CUDA launch dimensions.
+inline void march_grid(int rows, int width, int bx, int by, dim3& grid, dim3& block) {
+  int gx, gy, tx, ty;
+  march_shape(rows, width, bx, by, gx, gy, tx, ty);
+  block = dim3(tx, ty);
+  grid = dim3(gx, gy);
+}
+
+template <bool kShadow, class Cfg, class Scene, int kTileW>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
     march_kernel(const float* __restrict__ P, MarchArgs a, int rows, int width) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  int x, y;
+  march_ray_xy<kTileW>(rows, blockIdx.x, blockIdx.y, threadIdx.y * blockDim.x + threadIdx.x, x,
+                       y);
   if (x >= width || y >= rows) return;
   const Scene scn(P);
   value_at<kShadow, Cfg>(scn, a, (size_t)y * width + x, (size_t)rows * width);
 }
 
-template <bool kShadow, class Cfg, class Scene>
+template <bool kShadow, class Cfg, class Scene, int kTileW = kMarchTileW>
 int launch_march(const float* P, const MarchArgs& a, int rows, int width,
                  cudaStream_t stream) {
   dim3 grid, block;
   march_grid(rows, width, kBlockX, kBlockY, grid, block);
-  march_kernel<kShadow, Cfg, Scene><<<grid, block, 0, stream>>>(P, a, rows, width);
+  march_kernel<kShadow, Cfg, Scene, kTileW><<<grid, block, 0, stream>>>(P, a, rows, width);
   return (int)cudaGetLastError();
 }
 

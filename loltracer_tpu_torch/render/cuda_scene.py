@@ -43,10 +43,12 @@ reduce and scatter launches), whose SDF adjoint is the search's own
 as the backward's check entries. K3i / K4i still walk the runs.
 
 `generate_march_source(structure, cfg)` is the source of the value march
-kernels K3 and K4 (csrc/march.cuh) on the compiled `Scene` or, for an
-instanced structure, on the `InstancedScene`, one thread a ray, or a lane
-group a ray (csrc/coop_march.cuh, each width of MARCH_LANES): one library
-per structure and config holds both. `generate_regroup_source(structure,
+kernels K3 and K4 (csrc/march.cuh) on the compiled `Scene` (K4 with its
+segment cull under cfg.shadow_cull; each warp an 8 x 4 tile of rays, the
+`_tile` entries at each width of MARCH_TILES) or, for an instanced
+structure, on the `InstancedScene`, one thread a ray, or a lane group a ray
+(csrc/coop_march.cuh, each width of MARCH_LANES): one library per
+structure and config holds both. `generate_regroup_source(structure,
 cfg)` is the source of the regrouped instanced forward K9 (csrc/regroup.cuh: lol_rg_march,
 lol_rg_shadow and lol_rg_shade over the cell grid, with run-walk twins and
 counting entries), one text for every sphere count too.
@@ -821,29 +823,65 @@ def generate_instanced_source(
 
 MARCH = "lol_march"
 SHADOW_MARCH = "lol_shadow_march"
+MARCH_TILE = "lol_march_tile"
+SHADOW_MARCH_TILE = "lol_shadow_march_tile"
 MARCH_INSTANCED = "lol_march_instanced"
 SHADOW_MARCH_INSTANCED = "lol_shadow_march_instanced"
+
+# The warp tile widths the compiled `_tile` entries are compiled for (a warp
+# of 32 rays over kTileW x 32 / kTileW of the [rows, width] batch,
+# csrc/march.cuh march_ray_xy); lol_march / lol_shadow_march launch
+# MARCH_TILE_W (csrc/march.cuh kMarchTileW). Another width is refused
+# (cudaErrorInvalidValue).
+MARCH_TILES = (32, 16, 8)
+MARCH_TILE_W = 8
 
 _MARCH_ARGS = """\
   const lol::MarchArgs a{static_cast<const float*>(ro), ro_stride,
                          static_cast<const float*>(rd), static_cast<const float*>(max_dist),
                          static_cast<float*>(out)};"""
 
+
+def _march_launch(shadow: bool, tile: str = "") -> str:
+    k = "true" if shadow else "false"
+    return f"""lol::launch_march<{k}, lol_gen::Cfg, lol_gen::Scene{tile}>(
+          static_cast<const float*>(fields), a, rows, width, static_cast<cudaStream_t>(stream));"""
+
+
+def _tile_switch(shadow: bool) -> str:
+    """A `_tile` entry's dispatch on its `tile_w` argument."""
+    cases = [f"    case {w}:\n      return {_march_launch(shadow, f', {w}')}" for w in MARCH_TILES]
+    return "\n".join(["  switch (tile_w) {", *cases, "    default:",
+                      "      return (int)cudaErrorInvalidValue;", "  }"])
+
+
 _MARCH_ENTRIES = f"""\
 extern "C" int {MARCH}(const void* ro, int ro_stride, const void* rd, const void* fields,
                           void* out, int rows, int width, void* stream) {{
   const void* max_dist = nullptr;
 {_MARCH_ARGS}
-  return lol::launch_march<false, lol_gen::Cfg, lol_gen::Scene>(
-      static_cast<const float*>(fields), a, rows, width, static_cast<cudaStream_t>(stream));
+  return {_march_launch(False)}
 }}
 
 extern "C" int {SHADOW_MARCH}(const void* ro, int ro_stride, const void* rd,
                                  const void* max_dist, const void* fields, void* out, int rows,
                                  int width, void* stream) {{
 {_MARCH_ARGS}
-  return lol::launch_march<true, lol_gen::Cfg, lol_gen::Scene>(
-      static_cast<const float*>(fields), a, rows, width, static_cast<cudaStream_t>(stream));
+  return {_march_launch(True)}
+}}
+
+extern "C" int {MARCH_TILE}(const void* ro, int ro_stride, const void* rd, const void* fields,
+                               void* out, int rows, int width, int tile_w, void* stream) {{
+  const void* max_dist = nullptr;
+{_MARCH_ARGS}
+{_tile_switch(False)}
+}}
+
+extern "C" int {SHADOW_MARCH_TILE}(const void* ro, int ro_stride, const void* rd,
+                                      const void* max_dist, const void* fields, void* out,
+                                      int rows, int width, int tile_w, void* stream) {{
+{_MARCH_ARGS}
+{_tile_switch(True)}
 }}"""
 
 # The lane-group widths the instanced march entries are compiled for: 1 is
@@ -904,18 +942,22 @@ def generate_march_source(structure: SceneStructure, cfg: RenderConfig) -> str:
     this structure and config: csrc/fused_fwd.cuh (whose `march_ray` and
     `shadow_ray` they run), csrc/instanced_scene.cuh, csrc/march.cuh, then
     the Cfg and the compiled `Scene` (entries `lol_march`,
-    `lol_shadow_march`) or, for an instanced structure, the layout of the
-    `InstancedScene` (`lol_march_instanced`, `lol_shadow_march_instanced`;
-    one text for every sphere count), whose entries take a lane-group
-    width of MARCH_LANES (csrc/coop_march.cuh). Deterministic; holds no
-    scene numbers. The device functions also compile as host C++."""
+    `lol_shadow_march` and their `_tile` sweeps over MARCH_TILES; under
+    cfg.shadow_cull, and where the structure allows it, with
+    `Scene::segment_lit`, which K4 culls by) or, for an instanced
+    structure, the layout of the `InstancedScene` (`lol_march_instanced`,
+    `lol_shadow_march_instanced`; one text for every sphere count), whose
+    entries take a lane-group width of MARCH_LANES (csrc/coop_march.cuh).
+    Deterministic; holds no scene numbers. The device functions also
+    compile as host C++."""
     if structure.instanced:
         require_instanced(structure)
         if not structure.num_spheres:
             raise ValueError("an instanced scene needs at least one sphere")
         scene, entries = _layout_source(structure), _MARCH_INSTANCED_ENTRIES
     else:
-        scene, entries = _scene_source(structure, residuals=False), _MARCH_ENTRIES
+        scene = _scene_source(structure, residuals=False, cull=cfg.shadow_cull)
+        entries = _MARCH_ENTRIES
     bodies = ["fused_fwd.cuh", "instanced_scene.cuh", "march.cuh", "coop_march.cuh"]
     return "\n".join(
         [

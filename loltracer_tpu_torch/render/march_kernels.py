@@ -11,7 +11,14 @@ So the two loops are value functions, and on CUDA tensors they run here:
   `Scene`, `lol_march_instanced` on the `InstancedScene` (K3, csrc/march.cuh;
   the closest approach is always tracked, as the Pallas kernel does);
 - `shadow_values(structure, cfg, ro, rd, max_dist, scene)` -> (res, t*):
-  `lol_shadow_march` / `lol_shadow_march_instanced` (K4);
+  `lol_shadow_march` / `lol_shadow_march_instanced` (K4); on a compiled
+  structure under cfg.shadow_cull it skips the march of a ray that the
+  segment bound proves lit (res = 1, t* = 0, as the Pallas kernel's
+  init_done lanes), and `shadow_cull=False` launches its twin without the
+  cull (a library of its own: the bitwise check);
+- the compiled pair runs each warp over an 8 x 4 tile of the caller's
+  [rows, width] batch; `tile_w=` of march_values / shadow_values launches
+  the `_tile` entry at one of cuda_scene.MARCH_TILES instead (the sweep);
 - the instanced pair marches each ray with a group of `lanes_for(n,
   SMs, shadow)` lanes of a warp (csrc/coop_march.cuh; 1 is one thread a
   ray), a width chosen per launch from the kernel, its ray count and the
@@ -38,13 +45,18 @@ for instanced structures, the sphere tables (render/instanced_pack.py),
 built once per render and shared by every march of it.
 
 A wrapper given CUDA tensors checks them (CUDA, float32, contiguous,
-shape), launches its kernel or raises; nothing falls back. CPU tensors
-take the plain versions, `march_values_reference` and
-`shadow_values_reference`: render/march.py `march` and render/shading.py
-`shadow_march` under `no_grad`; `instanced_eval_reference` for K7.
-`launches` counts kernel launches per entry point; the plain versions
-never add to it. K3 and K4 share one library per structure and march
-config, built at first use; K7 has one per step clamp and plane count.
+shape, one device) in one pass, launches its kernel or raises; nothing
+falls back. The library entry and the packed size it checks against are
+resolved once per structure and config (`_entry`; `make_cuda_march` and
+`make_cuda_shadow_march` hold theirs), not per call. CPU tensors take the
+plain versions, `march_values_reference` and `shadow_values_reference`:
+render/march.py `march` and render/shading.py `shadow_march` (started
+done where shading.segment_lit culls, as the kernel skips) under
+`no_grad`; `instanced_eval_reference` for K7. `launches` counts kernel
+launches per entry point (the `_tile` entries under their kernel's name);
+the plain versions never add to it. K3 and K4 share one library per
+structure and march config, built at first use; K7 has one per step
+clamp and plane count.
 """
 
 from __future__ import annotations
@@ -68,8 +80,11 @@ from loltracer_tpu_torch.render.cuda_scene import (
     MARCH,
     MARCH_INSTANCED,
     MARCH_LANES,
+    MARCH_TILE,
+    MARCH_TILES,
     SHADOW_MARCH,
     SHADOW_MARCH_INSTANCED,
+    SHADOW_MARCH_TILE,
     generate_eval_source,
     generate_march_source,
     pack_fields,
@@ -89,7 +104,7 @@ from loltracer_tpu_torch.render.instanced_pack import (
 )
 from loltracer_tpu_torch.render.march import MarchResult, march
 from loltracer_tpu_torch.render.sdf import bbox_cut, make_scene_sdf
-from loltracer_tpu_torch.render.shading import shadow_march
+from loltracer_tpu_torch.render.shading import segment_lit, shadow_march
 from loltracer_tpu_torch.scene import SceneParams, SceneStructure, require_instanced
 
 __all__ = [
@@ -148,40 +163,50 @@ def _scene_params(structure: SceneStructure, scene: MarchScene) -> SceneParams:
 
 def march_values_reference(
     structure: SceneStructure, cfg: RenderConfig, ro, rd, scene: MarchScene,
-    live: Optional[List[int]] = None,
+    live: Optional[List[int]] = None, counts: Optional[torch.Tensor] = None,
 ) -> MarchResult:
     """The plain version of K3: march.march over the scene's SDF (under
     cfg.step_clamp for instanced structures), without autograd. `live`,
     if a list, gets the rays still marching at each step: the SDF
-    evaluations a thread per ray makes."""
+    evaluations a thread per ray makes; `counts`, an integer tensor of the
+    batch's shape, each ray's evaluations."""
     clamp = cfg.step_clamp if structure.instanced else None
     with torch.no_grad():
         return march(make_scene_sdf(structure, clamp), _scene_params(structure, scene),
-                     ro, rd, cfg, live)
+                     ro, rd, cfg, live, counts=counts)
 
 
 def shadow_values_reference(
     structure: SceneStructure, cfg: RenderConfig, ro, rd, max_dist, scene: MarchScene,
-    live: Optional[List[int]] = None,
+    live: Optional[List[int]] = None, counts: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version of K4: shading.shadow_march over the scene's SDF
     (under the shadow step clamp for instanced structures), without
-    autograd. Returns (res, t*). `live` as for march_values_reference."""
+    autograd; on a compiled structure under cfg.shadow_cull the rays
+    shading.segment_lit marks start done (res = 1, t* = 0), as the kernel
+    and the Pallas kernel skip them. Returns (res, t*). `live` and `counts`
+    as for march_values_reference."""
     clamp = cfg.effective_shadow_clamp() if structure.instanced else None
     with torch.no_grad():
-        return shadow_march(make_scene_sdf(structure, clamp), _scene_params(structure, scene),
-                            ro, rd, max_dist, cfg, live)
+        params = _scene_params(structure, scene)
+        lit = None
+        if cfg.shadow_cull and not structure.instanced:
+            lit = segment_lit(structure, params, ro, rd, max_dist, cfg.shadow_w)
+        return shadow_march(make_scene_sdf(structure, clamp), params, ro, rd, max_dist, cfg,
+                            live, init_done=lit, counts=counts)
 
 
 def kernel_config(structure: SceneStructure, cfg: RenderConfig) -> RenderConfig:
     """The part of cfg the march kernels compile in (step caps, tolerances,
-    shadow sharpness and, for instanced structures, the two step clamps);
-    configs that agree on it share one library."""
-    clamps = {}
+    shadow sharpness; for compiled structures the shadow segment cull, for
+    instanced ones the two step clamps); configs that agree on it share one
+    library."""
     if structure.instanced:
-        clamps = dict(step_clamp=cfg.step_clamp, shadow_step_clamp=cfg.shadow_step_clamp)
+        extra = dict(step_clamp=cfg.step_clamp, shadow_step_clamp=cfg.shadow_step_clamp)
+    else:
+        extra = dict(shadow_cull=cfg.shadow_cull)
     return RenderConfig(max_steps=cfg.max_steps, epsilon=cfg.epsilon, max_dist=cfg.max_dist,
-                        shadow_steps=cfg.shadow_steps, shadow_w=cfg.shadow_w, **clamps)
+                        shadow_steps=cfg.shadow_steps, shadow_w=cfg.shadow_w, **extra)
 
 
 @functools.lru_cache(maxsize=None)
@@ -194,7 +219,9 @@ def _library(structure: SceneStructure, cfg: RenderConfig) -> _build.Library:
                    + [i32] * 3 + [ptr]}
     else:
         entries = {MARCH: [ptr, i32, ptr, ptr, ptr, i32, i32, ptr],
-                   SHADOW_MARCH: [ptr, i32] + [ptr] * 4 + [i32] * 2 + [ptr]}
+                   SHADOW_MARCH: [ptr, i32] + [ptr] * 4 + [i32] * 2 + [ptr],
+                   MARCH_TILE: [ptr, i32, ptr, ptr, ptr, i32, i32, i32, ptr],
+                   SHADOW_MARCH_TILE: [ptr, i32] + [ptr] * 4 + [i32] * 3 + [ptr]}
     for name, args in entries.items():
         fn = getattr(built.lib, name)
         fn.argtypes = args
@@ -246,97 +273,165 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _check_lanes(structure: SceneStructure, lanes: Optional[int]) -> None:
-    if lanes is None:
-        return
-    if not structure.instanced:
-        raise ValueError("lanes= applies to instanced structures only")
-    if lanes not in MARCH_LANES:
-        raise ValueError(f"lanes={lanes}: the instanced marches are built for {MARCH_LANES}")
+def _check_options(structure: SceneStructure, lanes: Optional[int],
+                   tile_w: Optional[int]) -> None:
+    if lanes is not None:
+        if not structure.instanced:
+            raise ValueError("lanes= applies to instanced structures only")
+        if lanes not in MARCH_LANES:
+            raise ValueError(f"lanes={lanes}: the instanced marches are built for {MARCH_LANES}")
+    if tile_w is not None:
+        if structure.instanced:
+            raise ValueError("tile_w= applies to compiled structures only")
+        if tile_w not in MARCH_TILES:
+            raise ValueError(f"tile_w={tile_w}: the compiled marches are built for {MARCH_TILES}")
 
 
-def _launch(structure, cfg, name, scene, ro, rd, max_dist, planes, lanes=None):
-    """Checks the inputs, launches entry `name` and returns its [planes,
-    ...] output over rd's batch; instanced entries at `lanes` lanes a ray,
-    or lanes_for's width."""
-    batch = tuple(rd.shape[:-1])
-    n = math.prod(batch)
-    _check("rd", rd, batch + (3,))
-    ro_stride = 0 if tuple(ro.shape) == (3,) else 3
-    _check("ro", ro, (3,) if ro_stride == 0 else batch + (3,))
+class _Entry(NamedTuple):
+    """One K3 / K4 entry of a built library: its ctypes function, the
+    `launches` key it counts under and the packed buffer's length it
+    checks against."""
+
+    fn: Callable
+    name: str
+    fields: int
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(structure: SceneStructure, cfg: RenderConfig, shadow: bool,
+           tiled: bool = False) -> _Entry:
+    """K4's entry (`shadow`) or K3's for this structure and cfg, resolved
+    once: from library(structure, cfg), built at first use; a compiled
+    structure's `_tile` entry if `tiled`."""
+    if structure.instanced:
+        name = symbol = SHADOW_MARCH_INSTANCED if shadow else MARCH_INSTANCED
+    else:
+        name = SHADOW_MARCH if shadow else MARCH
+        symbol = (SHADOW_MARCH_TILE if shadow else MARCH_TILE) if tiled else name
+    return _Entry(getattr(library(structure, cfg).lib, symbol), name, packed_size(structure))
+
+
+def _check_rays(entry: _Entry, structure: SceneStructure, scene: MarchScene, ro, rd,
+                max_dist) -> None:
+    """One pass over a launch's tensors: rd, ro, max_dist and the packed
+    buffer each float32, contiguous, of its shape and on rd's device, a
+    CUDA one (and the instanced tables); raises naming the first that is
+    not."""
+    batch = rd.shape[:-1]
+    dev = rd.device
+    named = [("rd", rd, batch + (3,)), ("ro", ro, (3,) if ro.dim() == 1 else batch + (3,)),
+             ("fields", scene.fields, (entry.fields,))]
     if max_dist is not None:
-        _check("max_dist", max_dist, batch)
-    _check("fields", scene.fields, (packed_size(structure),))
+        named.append(("max_dist", max_dist, batch))
+    for name, t, shape in named:
+        if (t.device != dev or t.dtype != torch.float32 or not t.is_contiguous()
+                or t.shape != shape):
+            _check(name, t, shape)
+            raise ValueError("ro, rd, max_dist and the scene must be on one device")
+    if dev.type != "cuda":
+        _check("rd", rd, batch + (3,))
     if scene.tables is not None:
-        _check_tables(structure, scene.tables, rd.device)
-    tensors = [ro, rd, scene.fields] + ([] if max_dist is None else [max_dist])
-    if any(t.device != rd.device for t in tensors):
-        raise ValueError("ro, rd, max_dist and the scene must be on one device")
-    out = torch.empty((planes, n), dtype=torch.float32, device=rd.device)
+        _check_tables(structure, scene.tables, dev)
+
+
+def _launch(entry: _Entry, structure: SceneStructure, scene: MarchScene, ro, rd, max_dist,
+            planes: int, lanes: Optional[int] = None, tile_w: Optional[int] = None):
+    """Checks the inputs, launches `entry` and returns its [planes, ...]
+    output over rd's batch; instanced entries at `lanes` lanes a ray, or
+    lanes_for's width; a `_tile` entry (_entry's `tiled`) at tile_w."""
+    _check_rays(entry, structure, scene, ro, rd, max_dist)
+    batch = tuple(rd.shape[:-1])
+    dev = rd.device
+    n = rd.numel() // 3
+    out = torch.empty((planes, n), dtype=torch.float32, device=dev)
     if n == 0:
         return out.reshape((planes,) + batch)
     rows, width = _layout(batch)
-    fn = getattr(library(structure, cfg).lib, name)
-    args = [ro.data_ptr(), ro_stride, rd.data_ptr()]
+    args = [ro.data_ptr(), 0 if ro.dim() == 1 else 3, rd.data_ptr()]
     if max_dist is not None:
         args.append(max_dist.data_ptr())
     args.append(scene.fields.data_ptr())
-    if scene.tables is not None:
-        tab = scene.tables
+    tab = scene.tables
+    if tab is not None:
         args += [tab.spheres.data_ptr(), tab.ids.data_ptr(), tab.groups.data_ptr(),
                  tab.bbox.data_ptr(), tab.spheres.shape[0], tab.groups.shape[0]]
-    tail = [rows, width]
-    if scene.tables is not None:
-        device = rd.device.index if rd.device.index is not None else torch.cuda.current_device()
-        tail.append(lanes or lanes_for(n, _sm_count(device), max_dist is not None))
-    with torch.cuda.device(rd.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(*args, out.data_ptr(), *tail, stream)
+    args += [out.data_ptr(), rows, width]
+    if tab is not None:
+        args.append(lanes or lanes_for(n, _sm_count(dev.index), max_dist is not None))
+    elif tile_w is not None:
+        args.append(tile_w)
+    if dev.index == torch.cuda.current_device():
+        rc = entry.fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = entry.fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
-    launches[name] += 1
+        raise RuntimeError(f"{entry.name} launch failed: cudaError {rc}")
+    launches[entry.name] += 1
     return out.reshape((planes,) + batch)
 
 
 def march_values(
     structure: SceneStructure, cfg: RenderConfig, ro, rd, scene: MarchScene,
-    *, lanes: Optional[int] = None,
+    *, lanes: Optional[int] = None, tile_w: Optional[int] = None,
 ) -> MarchResult:
     """K3 for CUDA tensors, march_values_reference for CPU tensors: the
     frozen march of rays ro [3] or [..., 3] along rd [..., 3]. `lanes`
-    (instanced only): the kernel's lane-group width, else lanes_for's."""
-    _check_lanes(structure, lanes)
+    (instanced only): the kernel's lane-group width, else lanes_for's;
+    `tile_w` (compiled only): the warp tile width of `lol_march_tile`,
+    else lol_march's 8."""
+    _check_options(structure, lanes, tile_w)
     if resolve_backend(ro, rd, scene.fields) == "torch":
         return march_values_reference(structure, cfg, ro, rd, scene)
-    name = MARCH_INSTANCED if structure.instanced else MARCH
-    return MarchResult(*_launch(structure, cfg, name, scene, ro, rd, None, 4, lanes))
+    entry = _entry(structure, cfg, False, tile_w is not None)
+    return MarchResult(*_launch(entry, structure, scene, ro, rd, None, 4, lanes, tile_w).unbind())
 
 
 def shadow_values(
     structure: SceneStructure, cfg: RenderConfig, ro, rd, max_dist, scene: MarchScene,
-    *, lanes: Optional[int] = None,
+    *, lanes: Optional[int] = None, tile_w: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4 for CUDA tensors, shadow_values_reference for CPU tensors: (res,
     t*) of the shadow marches from ro [..., 3] along rd [..., 3] up to
-    max_dist [...]. `lanes` as for march_values."""
-    _check_lanes(structure, lanes)
+    max_dist [...]. `lanes` and `tile_w` as for march_values."""
+    _check_options(structure, lanes, tile_w)
     if resolve_backend(ro, rd, max_dist, scene.fields) == "torch":
         return shadow_values_reference(structure, cfg, ro, rd, max_dist, scene)
-    name = SHADOW_MARCH_INSTANCED if structure.instanced else SHADOW_MARCH
-    res, t_star = _launch(structure, cfg, name, scene, ro, rd, max_dist, 2, lanes)
-    return res, t_star
+    entry = _entry(structure, cfg, True, tile_w is not None)
+    return tuple(_launch(entry, structure, scene, ro, rd, max_dist, 2, lanes, tile_w).unbind())
 
 
 def _ray_batch(ro, rd, *per_ray):
     """ro kept as one origin [3] or broadcast to rd's batch, every tensor
-    detached and contiguous (copies only where needed)."""
-    batch = torch.broadcast_shapes(ro.shape[:-1], rd.shape[:-1],
-                                   *(t.shape for t in per_ray))
-    if ro.dim() != 1:
-        ro = ro.expand(batch + (3,))
-    rd = rd.expand(batch + (3,))
-    return [t.detach().contiguous() for t in
-            (ro, rd, *(t.expand(batch) for t in per_ray))]
+    detached and contiguous (copies only where needed; a batch whose
+    shapes already agree is not broadcast)."""
+    batch = rd.shape[:-1]
+    if not ((ro.dim() == 1 or ro.shape == rd.shape) and all(t.shape == batch for t in per_ray)):
+        batch = torch.broadcast_shapes(ro.shape[:-1], batch, *(t.shape for t in per_ray))
+        if ro.dim() != 1:
+            ro = ro.expand(batch + (3,))
+        rd = rd.expand(batch + (3,))
+        per_ray = tuple(t.expand(batch) for t in per_ray)
+    return [(t.detach() if t.requires_grad else t).contiguous() for t in (ro, rd, *per_ray)]
+
+
+def _launcher(structure: SceneStructure, cfg: RenderConfig, shadow: bool) -> Callable:
+    """`launch(scene, ro, rd[, max_dist])` over a ray batch of _ray_batch:
+    K4 (`shadow`) or K3 on CUDA tensors, with the kernel's entry resolved
+    at the first launch and kept; its plain version on CPU tensors."""
+    entry: List[_Entry] = []
+    reference = shadow_values_reference if shadow else march_values_reference
+
+    def launch(scene: MarchScene, ro, rd, *max_dist):
+        if resolve_backend(ro, rd, *max_dist, scene.fields) == "torch":
+            return reference(structure, cfg, ro, rd, *max_dist, scene)
+        if not entry:
+            entry.append(_entry(structure, cfg, shadow))
+        if shadow:
+            return tuple(_launch(entry[0], structure, scene, ro, rd, max_dist[0], 2).unbind())
+        return MarchResult(*_launch(entry[0], structure, scene, ro, rd, None, 4).unbind())
+
+    return launch
 
 
 def make_cuda_march(structure: SceneStructure, cfg: RenderConfig) -> Callable:
@@ -344,11 +439,12 @@ def make_cuda_march(structure: SceneStructure, cfg: RenderConfig) -> Callable:
     march through K3 (`pallas_march.make_pallas_march`). `scene` is a
     MarchScene of params packed once per render; without it the call
     packs its own. No output carries a gradient."""
+    launch = _launcher(structure, cfg, shadow=False)
 
     def march_fn(params: SceneParams, ro, rd, scene: Optional[MarchScene] = None):
         if scene is None:
             scene = pack_march_scene(structure, params)
-        return march_values(structure, cfg, *_ray_batch(ro, rd), scene)
+        return launch(scene, *_ray_batch(ro, rd))
 
     return march_fn
 
@@ -356,11 +452,12 @@ def make_cuda_march(structure: SceneStructure, cfg: RenderConfig) -> Callable:
 def make_cuda_shadow_march(structure: SceneStructure, cfg: RenderConfig) -> Callable:
     """`shadow_fn(params, ro, rd, max_dist, scene=None) -> (res, t*)`: the
     frozen shadow march through K4 (`make_pallas_shadow_march`)."""
+    launch = _launcher(structure, cfg, shadow=True)
 
     def shadow_fn(params: SceneParams, ro, rd, max_dist, scene: Optional[MarchScene] = None):
         if scene is None:
             scene = pack_march_scene(structure, params)
-        return shadow_values(structure, cfg, *_ray_batch(ro, rd, max_dist), scene)
+        return launch(scene, *_ray_batch(ro, rd, max_dist))
 
     return shadow_fn
 

@@ -5,7 +5,8 @@ tensors:
 - `march_values_reference` vs `pallas_march.make_pallas_march` (interpret
   mode) on the four examples and instanced:300 (clamp 2 and exact), and
   `shadow_values_reference` vs `make_pallas_shadow_march` on the real
-  shadow rays of scene4 and of instanced:300 with shadow clamp 8;
+  shadow rays of scene4 (with the segment cull in both, and without) and
+  of instanced:300 with shadow clamp 8;
 - `render_image` with march_backend "jnp", envelope shadows and
   antialiasing: the image and MSE gradients vs the JAX renderer with
   march_backend "pallas-interpret";
@@ -51,7 +52,7 @@ from loltracer_tpu_torch.render.march_kernels import (
     shadow_values_reference,
 )
 from loltracer_tpu_torch.render.sdf import make_scene_sdf
-from loltracer_tpu_torch.render.shading import shadow_march
+from loltracer_tpu_torch.render.shading import segment_lit, shadow_march
 from loltracer_tpu_torch.render.torch_renderer import render_image, render_image_banded
 from loltracer_tpu_torch.render.vecmath import dot, normalize
 from loltracer_tpu_torch.scene import FIELDS, SceneParams, build_scene, params_from_numpy
@@ -163,14 +164,19 @@ def _shadow_inputs(structure, params, cfg, ro, rd, t):
     return out
 
 
-@pytest.mark.parametrize("case", ["scene4", "instanced_clamp8"])
+@pytest.mark.parametrize("case", ["scene4", "scene4_no_cull", "instanced_clamp8"])
 def test_shadow_reference_matches_pallas_shadow_march(examples, instanced, case):
     """K4's plain version vs the Pallas K4 in interpret mode on each light's
     real shadow rays: res within atol 5e-5 / rtol 1e-4 where finite and
     infinite at the same rays, t* likewise (tests/test_pallas_march.py:
-    259-264). The instanced case marches under shadow clamp 8."""
-    if case == "scene4":
-        (jscene, structure, params), cfg, h, w = examples["scene4.lol"], RenderConfig(), 13, 37
+    259-264). On scene4 both run the segment cull (cfg.shadow_cull, the
+    default: the port's plain K4 starts the rays shading.segment_lit marks
+    done, `init_done`, as the Pallas kernel does), or both leave it out;
+    the culled rays give res = 1, t* = 0 in both. The instanced case
+    marches under shadow clamp 8."""
+    if case.startswith("scene4"):
+        (jscene, structure, params), h, w = examples["scene4.lol"], 13, 37
+        cfg = RenderConfig(shadow_cull=case == "scene4")
     else:
         (jscene, structure, params) = instanced
         cfg, h, w = RenderConfig(step_clamp=2.0, shadow_step_clamp=8.0), 10, 24
@@ -180,6 +186,7 @@ def test_shadow_reference_matches_pallas_shadow_march(examples, instanced, case)
     with flush_denormals():
         t = march_values_reference(structure, cfg, torch.from_numpy(ro), torch.from_numpy(rd),
                                    scene).t
+    culled = 0
     for so, ld, dist in _shadow_inputs(structure, params, cfg, ro, rd, t):
         want = [np.asarray(x) for x in pallas(jscene.params, jnp.asarray(so), jnp.asarray(ld),
                                               jnp.asarray(dist))]
@@ -187,11 +194,26 @@ def test_shadow_reference_matches_pallas_shadow_march(examples, instanced, case)
             got = [x.numpy() for x in shadow_values_reference(
                 structure, cfg, torch.from_numpy(so), torch.from_numpy(ld),
                 torch.from_numpy(dist), scene)]
+            if case == "scene4":
+                with torch.no_grad():
+                    lit = segment_lit(structure, params, torch.from_numpy(so),
+                                      torch.from_numpy(ld), torch.from_numpy(dist),
+                                      cfg.shadow_w).numpy()
+                    plain = shadow_march(make_scene_sdf(structure), params, torch.from_numpy(so),
+                                         torch.from_numpy(ld), torch.from_numpy(dist), cfg,
+                                         init_done=torch.from_numpy(lit))
+                for a, b in zip(got, plain):
+                    np.testing.assert_array_equal(a, b.numpy())
+                for x in (got, want):
+                    assert (x[0][lit] == 1.0).all() and (x[1][lit] == 0.0).all()
+                culled += int(lit.sum())
         fin = np.isfinite(want[0])
         np.testing.assert_array_equal(np.isfinite(got[0]), fin)
         np.testing.assert_array_equal(got[0][~fin], want[0][~fin])
         np.testing.assert_allclose(got[0][fin], want[0][fin], atol=5e-5, rtol=1e-4)
         np.testing.assert_allclose(got[1], want[1], atol=5e-5, rtol=1e-4)
+    if case == "scene4":
+        assert culled > 0, "the segment cull marked no shadow ray"
 
 
 def test_march_wrappers_take_the_plain_versions_on_the_cpu(examples, instanced):

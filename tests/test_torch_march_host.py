@@ -3,13 +3,22 @@
 `lol_shadow_march_instanced`), on a machine without CUDA:
 
 - the generated march source: deterministic, one text for every sphere
-  count, the four entry points where they belong;
+  count, the entry points where they belong (the compiled `_tile` sweep
+  entries too), `Scene::segment_lit` under cfg.shadow_cull only where the
+  structure allows it, and a library key that separates shadow_cull for
+  compiled structures only;
 - csrc/march.cuh's per-ray functions over the compiled and the instanced
   `Scene`, compiled for the host with g++ through the shim of
   tests/test_torch_train_host.py, ray by ray against the plain loops
   (march_values_reference, shadow_values_reference) on camera rays and on
   the real shadow rays of each light: scene4, and instanced:300 at clamp 2
   and exact;
+- K4 with the segment cull bitwise its `shadow_cull=False` twin, and the
+  plain loops with the cull bitwise without it, on every light of
+  scene2, scene3, scene4 (AA) and a structure with a box;
+- the compiled launch's ray mapping (`march_shape`, `march_ray_xy`) over
+  ragged [rows, width] batches: each ray taken by exactly one thread at
+  each warp tile width of MARCH_TILES, each warp one tile;
 - K7's per-point function `eval_at` (`lol_instanced_eval`) over the
   InstancedScene of its generated source, point by point against its
   plain version (`instanced_eval_reference`): instanced:300 whole at clamp
@@ -33,7 +42,7 @@ import pytest
 import torch
 
 from loltracer_tpu_torch.config import RenderConfig
-from loltracer_tpu_torch.lol import parse_scene_file
+from loltracer_tpu_torch.lol import parse_scene, parse_scene_file
 from loltracer_tpu_torch.render import cuda_scene, march_kernels
 from loltracer_tpu_torch.render.camera import camera_pack, camera_rays
 from loltracer_tpu_torch.render.cuda_scene import (
@@ -49,6 +58,7 @@ from loltracer_tpu_torch.render.march_kernels import (
     pack_march_scene,
     shadow_values_reference,
 )
+from loltracer_tpu_torch.render.shading import segment_lit
 from loltracer_tpu_torch.render.vecmath import dot, normalize
 from loltracer_tpu_torch.scene import build_scene
 from loltracer_tpu_torch.scenes import instanced_spheres
@@ -256,8 +266,13 @@ def test_march_source_entries_and_determinism(scene4):
     src = generate_march_source(scene4.structure, cfg)
     assert src == generate_march_source(scene4.structure, cfg)
     entries = src.rsplit("#ifdef __CUDACC__", 1)[1]
-    for name in ("lol_march", "lol_shadow_march"):
+    for name in ("lol_march", "lol_shadow_march", "lol_march_tile", "lol_shadow_march_tile"):
         assert f"int {name}(" in entries
+    for w in cuda_scene.MARCH_TILES:
+        assert entries.count(f"case {w}:") == 2
+    # lol_march / lol_shadow_march launch the width the wrapper names
+    assert cuda_scene.MARCH_TILE_W in cuda_scene.MARCH_TILES
+    assert f"constexpr int kMarchTileW = {cuda_scene.MARCH_TILE_W};" in src
     assert "instanced" not in entries
     assert (cuda_scene.CSRC / "march.cuh").read_text() in src
     a, b = instanced_spheres(n=300, device="cpu"), instanced_spheres(n=10_000, seed=3, device="cpu")
@@ -274,6 +289,15 @@ def test_march_source_entries_and_determinism(scene4):
     k = march_kernels.kernel_config
     assert k(scene4.structure, cfg) == k(scene4.structure, RenderConfig(gamma=1.0))
     assert k(a.structure, clamp2) != k(a.structure, clamp2.replace(shadow_step_clamp=8.0))
+    # the segment cull is compiled into K4 for compiled structures (its
+    # twin a library of its own); the instanced entries have no bound, so
+    # their key ignores it
+    no_cull = cfg.replace(shadow_cull=False)
+    assert k(scene4.structure, cfg) != k(scene4.structure, no_cull)
+    assert k(scene4.structure, no_cull) == k(scene4.structure, RenderConfig(shadow_cull=False))
+    assert k(a.structure, clamp2) == k(a.structure, clamp2.replace(shadow_cull=False))
+    assert inst == generate_march_source(a.structure, clamp2.replace(shadow_cull=False))
+    assert src != generate_march_source(scene4.structure, no_cull)
 
 
 def test_host_built_compiled_marches_match_plain_loops(scene4, tmp_path):
@@ -382,3 +406,162 @@ def test_render_pixel_is_bitwise_what_it_was(scene4, residuals, tmp_path):
     np.testing.assert_array_equal(outs[0][0], outs[1][0])
     np.testing.assert_array_equal(outs[0][1], outs[1][1])
     assert outs[0][0].max() > 0
+
+
+def _cull_scene(examples_dir, name):
+    """An example, or tests/test_torch_segment_cull.py's box structure."""
+    if name == "box":
+        from test_torch_segment_cull import _BOX
+
+        return build_scene(parse_scene(_BOX), device="cpu")
+    return build_scene(parse_scene_file(str(examples_dir / name)), device="cpu")
+
+
+@pytest.mark.parametrize("name,aa", [("scene2.lol", False), ("scene3.lol", False),
+                                     ("scene4.lol", True), ("box", False)],
+                         ids=["scene2", "scene3", "scene4_aa", "box"])
+def test_host_built_shadow_cull_is_bitwise_its_twin(examples_dir, name, aa, tmp_path):
+    """K4 under Cfg::shadow_cull and its shadow_cull=False twin, both built
+    for the host, on every light's real shadow rays from the plain march's
+    hits at 12x40: res and t* bitwise equal, and within the phase-18 rule
+    of the plain loops (bitwise but for torch's CPU sqrt, 1 ulp off on
+    some inputs); the plain loops with the cull (culled rays started done)
+    bitwise without it; some rays culled."""
+    scene = _cull_scene(examples_dir, name)
+    st = scene.structure
+    cfg = RenderConfig(antialias=aa)
+    twin_cfg = cfg.replace(shadow_cull=False)
+    on = _build(_SHIM + generate_march_source(st, cfg) + _COMPILED_ENTRY, tmp_path)
+    off = _build(_SHIM + generate_march_source(st, twin_cfg) + _COMPILED_ENTRY, tmp_path)
+    scene_m = pack_march_scene(st, scene.params)
+    ro, rd = camera_rays(scene.params, 12, 40, cfg)
+    m = march_values_reference(st, cfg, ro, rd, scene_m)
+    t_sh = torch.where(m.t < cfg.max_dist, m.t, m.t_close) if aa else m.t
+    culled = 0
+    for li, (so, ld, dist) in enumerate(_shadow_rays(st, scene.params, ro, rd, t_sh, cfg)):
+        got = _host_values(on, st, scene_m, so, ld, dist)
+        np.testing.assert_array_equal(got, _host_values(off, st, scene_m, so, ld, dist))
+        want = [x.numpy() for x in shadow_values_reference(st, cfg, so, ld, dist, scene_m)]
+        twin = [x.numpy() for x in shadow_values_reference(st, twin_cfg, so, ld, dist, scene_m)]
+        for i, plane in enumerate(("res", "t*")):
+            np.testing.assert_array_equal(want[i], twin[i])
+            _close(got[i], want[i], f"{plane} of light {li}", atol=5e-5)
+        lit = segment_lit(st, scene.params, so, ld, dist, cfg.shadow_w)
+        assert (got[0][lit.numpy()] == 1).all() and (got[1][lit.numpy()] == 0).all()
+        culled += int(lit.sum())
+    assert culled > 0, "no shadow ray of the frame is culled"
+
+
+def test_march_source_emits_no_bound_over_a_smooth_min_on_a_plane(tmp_path):
+    """tests/test_torch_segment_cull.py's smooth-min over a plane: the
+    march source carries Cfg::shadow_cull but no Scene::segment_lit, so K4
+    culls nothing and its host build is bitwise the twin's."""
+    from test_torch_segment_cull import _SMIN_PLANE
+
+    scene = build_scene(parse_scene(_SMIN_PLANE), device="cpu")
+    st = scene.structure
+    src = generate_march_source(st, RenderConfig())
+    assert "shadow_cull = true;" in src
+    assert "kHasSegmentBound" not in src.split("namespace lol_gen {", 1)[1]
+    twin = generate_march_source(st, RenderConfig(shadow_cull=False))
+    assert src.replace("shadow_cull = true;", "shadow_cull = false;") == twin
+    cfg = RenderConfig()
+    on = _build(_SHIM + src + _COMPILED_ENTRY, tmp_path)
+    off = _build(_SHIM + twin + _COMPILED_ENTRY, tmp_path)
+    scene_m = pack_march_scene(st, scene.params)
+    ro, rd = camera_rays(scene.params, 8, 20, cfg)
+    t = march_values_reference(st, cfg, ro, rd, scene_m).t
+    for so, ld, dist in _shadow_rays(st, scene.params, ro, rd, t, cfg):
+        np.testing.assert_array_equal(_host_values(on, st, scene_m, so, ld, dist),
+                                      _host_values(off, st, scene_m, so, ld, dist))
+
+
+# every thread of a compiled launch over a [rows, width] batch: its ray
+# (x, y), or -1 where the kernel masks it
+_COVER_ENTRY = r"""
+extern "C" long long host_cover(int rows, int width, int tile_w, int* xs, int* ys) {
+  int gx, gy, tx, ty;
+  lol::march_shape(rows, width, lol::kBlockX, lol::kBlockY, gx, gy, tx, ty);
+  long long k = 0;
+  for (int by = 0; by < gy; ++by)
+    for (int bx = 0; bx < gx; ++bx)
+      for (int tid = 0; tid < tx * ty; ++tid, ++k) {
+        int x, y;
+        switch (tile_w) {
+%s
+          default: return -1;
+        }
+        const bool in = x < width && y < rows;
+        xs[k] = in ? x : -1;
+        ys[k] = in ? y : -1;
+      }
+  return k;
+}
+""" % "\n".join(f"          case {w}: lol::march_ray_xy<{w}>(rows, bx, by, tid, x, y); break;"
+                for w in cuda_scene.MARCH_TILES)
+
+
+@pytest.fixture(scope="module")
+def cover_lib(scene4, tmp_path_factory):
+    text = _SHIM + generate_march_source(scene4.structure, RenderConfig()) + _COVER_ENTRY
+    return _build(text, tmp_path_factory.mktemp("cover"))
+
+
+@pytest.mark.parametrize("rows,width", [(13, 37), (1, 97), (40, 8), (8, 256), (1, 1), (33, 1)])
+@pytest.mark.parametrize("tile_w", cuda_scene.MARCH_TILES)
+def test_march_tile_covers_each_ray_once(cover_lib, rows, width, tile_w):
+    """The compiled launch (march_shape's grid, march_ray_xy's mapping) over
+    a ragged [rows, width] batch: each ray taken by exactly one thread, the
+    rest masked; in a batch of rows each warp's rays lie in one tile of
+    tile_w x 32 / tile_w, in a one-row batch 32 consecutive rays."""
+    cap = (-(-width // 32) + 8) * (-(-rows // 8) + 1) * 256
+    xs, ys = np.zeros(cap, np.int32), np.zeros(cap, np.int32)
+    k = cover_lib.host_cover(rows, width, tile_w, _ptr(xs), _ptr(ys))
+    assert 0 < k <= cap and k % 32 == 0
+    xs, ys = xs[:k], ys[:k]
+    hits = np.zeros((rows, width), np.int64)
+    live = xs >= 0
+    np.add.at(hits, (ys[live], xs[live]), 1)
+    assert (hits == 1).all()
+    for wx, wy in zip(xs.reshape(-1, 32), ys.reshape(-1, 32)):
+        on = wx >= 0
+        if not on.any():
+            continue
+        span = (wx[on].max() - wx[on].min() + 1, wy[on].max() - wy[on].min() + 1)
+        assert span[0] <= (32 if rows == 1 else tile_w) and span[1] <= (1 if rows == 1 else 32 // tile_w)
+
+
+def test_march_wrappers_check_their_options_and_inputs(scene4):
+    """tile_w names a compiled width of MARCH_TILES and lanes an instanced
+    width, else the wrappers raise, on any device; on CPU tensors a tile
+    width takes the plain version (bitwise) and launches nothing; a launch
+    refuses tensors off the card or of another shape before it starts."""
+    from loltracer_tpu_torch.render.march_kernels import march_values, shadow_values
+
+    st, cfg = scene4.structure, RenderConfig()
+    inst = instanced_spheres(n=4, device="cpu")
+    scene = pack_march_scene(st, scene4.params)
+    ro, rd = camera_rays(scene4.params, 4, 6, cfg)
+    dist = torch.full(rd.shape[:-1], 5.0)
+    before = dict(march_kernels.launches)
+    for w in cuda_scene.MARCH_TILES:
+        for a, b in zip(march_values(st, cfg, ro, rd, scene, tile_w=w),
+                        march_values_reference(st, cfg, ro, rd, scene)):
+            assert torch.equal(a, b)
+        for a, b in zip(shadow_values(st, cfg, ro + rd, rd, dist, scene, tile_w=w),
+                        shadow_values_reference(st, cfg, ro + rd, rd, dist, scene)):
+            assert torch.equal(a, b)
+    assert march_kernels.launches == before
+    inst_scene = pack_march_scene(inst.structure, inst.params)
+    for call in (lambda: march_values(st, cfg, ro, rd, scene, tile_w=4),
+                 lambda: shadow_values(st, cfg, ro + rd, rd, dist, scene, lanes=1),
+                 lambda: march_values(inst.structure, cfg, ro, rd, inst_scene, tile_w=8)):
+        with pytest.raises(ValueError):
+            call()
+    entry = march_kernels._Entry(None, "lol_march", cuda_scene.packed_size(st))
+    bad = scene._replace(fields=scene.fields[:-1])
+    for args in ((scene, ro, rd, None), (bad, ro, rd, None), (scene, ro, rd, dist),
+                 (scene, ro.double(), rd, None)):
+        with pytest.raises(ValueError):
+            march_kernels._launch(entry, st, *args, 4)
+    assert march_kernels.launches == before

@@ -96,10 +96,10 @@ def test_training_source_differs_only_in_training_parts(examples, name):
 def test_segment_cull_is_emitted_only_where_it_applies(examples):
     """Scene::segment_lit and its flag are emitted for a compiled structure
     whose bound exists (no smooth-min over a plane) under cfg.shadow_cull,
-    in the fused and the training sources alike; Cfg::shadow_cull carries
-    the knob for compiled structures only; K3 / K4's source and the
-    instanced sources never carry the bound. The emitted bound holds
-    offsets, not numbers."""
+    in the fused and the training sources alike, and in K3 / K4's march
+    source (K4 culls by it); Cfg::shadow_cull carries the knob for
+    compiled structures only; the instanced sources never carry the bound.
+    The emitted bound holds offsets, not numbers."""
     from loltracer_tpu_torch.render.cuda_scene import (
         generate_instanced_source,
         generate_march_source,
@@ -120,7 +120,9 @@ def test_segment_cull_is_emitted_only_where_it_applies(examples):
             "shadow_cull = true;", "shadow_cull = false;") == off
     smin_plane = build_scene(parse_scene(_SMIN_PLANE), device="cpu").structure
     assert marker not in generate_source(smin_plane, CFG)
-    assert marker not in generate_march_source(s4, CFG)
+    assert marker in generate_march_source(s4, CFG)
+    assert marker not in generate_march_source(s4, no_cull)
+    assert marker not in generate_march_source(smin_plane, CFG)
     inst = instanced_spheres(n=4, device="cpu").structure
     for src in (generate_instanced_source(inst, CFG), generate_instanced_source(inst, CFG, True)):
         assert "shadow_cull =" not in src and marker not in src
