@@ -47,8 +47,10 @@ Phases, one line each:
    * max(1, max|dcam|)), and two launches bitwise equal;
 8. the training path: `fit_scene` on scene4 @1920x1080 with antialiasing
    and envelope shadows, sphere points trainable, 5 Adam steps, against the
-   port's render of scene4 with its sphere points moved; it must launch
-   both training kernels and lower the loss. Then one fwd+bwd step of
+   port's render of scene4 with its sphere points moved, through the
+   row-sharded step of parallel/sharded.py on a mesh of one rank (a world
+   of one, made by fit_scene); it must launch each training kernel once a
+   step, each with its row table, and lower the loss. Then one fwd+bwd step of
    `make_training_renderer` timed (median of 10, CUDA events), its two
    kernels timed apart (lol_train_fwd in turns with its twin), the plain
    versions (once, warm), peak memory; device time by kernel over 5 steps
@@ -95,8 +97,9 @@ Phases, one line each:
    the sphere table (x y z r per sorted row) included;
 15. the main path: `fit_scene` on instanced:10000 @1920x1080, clamp 2,
    envelope shadows, sphere points trainable, 3 Adam steps against K5's
-   render with the spheres moved: one launch of each kernel and one cell
-   grid built per step, and the loss falls. Then both kernels against the
+   render with the spheres moved, through the sharded step on a mesh of
+   one rank: one launch of each kernel (each with its row table) and one
+   cell grid built per step, and the loss falls. Then both kernels against the
    plain version on two full-width 16-row bands through the camera pack's
    row0 (the bands' launches bitwise the frame's rows), and
    lol_instanced_bwd's full-frame launch, held as in phase 14 against its
@@ -243,7 +246,34 @@ Phases, one line each:
    and half of the way) under step clamps 2, none and 8, with the share of
    searches that fell back; the cell-size sweep (0.5, 1 and 2 units): the
    build's time, the lists' lengths, K5 @1080p clamp 2 over each grid (its
-   image bitwise, its fallback share) and K7 at the hit points.
+   image bitwise, its fallback share) and K7 at the hit points;
+31. the row table (`rowtab_phase`): K1r and K2 launched with the table
+   rowtab[k] = 8k bitwise their launches without one (image, residual
+   planes, dcam, dfields) on the five phase-6 cases at 97x161 and scene4
+   AA at 1920x1080, K5r and K6 with 16k bitwise theirs (records and dsph
+   included) on instanced:10000 clamp 2 at 97x161 and 1920x1080; the LPT
+   deal of scene4 AA and of instanced:10000 clamp 2 at 1920x1088 over 2
+   shards (the cost model run on the card) rendered as two launches, one a
+   shard's table: each launch's rows bitwise the full frame's, the summed
+   gradients within the phase-7 rule of the full frame's; each table
+   launch at 1080p timed beside its twin (CUDA events, in turns);
+32. two ranks on the one card (`chip_smoke.py --sharded-rank`, two
+   processes, gloo: a correctness phase, NCCL refuses two ranks on one
+   device): `make_sharded_renderer` and 3 (scene4 AA envelope) / 2
+   (instanced:10000 clamp 2 envelope) `make_sharded_train_step` steps at
+   1920x1088 over `make_mesh(2)` with the LPT deal, against one rank in
+   this process: both ranks' images bitwise the one-rank image, each loss
+   within rtol 1e-5, the first step's gradient within the phase-7 rule,
+   the params bitwise equal across ranks; each rank's fwd + bwd over its
+   rows timed alone (the card's view of the deal's balance);
+33. checkpoints: `fit_scene` on scene4 AA @1920x1080, 4 steps, bitwise 2
+   steps and a resume to 4 (`checkpoint_every=2`: losses and params);
+   `cli fit --checkpoint` at 480x270 resumes at step 1; a corrupt
+   checkpoint refused;
+34. `cli stats` at 320x240 on the card: scene4 against the CPU run (the
+   count planes equal on all but max(2, 1e-3 * pixels) pixels, off by at
+   most 1; whether the JSON is equal), instanced:10000 through K7's
+   counts equal to the plain SDF's on the card.
 
 The CLI phases (3, 11) pass `--backend pallas`: `cli render` defaults to
 the differentiable renderer, as the JAX package's does.
@@ -273,6 +303,10 @@ beside their walk twins' `walk_ms`, lol_rg_shadow for light 0 sorted
 beside `unsorted_ms` and, under `lights`, each light's times and bound;
 lol_rg_shade's entry carries the frame, the glue, K5's time, the exact
 frame's and the fallback shares of its searches);
+K1r / K2 / K5r / K6 also carry `rowtab`: their launches with the row table
+on the main path (phases 8 and 15), `ms` / `nullptr_ms` at 1080p in turns
+(phase 31) and `bitwise`; K1r and K5r `deal` (phase 31) and `two_ranks`
+(phase 32: each rank's fwd + bwd ms alone and their balance);
 K8's those of `cli peak` (its `ms` the best full-size call, `device_ms`
 the profiler's, `plain_ms` at `plain_ms_iters` iterations); K7's those of
 phase 27's frame (its `ms` one launch at the frame's hit points, beside
@@ -2495,6 +2529,538 @@ def grid_phase(dev, card, inst, hit_pts) -> None:
               f"{hit_pts.shape[0]} hit points {k7_ms:.4f} ms (bitwise)")
 
 
+DEAL_H = 1088  # rows of the dealt frames (phases 31-32): 1088 = 2 x 16 x 34 deals over 2 ranks
+DEAL_SPHERES = 10_000  # the instanced scene of phase 32
+
+
+def fit_step_ab(dev, s4, cfg, target, reps: int = 10):
+    """The step fit_scene takes since PR 14 (the sharded train step on a
+    mesh of one rank: the row table, the loss over H * W * 3) against the
+    step it took before (one renderer over the frame, a mean loss), each
+    with zero_grad, Adam on sphere_point and default_project, in turns
+    (old, new, new, old; CUDA events, median of `reps`). Returns
+    {"old": [ms, ms], "sharded": [ms, ms]}."""
+    import torch
+    import torch.distributed as dist
+
+    from loltracer_tpu_torch.opt import default_project, masked_optimizer, trainable_leaves
+    from loltracer_tpu_torch.parallel import make_mesh, make_sharded_train_step
+    from loltracer_tpu_torch.render import fused_train
+    from loltracer_tpu_torch.scene import FIELDS
+
+    h, w = target.shape[0], target.shape[1]
+    leaves = trainable_leaves(s4.params, ("sphere_point",))
+    opt = masked_optimizer(leaves, ("sphere_point",), lr=3e-2)
+    sharded = make_sharded_train_step(s4.structure, make_mesh(device=dev.type), h, w, opt, cfg,
+                                      project=default_project, device=dev)
+    render = fused_train.make_training_renderer(s4.structure, h, w, cfg, device=dev)
+
+    def old():
+        opt.zero_grad(set_to_none=True)
+        ((render(leaves) - target) ** 2).mean().backward()
+        opt.step()
+        with torch.no_grad():
+            projected = default_project(leaves)
+            for f in FIELDS:
+                getattr(leaves, f).copy_(getattr(projected, f))
+
+    out = turns_ms({"old": old, "sharded": lambda: sharded(leaves, target)}, reps)
+    dist.destroy_process_group()
+    return out
+
+
+def turns_ms(fns, reps: int = 10):
+    """Each of `fns` (name -> fn) timed in turns, twice: a, b, ..., b, a
+    (median of `reps` CUDA-event calls each); name -> [two medians]."""
+    order = list(fns) + list(fns)[::-1]
+    out = {k: [] for k in fns}
+    for k in order:
+        out[k].append(time_ms(fns[k], reps))
+    return out
+
+
+def check_sum_grads(got, want, names, what: str) -> float:
+    """The phase-7 rule: each gradient in `got` within 1e-4 * max|want| of
+    `want` (per field of `names`, a dict name -> (got, want)), dcam within
+    rtol 2e-3 (atol 1e-5 * max(1, max|dcam|)). Returns max |diff| / scale."""
+    worst = 0.0
+    for f, (g, v) in names.items():
+        if v.numel() == 0:
+            continue
+        scale = max(float(v.abs().max()), 1e-6)
+        err = float((g - v).abs().max())
+        worst = max(worst, err / scale)
+        require(err <= 1e-4 * scale, f"{what}: d{f} max |diff| {err:.3g} > 1e-4 * {scale:.3g}")
+    atol = 1e-5 * max(1.0, float(want.abs().max()))
+    require(bool(((got - want).abs() <= atol + 2e-3 * want.abs()).all()),
+            f"{what}: dcam {got.tolist()} vs {want.tolist()}")
+    return worst
+
+
+def rowtab_phase(dev, card, scenes, inst, train_cases, h, w):
+    """Phase 31: the row table of K1r / K2 / K5r / K6 against cam[15]
+    (`nullptr`), the two-launch LPT frames at DEAL_H x MAIN_W, and the
+    table launches timed beside their twins. Returns name -> the
+    `rowtab` part of the kernel's entry (without its main-path launches)."""
+    import numpy as np
+    import torch
+
+    from loltracer_tpu_torch.config import RenderConfig
+    from loltracer_tpu_torch.parallel.sharded import _row_permutation, row_granularity
+    from loltracer_tpu_torch.render import fused_train, instanced_train
+    from loltracer_tpu_torch.render.camera import camera_pack
+    from loltracer_tpu_torch.render.cell_grid import grid_for
+    from loltracer_tpu_torch.render.cuda_scene import pack_fields, unpack_fields
+    from loltracer_tpu_torch.render.instanced_pack import pack_instanced
+
+    def table(rows, block):
+        return torch.as_tensor(np.asarray(rows)[::block], dtype=torch.float32, device=dev)
+
+    def seeded_ct(hh, ww):
+        gen = np.random.default_rng(0)
+        return torch.from_numpy(gen.uniform(-1, 1, (hh, ww, 3)).astype(np.float32)).to(dev)
+
+    def same_grads(g, t_g):
+        # dcam[15], row0's slot, is 0 under a table: the rows are the table's
+        return (all(same_bits(a, b) for a, b in zip(g[1:3], t_g[1:3]))
+                and same_bits(g[0][:15], t_g[0][:15]) and float(t_g[0][15]) == 0.0)
+
+    def k1r_k2(st, c, cam, fields, hh, ww):
+        """(nullptr, 8k) launches of K1r and K2 over hh x ww: bitwise."""
+        tab = table(range(hh), 8)
+        img, res = fused_train.train_forward(st, c, cam, fields, hh, ww)
+        t_img, t_res = fused_train.train_forward(st, c, cam, fields, hh, ww, rowtab=tab)
+        ct = seeded_ct(hh, ww)
+        g = fused_train.train_backward(st, c, cam, fields, res, ct)
+        t_g = fused_train.train_backward(st, c, cam, fields, t_res, ct, rowtab=tab)
+        torch.cuda.synchronize()
+        return (same_bits(img, t_img) and same_bits(res, t_res) and same_grads(g, t_g)), \
+            tab, res, ct
+
+    def k5r_k6(sc, c, cam, fields, tab_i, hh, ww, grid):
+        """(nullptr, 16k) launches of K5r and K6 (records included): bitwise."""
+        tab = table(range(hh), 16)
+        st = sc.structure
+        img, res = instanced_train.instanced_train_forward(st, c, cam, fields, tab_i, hh, ww,
+                                                           grid=grid)
+        t_img, t_res = instanced_train.instanced_train_forward(st, c, cam, fields, tab_i, hh, ww,
+                                                               grid=grid, rowtab=tab)
+        ct = seeded_ct(hh, ww)
+        g = instanced_train.instanced_train_backward(st, c, cam, fields, tab_i, res, ct,
+                                                     grid=grid, records=True)
+        t_g = instanced_train.instanced_train_backward(st, c, cam, fields, tab_i, t_res, ct,
+                                                       grid=grid, records=True, rowtab=tab)
+        torch.cuda.synchronize()
+        # the records (rows, vals) where the launches return them
+        records = (all(torch.equal(a, b) for a, b in zip(g[3:4], t_g[3:4]))
+                   and all(same_bits(a[r >= 0], b[r >= 0])
+                           for a, b, r in zip(g[4:5], t_g[4:5], g[3:4])))
+        return (same_bits(img, t_img) and same_bits(res, t_res) and same_grads(g, t_g)
+                and records), tab, res, ct
+
+    # --- the five phase-6 cases at h x w, and scene4 AA at MAIN_W x MAIN_H
+    for name, c in train_cases:
+        s = scenes[name]
+        ok, *_ = k1r_k2(s.structure, c, camera_pack(s.params, h, w, c),
+                        pack_fields(s.structure, s.params), h, w)
+        require(ok, f"{name} antialias={c.antialias} {h}x{w}: a K1r / K2 launch with the row "
+                    "table 8k differs from its nullptr launch")
+    s4, c_aa = scenes["scene4.lol"], train_cases[-1][1]
+    cam4, fields4 = camera_pack(s4.params, MAIN_H, MAIN_W, c_aa), pack_fields(s4.structure,
+                                                                            s4.params)
+    ok, tab4, res4, ct4 = k1r_k2(s4.structure, c_aa, cam4, fields4, MAIN_H, MAIN_W)
+    require(ok, f"scene4 AA {MAIN_W}x{MAIN_H}: K1r / K2 with the row table 8k differ from "
+                "their nullptr launches")
+    big, clamp2_env = inst[10_000], RenderConfig(step_clamp=2.0, shadow_grad="envelope")
+    st10 = big.structure
+    fields_i, tab_i = pack_fields(st10, big.params), pack_instanced(st10, big.params)
+    grid = grid_for(tab_i, clamp2_env.step_clamp)
+    for hh, ww in ((h, w), (MAIN_H, MAIN_W)):
+        cam_i = camera_pack(big.params, hh, ww, clamp2_env)
+        ok, tab16, res_i, ct_i = k5r_k6(big, clamp2_env, cam_i, fields_i, tab_i, hh, ww, grid)
+        require(ok, f"instanced:10000 clamp 2 {hh}x{ww}: a K5r / K6 launch with the row table "
+                    "16k differs from its nullptr launch (image, residuals, records, grads, "
+                    "dsph)")
+    print(f"[31] row table = cam[15]: K1r and K2 with rowtab 8k bitwise their nullptr launches "
+          f"(image, residual planes, dcam, dfields) on the {len(train_cases)} phase-6 cases at "
+          f"{h}x{w} and scene4 AA at {MAIN_W}x{MAIN_H}; K5r and K6 with 16k bitwise theirs "
+          f"(image, residuals, records, dcam, dfields, dsph) on instanced:10000 clamp 2 at "
+          f"{h}x{w} and {MAIN_W}x{MAIN_H}")
+
+    # --- the LPT deal over 2 shards at DEAL_H rows, rendered as two launches
+    deal = {}
+    for tag, sc, c in (("scene4 AA", s4, c_aa), ("instanced:10000 clamp 2", big, clamp2_env)):
+        st, G = sc.structure, row_granularity(sc.structure)
+        t = time.perf_counter()
+        perm = _row_permutation(st, DEAL_H, MAIN_W, 2, c, True, sc.params)[0]
+        model_s = time.perf_counter() - t
+        cam = camera_pack(sc.params, DEAL_H, MAIN_W, c)
+        fields = pack_fields(st, sc.params)
+        ct = seeded_ct(DEAL_H, MAIN_W)
+        half = DEAL_H // 2
+        shards = [perm[r * half:(r + 1) * half] for r in range(2)]
+        if st.instanced:
+            def fwd(hh, tab=None, fh=None):
+                return instanced_train.instanced_train_forward(st, c, cam, fields, tab_i, hh,
+                                                               MAIN_W, fh, grid=grid, rowtab=tab)
+
+            def bwd(res, ct_, tab=None, fh=None):
+                return instanced_train.instanced_train_backward(st, c, cam, fields, tab_i, res,
+                                                                ct_, fh, grid=grid, rowtab=tab)
+        else:
+            def fwd(hh, tab=None, fh=None):
+                return fused_train.train_forward(st, c, cam, fields, hh, MAIN_W, fh, tab)
+
+            def bwd(res, ct_, tab=None, fh=None):
+                return fused_train.train_backward(st, c, cam, fields, res, ct_, fh, tab)
+
+        img, res = fwd(DEAL_H)
+        full = bwd(res, ct)
+        sums = None
+        for rows in shards:
+            tab = table(rows, G)
+            s_img, s_res = fwd(half, tab, DEAL_H)
+            idx = torch.as_tensor(rows, device=dev)
+            require(same_bits(s_img, img[idx]) and same_bits(s_res, res[:, idx]),
+                    f"{tag} {MAIN_W}x{DEAL_H}: a shard's launch differs from the full frame's "
+                    "rows")
+            part = bwd(s_res, ct[idx].contiguous(), tab, DEAL_H)
+            sums = part if sums is None else tuple(a + b for a, b in zip(sums, part))
+        torch.cuda.synchronize()
+        pairs = {f: (g, unpack_fields(st, full[1])[f])
+                 for f, g in unpack_fields(st, sums[1]).items()}
+        if st.instanced:
+            pairs["sphere table"] = (sums[2], full[2])
+        # dcam[15] (row0's slot) is 0 under the tables
+        require(float(sums[0][15]) == 0.0, f"{tag}: dcam[15] under the row tables")
+        worst = check_sum_grads(sums[0][:15], full[0][:15], pairs,
+                                f"{tag} two-launch gradients")
+        blocks = np.asarray(perm).reshape(-1, G)[:, 0] // G
+        deal[tag] = {"model_s": model_s, "worst": worst, "blocks": [blocks[:half // G].tolist()[:6],
+                                                                    blocks[half // G:].tolist()[:6]]}
+        print(f"[31] {tag} {MAIN_W}x{DEAL_H}: the LPT deal over 2 shards of {G}-row blocks "
+              f"(the cost model on the card, {model_s:.1f} s; shard 0's first blocks "
+              f"{deal[tag]['blocks'][0]}, shard 1's {deal[tag]['blocks'][1]}) as two launches "
+              f"with their row tables: each shard's image and residual planes bitwise the full "
+              f"frame's rows; the summed gradients within the phase-7 rule of the full frame's "
+              f"(max |diff| / max|grad| {worst:.3g})")
+
+    # --- the table launches timed beside their twins (CUDA events, in turns) -
+    cam_i = camera_pack(big.params, MAIN_H, MAIN_W, clamp2_env)
+    tab16 = table(range(MAIN_H), 16)
+    _, res_i = instanced_train.instanced_train_forward(st10, clamp2_env, cam_i, fields_i, tab_i,
+                                                       MAIN_H, MAIN_W, grid=grid)
+    ct_i = seeded_ct(MAIN_H, MAIN_W)
+    fns = {
+        "lol_train_fwd": {
+            "nullptr": lambda: fused_train.train_forward(s4.structure, c_aa, cam4, fields4,
+                                                         MAIN_H, MAIN_W),
+            "rowtab": lambda: fused_train.train_forward(s4.structure, c_aa, cam4, fields4,
+                                                        MAIN_H, MAIN_W, rowtab=tab4)},
+        "lol_train_bwd": {
+            "nullptr": lambda: fused_train.train_backward(s4.structure, c_aa, cam4, fields4,
+                                                          res4, ct4),
+            "rowtab": lambda: fused_train.train_backward(s4.structure, c_aa, cam4, fields4,
+                                                         res4, ct4, rowtab=tab4)},
+        "lol_instanced_fwd": {
+            "nullptr": lambda: instanced_train.instanced_train_forward(
+                st10, clamp2_env, cam_i, fields_i, tab_i, MAIN_H, MAIN_W, grid=grid),
+            "rowtab": lambda: instanced_train.instanced_train_forward(
+                st10, clamp2_env, cam_i, fields_i, tab_i, MAIN_H, MAIN_W, grid=grid,
+                rowtab=tab16)},
+        "lol_instanced_bwd": {
+            "nullptr": lambda: instanced_train.instanced_train_backward(
+                st10, clamp2_env, cam_i, fields_i, tab_i, res_i, ct_i, grid=grid),
+            "rowtab": lambda: instanced_train.instanced_train_backward(
+                st10, clamp2_env, cam_i, fields_i, tab_i, res_i, ct_i, grid=grid,
+                rowtab=tab16)},
+    }
+    out = {}
+    for name, pair in fns.items():
+        reps = 10 if name.startswith("lol_train") else 3
+        for f in pair.values():
+            f()
+        times = turns_ms(pair, reps)
+        ms, null_ms = statistics.median(times["rowtab"]), statistics.median(times["nullptr"])
+        out[name] = {"ms": ms, "nullptr_ms": null_ms, "runs": times, "bitwise": True}
+        print(f"[31] {name} {MAIN_W}x{MAIN_H} on {card}: with the row table {ms:.4f} ms, "
+              f"nullptr {null_ms:.4f} ms ({ms / null_ms - 1:+.2%}; in turns nullptr, rowtab, "
+              f"rowtab, nullptr: {times})")
+    return out, deal
+
+
+def sharded_cases():
+    """(tag, scene maker, config, steps) of the two-rank phase 32."""
+    from loltracer_tpu_torch.config import RenderConfig
+
+    return [("scene4", RenderConfig(antialias=True, shadow_grad="envelope"), 3),
+            ("instanced", RenderConfig(step_clamp=2.0, shadow_grad="envelope"), 2)]
+
+
+def sharded_scene(tag, dev):
+    import numpy as np
+    import torch
+
+    from loltracer_tpu_torch.lol import parse_scene_file
+    from loltracer_tpu_torch.scene import build_scene
+    from loltracer_tpu_torch.scenes import instanced_spheres
+
+    sc = (build_scene(parse_scene_file(str(EXAMPLES / "scene4.lol")), device=dev)
+          if tag == "scene4" else instanced_spheres(n=DEAL_SPHERES, device=dev))
+    moved = sc.params.sphere_point + torch.from_numpy(np.random.default_rng(0).uniform(
+        -0.1, 0.1, tuple(sc.params.sphere_point.shape)).astype(np.float32)).to(dev)
+    return sc, moved
+
+
+def sharded_run(mesh, dev, timed: bool, barrier=None):
+    """On `mesh` (every rank calls it): for each of sharded_cases(), the
+    image of make_sharded_renderer and `steps` steps of
+    make_sharded_train_step (Adam on sphere_point, lr 1e-2, from scene's
+    params toward its image with the spheres moved), both over the LPT
+    deal of the cost model; returns tag -> {"img", "losses", "grads" (the
+    first step's), "params"} and, with `timed`, each rank's K1r + K2 /
+    K5r + K6 launches over its rows timed alone (its turn between
+    barriers: CUDA events, median of 3)."""
+    import torch
+
+    from loltracer_tpu_torch.opt import masked_optimizer, trainable_leaves
+    from loltracer_tpu_torch.parallel import make_sharded_renderer, make_sharded_train_step
+    from loltracer_tpu_torch.parallel.sharded import _sharding
+    from loltracer_tpu_torch.render.cuda_renderer import make_cuda_renderer
+    from loltracer_tpu_torch.scene import FIELDS
+
+    out = {}
+    for tag, c, steps in sharded_cases():
+        sc, moved = sharded_scene(tag, dev)
+        st = sc.structure
+        with torch.no_grad():
+            target = make_cuda_renderer(st, DEAL_H, MAIN_W, c, device=dev)(
+                dataclasses.replace(sc.params, sphere_point=moved))
+        img = make_sharded_renderer(st, mesh, DEAL_H, MAIN_W, c, balance_params=sc.params,
+                                    device=dev)(sc.params)
+        leaves = trainable_leaves(sc.params, ("sphere_point",))
+        opt = masked_optimizer(leaves, ("sphere_point",), lr=1e-2)
+        step = make_sharded_train_step(st, mesh, DEAL_H, MAIN_W, opt, c,
+                                       balance_params=sc.params, device=dev)
+        losses, grads = [], None
+        for _ in range(steps):
+            losses.append(step(leaves, target).item())
+            if grads is None:
+                grads = leaves.sphere_point.grad.detach().clone()
+        rec = {"img": img, "losses": losses, "grads": grads,
+               "params": {f: getattr(leaves, f).detach().clone() for f in FIELDS}}
+        if timed:
+            sh = _sharding(st, mesh, DEAL_H, MAIN_W, c, torch.float32, "auto", True, sc.params,
+                           dev, "phase 32")
+
+            def launch():
+                leaves.sphere_point.grad = None
+                loss = ((sh.render_rows(leaves, sh.rows) - target[sh.rows]) ** 2).sum()
+                loss.backward()
+
+            ms = []
+            for r in range(mesh.size()):
+                barrier()
+                if r == sh.shard.index:
+                    launch()
+                    ms = [time_ms(launch, 1) for _ in range(3)]
+                barrier()
+            rec["rank_ms"] = statistics.median(ms)
+        out[tag] = rec
+    return out
+
+
+def sharded_rank(world: int, rank: int, store: str, out: str) -> int:
+    """`chip_smoke.py --sharded-rank WORLD RANK STORE OUT`: one rank of the
+    two-rank world of phase 32 on the one card (gloo, as phase 28):
+    sharded_run over make_mesh(WORLD); writes its results to OUT.RANK."""
+    import torch
+    import torch.distributed as dist
+
+    require(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    sys.path.insert(0, str(ROOT))
+    from loltracer_tpu_torch.parallel import make_mesh
+    from loltracer_tpu_torch.render import fused_train, instanced_train
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    mesh = make_mesh(world, device="cuda")
+    t = time.perf_counter()
+    res = sharded_run(mesh, dev, timed=True, barrier=dist.barrier)
+    res["wall_s"] = time.perf_counter() - t
+    res["backend"] = dist.get_backend()
+    res["table_launches"] = fused_train.launches_table + instanced_train.launches_table
+    torch.save({k: v for k, v in res.items()}, f"{out}.{rank}")
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def sharded_phase(dev, card):
+    """Phase 32: two ranks on one card (`--sharded-rank` children, gloo)
+    against one rank (this process, a world of one)."""
+    import torch
+    import torch.distributed as dist
+
+    from loltracer_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(device=dev.type)
+    one = sharded_run(mesh, dev, timed=False)
+    dist.destroy_process_group()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                   "--sharded-rank", "2", str(r), str(Path(tmp) / "store"),
+                                   str(Path(tmp) / "rank")],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=400)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        bad = [(r, p.returncode, log[-2000:]) for r, (p, log) in enumerate(zip(procs, logs))
+               if p.returncode != 0]
+        require(not bad, f"the two-rank world failed: {bad}")
+        ranks = [torch.load(Path(tmp) / f"rank.{r}", map_location=dev) for r in range(2)]
+    require(all(r["table_launches"] > 0 for r in ranks),
+            "a rank launched no training kernel with a row table")
+    summary = {}
+    for tag, _, steps in sharded_cases():
+        a, b, ref = ranks[0][tag], ranks[1][tag], one[tag]
+        require(same_bits(a["img"], ref["img"]) and same_bits(b["img"], ref["img"]),
+                f"{tag}: a rank's sharded image differs from the one-rank image")
+        for r in (a, b):
+            require(all(abs(x - y) <= 1e-5 * abs(y) for x, y in zip(r["losses"], ref["losses"])),
+                    f"{tag}: losses {r['losses']} vs one rank's {ref['losses']}")
+        scale = max(float(ref["grads"].abs().max()), 1e-6)
+        err = float((a["grads"] - ref["grads"]).abs().max())
+        require(err <= 1e-4 * scale,
+                f"{tag}: first-step d sphere_point max |diff| {err:.3g} > 1e-4 * {scale:.3g}")
+        require(all(same_bits(a["params"][f], b["params"][f]) for f in a["params"]),
+                f"{tag}: the ranks' params differ after {steps} steps")
+        ms = [ranks[0][tag]["rank_ms"], ranks[1][tag]["rank_ms"]]
+        summary[tag] = {"rank_ms": ms, "balance": sum(ms) / (2 * max(ms))}
+        print(f"[32] {tag} {MAIN_W}x{DEAL_H}, two ranks on one card ({ranks[0]['backend']}, "
+              f"`chip_smoke.py --sharded-rank`; a correctness phase: both processes share the "
+              f"card and gloo copies through the host): images bitwise the one-rank image; "
+              f"losses {a['losses']} within rtol 1e-5 of one rank's {ref['losses']}; the first "
+              f"step's d sphere_point within {err / scale:.3g} * max|g| of one rank's; params "
+              f"bitwise equal across ranks after {steps} steps; each rank's fwd + bwd launches "
+              f"over its rows alone on {card}: {ms[0]:.3f} / {ms[1]:.3f} ms (balance "
+              f"{summary[tag]['balance']:.4f}); wall {ranks[0]['wall_s']:.1f} s / "
+              f"{ranks[1]['wall_s']:.1f} s")
+    return summary
+
+
+def checkpoint_phase(dev, card, s4):
+    """Phase 33: a resumed fit_scene bitwise an unbroken one, `cli fit
+    --checkpoint`, a corrupt checkpoint refused."""
+    import numpy as np
+    import torch
+
+    from loltracer_tpu_torch import cli
+    from loltracer_tpu_torch.config import RenderConfig
+    from loltracer_tpu_torch.opt import fit_scene, load_checkpoint
+    from loltracer_tpu_torch.render.cuda_renderer import make_cuda_renderer
+    from loltracer_tpu_torch.scene import FIELDS
+
+    c = RenderConfig(antialias=True, shadow_grad="envelope")
+    moved = s4.params.sphere_point + torch.from_numpy(np.random.default_rng(0).uniform(
+        -0.1, 0.1, tuple(s4.params.sphere_point.shape)).astype(np.float32)).to(dev)
+    target = make_cuda_renderer(s4.structure, MAIN_H, MAIN_W, c, device=dev)(
+        dataclasses.replace(s4.params, sphere_point=moved))
+    kw = dict(trainable=("sphere_point",), cfg=c, learning_rate=3e-2, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "fit.ckpt")
+        t = time.perf_counter()
+        whole = fit_scene(s4.structure, s4.params, target, steps=4, **kw)
+        first = fit_scene(s4.structure, s4.params, target, steps=2, checkpoint_path=path,
+                          checkpoint_every=2, **kw)
+        require(load_checkpoint(path, s4.structure)[0] == 2, "no checkpoint at step 2")
+        rest = fit_scene(s4.structure, s4.params, target, steps=4, checkpoint_path=path,
+                         checkpoint_every=2, **kw)
+        fit_s = time.perf_counter() - t
+        losses = list(first.losses) + list(rest.losses)
+        require(losses == list(whole.losses), f"resumed losses {losses} vs {list(whole.losses)}")
+        require(all(same_bits(getattr(rest.params, f), getattr(whole.params, f)) for f in FIELDS),
+                "the resumed fit's params differ from the unbroken fit's")
+        # cli fit --checkpoint (its config: AA, exact shadows) at a quarter size
+        small = make_cuda_renderer(s4.structure, MAIN_H // 4, MAIN_W // 4, c, device=dev)(
+            dataclasses.replace(s4.params, sphere_point=moved))
+        npy, cpath = str(Path(tmp) / "t.npy"), str(Path(tmp) / "cli.ckpt")
+        np.save(npy, small.cpu().numpy())
+        fit_scene(s4.structure, s4.params, small, steps=1, checkpoint_path=cpath,
+                  checkpoint_every=1, trainable=("sphere_point",),
+                  cfg=RenderConfig(antialias=True), device=dev)
+        args = ["fit", str(EXAMPLES / "scene4.lol"), "--target", npy, "--steps", "2",
+                "--trainable", "sphere_point", "--checkpoint", cpath, "--device", dev.type]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(args)
+        printed = re.findall(r"^\[fit\] step (\d+)", buf.getvalue(), re.M)
+        require(printed == ["1"], f"cli fit --checkpoint ran steps {printed}, not step 1 alone")
+        with open(cpath, "wb") as f:
+            f.write(b"not a checkpoint")
+        try:
+            cli.main(args)
+            refused = False
+        except ValueError as e:
+            refused = "corrupt or truncated" in str(e)
+        require(refused, "cli fit took a corrupt checkpoint")
+    print(f"[33] checkpoints on {card}: fit_scene scene4 AA envelope {MAIN_W}x{MAIN_H}, 4 steps "
+          f"= 2 steps + a resume to 4 bitwise (losses {[float(v) for v in losses]}, params); `cli fit --checkpoint` "
+          f"at {MAIN_W // 4}x{MAIN_H // 4} resumed at step 1 and ran it alone; a corrupt checkpoint refused "
+          f"({fit_s:.1f} s for the three fits)")
+
+
+def stats_phase(dev, card):
+    """Phase 34: `cli stats` on the card against the same counts elsewhere."""
+    import numpy as np
+
+    from loltracer_tpu_torch import cli
+    from loltracer_tpu_torch.config import RenderConfig
+    from loltracer_tpu_torch.utils import profiling
+
+    def stats_json(args):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["stats", *args])
+        return json.loads(buf.getvalue())
+
+    t = time.perf_counter()
+    s4_card = stats_json([str(EXAMPLES / "scene4.lol"), "--device", dev.type])
+    s4_cpu = stats_json([str(EXAMPLES / "scene4.lol"), "--device", "cpu"])
+    inst_card = stats_json([f"instanced:{DEAL_SPHERES}", "--device", dev.type])
+    stats_s = time.perf_counter() - t
+    from loltracer_tpu_torch.scenes import instanced_spheres
+    from loltracer_tpu_torch.lol import parse_scene_file
+    from loltracer_tpu_torch.scene import build_scene
+
+    big = instanced_spheres(n=DEAL_SPHERES, device=dev)
+    plain = profiling.march_step_stats(big.structure, big.params, 240, 320,
+                                       RenderConfig(march_backend="jnp"))
+    require(inst_card == plain, f"instanced:10000: cli stats through K7 {inst_card} != the plain "
+                                f"SDF's on the card {plain}")
+    s4 = {d: build_scene(parse_scene_file(str(EXAMPLES / "scene4.lol")), device=d)
+          for d in (dev, "cpu")}
+    counts = {d: profiling.march_step_counts(s.structure, s.params, 240, 320)
+              for d, s in s4.items()}
+    diff = np.abs(counts[dev].astype(np.int64) - counts["cpu"])
+    require(diff.max() <= 1 and (diff > 0).sum() <= max(2, 1e-3 * diff.size),
+            f"scene4: card and CPU step counts differ on {(diff > 0).sum()} pixels, by up to "
+            f"{diff.max()}")
+    print(f"[34] cli stats at 320x240 on {card} ({stats_s:.1f} s with the CPU run): scene4 "
+          f"{json.dumps(s4_card)} ({'=' if s4_card == s4_cpu else '!='} the CPU run's JSON; the "
+          f"count planes differ on {(diff > 0).sum()} pixels); instanced:10000 through K7 "
+          f"{json.dumps(inst_card)} = the plain SDF's on the card")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2824,16 +3390,20 @@ def main() -> int:
     target = make_cuda_renderer(s4.structure, MAIN_H, MAIN_W, c_aa, device=dev)(
         dataclasses.replace(s4.params, sphere_point=moved))
     fused_fwd.launches = fused_train.launches_fwd = fused_train.launches_bwd = 0
+    fused_train.launches_table = 0
     fit = fit_scene(s4.structure, s4.params, target, steps=5, learning_rate=3e-2,
                     trainable=("sphere_point",), cfg=c_aa, device=dev)
     fwd_launches, bwd_launches = fused_train.launches_fwd, fused_train.launches_bwd
-    require(fwd_launches > 0 and bwd_launches > 0,
-            f"fit_scene launched lol_train_fwd {fwd_launches}, lol_train_bwd {bwd_launches} times")
+    fit_table = fused_train.launches_table
+    require(fwd_launches == 5 and bwd_launches == 5 and fit_table == 10,
+            f"fit_scene (5 steps) launched lol_train_fwd {fwd_launches}, lol_train_bwd "
+            f"{bwd_launches} times, {fit_table} of them with a row table")
     losses = [float(v) for v in fit.losses]
     require(all(map(math.isfinite, losses)), f"non-finite loss: {losses}")
     require(losses[-1] < losses[0], f"the loss did not fall: {losses}")
     print(f"[8] main path: fit_scene scene4 AA {MAIN_W}x{MAIN_H}, 5 Adam steps on "
-          f"sphere_point -> lol_train_fwd x{fwd_launches}, lol_train_bwd x{bwd_launches}; "
+          f"sphere_point through the sharded step on a mesh of one rank -> lol_train_fwd "
+          f"x{fwd_launches}, lol_train_bwd x{bwd_launches}, each with the row table; "
           f"losses {losses}")
 
     render = fused_train.make_training_renderer(s4.structure, MAIN_H, MAIN_W, c_aa, device=dev)
@@ -2874,6 +3444,7 @@ def main() -> int:
     pf_ms = time_ms(plain_fwd, 1)
     plain_bwd()
     pb_ms = time_ms(plain_bwd, 1)
+    fit_ab = fit_step_ab(dev, s4, c_aa, target)
     split = ("fused_fwd_kernel", "fused_bwd_kernel", "bwd_reduce_kernel")
     breakdown = profile_steps(step, 5, split=split)
     dev_ms = {k: float(v) for k, v in re.findall(r"; (\w+): ([\d.]+) ms in", breakdown)}
@@ -2885,6 +3456,10 @@ def main() -> int:
           f"{k1r_runs}; its shadow_cull=False twin {k1r_twin_ms} in turns around it), "
           f"lol_train_bwd {k2_ms:.3f} ms (kernel + reduce, with the wrapper); plain fwd "
           f"{pf_ms:.1f} ms, plain bwd {pb_ms:.1f} ms")
+    print(f"[8] fit_scene's step (zero_grad, fwd+bwd, Adam, project) in turns, old, new, new, "
+          f"old (median of 10 each): before PR 14 one renderer over the frame "
+          f"{fit_ab['old']} ms, now the sharded step on a mesh of one rank "
+          f"{fit_ab['sharded']} ms")
     print(f"[8] torch.profiler over 5 steps: {breakdown}; device ms a step: lol_train_fwd "
           f"{dev_ms['fused_fwd_kernel']:.4f}, lol_train_bwd {dev_ms['fused_bwd_kernel']:.4f} and "
           f"its reduce {dev_ms['bwd_reduce_kernel']:.4f}")
@@ -3239,21 +3814,24 @@ def main() -> int:
         dataclasses.replace(big.params, sphere_point=moved))
     fit_steps = 3
     instanced_train.launches_fwd = instanced_train.launches_bwd = cell_grid.builds = 0
+    instanced_train.launches_table = 0
     it_fit = fit_scene(st10, big.params, it_target, steps=fit_steps, learning_rate=1e-2,
                        trainable=("sphere_point",), cfg=clamp2_env, device=dev)
     it_fwd_launches, it_bwd_launches = instanced_train.launches_fwd, instanced_train.launches_bwd
-    it_builds = cell_grid.builds
+    it_builds, it_table = cell_grid.builds, instanced_train.launches_table
     require(it_fwd_launches == fit_steps and it_bwd_launches == fit_steps
-            and it_builds == fit_steps,
+            and it_builds == fit_steps and it_table == 2 * fit_steps,
             f"fit_scene ({fit_steps} steps) launched lol_instanced_fwd {it_fwd_launches}, "
-            f"lol_instanced_bwd {it_bwd_launches} times and built {it_builds} cell grids")
+            f"lol_instanced_bwd {it_bwd_launches} times ({it_table} with a row table) and "
+            f"built {it_builds} cell grids")
     it_losses = [float(v) for v in it_fit.losses]
     require(all(map(math.isfinite, it_losses)), f"non-finite loss: {it_losses}")
     require(it_losses[-1] < it_losses[0], f"the loss did not fall: {it_losses}")
     print(f"[15] main path: fit_scene instanced:10000 clamp 2 envelope {MAIN_W}x{MAIN_H}, "
-          f"{fit_steps} Adam steps on sphere_point -> lol_instanced_fwd x{it_fwd_launches}, "
-          f"lol_instanced_bwd x{it_bwd_launches}, {it_builds} cell grids built (one a step, "
-          f"searched by both); losses {it_losses}")
+          f"{fit_steps} Adam steps on sphere_point through the sharded step on a mesh of one "
+          f"rank -> lol_instanced_fwd x{it_fwd_launches}, lol_instanced_bwd x{it_bwd_launches}, "
+          f"each with the row table, {it_builds} cell grids built (one a step, searched by "
+          f"both); losses {it_losses}")
 
     cam_it, fields_it, tab_it = inst_inputs(big, clamp2_env, MAIN_H, MAIN_W)
     img_it, res_it = instanced_train.instanced_train_forward(st10, clamp2_env, cam_it, fields_it,
@@ -3415,6 +3993,13 @@ def main() -> int:
                                      m_inst / band_px, ceiling)
     objects_entry, hit_pts = objects_phases(dev, card, inst, eval_built, t0, ceiling)
     grid_phase(dev, card, inst, hit_pts)
+    rowtab, deal = rowtab_phase(dev, card, scenes, inst, train_cases, h, w)
+    rowtab["lol_train_fwd"]["launches"] = rowtab["lol_train_bwd"]["launches"] = fit_table // 2
+    rowtab["lol_instanced_fwd"]["launches"] = it_table // 2
+    rowtab["lol_instanced_bwd"]["launches"] = it_table // 2
+    ranks2 = sharded_phase(dev, card)
+    checkpoint_phase(dev, card, s4)
+    stats_phase(dev, card)
 
     print(json.dumps({"kernels": [
         dict(entry("lol_render_fused", "loltracer_tpu_torch/csrc/fused_fwd.cuh",
@@ -3430,13 +4015,15 @@ def main() -> int:
                    "loltracer_tpu/render/pallas_train.py:346", fwd_launches, fwd_err,
                    k1r_ms, pf_ms, k1r_bound),
              device_ms=dev_ms["fused_fwd_kernel"], twin_ms=k1r_twin_ms,
-             bound_sqrt_ms=k1r_bound_sqrt[0], culled_share=aa_shares),
+             bound_sqrt_ms=k1r_bound_sqrt[0], culled_share=aa_shares,
+             rowtab=rowtab["lol_train_fwd"], deal=deal["scene4 AA"],
+             two_ranks=ranks2["scene4"]),
         dict(entry("lol_train_bwd", "loltracer_tpu_torch/csrc/fused_bwd.cuh",
                    "loltracer_tpu/render/pallas_train.py:469", bwd_launches, bwd_err,
                    k2_ms, pb_ms, k2_bound),
              device_ms=dev_ms["fused_bwd_kernel"], reduce_device_ms=dev_ms["bwd_reduce_kernel"],
              bound_sqrt_ms=k2_bound_sqrt[0], ptxas=bwd_ptxas, warps_per_sm=bwd_warps,
-             step_ms=step_ms),
+             step_ms=step_ms, fit_step_ms=fit_ab, rowtab=rowtab["lol_train_bwd"]),
         dict(entry("lol_instanced_render", "loltracer_tpu_torch/csrc/grid_scene.cuh",
                    "loltracer_tpu/render/pallas_train.py:840", inst_launches, inst_err,
                    inst_ms, inst_plain_ms, k5_bound),
@@ -3445,12 +4032,15 @@ def main() -> int:
         dict(entry("lol_instanced_fwd", "loltracer_tpu_torch/csrc/grid_scene.cuh",
                    "loltracer_tpu/render/pallas_train.py:840", it_fwd_launches, it_fwd_err,
                    k5r_ms, it_pf_ms, k5r_bound),
-             plain_ms_rows=BAND, step_ms=it_step_ms, grid_build_ms=it_build_ms),
+             plain_ms_rows=BAND, step_ms=it_step_ms, grid_build_ms=it_build_ms,
+             rowtab=rowtab["lol_instanced_fwd"], deal=deal["instanced:10000 clamp 2"],
+             two_ranks=ranks2["instanced"]),
         dict(entry("lol_instanced_bwd", "loltracer_tpu_torch/csrc/instanced_bwd.cuh",
                    "loltracer_tpu/render/pallas_train.py:1314", it_bwd_launches, it_bwd_err,
                    k6_ms, it_pb_ms, k6_bound),
              plain_ms_rows=BAND, walk_ms=k6_walk_ms, grid_build_ms=it_build_ms,
-             fallback_share=k6_stats[0], entries_per_search=k6_stats[1]),
+             fallback_share=k6_stats[0], entries_per_search=k6_stats[1],
+             rowtab=rowtab["lol_instanced_bwd"]),
         *march_entries,
         *regroup_entries,
         *peak_entries,
@@ -3479,4 +4069,6 @@ if __name__ == "__main__":
         sys.exit(profile_objects())
     if sys.argv[1:2] == ["--objects-rank"]:
         sys.exit(objects_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]))
+    if sys.argv[1:2] == ["--sharded-rank"]:
+        sys.exit(sharded_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]))
     sys.exit(main())

@@ -1,10 +1,12 @@
 """Command-line interface of the port (`loltracer_tpu/cli.py`: render, fit,
-info).
+stats, info, peak).
 
     python -m loltracer_tpu_torch.cli render examples/scene4.lol --backend pallas --size 1920x1080 -o out.png
     python -m loltracer_tpu_torch.cli info examples/scene4.lol
     python -m loltracer_tpu_torch.cli render instanced:10000 --backend pallas --step-clamp 2 --size 1920x1080
     python -m loltracer_tpu_torch.cli fit examples/scene4.lol --target t.npy --steps 3 -o fit.png
+    python -m loltracer_tpu_torch.cli fit examples/scene4.lol --target t.npy --checkpoint fit.ckpt
+    python -m loltracer_tpu_torch.cli stats examples/scene4.lol --size 320x240
     python -m loltracer_tpu_torch.cli peak
 
 `render --backend pallas` goes through the fused CUDA kernel
@@ -16,8 +18,10 @@ CUDA. `--device cuda` is the
 default and raises if CUDA is not available; `--device cpu` renders
 through the plain PyTorch versions. `fit` is the JAX package's: inverse
 rendering toward a target image (.png or .npy) with antialiasing on by
-default, through opt.fit_scene. The render flags are those of the JAX
-package's CLI.
+default, through opt.fit_scene (row-sharded over the ranks of the world;
+`--checkpoint` resumes from and saves to that file). `stats` prints the
+march-step statistics of utils/profiling.march_step_stats as JSON. The
+render flags are those of the JAX package's CLI.
 """
 
 from __future__ import annotations
@@ -167,6 +171,17 @@ def cmd_fit(args):
     return 0
 
 
+def cmd_stats(args):
+    """The march-step histogram and tile waste (utils/profiling.py)."""
+    from loltracer_tpu_torch.utils.profiling import march_step_stats
+
+    w, h = _parse_size(args.size)
+    scene = _load_scene(args.scene, args.device)
+    stats = march_step_stats(scene.structure, scene.params, h, w, _build_cfg(args))
+    print(json.dumps(stats, indent=2))
+    return 0
+
+
 def cmd_peak(args):
     """Measure the FP32 ceiling (utils/peak.py) and write its record."""
     import os
@@ -237,6 +252,12 @@ def main(argv=None):
     _add_device_flag(p)
     _add_render_flags(p)
     p.set_defaults(fn=cmd_fit, aa=True)
+
+    p = sub.add_parser("stats", help="march-step histogram / tile occupancy diagnostics")
+    p.add_argument("scene")
+    _add_device_flag(p)
+    _add_render_flags(p)
+    p.set_defaults(fn=cmd_stats, size="320x240")
 
     p = sub.add_parser("peak", help="measure the card's FP32 and sqrt rates")
     p.add_argument("--reps", type=int, default=5)

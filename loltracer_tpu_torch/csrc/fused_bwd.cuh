@@ -146,7 +146,7 @@ __device__ __forceinline__ void pixel_bwd(const float* cam, const Scene& scn,
                                           const float* __restrict__ r,
                                           size_t plane,
                                           const float* __restrict__ ct,
-                                          Acc acc) {
+                                          Acc acc, RowMap rows = {}) {
   constexpr int L = Scene::kNumLights;
   constexpr int M = Scene::kNumMaterials;
   const auto gP = acc + kCamSize;
@@ -163,7 +163,7 @@ __device__ __forceinline__ void pixel_bwd(const float* cam, const Scene& scn,
   // --- forward ------------------------------------------------------------
   const float ox = cam[0], oy = cam[1], oz = cam[2];
   const float vx = ((float)x + 0.5f) / (float)width * 2.f - 1.f;
-  const float vy = 1.f - ((cam[15] + (float)y) + 0.5f) / (float)height * 2.f;
+  const float vy = 1.f - (image_row(cam, y, rows) + 0.5f) / (float)height * 2.f;
   const float sx = vx * cam[12], sy = vy * cam[13];
   const float rx = cam[3] * sx + cam[6] * sy + cam[9];
   const float ry = cam[4] * sx + cam[7] * sy + cam[10];
@@ -455,8 +455,9 @@ __device__ __forceinline__ void pixel_bwd(const float* cam, const Scene& scn,
   const float g_sy = dot3(g_rx, g_ry, g_rz, cam[6], cam[7], cam[8]);
   acc[12] += g_sx * vx;
   acc[13] += g_sy * vy;
-  // vy = 1 - ((row0 + y) + 0.5) / H * 2
-  acc[15] += -(g_sy * cam[13]) / (float)height * 2.f;
+  // vy = 1 - ((row0 + y) + 0.5) / H * 2; under a row table the row is the
+  // table's and cam[15] has no cotangent (JAX's kernels read no cam[15])
+  if (!rows.tab) acc[15] += -(g_sy * cam[13]) / (float)height * 2.f;
 }
 
 // --- lol_train_bwd: accumulators in shared memory, a few blocks a SM ------
@@ -487,6 +488,8 @@ constexpr int kBwdTileW = 32;
 constexpr int kBwdTileH = kBwdThreads / kBwdTileW;
 constexpr int kBwdMaxBlocks = 528;
 constexpr int kBwdMinBlocks = 4;  // resident blocks a SM that ptxas must allow
+static_assert(kTrainRowBlock % kBwdTileH == 0,
+              "a tile must not straddle two blocks of a row table");
 
 __host__ __device__ inline int bwd_num_tiles(int height, int width) {
   return ((width + kBwdTileW - 1) / kBwdTileW) * ((height + kBwdTileH - 1) / kBwdTileH);
@@ -498,13 +501,15 @@ __host__ __device__ inline int bwd_num_blocks(int height, int width) {
 }
 
 // Thread `tid` of block `block` of `blocks`: pixel_bwd of its pixel of each
-// of the block's tiles, in order, into acc.
+// of the block's tiles, in order, into acc. The launch's `height` rows are
+// rows of an image `full_height` tall (RowMap `rows`).
 template <class Cfg, class Scene, class Acc>
 __device__ __forceinline__ void bwd_pixels(const float* cam, const Scene& scn,
                                            const float* __restrict__ P,
                                            const float* __restrict__ res,
                                            const float* __restrict__ ct, int block, int blocks,
-                                           int tid, int height, int width, Acc acc) {
+                                           int tid, int height, int full_height, int width,
+                                           Acc acc, RowMap rows) {
   const int tiles_x = (width + kBwdTileW - 1) / kBwdTileW;
   const int tiles = bwd_num_tiles(height, width);
   const size_t plane = (size_t)height * width;
@@ -513,8 +518,8 @@ __device__ __forceinline__ void bwd_pixels(const float* cam, const Scene& scn,
     const int y = (tile / tiles_x) * kBwdTileH + tid / kBwdTileW;
     if (x < width && y < height) {
       const size_t pix = (size_t)y * width + x;
-      pixel_bwd<Cfg, Scene, true>(cam, scn, P, x, y, height, width, res + pix, plane,
-                                  ct + 3 * pix, acc);
+      pixel_bwd<Cfg, Scene, true>(cam, scn, P, x, y, full_height, width, res + pix, plane,
+                                  ct + 3 * pix, acc, rows);
     }
   }
 }
@@ -527,11 +532,12 @@ __device__ __forceinline__ void bwd_thread(const float* cam, const Scene& scn,
                                            const float* __restrict__ P,
                                            const float* __restrict__ res,
                                            const float* __restrict__ ct, int block, int blocks,
-                                           int tid, int height, int width, float* col) {
+                                           int tid, int height, int full_height, int width,
+                                           float* col, RowMap rows = {}) {
   constexpr int N = kCamSize + Scene::kNumFields;
   for (int j = 0; j < N; ++j) col[j * kBwdThreads] = 0.f;
-  bwd_pixels<Cfg, Scene>(cam, scn, P, res, ct, block, blocks, tid, height, width,
-                         StridedAcc<kBwdThreads>{col});
+  bwd_pixels<Cfg, Scene>(cam, scn, P, res, ct, block, blocks, tid, height, full_height, width,
+                         StridedAcc<kBwdThreads>{col}, rows);
 }
 
 // Shared memory of one lol_train_bwd block's accumulators.
@@ -579,7 +585,7 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
     fused_bwd_kernel(const float* __restrict__ cam_in,
                      const float* __restrict__ P, const float* __restrict__ res,
                      const float* __restrict__ ct, float* __restrict__ partials,
-                     int height, int width) {
+                     int height, int full_height, int width, const float* __restrict__ rowtab) {
   constexpr int N = kCamSize + Scene::kNumFields;
   extern __shared__ float acc_cols[];  // [N][kBwdThreads]
   __shared__ float cam[kCamSize];
@@ -587,8 +593,8 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
   if (tid < kCamSize) cam[tid] = __ldg(cam_in + tid);
   __syncthreads();
   const Scene scn(P);
-  bwd_thread<Cfg, Scene>(cam, scn, P, res, ct, blockIdx.x, gridDim.x, tid, height, width,
-                         acc_cols + tid);
+  bwd_thread<Cfg, Scene>(cam, scn, P, res, ct, blockIdx.x, gridDim.x, tid, height,
+                         full_height, width, acc_cols + tid, RowMap{rowtab, kTrainRowBlock});
   block_partials<N, kBwdThreads>(StridedAcc<kBwdThreads>{acc_cols + tid}, partials);
 }
 
@@ -613,16 +619,17 @@ __global__ void __launch_bounds__(kBwdThreads)
   }
 }
 
+// rowtab: nullptr or one image row per kTrainRowBlock launch rows (RowMap).
 template <class Cfg, class Scene>
 int launch_fused_bwd(const float* cam, const float* fields, const float* res,
-                     const float* ct, float* partials, int height, int width,
-                     cudaStream_t stream) {
+                     const float* ct, float* partials, int height, int full_height, int width,
+                     const float* rowtab, cudaStream_t stream) {
   constexpr size_t smem = bwd_smem_bytes<Scene>();
   const cudaError_t e = cudaFuncSetAttribute(
       fused_bwd_kernel<Cfg, Scene>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   fused_bwd_kernel<Cfg, Scene><<<bwd_num_blocks(height, width), kBwdThreads, smem, stream>>>(
-      cam, fields, res, ct, partials, height, width);
+      cam, fields, res, ct, partials, height, full_height, width, rowtab);
   return (int)cudaGetLastError();
 }
 

@@ -125,6 +125,27 @@ struct SegmentCull<Cfg, Scene,
 // ro(3) right(3) up(3) fwd(3) half_w half_h pixel_rad row0.
 constexpr int kCamSize = 16;
 
+// Launch rows of a row table (render/camera.py launch_rows): the training
+// kernels of compiled structures take one absolute image row per 8 launch
+// rows, the instanced ones per 16 (a patch row, pallas_march.py P_H).
+constexpr int kTrainRowBlock = 8;
+constexpr int kPatchRowBlock = 16;
+
+// The image rows of a launch: launch row y is image row cam[15] + y, or,
+// under a row table (the row-sharded training step of parallel/sharded.py,
+// whose shards own blocks of rows dealt over the image), tab[y / block] +
+// y % block. Every term is a small exact integer in float32, so a table
+// row0 + block * k gives the rows of cam[15] = row0 bitwise.
+struct RowMap {
+  const float* tab = nullptr;
+  int block = 1;
+};
+
+__device__ __forceinline__ float image_row(const float* cam, int y, RowMap rows) {
+  return rows.tab ? __ldg(rows.tab + y / rows.block) + (float)(y % rows.block)
+                  : cam[15] + (float)y;
+}
+
 // Guard of the IFT denominator (loltracer_tpu/render/march.py _MIN_DEN).
 constexpr float kMinDen = 1e-2f;
 
@@ -198,15 +219,16 @@ struct PixelMarch {
   bool hit;
 };
 
-// The camera ray of pixel (x, y) of an image `height` rows tall, whose
-// launch starts at image row cam[15] (camera.rays_from_pack).
+// The camera ray of pixel (x, y) of a launch over an image `height` rows
+// tall, whose launch row y is image row image_row(cam, y, rows)
+// (camera.rays_from_rows).
 __device__ __forceinline__ void camera_ray(const float* cam, int x, int y, int height,
-                                           int width, PixelMarch& m) {
+                                           int width, PixelMarch& m, RowMap rows = {}) {
   m.ox = cam[0];
   m.oy = cam[1];
   m.oz = cam[2];
   const float vx = ((float)x + 0.5f) / (float)width * 2.f - 1.f;
-  const float vy = 1.f - ((cam[15] + (float)y) + 0.5f) / (float)height * 2.f;
+  const float vy = 1.f - (image_row(cam, y, rows) + 0.5f) / (float)height * 2.f;
   const float sx = vx * cam[12], sy = vy * cam[13];
   m.dx = cam[3] * sx + cam[6] * sy + cam[9];
   m.dy = cam[4] * sx + cam[7] * sy + cam[10];
@@ -223,9 +245,10 @@ __device__ __forceinline__ float coverage(const float* cam, float f_close, float
 
 template <class Cfg, class Scene>
 __device__ __forceinline__ PixelMarch march_pixel(const float* cam, const Scene& scn, int x,
-                                                  int y, int height, int width) {
+                                                  int y, int height, int width,
+                                                  RowMap rows = {}) {
   PixelMarch m;
-  camera_ray(cam, x, y, height, width, m);
+  camera_ray(cam, x, y, height, width, m, rows);
   const float ox = m.ox, oy = m.oy, oz = m.oz, dx = m.dx, dy = m.dy, dz = m.dz;
 
   // --- march (march.py march) -------------------------------------------
@@ -371,10 +394,10 @@ __device__ __forceinline__ void render_pixel(const float* cam, const Scene& scn,
                                              int y, int height, int width,
                                              float* __restrict__ img,
                                              float* __restrict__ res_out,
-                                             size_t plane) {
+                                             size_t plane, RowMap rows = {}) {
   [[maybe_unused]] float* const rp =
       Cfg::with_residuals ? res_out + ((size_t)y * width + x) : nullptr;
-  const PixelMarch m = march_pixel<Cfg>(cam, scn, x, y, height, width);
+  const PixelMarch m = march_pixel<Cfg>(cam, scn, x, y, height, width, rows);
 
   if constexpr (Cfg::with_residuals) {
     rp[3 * plane] = m.den;
@@ -423,6 +446,8 @@ template <int kTileW>
 __device__ __forceinline__ void tile_pixel(int bx, int by, int tid, int& x, int& y) {
   static_assert(32 % kTileW == 0 && kBlockX % kTileW == 0 && kBlockY * kTileW % 32 == 0,
                 "the block's warps must tile its 32 x 8 pixels");
+  static_assert(kTrainRowBlock % (32 / kTileW) == 0 && kTrainRowBlock % kBlockY == 0,
+                "a warp tile and a block must not straddle two blocks of a row table");
   constexpr int kTileH = 32 / kTileW, kTilesX = kBlockX / kTileW;
   const int lane = tid & 31, warp = tid >> 5;
   x = bx * kBlockX + (warp % kTilesX) * kTileW + lane % kTileW;
@@ -434,7 +459,8 @@ template <class Cfg, class Scene, int kTileW>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
     fused_fwd_kernel(const float* __restrict__ cam_in,
                      const float* __restrict__ P, float* __restrict__ img,
-                     float* __restrict__ res, int height, int width) {
+                     float* __restrict__ res, int height, int full_height, int width,
+                     const float* __restrict__ rowtab) {
   int x, y;
   tile_pixel<kTileW>(blockIdx.x, blockIdx.y, threadIdx.y * blockDim.x + threadIdx.x, x, y);
   if (x >= width || y >= height) return;
@@ -443,18 +469,23 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
 #pragma unroll
   for (int i = 0; i < kCamSize; ++i) cam[i] = __ldg(cam_in + i);
   const Scene scn(P);
-  render_pixel<Cfg, Scene>(cam, scn, P, x, y, height, width, img, res,
-                           (size_t)height * width);
+  // the launch's `height` rows are rows of an image `full_height` tall; the
+  // residual planes are the launch's rows
+  render_pixel<Cfg, Scene>(cam, scn, P, x, y, full_height, width, img, res,
+                           (size_t)height * width, RowMap{rowtab, kTrainRowBlock});
 }
 
+// rowtab: nullptr (launch row y is image row cam[15] + y) or one image row
+// per kTrainRowBlock launch rows (RowMap).
 template <class Cfg, class Scene, int kTileW = kFwdTileW>
 int launch_fused_fwd(const float* cam, const float* fields, float* img,
-                     float* res, int height, int width, cudaStream_t stream) {
+                     float* res, int height, int full_height, int width,
+                     const float* rowtab, cudaStream_t stream) {
   const dim3 block(kBlockX, kBlockY);
   const dim3 grid((width + kBlockX - 1) / kBlockX,
                   (height + kBlockY - 1) / kBlockY);
   fused_fwd_kernel<Cfg, Scene, kTileW>
-      <<<grid, block, 0, stream>>>(cam, fields, img, res, height, width);
+      <<<grid, block, 0, stream>>>(cam, fields, img, res, height, full_height, width, rowtab);
   return (int)cudaGetLastError();
 }
 #endif  // __CUDACC__

@@ -106,7 +106,7 @@ __global__ void __launch_bounds__(kInstBwdThreads)
                          const float* __restrict__ res, const float* __restrict__ ct,
                          float* __restrict__ partials, int* __restrict__ rec_rows,
                          float4* __restrict__ rec_vals, int height, int full_height,
-                         int width, Index... index) {
+                         int width, const float* __restrict__ rowtab, Index... index) {
   constexpr int N = kCamSize + Scene::kNumFields;
   constexpr int kSites = 1 + 4 + Scene::kNumLights;
   extern __shared__ float4 s_groups[];
@@ -126,9 +126,10 @@ __global__ void __launch_bounds__(kInstBwdThreads)
     const size_t pixels = (size_t)height * width, pix = (size_t)y * width + x;
     RecordSink sink{rec_rows, rec_vals, pixels, pix, 0};
     const Scene scn(P, tab, s_groups, index..., &sink);
-    // rows y of the launch are image rows cam[15] + y of full_height
+    // rows y of the launch are image rows cam[15] + y, or the row table's,
+    // of full_height
     pixel_bwd<Cfg, Scene>(cam, scn, P, x, y, full_height, width, res + pix, pixels,
-                          ct + 3 * pix, acc);
+                          ct + 3 * pix, acc, RowMap{rowtab, kPatchRowBlock});
     sink.close(kSites);
     if constexpr (Scene::kStats) scn.flush();
   }
@@ -296,7 +297,7 @@ int launch_instanced_bwd(const float* cam, const float* fields, const InstancedT
                          const float* res, const float* ct, float* partials, float* grads,
                          int* rec_rows, float4* rec_vals, int* hist, int* start, int* count,
                          int* order, float4* dsph, int height, int full_height, int width,
-                         cudaStream_t stream, Index... index) {
+                         const float* rowtab, cudaStream_t stream, Index... index) {
   constexpr int kSites = 1 + 4 + Scene::kNumLights;
   const auto kernel = instanced_bwd_kernel<Cfg, Scene, Index...>;
   const int smem = 2 * tab.num_groups * (int)sizeof(float4);
@@ -309,7 +310,8 @@ int launch_instanced_bwd(const float* cam, const float* fields, const InstancedT
   const dim3 grid((width + kInstBlockX - 1) / kInstBlockX,
                   (height + kInstBlockY - 1) / kInstBlockY);
   kernel<<<grid, block, smem, stream>>>(cam, fields, tab, res, ct, partials, rec_rows,
-                                        rec_vals, height, full_height, width, index...);
+                                        rec_vals, height, full_height, width, rowtab,
+                                        index...);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   const int rc = launch_bwd_reduce<Scene>(partials, (int)(grid.x * grid.y), grads, stream);
   if (rc != 0) return rc;

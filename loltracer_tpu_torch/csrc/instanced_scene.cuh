@@ -336,6 +336,8 @@ struct InstancedScene {
 // whose rays stay close and visit mostly the same runs.
 constexpr int kInstBlockX = 8;
 constexpr int kInstBlockY = 16;
+static_assert(kPatchRowBlock % kInstBlockY == 0,
+              "a block must not straddle two blocks of a row table");
 
 #ifdef __CUDACC__
 // Index: what the Scene's search takes beyond the tables (GridScene's cell
@@ -345,7 +347,8 @@ __global__ void __launch_bounds__(kInstBlockX * kInstBlockY)
     instanced_fwd_kernel(const float* __restrict__ cam_in,
                          const float* __restrict__ P, InstancedTables tab,
                          float* __restrict__ img, float* __restrict__ res,
-                         int height, int full_height, int width, Index... index) {
+                         int height, int full_height, int width,
+                         const float* __restrict__ rowtab, Index... index) {
   extern __shared__ float4 s_groups[];
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   for (int i = tid; i < 2 * tab.num_groups; i += blockDim.x * blockDim.y)
@@ -359,17 +362,19 @@ __global__ void __launch_bounds__(kInstBlockX * kInstBlockY)
 #pragma unroll
   for (int i = 0; i < kCamSize; ++i) cam[i] = __ldg(cam_in + i);
   const Scene scn(P, tab, s_groups, index...);
-  // rows y of the launch are image rows cam[15] + y of full_height; the
-  // residual planes are the launch's rows
+  // rows y of the launch are image rows cam[15] + y, or the row table's
+  // (one a patch row of kPatchRowBlock), of full_height; the residual
+  // planes are the launch's rows
   render_pixel<Cfg, Scene>(cam, scn, P, x, y, full_height, width, img, res,
-                           (size_t)height * width);
+                           (size_t)height * width, RowMap{rowtab, kPatchRowBlock});
   if constexpr (Scene::kStats) scn.flush();
 }
 
+// rowtab: nullptr or one image row per kPatchRowBlock launch rows (RowMap).
 template <class Cfg, class Scene, class... Index>
 int launch_instanced_fwd(const float* cam, const float* fields,
                          const InstancedTables& tab, float* img, float* res,
-                         int height, int full_height, int width,
+                         int height, int full_height, int width, const float* rowtab,
                          cudaStream_t stream, Index... index) {
   const int smem = 2 * tab.num_groups * (int)sizeof(float4);
   if (smem > 48 * 1024) {
@@ -383,7 +388,7 @@ int launch_instanced_fwd(const float* cam, const float* fields,
                   (height + kInstBlockY - 1) / kInstBlockY);
   instanced_fwd_kernel<Cfg, Scene, Index...>
       <<<grid, block, smem, stream>>>(cam, fields, tab, img, res, height, full_height,
-                                      width, index...);
+                                      width, rowtab, index...);
   return (int)cudaGetLastError();
 }
 #endif  // __CUDACC__

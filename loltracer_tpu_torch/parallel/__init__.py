@@ -1,7 +1,7 @@
 """Multi-device rendering over torch.distributed: meshes of ranks
-(mesh.py), the multi-process bootstrap (distributed.py) and object-axis
-sharding of instanced scenes (objects.py). The row-sharded renderer and
-train step of the JAX package's parallel/sharded.py are still to come."""
+(mesh.py), the multi-process bootstrap (distributed.py), row-sharded
+rendering, loss and training (sharded.py) and object-axis sharding of
+instanced scenes (objects.py)."""
 
 from loltracer_tpu_torch.parallel.distributed import maybe_initialize, process_info
 from loltracer_tpu_torch.parallel.mesh import AXIS, CHIPS_AXIS, HOSTS_AXIS, make_mesh, make_mesh_2d
@@ -9,6 +9,11 @@ from loltracer_tpu_torch.parallel.objects import (
     OBJ_AXIS,
     make_object_sharded_renderer,
     pad_spheres_for_sharding,
+)
+from loltracer_tpu_torch.parallel.sharded import (
+    make_sharded_loss,
+    make_sharded_renderer,
+    make_sharded_train_step,
 )
 
 __all__ = [
@@ -19,6 +24,9 @@ __all__ = [
     "make_mesh",
     "make_mesh_2d",
     "make_object_sharded_renderer",
+    "make_sharded_loss",
+    "make_sharded_renderer",
+    "make_sharded_train_step",
     "maybe_initialize",
     "pad_spheres_for_sharding",
     "process_info",

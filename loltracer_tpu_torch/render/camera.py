@@ -12,7 +12,7 @@ numbers with the same operations.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -42,15 +42,37 @@ def camera_pack(
     return torch.cat([params.cam_point.to(dtype), rt, up, d, tail]).contiguous()
 
 
+def launch_rows(
+    cam: torch.Tensor, n: int, rowtab: Optional[torch.Tensor] = None, block: int = 1
+) -> torch.Tensor:
+    """The image rows [n] (cam's dtype) of a launch's rows y = 0..n-1:
+    cam[15] + y, or under a row table (one absolute image row per `block`
+    launch rows, parallel/sharded.py) rowtab[y // block] + y % block, as
+    the kernels' `image_row` and JAX's `_rays_from_cam` build them. Every
+    term is a small exact integer, so a table row0 + block * k gives the
+    rows of cam[15] = row0 bitwise."""
+    y = torch.arange(n, device=cam.device)
+    if rowtab is None:
+        return cam[15] + y.to(cam.dtype)
+    return rowtab.to(dtype=cam.dtype)[y // block] + (y % block).to(cam.dtype)
+
+
 def rays_from_pack(
     cam: torch.Tensor, rows: torch.Tensor, height: int, width: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(ro [3], rd [R, W, 3]) for image rows cam[15] + rows. Pixel centers
-    map to NDC as ((x+.5)/W*2-1, 1-(y+.5)/H*2); the kernel computes the
-    same expressions per pixel."""
+    """(ro [3], rd [R, W, 3]) for image rows cam[15] + rows."""
+    return rays_from_rows(cam, cam[15] + rows.to(dtype=cam.dtype, device=cam.device),
+                          height, width)
+
+
+def rays_from_rows(
+    cam: torch.Tensor, y: torch.Tensor, height: int, width: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(ro [3], rd [R, W, 3]) for the image rows y [R] (cam's dtype) of an
+    image `height` rows tall. Pixel centers map to NDC as ((x+.5)/W*2-1,
+    1-(y+.5)/H*2); the kernel computes the same expressions per pixel."""
     ro, rt, up, fw = cam[0:3], cam[3:6], cam[6:9], cam[9:12]
     x = torch.arange(width, dtype=cam.dtype, device=cam.device)
-    y = cam[15] + rows.to(dtype=cam.dtype, device=cam.device)
     vx = true_div(x + 0.5, width) * 2.0 - 1.0
     vy = 1.0 - true_div(y + 0.5, height) * 2.0
     rd = (

@@ -608,6 +608,11 @@ TRAIN_BWD = "lol_train_bwd"
 TRAIN_REDUCE = "lol_train_bwd_reduce"
 TRAIN_BLOCKS = "lol_train_bwd_blocks"
 TRAIN_BLOCKS_PER_SM = "lol_train_bwd_blocks_per_sm"
+# Launch rows a row table gives one image row (csrc/fused_fwd.cuh RowMap):
+# 8 for the compiled training kernels, a patch row of 16 for the instanced
+# ones (`loltracer_tpu/render/pallas_march.py:149` P_H).
+TRAIN_ROW_BLOCK = 8
+PATCH_ROW_BLOCK = 16
 FWD_TILE = "lol_render_fused_tile"
 
 # The warp tile widths `lol_render_fused_tile` is compiled for (a warp of 32
@@ -622,7 +627,8 @@ def _fwd_tile_case(w: int) -> str:
     case {w}:
       return lol::launch_fused_fwd<lol_gen::Cfg, lol_gen::Scene, {w}>(
           static_cast<const float*>(cam), static_cast<const float*>(fields),
-          static_cast<float*>(img), nullptr, height, width, static_cast<cudaStream_t>(stream));"""
+          static_cast<float*>(img), nullptr, height, height, width, nullptr,
+          static_cast<cudaStream_t>(stream));"""
 
 
 _FWD_ENTRY = f"""\
@@ -630,7 +636,7 @@ extern "C" int {ENTRY}(const void* cam, const void* fields, void* img,
                                 int height, int width, void* stream) {{
   return lol::launch_fused_fwd<lol_gen::Cfg, lol_gen::Scene>(
       static_cast<const float*>(cam), static_cast<const float*>(fields),
-      static_cast<float*>(img), nullptr, height, width,
+      static_cast<float*>(img), nullptr, height, height, width, nullptr,
       static_cast<cudaStream_t>(stream));
 }}
 
@@ -645,11 +651,12 @@ extern "C" int {FWD_TILE}(const void* cam, const void* fields, void* img, int he
 
 _TRAIN_ENTRIES = f"""\
 extern "C" int {TRAIN_FWD}(const void* cam, const void* fields, void* img,
-                             void* res, int height, int width, void* stream) {{
+                             void* res, int height, int full_height, int width,
+                             const void* rowtab, void* stream) {{
   return lol::launch_fused_fwd<lol_gen::Cfg, lol_gen::Scene>(
       static_cast<const float*>(cam), static_cast<const float*>(fields),
-      static_cast<float*>(img), static_cast<float*>(res), height, width,
-      static_cast<cudaStream_t>(stream));
+      static_cast<float*>(img), static_cast<float*>(res), height, full_height, width,
+      static_cast<const float*>(rowtab), static_cast<cudaStream_t>(stream));
 }}
 
 extern "C" int {TRAIN_BLOCKS}(int height, int width) {{
@@ -661,13 +668,13 @@ extern "C" int {TRAIN_BLOCKS_PER_SM}() {{
 }}
 
 extern "C" int {TRAIN_BWD}(const void* cam, const void* fields, const void* res,
-                             const void* ct, void* partials, int height, int width,
-                             void* stream) {{
+                             const void* ct, void* partials, int height, int full_height,
+                             int width, const void* rowtab, void* stream) {{
   return lol::launch_fused_bwd<lol_gen::Cfg, lol_gen::Scene>(
       static_cast<const float*>(cam), static_cast<const float*>(fields),
       static_cast<const float*>(res), static_cast<const float*>(ct),
-      static_cast<float*>(partials), height, width,
-      static_cast<cudaStream_t>(stream));
+      static_cast<float*>(partials), height, full_height, width,
+      static_cast<const float*>(rowtab), static_cast<cudaStream_t>(stream));
 }}
 
 extern "C" int {TRAIN_REDUCE}(const void* partials, int num_blocks, void* grads,
@@ -719,7 +726,7 @@ extern "C" int {name}(const void* cam, const void* fields, const void* spheres,
 {_GRID if grid else ""}
   return lol::launch_instanced_fwd<lol_gen::Cfg, lol_gen::{scene}>(
       static_cast<const float*>(cam), static_cast<const float*>(fields), tab,
-      static_cast<float*>(img), nullptr, height, full_height, width,
+      static_cast<float*>(img), nullptr, height, full_height, width, nullptr,
       static_cast<cudaStream_t>(stream){", grid" if grid else ""});
 }}"""
 
@@ -740,7 +747,8 @@ extern "C" int {name}(const void* cam, const void* fields, const void* spheres,
                       int num_groups, const void* res, const void* ct, void* partials,
                       void* grads, void* rec_rows, void* rec_vals, void* hist, void* start,
                       void* count, void* order, void* dsph, int height, int full_height,
-                      int width, {_GRID_PARAMS + ", " if grid else ""}void* stream) {{
+                      int width, const void* rowtab,
+                      {_GRID_PARAMS + ", " if grid else ""}void* stream) {{
 {_TABLES}
 {_GRID if grid else ""}
   return lol::launch_instanced_bwd<lol_gen::Cfg, lol_gen::{scene}>(
@@ -750,6 +758,7 @@ extern "C" int {name}(const void* cam, const void* fields, const void* spheres,
       static_cast<int*>(rec_rows), static_cast<float4*>(rec_vals), static_cast<int*>(hist),
       static_cast<int*>(start), static_cast<int*>(count), static_cast<int*>(order),
       static_cast<float4*>(dsph), height, full_height, width,
+      static_cast<const float*>(rowtab),
       static_cast<cudaStream_t>(stream){", grid" if grid else ""});
 }}"""
 
@@ -758,14 +767,14 @@ _INSTANCED_TRAIN_ENTRIES = "\n\n".join([f"""\
 extern "C" int {INSTANCED_FWD}(const void* cam, const void* fields, const void* spheres,
                                  const void* ids, const void* groups, const void* bbox,
                                  int num_spheres, int num_groups, void* img, void* res,
-                                 int height, int full_height, int width, {_GRID_PARAMS},
-                                 void* stream) {{
+                                 int height, int full_height, int width,
+                                 const void* rowtab, {_GRID_PARAMS}, void* stream) {{
 {_TABLES}
 {_GRID}
   return lol::launch_instanced_fwd<lol_gen::Cfg, lol_gen::SceneOnGrid>(
       static_cast<const float*>(cam), static_cast<const float*>(fields), tab,
       static_cast<float*>(img), static_cast<float*>(res), height, full_height, width,
-      static_cast<cudaStream_t>(stream), grid);
+      static_cast<const float*>(rowtab), static_cast<cudaStream_t>(stream), grid);
 }}
 
 extern "C" int {INSTANCED_BLOCKS}(int height, int width) {{

@@ -18,7 +18,15 @@
   differentiable in every SceneParams field: the camera pack and the packed
   buffer are plain differentiable torch, so autograd chains dcam and
   dfields back to the fields, as JAX's `render_bwd` chains through
-  `camera_pack`.
+  `camera_pack`. With `full_height` and `with_row_table` it renders a
+  shard of the row-sharded training step (parallel/sharded.py): `(params,
+  rowtab) -> img`, the launch's H rows the image rows the table gives,
+  one per 8-row block (`camera.launch_rows`), of an image full_height tall.
+
+Both wrappers and their plain versions take the shard through
+`full_height` and `rowtab` (f32 [ceil(H / 8)], on the tensors' device;
+None: launch row y is image row cam[15] + y). `launches_table` counts the
+launches of either kernel that read a row table.
 
 A wrapper given CUDA tensors launches its kernel or raises; nothing falls
 back to the plain version or to the CPU. `launches_fwd` and `launches_bwd`
@@ -36,13 +44,14 @@ import torch
 from loltracer_tpu_torch import _build
 from loltracer_tpu_torch.config import DEFAULT_CONFIG, RenderConfig
 from loltracer_tpu_torch.render.backend import resolve_backend, resolve_device
-from loltracer_tpu_torch.render.camera import CAM_SIZE, camera_pack, rays_from_pack
+from loltracer_tpu_torch.render.camera import CAM_SIZE, camera_pack, launch_rows, rays_from_rows
 from loltracer_tpu_torch.render.cuda_scene import (
     TRAIN_BLOCKS,
     TRAIN_BLOCKS_PER_SM,
     TRAIN_BWD,
     TRAIN_FWD,
     TRAIN_REDUCE,
+    TRAIN_ROW_BLOCK,
     generate_source,
     pack_fields,
     packed_size,
@@ -64,8 +73,10 @@ from loltracer_tpu_torch.scene import SceneParams, SceneStructure, params_to
 
 __all__ = [
     "FusedTrainRender",
+    "check_row_table",
     "launches_bwd",
     "launches_fwd",
+    "launches_table",
     "make_training_renderer",
     "num_residuals",
     "shade_from_frozen",
@@ -77,6 +88,7 @@ __all__ = [
 
 launches_fwd = 0
 launches_bwd = 0
+launches_table = 0
 
 
 def num_residuals(structure: SceneStructure) -> int:
@@ -103,14 +115,18 @@ def shade_from_frozen(
     res: torch.Tensor,
     height: int,
     width: int,
+    rowtab: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The differentiable re-attachment (`pallas_train._shade_from_frozen`):
     the pipeline downstream of the frozen march and shadow marches, from the
-    camera pack, the packed buffer and the residual planes res [R, H, W].
-    Its value is the forward image [H, W, 3]; its gradient in (cam, fields)
-    is the IFT + Danskin + coverage estimator of the JAX package."""
+    camera pack, the packed buffer and the residual planes res [R, r, W]
+    of launch rows r of an image `height` rows tall (`rowtab`: their
+    image rows, as the kernels'). Its value is the forward image [r, W, 3];
+    its gradient in (cam, fields) is the IFT + Danskin + coverage estimator
+    of the JAX package."""
     params = _params_of(structure, cam, fields)
-    return reattach(structure, cfg, cam, params, make_scene_sdf(structure), res, height)
+    return reattach(structure, cfg, cam, params, make_scene_sdf(structure), res, height,
+                    rowtab, TRAIN_ROW_BLOCK)
 
 
 def reattach(
@@ -121,15 +137,18 @@ def reattach(
     sdf: Callable,
     res: torch.Tensor,
     full_height: int,
+    rowtab: Optional[torch.Tensor] = None,
+    block: int = TRAIN_ROW_BLOCK,
 ) -> torch.Tensor:
     """shade_from_frozen's pipeline over the SDF `sdf` at every site, for
-    the rows cam[15] + 0..R-1 of an image of `full_height` rows (res [N, R,
-    W]); params.cam_point is the camera position. Returns [R, W, 3]."""
+    the launch rows 0..R-1 of an image of `full_height` rows (res [N, R,
+    W]), image rows `camera.launch_rows(cam, R, rowtab, block)`;
+    params.cam_point is the camera position. Returns [R, W, 3]."""
     height, width = res.shape[1], res.shape[2]
     t_sh, hit, den = res[0], res[1] > 0.5, res[3]
     mat = res[2].to(torch.long)
     mat = torch.where((mat >= 1) & (mat < structure.num_materials), mat, 0)
-    ro, rd = rays_from_pack(cam, torch.arange(height), full_height, width)
+    ro, rd = rays_from_rows(cam, launch_rows(cam, height, rowtab, block), full_height, width)
 
     # one SDF evaluation at the frozen shading distance: the IFT numerator
     # on hits (point differentiable), the coverage numerator on AA misses
@@ -170,23 +189,29 @@ def train_forward_reference(
     height: int,
     width: int,
     live: Optional[Dict] = None,
+    full_height: Optional[int] = None,
+    rowtab: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version of lol_train_fwd on the tensors' device: the plain
     march and shadow marches (with t*; under cfg.shadow_cull the rays
     shading.segment_lit marks start done, as the kernel skips them), the
     denominator by autograd, the image from shade_from_frozen. Returns
-    (img [H, W, 3], res [R, H, W]). With `live` = {"march": [], "shadow":
-    []}, the loops append their live-ray counts per step there
-    (march.march's `live`); with "rays", an integer tensor [H, W], they add
-    up each ray's SDF evaluations in it."""
+    (img [H, W, 3], res [R, H, W]) of the launch's H rows of an image
+    `full_height` (default H) rows tall, at the image rows of `rowtab`
+    (module docstring). With `live` = {"march": [], "shadow": []}, the
+    loops append their live-ray counts per step there (march.march's
+    `live`); with "rays", an integer tensor [H, W], they add up each ray's
+    SDF evaluations in it."""
+    full_height = full_height or height
     with torch.no_grad():
         cam, fields = cam.detach(), fields.detach()
         params = _params_of(structure, cam, fields)
         sdf = make_scene_sdf(structure)
-        ro, rd = rays_from_pack(cam, torch.arange(height), height, width)
+        ro, rd = rays_from_rows(cam, launch_rows(cam, height, rowtab, TRAIN_ROW_BLOCK),
+                                full_height, width)
         res = residual_planes(structure, cfg, params, ro, rd, sdf, sdf, sdf,
                               make_scene_sdf_with_id(structure), live, cull=cfg.shadow_cull)
-        img = shade_from_frozen(structure, cfg, cam, fields, res, height, width)
+        img = shade_from_frozen(structure, cfg, cam, fields, res, full_height, width, rowtab)
     return img, res
 
 
@@ -246,6 +271,8 @@ def train_backward_reference(
     fields: torch.Tensor,
     res: torch.Tensor,
     ct: torch.Tensor,
+    full_height: Optional[int] = None,
+    rowtab: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version of lol_train_bwd: torch.autograd.grad of
     (shade_from_frozen(...) * ct).sum() in (cam, fields)."""
@@ -253,7 +280,8 @@ def train_backward_reference(
     with torch.enable_grad():
         cam = cam.detach().requires_grad_(True)
         fields = fields.detach().requires_grad_(True)
-        img = shade_from_frozen(structure, cfg, cam, fields, res.detach(), height, width)
+        img = shade_from_frozen(structure, cfg, cam, fields, res.detach(),
+                                full_height or height, width, rowtab)
         dcam, dfields = torch.autograd.grad(
             (img * ct.detach()).sum(), (cam, fields), allow_unused=True
         )
@@ -269,8 +297,8 @@ def library(structure: SceneStructure, cfg: RenderConfig) -> _build.Library:
     built = _build.build(generate_source(structure, cfg, residuals=True), "fused_train")
     lib, ptr, i32 = built.lib, ctypes.c_void_p, ctypes.c_int
     for name, args in (
-        (TRAIN_FWD, [ptr] * 4 + [i32] * 2 + [ptr]),
-        (TRAIN_BWD, [ptr] * 5 + [i32] * 2 + [ptr]),
+        (TRAIN_FWD, [ptr] * 4 + [i32] * 3 + [ptr] * 2),
+        (TRAIN_BWD, [ptr] * 5 + [i32] * 3 + [ptr] * 2),
         (TRAIN_REDUCE, [ptr, i32, ptr, ptr]),
         (TRAIN_BLOCKS, [i32, i32]),
         (TRAIN_BLOCKS_PER_SM, []),
@@ -297,6 +325,21 @@ def _check_cuda_inputs(structure, cam, fields):
         raise ValueError(f"cam on {cam.device}, fields on {fields.device}")
 
 
+def check_row_table(rowtab: Optional[torch.Tensor], height: int, full_height: int,
+                    block: int, device) -> int:
+    """The row table's pointer for a launch of `height` rows of an image
+    `full_height` tall (0 for none): f32 [ceil(height / block)],
+    contiguous, on `device`. Raises otherwise."""
+    if height <= 0 or full_height < height:
+        raise ValueError(f"{height} rows of a {full_height}-row image")
+    if rowtab is None:
+        return 0
+    _check("rowtab", rowtab, (-(-height // block),))
+    if rowtab.device != device:
+        raise ValueError(f"rowtab on {rowtab.device}, the launch on {device}")
+    return rowtab.data_ptr()
+
+
 def train_forward(
     structure: SceneStructure,
     cfg: RenderConfig,
@@ -304,15 +347,21 @@ def train_forward(
     fields: torch.Tensor,
     height: int,
     width: int,
+    full_height: Optional[int] = None,
+    rowtab: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(img [H, W, 3], res [R, H, W]): lol_train_fwd for CUDA tensors, the
-    plain version for CPU tensors."""
-    if resolve_backend(cam, fields) == "torch":
-        return train_forward_reference(structure, cfg, cam, fields, height, width)
+    plain version for CPU tensors; H rows of an image `full_height`
+    (default H) tall, at the image rows of `rowtab` (module docstring)."""
+    full_height = full_height or height
+    if resolve_backend(cam, fields, *_opt(rowtab)) == "torch":
+        return train_forward_reference(structure, cfg, cam, fields, height, width,
+                                       full_height=full_height, rowtab=rowtab)
     _check_cuda_inputs(structure, cam, fields)
     if height <= 0 or width <= 0:
         raise ValueError(f"bad image size {height}x{width}")
     lib = library(structure, cfg).lib
+    tab = check_row_table(rowtab, height, full_height, TRAIN_ROW_BLOCK, cam.device)
     img = torch.empty((height, width, 3), dtype=torch.float32, device=cam.device)
     res = torch.empty(
         (num_residuals(structure), height, width), dtype=torch.float32, device=cam.device
@@ -321,12 +370,13 @@ def train_forward(
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, TRAIN_FWD)(
             cam.data_ptr(), fields.data_ptr(), img.data_ptr(), res.data_ptr(),
-            height, width, stream,
+            height, full_height, width, tab, stream,
         )
     if rc != 0:
         raise RuntimeError(f"{TRAIN_FWD} launch failed: cudaError {rc}")
-    global launches_fwd
+    global launches_fwd, launches_table
     launches_fwd += 1
+    launches_table += rowtab is not None
     return img, res
 
 
@@ -337,12 +387,16 @@ def train_backward(
     fields: torch.Tensor,
     res: torch.Tensor,
     ct: torch.Tensor,
+    full_height: Optional[int] = None,
+    rowtab: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dcam [16], dfields [packed_size]) at the residuals for the image
     cotangent ct [H, W, 3]: lol_train_bwd + its reduce for CUDA tensors,
-    the plain version for CPU tensors."""
-    if resolve_backend(cam, fields, res, ct) == "torch":
-        return train_backward_reference(structure, cfg, cam, fields, res, ct)
+    the plain version for CPU tensors; H rows of an image `full_height`
+    (default H) tall, at the image rows of `rowtab` (module docstring)."""
+    if resolve_backend(cam, fields, res, ct, *_opt(rowtab)) == "torch":
+        return train_backward_reference(structure, cfg, cam, fields, res, ct, full_height,
+                                        rowtab)
     _check_cuda_inputs(structure, cam, fields)
     if ct.dim() != 3 or ct.shape[2] != 3 or min(ct.shape[:2]) <= 0:
         raise ValueError(f"ct must be [H, W, 3], got {tuple(ct.shape)}")
@@ -352,6 +406,7 @@ def train_backward(
     if not cam.device == fields.device == res.device == ct.device:
         raise ValueError("cam, fields, res and ct must be on one device")
     lib = library(structure, cfg).lib
+    tab = check_row_table(rowtab, height, full_height or height, TRAIN_ROW_BLOCK, cam.device)
     n = CAM_SIZE + packed_size(structure)
     blocks = getattr(lib, TRAIN_BLOCKS)(height, width)
     partials = torch.empty((blocks, n), dtype=torch.float32, device=cam.device)
@@ -360,36 +415,43 @@ def train_backward(
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, TRAIN_BWD)(
             cam.data_ptr(), fields.data_ptr(), res.data_ptr(), ct.data_ptr(),
-            partials.data_ptr(), height, width, stream,
+            partials.data_ptr(), height, full_height or height, width, tab, stream,
         )
         if rc != 0:
             raise RuntimeError(f"{TRAIN_BWD} launch failed: cudaError {rc}")
         rc = getattr(lib, TRAIN_REDUCE)(partials.data_ptr(), blocks, grads.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(f"{TRAIN_REDUCE} launch failed: cudaError {rc}")
-    global launches_bwd
+    global launches_bwd, launches_table
     launches_bwd += 1
+    launches_table += rowtab is not None
     return grads[:CAM_SIZE], grads[CAM_SIZE:]
+
+
+def _opt(t: Optional[torch.Tensor]) -> tuple:
+    return () if t is None else (t,)
 
 
 class FusedTrainRender(torch.autograd.Function):
     """img = render(cam, fields): train_forward in forward, train_backward
-    in backward (the custom_vjp of pallas_train.make_training_renderer)."""
+    in backward (the custom_vjp of pallas_train.make_training_renderer).
+    The row table, when there is one, gets no cotangent (a zero)."""
 
     @staticmethod
-    def forward(ctx, cam, fields, structure, cfg, height, width):
-        img, res = train_forward(structure, cfg, cam, fields, height, width)
-        ctx.save_for_backward(cam, fields, res)
-        ctx.structure, ctx.cfg = structure, cfg
+    def forward(ctx, cam, fields, structure, cfg, height, width, full_height=None, rowtab=None):
+        img, res = train_forward(structure, cfg, cam, fields, height, width, full_height, rowtab)
+        ctx.save_for_backward(cam, fields, res, *_opt(rowtab))
+        ctx.structure, ctx.cfg, ctx.full_height = structure, cfg, full_height
         return img
 
     @staticmethod
     def backward(ctx, ct):
-        cam, fields, res = ctx.saved_tensors
+        cam, fields, res, *rowtab = ctx.saved_tensors
         dcam, dfields = train_backward(
-            ctx.structure, ctx.cfg, cam, fields, res, ct.contiguous()
+            ctx.structure, ctx.cfg, cam, fields, res, ct.contiguous(), ctx.full_height,
+            rowtab[0] if rowtab else None,
         )
-        return dcam, dfields, None, None, None, None
+        return dcam, dfields, None, None, None, None, None, None
 
 
 def make_training_renderer(
@@ -398,12 +460,21 @@ def make_training_renderer(
     width: int,
     cfg: RenderConfig = DEFAULT_CONFIG,
     device="cuda",
-) -> Callable[[SceneParams], torch.Tensor]:
+    full_height: Optional[int] = None,
+    with_row_table: bool = False,
+) -> Callable[..., torch.Tensor]:
     """`params -> [H, W, 3] f32` through the fused training kernels,
     differentiable in every SceneParams field. Requires a compiled
     (non-instanced) structure and the envelope shadow estimator, as the JAX
     package does. Raises if `device` is a CUDA device and CUDA is not
-    available: it never falls back to the CPU."""
+    available: it never falls back to the CPU.
+
+    Row-sharded use (parallel/sharded.py, `pallas_train.py:640-761`):
+    `height` = this shard's rows, `full_height` = the image's, and
+    `with_row_table=True`: the renderer takes `(params, rowtab)`, rowtab
+    f32 [ceil(height / 8)] the absolute image row of each 8-row block of
+    the launch (cam[15] stays 0). The launch holds exactly the shard's
+    rows: a last block may be partial."""
     if structure.instanced:
         raise ValueError(
             "fused training kernels require a compiled (non-instanced) scene; instanced "
@@ -415,11 +486,29 @@ def make_training_renderer(
             f"got shadow_grad={cfg.shadow_grad!r}"
         )
     device = resolve_device(device, "make_training_renderer")
+    fh = full_height or height
 
-    def renderer(params: SceneParams) -> torch.Tensor:
+    def renderer(params: SceneParams, rowtab: Optional[torch.Tensor] = None) -> torch.Tensor:
         params = params_to(params, device=device, dtype=torch.float32)
-        cam = camera_pack(params, height, width, cfg)
+        cam = camera_pack(params, fh, width, cfg)
         fields = pack_fields(structure, params)
-        return FusedTrainRender.apply(cam, fields, structure, cfg, height, width)
+        return FusedTrainRender.apply(cam, fields, structure, cfg, height, width, fh, rowtab)
 
-    return renderer
+    if not with_row_table:
+        return lambda params: renderer(params)
+    return table_renderer(renderer, height, TRAIN_ROW_BLOCK, "8-row group", device)
+
+
+def table_renderer(renderer: Callable, height: int, block: int, what: str, device) -> Callable:
+    """`(params, rowtab) -> img` over renderer(params, rowtab), the table
+    checked (JAX's message) and moved to `device` as float32."""
+
+    def renderer_tab(params: SceneParams, rowtab) -> torch.Tensor:
+        rowtab = torch.as_tensor(rowtab).to(device=device, dtype=torch.float32).contiguous()
+        have = -(-height // block)
+        if tuple(rowtab.shape) != (have,):
+            raise ValueError(f"row table must have one entry per {what} ({have}); "
+                             f"got {tuple(rowtab.shape)}")
+        return renderer(params, rowtab)
+
+    return renderer_tab

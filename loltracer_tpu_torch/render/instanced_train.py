@@ -28,7 +28,13 @@
   `InstancedTrainRender` builds one cell grid a step, searched by the
   forward and by the backward.
 
-Both take a band of an image through `full_height` and the pack's row0.
+Both take a band of an image through `full_height` and the pack's row0,
+or a shard of the row-sharded training step (parallel/sharded.py) through
+`full_height` and `rowtab` (f32 [ceil(H / 16)]: the absolute image row of
+each 16-row patch row of the launch, `camera.launch_rows`); so do the
+plain versions, and `make_instanced_training_renderer(...,
+full_height=, with_row_table=True)` returns `(params, rowtab) -> img`.
+`launches_table` counts the launches of either kernel that read a table.
 The gradient is K6's: at every SDF site the instanced distance under the
 primary step clamp, its gradient through the winning sphere only, the cut
 max(clamp, distance to the AABB) a constant (`_RecordingDist`), a plane
@@ -48,7 +54,7 @@ import torch
 from loltracer_tpu_torch import _build
 from loltracer_tpu_torch.config import DEFAULT_CONFIG, RenderConfig
 from loltracer_tpu_torch.render.backend import resolve_backend, resolve_device
-from loltracer_tpu_torch.render.camera import CAM_SIZE, camera_pack, rays_from_pack
+from loltracer_tpu_torch.render.camera import CAM_SIZE, camera_pack, launch_rows, rays_from_rows
 from loltracer_tpu_torch.render.cell_grid import CellGrid, check_grid, grid_args, grid_for
 from loltracer_tpu_torch.render.cuda_scene import (
     GRID_ARGTYPES,
@@ -58,13 +64,21 @@ from loltracer_tpu_torch.render.cuda_scene import (
     INSTANCED_BWD_WALK,
     INSTANCED_FWD,
     INSTANCED_HIST_ROWS,
+    PATCH_ROW_BLOCK,
     generate_instanced_source,
     pack_fields,
     packed_size,
     unpack_fields,
 )
 from loltracer_tpu_torch.render.fused_fwd import _check
-from loltracer_tpu_torch.render.fused_train import num_residuals, reattach, residual_planes
+from loltracer_tpu_torch.render.fused_train import (
+    _opt,
+    check_row_table,
+    num_residuals,
+    reattach,
+    residual_planes,
+    table_renderer,
+)
 from loltracer_tpu_torch.render.instanced_fwd import _check_tables
 from loltracer_tpu_torch.render.instanced_pack import (
     InstancedTables,
@@ -89,6 +103,7 @@ __all__ = [
     "instanced_train_forward_reference",
     "launches_bwd",
     "launches_fwd",
+    "launches_table",
     "make_instanced_training_renderer",
     "make_train_sdf",
     "num_sites",
@@ -96,6 +111,7 @@ __all__ = [
 
 launches_fwd = 0
 launches_bwd = 0
+launches_table = 0
 
 
 def num_sites(structure: SceneStructure) -> int:
@@ -153,15 +169,18 @@ def instanced_shade_from_frozen(
     tables: InstancedTables,
     res: torch.Tensor,
     full_height: Optional[int] = None,
+    rowtab: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The plain K6 semantics: fused_train's re-attachment pipeline with the
     instanced SDF under the primary step clamp at every site (make_train_sdf),
-    for the rows cam[15] + 0..R-1 of an image of `full_height` rows (default
-    R) and residual planes res [N, R, W]. Differentiable in cam, fields and
-    tables.spheres; its value is the forward image [R, W, 3]."""
+    for the launch rows 0..R-1 (image rows cam[15] + y, or `rowtab`'s) of an
+    image of `full_height` rows (default R) and residual planes res [N, R,
+    W]. Differentiable in cam, fields and tables.spheres; its value is the
+    forward image [R, W, 3]."""
     params = _params_of(structure, cam, fields, tables)
     sdf = make_train_sdf(structure, cfg.step_clamp)
-    return reattach(structure, cfg, cam, params, sdf, res, full_height or res.shape[1])
+    return reattach(structure, cfg, cam, params, sdf, res, full_height or res.shape[1],
+                    rowtab, PATCH_ROW_BLOCK)
 
 
 def instanced_train_forward_reference(
@@ -173,6 +192,7 @@ def instanced_train_forward_reference(
     height: int,
     width: int,
     full_height: Optional[int] = None,
+    rowtab: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version of lol_instanced_fwd on the tensors' device:
     fused_train.residual_planes with the march under the step clamp, the
@@ -186,12 +206,14 @@ def instanced_train_forward_reference(
         tables = tables._replace(spheres=tables.spheres.detach())
         params = _params_of(structure, cam, fields, tables)
         clamp = cfg.step_clamp
-        ro, rd = rays_from_pack(cam, torch.arange(height), full_height or height, width)
+        ro, rd = rays_from_rows(cam, launch_rows(cam, height, rowtab, PATCH_ROW_BLOCK),
+                                full_height or height, width)
         res = residual_planes(structure, cfg, params, ro, rd, make_scene_sdf(structure, clamp),
                               make_scene_sdf(structure, cfg.effective_shadow_clamp()),
                               make_train_sdf(structure, clamp),
                               make_scene_sdf_with_id(structure, clamp))
-        img = instanced_shade_from_frozen(structure, cfg, cam, fields, tables, res, full_height)
+        img = instanced_shade_from_frozen(structure, cfg, cam, fields, tables, res, full_height,
+                                          rowtab)
     return img, res
 
 
@@ -204,6 +226,7 @@ def instanced_train_backward_reference(
     res: torch.Tensor,
     ct: torch.Tensor,
     full_height: Optional[int] = None,
+    rowtab: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The plain version of lol_instanced_bwd: torch.autograd.grad of
     (instanced_shade_from_frozen(...) * ct).sum() in (cam, fields,
@@ -214,7 +237,7 @@ def instanced_train_backward_reference(
         spheres = tables.spheres.detach().requires_grad_(True)
         img = instanced_shade_from_frozen(structure, cfg, cam, fields,
                                           tables._replace(spheres=spheres), res.detach(),
-                                          full_height)
+                                          full_height, rowtab)
         grads = torch.autograd.grad((img * ct.detach()).sum(), (cam, fields, spheres),
                                     allow_unused=True)
     return tuple(
@@ -231,9 +254,10 @@ def library(cfg: RenderConfig, structure: SceneStructure) -> _build.Library:
     built = _build.build(generate_instanced_source(structure, cfg, residuals=True),
                          "instanced_train")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    bwd = [ptr] * 6 + [i32] * 2 + [ptr] * 11 + [i32] * 3
+    bwd = [ptr] * 6 + [i32] * 2 + [ptr] * 11 + [i32] * 3 + [ptr]
     for name, args in (
-        (INSTANCED_FWD, [ptr] * 6 + [i32] * 2 + [ptr] * 2 + [i32] * 3 + GRID_ARGTYPES + [ptr]),
+        (INSTANCED_FWD, [ptr] * 6 + [i32] * 2 + [ptr] * 2 + [i32] * 3 + [ptr] + GRID_ARGTYPES
+         + [ptr]),
         (INSTANCED_BWD, bwd + GRID_ARGTYPES + [ptr]),
         (INSTANCED_BWD_WALK, bwd + [ptr]),
         (INSTANCED_BWD_STATS, bwd + GRID_ARGTYPES + [ptr]),
@@ -269,19 +293,22 @@ def instanced_train_forward(
     width: int,
     full_height: Optional[int] = None,
     grid: Optional[CellGrid] = None,
+    rowtab: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(img [H, W, 3], res [R, H, W]): lol_instanced_fwd for CUDA tensors,
     searching `grid` (default: `cell_grid.grid_for(tables,
     cfg.step_clamp)`, built now from the tables, whose spheres may have
-    moved since the last step), the plain version for CPU tensors."""
+    moved since the last step), the plain version for CPU tensors; at the
+    image rows of `rowtab` (module docstring)."""
     require_instanced(structure)
     full_height = full_height or height
-    if resolve_backend(cam, fields, *tables) == "torch":
+    if resolve_backend(cam, fields, *tables, *_opt(rowtab)) == "torch":
         return instanced_train_forward_reference(structure, cfg, cam, fields, tables,
-                                                 height, width, full_height)
+                                                 height, width, full_height, rowtab)
     _check_cuda_inputs(structure, cam, fields, tables)
     if height <= 0 or width <= 0 or full_height < height:
         raise ValueError(f"bad image size {height}x{width} of {full_height} rows")
+    tab = check_row_table(rowtab, height, full_height, PATCH_ROW_BLOCK, cam.device)
     lib = library(cfg, structure).lib
     grid = grid_for(tables, cfg.step_clamp) if grid is None else grid
     check_grid(grid, cam.device)
@@ -292,12 +319,13 @@ def instanced_train_forward(
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, INSTANCED_FWD)(
             cam.data_ptr(), fields.data_ptr(), *_table_args(tables), img.data_ptr(),
-            res.data_ptr(), height, full_height, width, *grid_args(grid), stream,
+            res.data_ptr(), height, full_height, width, tab, *grid_args(grid), stream,
         )
     if rc != 0:
         raise RuntimeError(f"{INSTANCED_FWD} launch failed: cudaError {rc}")
-    global launches_fwd
+    global launches_fwd, launches_table
     launches_fwd += 1
+    launches_table += rowtab is not None
     return img, res
 
 
@@ -314,6 +342,7 @@ def instanced_train_backward(
     walk: bool = False,
     stats: Optional[torch.Tensor] = None,
     records: bool = False,
+    rowtab: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """(dcam [16], dfields [packed_size], dsph [Ns, 4]) at the residuals for
     the image cotangent ct [H, W, 3]: lol_instanced_bwd (with its reduce and
@@ -324,18 +353,17 @@ def instanced_train_backward(
     takes the grid search's counts: searches, fallbacks, list entries read.
     With `records`, the record buffer follows: rows [sites, H, W] int32
     (-1 for none) and vals [sites, H, W, 4], what dsph sums per row in
-    increasing record index."""
+    increasing record index. `rowtab`: the image rows (module docstring)."""
     require_instanced(structure)
-    if resolve_backend(cam, fields, *tables, res, ct) == "torch":
+    if resolve_backend(cam, fields, *tables, res, ct, *_opt(rowtab)) == "torch":
         return instanced_train_backward_reference(structure, cfg, cam, fields, tables, res,
-                                                  ct, full_height)
+                                                  ct, full_height, rowtab)
     _check_cuda_inputs(structure, cam, fields, tables)
     if ct.dim() != 3 or ct.shape[2] != 3 or min(ct.shape[:2]) <= 0:
         raise ValueError(f"ct must be [H, W, 3], got {tuple(ct.shape)}")
     height, width = ct.shape[0], ct.shape[1]
     full_height = full_height or height
-    if full_height < height:
-        raise ValueError(f"{height} rows of a {full_height}-row image")
+    tab = check_row_table(rowtab, height, full_height, PATCH_ROW_BLOCK, cam.device)
     _check("ct", ct, (height, width, 3))
     _check("res", res, (num_residuals(structure), height, width))
     if not cam.device == res.device == ct.device:
@@ -369,13 +397,14 @@ def instanced_train_backward(
         rc = getattr(lib, name)(
             cam.data_ptr(), fields.data_ptr(), *_table_args(tables), res.data_ptr(),
             ct.data_ptr(), partials.data_ptr(), grads.data_ptr(),
-            *(w.data_ptr() for w in work), dsph.data_ptr(), height, full_height, width,
+            *(w.data_ptr() for w in work), dsph.data_ptr(), height, full_height, width, tab,
             *index, stream,
         )
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
-    global launches_bwd
+    global launches_bwd, launches_table
     launches_bwd += 1
+    launches_table += rowtab is not None
     out = grads[:CAM_SIZE], grads[CAM_SIZE:], dsph
     if records:
         out += (work[0].view(sites, height, width), work[1].view(sites, height, width, 4))
@@ -388,27 +417,30 @@ class InstancedTrainRender(torch.autograd.Function):
     pallas_train.make_instanced_training_renderer), both over the one cell
     grid that forward builds from the step's tables (the plain versions,
     on CPU tensors, ignore it). ids, groups and bbox are the tables'
-    search structures: not differentiated."""
+    search structures, and rowtab the row table: not differentiated (a
+    zero cotangent)."""
 
     @staticmethod
-    def forward(ctx, cam, fields, spheres, ids, groups, bbox, structure, cfg, height, width):
+    def forward(ctx, cam, fields, spheres, ids, groups, bbox, structure, cfg, height, width,
+                full_height=None, rowtab=None):
         tables = InstancedTables(spheres, ids, groups, bbox)
         grid = grid_for(tables, cfg.step_clamp)  # one grid a step, for K5r and K6
         img, res = instanced_train_forward(structure, cfg, cam, fields, tables, height, width,
-                                           grid=grid)
-        ctx.save_for_backward(cam, fields, spheres, ids, groups, bbox, res)
-        ctx.structure, ctx.cfg, ctx.grid = structure, cfg, grid
+                                           full_height, grid=grid, rowtab=rowtab)
+        ctx.save_for_backward(cam, fields, spheres, ids, groups, bbox, res, *_opt(rowtab))
+        ctx.structure, ctx.cfg, ctx.grid, ctx.full_height = structure, cfg, grid, full_height
         return img
 
     @staticmethod
     def backward(ctx, ct):
-        cam, fields, spheres, ids, groups, bbox, res = ctx.saved_tensors
+        cam, fields, spheres, ids, groups, bbox, res, *rowtab = ctx.saved_tensors
         dcam, dfields, dsph = instanced_train_backward(
             ctx.structure, ctx.cfg, cam, fields, InstancedTables(spheres, ids, groups, bbox),
-            res, ct.contiguous(), grid=ctx.grid,
+            res, ct.contiguous(), ctx.full_height, grid=ctx.grid,
+            rowtab=rowtab[0] if rowtab else None,
         )
         ctx.grid = None  # the step's grid goes with its backward
-        return (dcam, dfields, dsph) + (None,) * 7
+        return (dcam, dfields, dsph) + (None,) * 9
 
 
 def make_instanced_training_renderer(
@@ -417,13 +449,17 @@ def make_instanced_training_renderer(
     width: int,
     cfg: RenderConfig = DEFAULT_CONFIG,
     device="cuda",
-) -> Callable[[SceneParams], torch.Tensor]:
+    full_height: Optional[int] = None,
+    with_row_table: bool = False,
+) -> Callable[..., torch.Tensor]:
     """`params -> [H, W, 3] f32` through the instanced training kernels,
     differentiable in every SceneParams field, sphere positions and radii
     included. Requires an instanced structure and the envelope shadow
     estimator, as the JAX package does (`pallas_train.py:1519-1525`).
     Raises if `device` is a CUDA device and CUDA is not available: it
-    never falls back to the CPU."""
+    never falls back to the CPU. With `full_height` and `with_row_table`,
+    `(params, rowtab) -> img` of a shard (fused_train.make_training_renderer;
+    one table entry per 16-row patch row, `pallas_train.py:1641-1648`)."""
     require_instanced(structure)
     if cfg.shadow_grad != "envelope":
         raise ValueError(
@@ -431,13 +467,16 @@ def make_instanced_training_renderer(
             f"estimator; got shadow_grad={cfg.shadow_grad!r}"
         )
     device = resolve_device(device, "make_instanced_training_renderer")
+    fh = full_height or height
 
-    def renderer(params: SceneParams) -> torch.Tensor:
+    def renderer(params: SceneParams, rowtab: Optional[torch.Tensor] = None) -> torch.Tensor:
         params = params_to(params, device=device, dtype=torch.float32)
-        cam = camera_pack(params, height, width, cfg)
+        cam = camera_pack(params, fh, width, cfg)
         fields = pack_fields(structure, params)
         tab = pack_instanced(structure, params)
         return InstancedTrainRender.apply(cam, fields, tab.spheres, tab.ids, tab.groups,
-                                          tab.bbox, structure, cfg, height, width)
+                                          tab.bbox, structure, cfg, height, width, fh, rowtab)
 
-    return renderer
+    if not with_row_table:
+        return lambda params: renderer(params)
+    return table_renderer(renderer, height, PATCH_ROW_BLOCK, "patch row", device)

@@ -24,6 +24,7 @@ import functools
 from typing import Callable, Dict, List, Optional
 
 import torch
+from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from loltracer_tpu_torch.config import RenderConfig
@@ -200,11 +201,12 @@ def soft_shadow(
     live = live or {}
     counts = (live.get("shadow"), live.get("probe"))
     if cfg.shadow_grad == "exact":
-        res, _ = shadow_march(sdf, params, ro, rd, max_dist, cfg, *counts)
+        with record_function("lol_shadow_march"):
+            res, _ = shadow_march(sdf, params, ro, rd, max_dist, cfg, *counts)
         return maximum(res, 0.0)
     if cfg.shadow_grad != "envelope":
         raise ValueError(f"unknown shadow_grad {cfg.shadow_grad!r}")
-    with torch.no_grad():
+    with torch.no_grad(), record_function("lol_shadow_march"):
         if shadow_march_fn is not None:
             res, t_star = shadow_march_fn(params, ro, rd, max_dist)
         else:

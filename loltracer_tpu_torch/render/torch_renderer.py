@@ -30,6 +30,7 @@ import functools
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from loltracer_tpu_torch.config import DEFAULT_CONFIG, RenderConfig
@@ -132,12 +133,17 @@ def render_rays(
     if not override:
         march_fn, shadow_fn = _march_kernels(structure, params, rd, cfg, live, march_scene)
     use_aa = cfg.antialias and pixel_rad is not None
-    t, obj_id, alpha, _ = intersect_aa(
-        sdf, sdf_id, params, ro, rd, cfg, pixel_rad if use_aa else None, live, march_fn
-    )
+    # the stages' names in a profile (utils/profiling.trace), as the JAX
+    # package's jax.named_scope
+    with record_function("lol_march"):
+        t, obj_id, alpha, _ = intersect_aa(
+            sdf, sdf_id, params, ro, rd, cfg, pixel_rad if use_aa else None, live, march_fn
+        )
     p = ro + t[..., None] * rd
-    n = get_normal(sdf, params, p, t, cfg)
-    color = shade(structure, params, shadow_sdf, p, n, obj_id, cfg, live, shadow_fn)
+    with record_function("lol_normal"):
+        n = get_normal(sdf, params, p, t, cfg)
+    with record_function("lol_shade"):
+        color = shade(structure, params, shadow_sdf, p, n, obj_id, cfg, live, shadow_fn)
     if use_aa:
         # blend toward the background (material 0 ambient) in linear space
         bg = clip(params.ambient_color * params.mat_ambient[0], 0.0, 1.0)

@@ -4,10 +4,13 @@ path that the march kernel K3 serves on the card (any estimator but
 
 - `cli fit` prints the JAX package's `[fit] step` lines and `final loss:`
   line and writes `-o`; its losses are `fit_scene`'s with antialiasing;
-  `--checkpoint` reaches fit_scene's NotImplementedError;
-- `fit_scene` with exact shadows takes `render_image` for compiled
-  structures and 16-row `render_image_banded` for instanced ones, and
-  raises for CUDA without CUDA;
+  `--checkpoint` saves and resumes (tests/test_torch_checkpoint.py holds
+  the resume bitwise);
+- `fit_scene` on CPU tensors takes the differentiable renderer through
+  the sharded step (parallel/sharded.py), whatever the estimator, as the
+  JAX package's "auto" does off its kernels: the rows in one call for
+  compiled structures, 16-row bands for instanced ones; it raises for
+  CUDA without CUDA;
 - `cli render --backend pallas` is the fused kernel's path, `--backend jnp`
   the differentiable renderer's; on the CPU both give the same PNG; without
   `--backend` it takes "jnp", the JAX package's default.
@@ -74,30 +77,54 @@ def test_cli_fit_matches_fit_scene(examples_dir, scene4, target, tmp_path, capsy
     assert np.isfinite(result.losses).all()
 
 
-def test_cli_fit_checkpoint_is_not_ported(examples_dir, target):
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        cli.main(["fit", str(examples_dir / "scene4.lol"), "--target", str(target),
-                  "--steps", "1", "--device", "cpu", "--checkpoint", "fit.ckpt"])
+def test_cli_fit_checkpoint_is_not_ported(examples_dir, target, tmp_path, capsys):
+    """`--checkpoint` is ported: from the checkpoint of a fit that stopped
+    after step 0 (fit_scene's, saved every step), `cli fit --steps 2` runs
+    step 1 alone, prints its final loss and writes `-o`."""
+    path = str(tmp_path / "fit.ckpt")
+    fit_scene(*_scene4_args(examples_dir), np.load(target), steps=1, checkpoint_path=path,
+              checkpoint_every=1, trainable=("sphere_point",),
+              cfg=RenderConfig(antialias=True), device="cpu")
+    assert inverse.load_checkpoint(path)[0] == 1
+    capsys.readouterr()
+    out = tmp_path / "fit.png"
+    assert cli.main(["fit", str(examples_dir / "scene4.lol"), "--target", str(target),
+                     "--steps", "2", "--trainable", "sphere_point", "--device", "cpu",
+                     "--checkpoint", path, "-o", str(out)]) == 0
+    printed = capsys.readouterr().out
+    steps = re.findall(r"^\[fit\] step (\d+) loss (\S+)$", printed, re.M)
+    assert [s for s, _ in steps] == ["1"]
+    assert re.search(r"^final loss: (\S+)$", printed, re.M).group(1) == steps[0][1]
+    assert read_png(str(out)).shape == (H, W, 3)
+
+
+def _scene4_args(examples_dir):
+    s = build_scene(parse_scene_file(str(examples_dir / "scene4.lol")), device="cpu")
+    return s.structure, s.params
 
 
 def test_fit_scene_takes_the_differentiable_renderer(scene4, monkeypatch):
-    """Any estimator but "envelope": render_image for a compiled
-    structure, render_image_banded in 16-row bands for an instanced one
-    (the JAX package's _jnp_row_renderer). A CUDA request without CUDA
-    raises."""
+    """On CPU tensors the sharded step renders through the differentiable
+    renderer (the JAX package's _jnp_row_renderer), exact and envelope
+    shadows alike: a compiled structure's rows in one render_rays call, an
+    instanced structure's 32 rows in 16-row bands, each checkpointed (run
+    again in the backward). A CUDA request without CUDA raises."""
+    from loltracer_tpu_torch.parallel import sharded
+
     calls = []
-    real_image, real_banded = inverse.render_image, inverse.render_image_banded
-    monkeypatch.setattr(inverse, "render_image",
-                        lambda *a, **k: calls.append("image") or real_image(*a, **k))
-    monkeypatch.setattr(inverse, "render_image_banded",
-                        lambda *a, **k: calls.append(("banded", k["band_rows"]))
-                        or real_banded(*a, **k))
-    fit_scene(scene4.structure, scene4.params, np.zeros((4, 6, 3), np.float32), steps=1,
-              device="cpu")
+    real = sharded.render_rays
+    monkeypatch.setattr(sharded, "render_rays",
+                        lambda st, p, ro, rd, *a, **k:
+                        calls.append((st.instanced, tuple(rd.shape[:2])))
+                        or real(st, p, ro, rd, *a, **k))
+    for cfg in (RenderConfig(), RenderConfig(shadow_grad="envelope")):
+        fit_scene(scene4.structure, scene4.params, np.zeros((4, 6, 3), np.float32), steps=1,
+                  cfg=cfg, device="cpu")
+    assert calls == [(False, (4, 6))] * 2
     inst = instanced_spheres(n=64, seed=1, device="cpu")
-    fit_scene(inst.structure, inst.params, np.zeros((4, 6, 3), np.float32), steps=1,
+    fit_scene(inst.structure, inst.params, np.zeros((32, 6, 3), np.float32), steps=1,
               cfg=RenderConfig(step_clamp=2.0), trainable=("sphere_point",), device="cpu")
-    assert calls == ["image", ("banded", 16)]
+    assert calls[2:] == [(True, (16, 6))] * 4
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
         fit_scene(scene4.structure, scene4.params, np.zeros((4, 6, 3), np.float32), steps=1,

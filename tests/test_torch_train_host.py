@@ -204,7 +204,8 @@ extern "C" int host_train_bwd_blocks(const float* cam, const float* P, const flo
   for (int b = 0; b < blocks; ++b) {
     for (int i = 0; i < kN * T; ++i) cols[i] = NAN;
     for (int t = 0; t < T; ++t)
-      lol::bwd_thread<Cfg, Scene>(cam, scn, P, res, ct, b, blocks, t, height, width, cols + t);
+      lol::bwd_thread<Cfg, Scene>(cam, scn, P, res, ct, b, blocks, t, height, height, width,
+                                  cols + t);
     for (int j = 0; j < kN; ++j) {
       float s = 0.f;
       for (int t = 0; t < T; ++t) s += cols[j * T + t];
@@ -430,7 +431,8 @@ def _field_slices(structure):
 # --- the wrappers' device rules --------------------------------------------------
 
 
-def test_training_renderer_refuses_what_the_kernels_do_not_implement(examples, monkeypatch):
+def test_training_renderer_refuses_what_the_kernels_do_not_implement(examples, monkeypatch,
+                                                                   tmp_path):
     st = examples["scene4.lol"].structure
     with pytest.raises(ValueError, match="envelope"):
         fused_train.make_training_renderer(st, 8, 8, RenderConfig(shadow_grad="exact"))
@@ -443,9 +445,18 @@ def test_training_renderer_refuses_what_the_kernels_do_not_implement(examples, m
         fused_train.make_training_renderer(st, 8, 8, CFG)
     with pytest.raises(RuntimeError, match="is_available"):
         fit_scene(st, examples["scene4.lol"].params, np.zeros((4, 4, 3), np.float32), steps=1)
-    for kw in ({"mesh": object()}, {"checkpoint_path": "fit.ckpt"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fit_scene(st, examples["scene4.lol"].params, np.zeros((4, 4, 3)), **kw)
+    # a mesh and a checkpoint are taken (on the CPU, which needs no card)
+    from loltracer_tpu_torch.opt import load_checkpoint
+    from loltracer_tpu_torch.parallel import make_mesh
+
+    ckpt = str(tmp_path / "fit.ckpt")
+    try:
+        fit = fit_scene(st, examples["scene4.lol"].params, np.zeros((8, 4, 3)), steps=1,
+                        mesh=make_mesh(1, device="cpu"), checkpoint_path=ckpt,
+                        checkpoint_every=1, device="cpu")
+    finally:
+        torch.distributed.destroy_process_group()
+    assert np.isfinite(fit.losses).all() and load_checkpoint(ckpt, st)[0] == 1
     # the exact estimator is no longer refused on the card (its march runs
     # the kernel K3): past the gate, it reaches for the device, which this
     # CPU build of torch does not have
