@@ -7,8 +7,9 @@ through a second one (render/fused_train.py, csrc/fused_bwd.cuh; opt/ fits
 scenes with Adam); instanced scenes of 10k+ spheres render and train through
 their own pair (render/instanced_fwd.py, render/instanced_train.py,
 csrc/instanced_scene.cuh, csrc/instanced_bwd.cuh). A plain PyTorch version
-of the same pipeline sits beside each kernel for CPU tensors. It imports
-torch and never jax.
+of the same pipeline sits beside each kernel for CPU tensors; a float64
+NumPy oracle (golden/) is what both are held against. It imports torch
+and never jax.
 """
 
 from loltracer_tpu_torch.config import RenderConfig

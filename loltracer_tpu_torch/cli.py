@@ -1,12 +1,15 @@
-"""Command-line interface of the port (`loltracer_tpu/cli.py`: render, fit,
-stats, info, peak).
+"""Command-line interface of the port (`loltracer_tpu/cli.py`: render, view,
+fit, stats, roofline, peak, info).
 
     python -m loltracer_tpu_torch.cli render examples/scene4.lol --backend pallas --size 1920x1080 -o out.png
+    python -m loltracer_tpu_torch.cli render examples/scene4.lol --backend golden --size 64x48 -o gold.png
     python -m loltracer_tpu_torch.cli info examples/scene4.lol
     python -m loltracer_tpu_torch.cli render instanced:10000 --backend pallas --step-clamp 2 --size 1920x1080
+    python -m loltracer_tpu_torch.cli view examples/scene4.lol --size 160x90
     python -m loltracer_tpu_torch.cli fit examples/scene4.lol --target t.npy --steps 3 -o fit.png
     python -m loltracer_tpu_torch.cli fit examples/scene4.lol --target t.npy --checkpoint fit.ckpt
     python -m loltracer_tpu_torch.cli stats examples/scene4.lol --size 320x240
+    python -m loltracer_tpu_torch.cli roofline examples/scene4.lol --mode fwdbwd
     python -m loltracer_tpu_torch.cli peak
 
 `render --backend pallas` goes through the fused CUDA kernel
@@ -14,13 +17,20 @@ stats, info, peak).
 spheres, scenes.py, rendered by lol_instanced_render); `--backend jnp`,
 the default as in the JAX package, through the differentiable renderer
 (render/torch_renderer.py), whose marches run the march kernels K3 / K4 on
-CUDA. `--device cuda` is the
+CUDA; `--backend golden` through the float64 NumPy oracle (golden/), on
+the CPU whatever `--device` says. `--device cuda` is the
 default and raises if CUDA is not available; `--device cpu` renders
-through the plain PyTorch versions. `fit` is the JAX package's: inverse
+through the plain PyTorch versions. `view` is the terminal viewer
+(interactive.py): the fused kernel a frame on the card, the plain
+renderer with `--device cpu`; an explicit `--size` is rendered exactly or
+refused. `fit` is the JAX package's: inverse
 rendering toward a target image (.png or .npy) with antialiasing on by
 default, through opt.fit_scene (row-sharded over the ranks of the world;
 `--checkpoint` resumes from and saves to that file). `stats` prints the
-march-step statistics of utils/profiling.march_step_stats as JSON. The
+march-step statistics of utils/profiling.march_step_stats as JSON.
+`roofline` times the fused kernels (fwd: K1, or K5 for instanced scenes;
+fwdbwd: the training pair with envelope shadows, one backward of
+mean(img ** 2)) and prints utils/roofline.roofline_estimate's record. The
 render flags are those of the JAX package's CLI.
 """
 
@@ -101,6 +111,7 @@ def _add_device_flag(p):
 
 
 def cmd_render(args):
+    import numpy as np
     import torch
 
     from loltracer_tpu_torch.render.cuda_renderer import make_cuda_renderer
@@ -109,18 +120,27 @@ def cmd_render(args):
 
     w, h = _parse_size(args.size)
     cfg = _build_cfg(args)
-    scene = _load_scene(args.scene, args.device)
+    golden = args.backend == "golden"
+    where = "cpu" if golden else args.device  # the oracle never touches the card
+    scene = _load_scene(args.scene, where)
 
     t0 = time.perf_counter()
-    if args.backend == "jnp":
+    if golden:
+        from loltracer_tpu_torch.golden import render_golden
+        from loltracer_tpu_torch.scene import params_astype
+
+        scene.params = params_astype(scene.params, np.float64)
+        img = render_golden(scene, w, h, cfg)
+    elif args.backend == "jnp":
         with torch.no_grad():
             img = make_renderer(scene.structure, h, w, cfg, device=args.device)(scene.params)
     else:
         renderer = make_cuda_renderer(scene.structure, h, w, cfg, device=args.device)
         img = renderer(scene.params)
-    if img.device.type == "cuda":
-        torch.cuda.synchronize(img.device)
-    img = img.cpu().numpy()
+    if not golden:
+        if img.device.type == "cuda":
+            torch.cuda.synchronize(img.device)
+        img = img.cpu().numpy()
     dt = time.perf_counter() - t0
 
     out = args.output or "out.png"
@@ -128,7 +148,24 @@ def cmd_render(args):
         write_npy(out, img)
     else:
         write_png(out, img)
-    print(f"rendered {args.scene} {w}x{h} on {args.device} in {dt:.2f}s -> {out}")
+    print(f"rendered {args.scene} {w}x{h} on {where} in {dt:.2f}s -> {out}")
+    return 0
+
+
+def cmd_view(args):
+    from loltracer_tpu_torch.interactive import check_view_size, run_viewer
+
+    # no --size: follow the live terminal size every frame (the
+    # reference's per-frame surface re-fetch, main.c:182)
+    w = h = None
+    if args.size:
+        w, h = _parse_size(args.size)
+        try:
+            check_view_size(w, h)
+        except ValueError as e:
+            print(f"view: {e}", file=sys.stderr)
+            return 2
+    run_viewer(_load_scene(args.scene, args.device), w, h, _build_cfg(args))
     return 0
 
 
@@ -179,6 +216,70 @@ def cmd_stats(args):
     scene = _load_scene(args.scene, args.device)
     stats = march_step_stats(scene.structure, scene.params, h, w, _build_cfg(args))
     print(json.dumps(stats, indent=2))
+    return 0
+
+
+def cmd_roofline(args):
+    """Time the fused kernels and report the achieved fraction of the
+    card's peak (utils/roofline.py: the operation model over the measured
+    step counts)."""
+    import torch
+
+    from loltracer_tpu_torch.scene import SceneParams
+    from loltracer_tpu_torch.utils.roofline import roofline_estimate
+
+    w, h = _parse_size(args.size)
+    cfg = _build_cfg(args)
+    scene = _load_scene(args.scene, args.device)
+    st, params = scene.structure, scene.params
+
+    if args.mode == "fwdbwd":
+        cfg = cfg.replace(shadow_grad="envelope")
+        if st.instanced:
+            from loltracer_tpu_torch.render.instanced_train import (
+                make_instanced_training_renderer as _mk,
+            )
+        else:
+            from loltracer_tpu_torch.render.fused_train import make_training_renderer as _mk
+        r = _mk(st, h, w, cfg, device=args.device)
+        leaves = SceneParams(**{
+            f: v.detach().clone().requires_grad_(True) for f, v in vars(params).items()
+        })
+
+        def fn():
+            for v in vars(leaves).values():
+                v.grad = None
+            loss = torch.mean(r(leaves) ** 2)
+            loss.backward()
+            return loss
+    else:
+        from loltracer_tpu_torch.render.cuda_renderer import make_cuda_renderer
+
+        r = make_cuda_renderer(st, h, w, cfg, device=args.device)
+
+        def fn():
+            return torch.sum(r(params))
+
+    def sync():
+        if params.cam_point.device.type == "cuda":
+            torch.cuda.synchronize(params.cam_point.device)
+
+    fn()  # build + warm-up
+    sync()
+    times = []
+    for _ in range(args.reps):
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        times.append(time.perf_counter() - t0)
+
+    est = roofline_estimate(st, params, h, w, min(times), cfg, mode=args.mode)
+    est["measured_seconds"] = min(times)
+    est["rays_per_s"] = h * w / min(times)
+    print(json.dumps(
+        {k: (v if isinstance(v, (str, list)) else float(v)) for k, v in est.items()},
+        indent=2,
+    ))
     return 0
 
 
@@ -233,13 +334,20 @@ def main(argv=None):
     )
     p.add_argument("-o", "--output")
     p.add_argument(
-        "--backend", choices=["pallas", "jnp"], default="jnp",
+        "--backend", choices=["jnp", "pallas", "golden"], default="jnp",
         help="jnp: the differentiable renderer (march kernels K3 / K4 on CUDA; "
-        "the default, as in the JAX package); pallas: the fused CUDA kernel",
+        "the default, as in the JAX package); pallas: the fused CUDA kernel; "
+        "golden: the float64 NumPy oracle, on the CPU",
     )
     _add_device_flag(p)
     _add_render_flags(p)
     p.set_defaults(fn=cmd_render)
+
+    p = sub.add_parser("view", help="interactive terminal preview")
+    p.add_argument("scene")
+    _add_device_flag(p)
+    _add_render_flags(p)
+    p.set_defaults(fn=cmd_view, size=None)
 
     p = sub.add_parser("fit", help="inverse rendering toward a target image")
     p.add_argument("scene")
@@ -258,6 +366,16 @@ def main(argv=None):
     _add_device_flag(p)
     _add_render_flags(p)
     p.set_defaults(fn=cmd_stats, size="320x240")
+
+    p = sub.add_parser(
+        "roofline", help="measure the fused kernels' achieved fraction of the card's peak"
+    )
+    p.add_argument("scene")
+    p.add_argument("--mode", choices=["fwd", "fwdbwd"], default="fwd")
+    p.add_argument("--reps", type=int, default=3)
+    _add_device_flag(p)
+    _add_render_flags(p)
+    p.set_defaults(fn=cmd_roofline, size="1920x1080")
 
     p = sub.add_parser("peak", help="measure the card's FP32 and sqrt rates")
     p.add_argument("--reps", type=int, default=5)

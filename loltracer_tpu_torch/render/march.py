@@ -93,6 +93,25 @@ def ray_derivative(sdf: Callable, params, ro, rd, t):
     )
 
 
+def intersect(
+    sdf: Callable,
+    sdf_with_id: Callable,
+    params,
+    ro,
+    rd,
+    cfg: RenderConfig,
+    march_fn: Optional[Callable] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Differentiable intersection: (t [...], id [...]), as the JAX
+    package's `intersect`. The value of t is the marched distance; its
+    gradient the IFT hit-point derivative (zero for miss rays). id is the
+    argmin id at the last march query point, 0 where t >= max_dist."""
+    t, obj_id, _, _ = intersect_aa(
+        sdf, sdf_with_id, params, ro, rd, cfg, pixel_rad=None, march_fn=march_fn
+    )
+    return t, obj_id
+
+
 def intersect_aa(
     sdf: Callable,
     sdf_with_id: Callable,

@@ -9,7 +9,8 @@ is the plain version that the fused CUDA kernel is held against
 `render_image` is differentiable with the JAX package's estimators (the
 IFT at the frozen march, the coverage alpha, the shadow gradient of
 cfg.shadow_grad): autograd through it is the twin of `jax.grad` through
-the jnp renderer; `make_renderer` wraps it, differentiable too, as JAX's.
+the jnp renderer; `make_renderer` wraps it, differentiable too, as JAX's,
+and `render_scene` is its one-shot call on a `Scene`.
 `dtype` (f32 by default) is the rays' type: float64 rays over float64
 params render in float64, as the JAX package's `dtype` argument does.
 `render_image_banded` renders in sequential row bands, the same image with
@@ -40,7 +41,7 @@ from loltracer_tpu_torch.render.march import intersect_aa
 from loltracer_tpu_torch.render.sdf import make_scene_sdf, make_scene_sdf_with_id
 from loltracer_tpu_torch.render.shading import get_normal, shade
 from loltracer_tpu_torch.render.vecmath import clip, true_div
-from loltracer_tpu_torch.scene import SceneParams, SceneStructure, params_to
+from loltracer_tpu_torch.scene import Scene, SceneParams, SceneStructure, params_to
 
 
 def pixel_radius(params: SceneParams, height: int, cfg: RenderConfig):
@@ -221,3 +222,15 @@ def make_renderer(
         return render_image(structure, params, height, width, cfg, dtype)
 
     return renderer
+
+
+def render_scene(
+    scene: Scene,
+    height: int,
+    width: int,
+    cfg: RenderConfig = DEFAULT_CONFIG,
+    device=None,
+) -> torch.Tensor:
+    """One-shot render of a compiled scene (differentiable, as
+    `make_renderer`); with `device`, its params go there first."""
+    return make_renderer(scene.structure, height, width, cfg, device=device)(scene.params)

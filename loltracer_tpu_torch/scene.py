@@ -262,6 +262,17 @@ def params_to_numpy(params: SceneParams) -> Dict[str, np.ndarray]:
     return {f: getattr(params, f).detach().cpu().numpy().copy() for f in FIELDS}
 
 
+def params_astype(params: SceneParams, dtype) -> SceneParams:
+    """Every field cast to the numpy `dtype` on the CPU, as the JAX
+    package's `params_astype` casts its arrays (host-side)."""
+    return SceneParams(
+        **{
+            f: torch.from_numpy(np.asarray(a, dtype=dtype))
+            for f, a in params_to_numpy(params).items()
+        }
+    )
+
+
 def params_to(
     params: SceneParams, device=None, dtype: torch.dtype = None
 ) -> SceneParams:
