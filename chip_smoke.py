@@ -4,6 +4,7 @@ NVIDIA GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --march-ab   # K3 / K4 alone: checks, times, host time
+    python3 chip_smoke.py --bench      # phase 39 alone: cli bench on every route
 
 Phases, one line each:
 
@@ -294,7 +295,22 @@ Phases, one line each:
    `cli view examples/scene4.lol --size 160x90` in a child on a pty, fed
    w, d, right, q: exit 0 within 120 s after at least two frames;
 38. the native parser (`lol/native.py`) built with g++: its AST equals
-   the Python parser's on the four examples.
+   the Python parser's on the four examples;
+39. `cli bench` (loltracer_tpu_torch/bench.py: the root bench.py's routes
+   on the port), one child process a route, BENCH_REPS=3: scene4
+   @1920x1080 fwd (K1), fwdbwd (K1r + K2) and fwdbwd with BENCH_AA=1;
+   instanced:10000 clamp 2 @1920x1080 fwd (K5), fwd with BENCH_REGROUP=1
+   (K9) and fwdbwd (K5r + K6); the two routes of plain glue at a cut
+   size, printed: jnp fwdbwd on scene4 at 480x272 (K3 / K4, path B) and
+   the banded jnp fwd on instanced:10000 at 1920x48 (three 16-row bands,
+   K3i / K4i, path C). Each record parses and its metric is bench.py's
+   label; each kernel of the route launched (1 + reps x frames) x its
+   launches a frame and no other counter moved; in this process
+   `bench.build`'s scalar is bitwise the same renderer's called directly
+   (phases 2, 8, 12, 16, 19-21 and 23 hold those renderers against their
+   plain versions), and the best sample's time a frame is at least 0.95 x
+   the least time of the route's kernels launched alone on its inputs
+   just before (CUDA events).
 
 The CLI phases (3, 11) pass `--backend pallas`: `cli render` defaults to
 the differentiable renderer, as the JAX package's does.
@@ -358,6 +374,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import typing
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -3334,6 +3351,300 @@ def native_phase(card) -> None:
           f"parser's on the four examples")
 
 
+BENCH_REPS = 3  # samples of each phase-39 route
+BENCH_CUT_JNP = (480, 272)  # (W, H) of phase 39's path-B route (1.29 s a 1080p step)
+BENCH_CUT_BANDED = (1920, 48)  # three 16-row bands of phase 39's path-C route (4.1 s a frame)
+BENCH_FLOOR = 0.95  # a route's frame over its kernels' least time, at least
+BENCH_INSTANCED = "instanced:10000"
+
+
+class BenchRoute(typing.NamedTuple):
+    """One route of phase 39."""
+
+    tag: str
+    scene: str  # BENCH_SCENE
+    mode: str  # BENCH_MODE
+    env: dict  # the other BENCH_* overrides
+    size: tuple  # (W, H)
+    metric: str  # bench.py's label for it
+    cfg: object  # the RenderConfig it must take
+    make: typing.Callable  # (structure, H, W, cfg, dev) -> (params -> image), called directly
+    per_frame: dict  # {(counter family, kernel): launches a frame}
+    alone: str  # the kernels `kernels_ms` launches alone for it
+
+
+def bench_routes():
+    """Phase 39's routes (`BenchRoute`)."""
+    from loltracer_tpu_torch.config import RenderConfig
+    from loltracer_tpu_torch.render import cuda_renderer, fused_train, instanced_train, regroup
+    from loltracer_tpu_torch.render import torch_renderer
+
+    env = RenderConfig(shadow_grad="envelope")
+    clamp2 = env.replace(step_clamp=2.0)
+    s4, inst = str(EXAMPLES / "scene4.lol"), BENCH_INSTANCED
+    full, tag = (MAIN_W, MAIN_H), f"{MAIN_W}x{MAIN_H}"
+    jw, jh = BENCH_CUT_JNP
+    bw, bh = BENCH_CUT_BANDED
+    train = {("fused_train", "lol_train_fwd"): 1, ("fused_train", "lol_train_bwd"): 1}
+
+    def banded(st, h, w, cfg, dev):
+        return lambda p: torch_renderer.render_image_banded(st, p, h, w, cfg, band_rows=16)
+
+    def plain(st, h, w, cfg, dev):
+        return lambda p: torch_renderer.render_image(st, p, h, w, cfg)
+
+    return [
+        BenchRoute("scene4 fwd", s4, "fwd", {}, full,
+                   f"rays/s/chip fwd/pallas scene4.lol {tag} frames_per_fetch=8", env,
+                   cuda_renderer.make_cuda_renderer, {("fused_fwd", "lol_render_fused"): 1},
+                   "k1"),
+        BenchRoute("scene4 fwdbwd", s4, "fwdbwd", {}, full,
+                   f"rays/s/chip fwdbwd/pallas scene4.lol {tag} frames_per_fetch=8 "
+                   f"shadow_grad=envelope", env, fused_train.make_training_renderer, train,
+                   "k1r+k2"),
+        BenchRoute("scene4 fwdbwd AA", s4, "fwdbwd", {"BENCH_AA": "1"}, full,
+                   f"rays/s/chip fwdbwd/pallas scene4.lol {tag} frames_per_fetch=8 "
+                   f"shadow_grad=envelope aa", env.replace(antialias=True),
+                   fused_train.make_training_renderer, train, "k1r+k2"),
+        BenchRoute(f"{inst} fwd", inst, "fwd", {}, full,
+                   f"rays/s/chip fwd/pallas-fused-instanced {inst} {tag} clamp=2", clamp2,
+                   cuda_renderer.make_instanced_renderer,
+                   {("instanced_fwd", "lol_instanced_render"): 1}, "k5"),
+        BenchRoute(f"{inst} fwd regrouped", inst, "fwd", {"BENCH_REGROUP": "1"}, full,
+                   f"rays/s/chip fwd/pallas-instanced-regrouped {inst} {tag} clamp=2", clamp2,
+                   regroup.make_instanced_renderer_regrouped,
+                   {("regroup", "lol_rg_march"): 1, ("regroup", "lol_rg_shadow"): 2,
+                    ("regroup", "lol_rg_shade"): 1}, "k9"),
+        BenchRoute(f"{inst} fwdbwd", inst, "fwdbwd", {}, full,
+                   f"rays/s/chip fwdbwd/pallas-fused-instanced {inst} {tag} "
+                   f"shadow_grad=envelope clamp=2", clamp2,
+                   instanced_train.make_instanced_training_renderer,
+                   {("instanced_train", "lol_instanced_fwd"): 1,
+                    ("instanced_train", "lol_instanced_bwd"): 1}, "k5r+k6"),
+        BenchRoute("scene4 fwdbwd jnp (cut)", s4, "fwdbwd", {"BENCH_BACKEND": "jnp"}, (jw, jh),
+                   f"rays/s/chip fwdbwd/jnp scene4.lol {jw}x{jh} frames_per_fetch=8 "
+                   f"shadow_grad=envelope", env, plain,
+                   {("march_kernels", "lol_march"): 1, ("march_kernels", "lol_shadow_march"): 2},
+                   "k3+k4"),
+        BenchRoute(f"{inst} fwd banded (cut)", inst, "fwd", {"BENCH_BACKEND": "jnp"}, (bw, bh),
+                   f"rays/s/chip fwd/banded-pallas-march {inst} {bw}x{bh} clamp=2", clamp2,
+                   banded, {("march_kernels", "lol_march_instanced"): -(-bh // 16),
+                            ("march_kernels", "lol_shadow_march_instanced"): 2 * -(-bh // 16)},
+                   "k3i+k4i bands"),
+    ]
+
+
+def kernels_ms(dev, alone, scene, cfg, h, w, reps: int = 3) -> float:
+    """The least time (CUDA events, of `reps`) of the kernels one frame of
+    a phase-39 route launches (`BenchRoute.alone`), launched alone on the
+    route's inputs: the packing, the autograd glue and the cell grid's
+    build left out."""
+    import torch
+
+    from loltracer_tpu_torch.render import fused_fwd, fused_train, instanced_fwd, instanced_train
+    from loltracer_tpu_torch.render import march_kernels as mk
+    from loltracer_tpu_torch.render import regroup
+    from loltracer_tpu_torch.render.camera import camera_pack, camera_rays, camera_rays_for_rows
+    from loltracer_tpu_torch.render.cell_grid import grid_for
+    from loltracer_tpu_torch.render.cuda_scene import pack_fields
+    from loltracer_tpu_torch.render.instanced_pack import pack_instanced
+
+    st, params = scene.structure, scene.params
+    cam, fields = camera_pack(params, h, w, cfg), pack_fields(st, params)
+    tab = pack_instanced(st, params) if st.instanced else None
+    grid = grid_for(tab, cfg.step_clamp) if st.instanced else None
+
+    def marches(ro, rd):
+        scene_m = mk.pack_march_scene(st, params)
+
+        def run():
+            m = mk.march_values(st, cfg, ro, rd, scene_m)
+            for o, d, dist in shadow_rays(params, ro, rd, m.t, cfg):
+                mk.shadow_values(st, cfg, o, d, dist, scene_m)
+        return run
+
+    if alone == "k1":
+        def fn():
+            fused_fwd.fused_forward(st, cfg, cam, fields, h, w)
+    elif alone == "k1r+k2":
+        img, res = fused_train.train_forward(st, cfg, cam, fields, h, w)
+        ct = 2.0 * img / img.numel()  # d mean(img ** 2) / d img
+
+        def fn():
+            fused_train.train_forward(st, cfg, cam, fields, h, w)
+            fused_train.train_backward(st, cfg, cam, fields, res, ct)
+    elif alone == "k5":
+        def fn():
+            instanced_fwd.instanced_forward(st, cfg, cam, fields, tab, h, w, grid=grid)
+    elif alone == "k9":
+        tr = regroup.march_track(st, cfg, cam, fields, tab, h, w, grid=grid)
+        lo, hi = regroup.hit_box(tr.hitp)
+        perms = [regroup.shadow_order(tr.rec[li], lo, hi) for li in range(st.num_lights)]
+        shadow = torch.empty((st.num_lights, 2, h, w), dtype=torch.float32, device=dev)
+
+        def fn():
+            t = regroup.march_track(st, cfg, cam, fields, tab, h, w, grid=grid)
+            for li in range(st.num_lights):
+                regroup.shadow_sorted(st, cfg, fields, tab, t.rec[li], perms[li], out=shadow[li],
+                                      grid=grid)
+            regroup.shade_planes(st, cfg, cam, fields, tab, t.track, shadow, h, w, grid=grid)
+    elif alone == "k5r+k6":
+        img, res = instanced_train.instanced_train_forward(st, cfg, cam, fields, tab, h, w,
+                                                           grid=grid)
+        ct = 2.0 * img / img.numel()
+
+        def fn():
+            instanced_train.instanced_train_forward(st, cfg, cam, fields, tab, h, w, grid=grid)
+            instanced_train.instanced_train_backward(st, cfg, cam, fields, tab, res, ct,
+                                                     grid=grid)
+    elif alone == "k3+k4":
+        fn = marches(*camera_rays(params, h, w, cfg))
+    elif alone == "k3i+k4i bands":
+        bands = [marches(*camera_rays_for_rows(params, torch.arange(r0, min(r0 + 16, h),
+                                                                    device=dev), h, w, cfg))
+                 for r0 in range(0, h, 16)]
+
+        def fn():
+            for band in bands:
+                band()
+    else:
+        raise ValueError(f"unknown kernels {alone!r}")
+    fn()
+    return min(time_ms(fn, 1) for _ in range(reps))
+
+
+def build_bench_libraries(dev) -> float:
+    """The libraries of phase 39's routes, built together (one nvcc each;
+    those built before load from the build cache). Returns the seconds."""
+    from loltracer_tpu_torch.config import RenderConfig
+    from loltracer_tpu_torch.lol import parse_scene_file
+    from loltracer_tpu_torch.render import fused_fwd, fused_train, instanced_fwd, instanced_train
+    from loltracer_tpu_torch.render import march_kernels, regroup
+    from loltracer_tpu_torch.scene import build_scene
+    from loltracer_tpu_torch.scenes import instanced_spheres
+
+    s4 = build_scene(parse_scene_file(str(EXAMPLES / "scene4.lol")), device=dev).structure
+    inst = instanced_spheres(n=10, device=dev).structure  # one source for every sphere count
+    env = RenderConfig(shadow_grad="envelope")
+    clamp2 = env.replace(step_clamp=2.0)
+    jobs = [(fused_fwd.library, s4, env), (fused_train.library, s4, env),
+            (fused_train.library, s4, env.replace(antialias=True)),
+            (march_kernels.library, s4, env), (march_kernels.library, inst, clamp2),
+            (instanced_fwd.library, clamp2, inst), (regroup.library, clamp2, inst),
+            (instanced_train.library, clamp2, inst)]
+    t = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        for f in [pool.submit(*job) for job in jobs]:
+            f.result()
+    return time.perf_counter() - t
+
+
+def bench_only() -> int:
+    """`chip_smoke.py --bench`: phase 39 alone, its libraries built first."""
+    import torch
+
+    require(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    sys.path.insert(0, str(ROOT))
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    print(card)
+    print(f"[39] the routes' libraries built or loaded in {build_bench_libraries(dev):.1f} s")
+    bench_phase(dev, card)
+    return 0
+
+
+def route_scalar(render, params, mode):
+    """bench.py's timed scalar of one frame of `render`, computed here:
+    sum(image), or mean(image ** 2) + the sum of every leaf's squared
+    gradient."""
+    import torch
+
+    from loltracer_tpu_torch.scene import FIELDS
+
+    if mode == "fwd":
+        with torch.no_grad():
+            return torch.sum(render(params))
+    leaves = grad_leaves(params)
+    img = render(leaves)
+    loss = torch.mean(img * img)
+    loss.backward()
+    grads = [getattr(leaves, f).grad for f in FIELDS]
+    return loss.detach() + sum(torch.sum(g * g) for g in grads if g is not None)
+
+
+def bench_phase(dev, card) -> dict:
+    """Phase 39: `cli bench` on each route of `bench_routes` in a child
+    process of its own: its record, its launches, its frame time against the
+    kernels' least time, and in this process `bench.build`'s scalar
+    bitwise the directly called renderer's. Returns {tag: record}."""
+    import os
+
+    import torch
+
+    from loltracer_tpu_torch import bench
+
+    scenes = {}
+    base_env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    records = {}
+    t_phase = time.perf_counter()
+    for r in bench_routes():
+        tag, (w, h) = r.tag, r.size
+        if r.scene not in scenes:
+            scenes[r.scene] = bench.load_scene(r.scene, dev)
+        sc = scenes[r.scene]
+        env = dict(r.env, BENCH_REPS=str(BENCH_REPS))
+        b = bench.build(bench.Settings.from_env(dict(
+            env, BENCH_SCENE=r.scene, BENCH_MODE=r.mode, BENCH_W=str(w), BENCH_H=str(h))),
+            dev, scene=sc)
+        require(b.metric == r.metric, f"{tag}: bench.build's metric {b.metric!r}")
+        require(b.cfg == r.cfg, f"{tag}: bench.build's config {b.cfg}")
+        got = b.fn()
+        want = route_scalar(r.make(sc.structure, h, w, r.cfg, dev), sc.params, r.mode)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want),
+                f"{tag}: the route's scalar {got.item()!r} != the renderer's {want.item()!r}")
+        k_ms = kernels_ms(dev, r.alone, sc, r.cfg, h, w)
+        del b, got, want
+        torch.cuda.empty_cache()  # the child needs the memory this process keeps cached
+
+        t = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "loltracer_tpu_torch.cli", "bench", r.scene, "--mode", r.mode,
+             "--size", f"{w}x{h}", "--device", dev.type],
+            env={**base_env, **env}, cwd=ROOT, capture_output=True, text=True, timeout=300,
+        )
+        wall = time.perf_counter() - t
+        require(out.returncode == 0, f"cli bench {tag} exited {out.returncode}: "
+                                     f"{out.stderr[-2000:]}")
+        lines = out.stdout.strip().splitlines()
+        rec, detail = json.loads(lines[-1]), json.loads(lines[-2])
+        require(set(rec) == {"metric", "value", "unit", "vs_baseline"} and rec["unit"] == "rays/s",
+                f"{tag}: record {rec}")
+        require(rec["metric"] == r.metric, f"{tag}: metric {rec['metric']!r}, want "
+                                           f"{r.metric!r}")
+        frames = detail["frames"]
+        want_n = {k: n * (1 + BENCH_REPS * frames) for k, n in r.per_frame.items()}
+        seen = {(fam, k): n for fam, ks in detail["launches"].items() for k, n in ks.items() if n}
+        require(seen == want_n, f"{tag}: launches {seen}, want {want_n}")
+        require(detail["card"] == card, f"{tag}: card {detail['card']!r}")
+        frame_ms = detail["best_ms"] / frames
+        require(frame_ms >= BENCH_FLOOR * k_ms,
+                f"{tag}: {frame_ms:.4f} ms a frame, under {BENCH_FLOOR} x its kernels' "
+                f"{k_ms:.4f} ms: the timed window does not hold them")
+        require(math.isclose(rec["value"], round(w * h * frames / (detail["best_ms"] / 1e3), 1)),
+                f"{tag}: value {rec['value']} vs the best sample {detail['best_ms']} ms")
+        records[tag] = dict(rec, samples_ms=detail["samples_ms"], frame_ms=frame_ms,
+                            kernels_ms=k_ms, launches={f"{f}.{k}": n for (f, k), n in seen.items()},
+                            wall_s=wall)
+        cut = "" if (w, h) == (MAIN_W, MAIN_H) else f" (cut from {MAIN_W}x{MAIN_H})"
+        print(f"[39] cli bench {tag} {w}x{h}{cut} on {card} ({wall:.1f} s): "
+              f"{json.dumps(rec)}; samples {detail['samples_ms']} ms of {frames} frame(s), "
+              f"{frame_ms:.4f} ms a frame >= {BENCH_FLOOR} x the kernels' {k_ms:.4f} ms alone; "
+              f"launches {records[tag]['launches']}; the scalar bitwise the renderer's")
+    print(f"[39] cli bench: {len(records)} routes in {time.perf_counter() - t_phase:.1f} s")
+    return records
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4277,6 +4588,8 @@ def main() -> int:
     roofline_phase(dev, card)
     view_phase(dev, card, s4)
     native_phase(card)
+    build_bench_libraries(dev)
+    bench_phase(dev, card)
 
     print(json.dumps({"kernels": [
         dict(entry("lol_render_fused", "loltracer_tpu_torch/csrc/fused_fwd.cuh",
@@ -4336,6 +4649,8 @@ if __name__ == "__main__":
         sys.exit(profile_march())
     if sys.argv[1:] == ["--march-ab"]:
         sys.exit(march_ab())
+    if sys.argv[1:] == ["--bench"]:
+        sys.exit(bench_only())
     if sys.argv[1:] == ["--profile-regroup"]:
         sys.exit(profile_regroup())
     if sys.argv[1:2] == ["--profile-peak"]:

@@ -8,8 +8,9 @@ scenes with Adam); instanced scenes of 10k+ spheres render and train through
 their own pair (render/instanced_fwd.py, render/instanced_train.py,
 csrc/instanced_scene.cuh, csrc/instanced_bwd.cuh). A plain PyTorch version
 of the same pipeline sits beside each kernel for CPU tensors; a float64
-NumPy oracle (golden/) is what both are held against. It imports torch
-and never jax.
+NumPy oracle (golden/) is what both are held against. bench.py (`cli
+bench`) times the JAX package's benchmark routes on the card. It imports
+torch and never jax.
 """
 
 from loltracer_tpu_torch.config import RenderConfig

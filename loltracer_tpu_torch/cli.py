@@ -1,5 +1,5 @@
 """Command-line interface of the port (`loltracer_tpu/cli.py`: render, view,
-fit, stats, roofline, peak, info).
+fit, stats, bench, roofline, peak, info).
 
     python -m loltracer_tpu_torch.cli render examples/scene4.lol --backend pallas --size 1920x1080 -o out.png
     python -m loltracer_tpu_torch.cli render examples/scene4.lol --backend golden --size 64x48 -o gold.png
@@ -9,6 +9,7 @@ fit, stats, roofline, peak, info).
     python -m loltracer_tpu_torch.cli fit examples/scene4.lol --target t.npy --steps 3 -o fit.png
     python -m loltracer_tpu_torch.cli fit examples/scene4.lol --target t.npy --checkpoint fit.ckpt
     python -m loltracer_tpu_torch.cli stats examples/scene4.lol --size 320x240
+    python -m loltracer_tpu_torch.cli bench examples/scene4.lol --mode fwd --size 1920x1080
     python -m loltracer_tpu_torch.cli roofline examples/scene4.lol --mode fwdbwd
     python -m loltracer_tpu_torch.cli peak
 
@@ -28,6 +29,10 @@ rendering toward a target image (.png or .npy) with antialiasing on by
 default, through opt.fit_scene (row-sharded over the ranks of the world;
 `--checkpoint` resumes from and saves to that file). `stats` prints the
 march-step statistics of utils/profiling.march_step_stats as JSON.
+`bench` is the JAX package's: it takes bench.py's `BENCH_*` settings from
+the environment (`--size` sets BENCH_W / BENCH_H; the scene and `--mode`
+apply where BENCH_SCENE / BENCH_MODE are unset), times bench.py's route on
+the port (bench.py in this package) and prints bench.py's record last.
 `roofline` times the fused kernels (fwd: K1, or K5 for instanced scenes;
 fwdbwd: the training pair with envelope shadows, one backward of
 mean(img ** 2)) and prints utils/roofline.roofline_estimate's record. The
@@ -219,6 +224,21 @@ def cmd_stats(args):
     return 0
 
 
+def cmd_bench(args):
+    """bench.py's route for the BENCH_* settings, timed (bench.py)."""
+    import os
+
+    from loltracer_tpu_torch import bench
+
+    env = dict(os.environ)
+    env.setdefault("BENCH_SCENE", args.scene)
+    if args.size:
+        w, h = _parse_size(args.size)
+        env["BENCH_W"], env["BENCH_H"] = str(w), str(h)
+    env.setdefault("BENCH_MODE", args.mode)
+    return bench.main(env=env, device=args.device)
+
+
 def cmd_roofline(args):
     """Time the fused kernels and report the achieved fraction of the
     card's peak (utils/roofline.py: the operation model over the measured
@@ -366,6 +386,13 @@ def main(argv=None):
     _add_device_flag(p)
     _add_render_flags(p)
     p.set_defaults(fn=cmd_stats, size="320x240")
+
+    p = sub.add_parser("bench", help="throughput benchmark: bench.py's routes on the port")
+    p.add_argument("scene")
+    p.add_argument("--size", help="WxH (sets BENCH_W / BENCH_H; default 1920x1080)")
+    p.add_argument("--mode", choices=["fwd", "fwdbwd"], default="fwdbwd")
+    _add_device_flag(p)
+    p.set_defaults(fn=cmd_bench)
 
     p = sub.add_parser(
         "roofline", help="measure the fused kernels' achieved fraction of the card's peak"
