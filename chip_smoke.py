@@ -5,6 +5,7 @@ NVIDIA GPU.
     python3 chip_smoke.py
     python3 chip_smoke.py --march-ab   # K3 / K4 alone: checks, times, host time
     python3 chip_smoke.py --bench      # phase 39 alone: cli bench on every route
+    python3 chip_smoke.py --scaling    # phase 40 alone: the weak-scaling harness
 
 Phases, one line each:
 
@@ -310,7 +311,24 @@ Phases, one line each:
    (phases 2, 8, 12, 16, 19-21 and 23 hold those renderers against their
    plain versions), and the best sample's time a frame is at least 0.95 x
    the least time of the route's kernels launched alone on its inputs
-   just before (CUDA events).
+   just before (CUDA events);
+40. the weak-scaling harness (loltracer_tpu_torch/bench_scaling.py: the
+   root bench_scaling.py's ladders on the port), one child process of
+   `python -m loltracer_tpu_torch.bench_scaling` a ladder, SCALE_OUT in a
+   temporary directory: the device-time ladder (SCALE_DEVICE_TIME=1) at
+   SCALE_ROWS 128 x 1920 (n = 8 is 1024 x 1920) for scene4 under the LPT
+   and the contiguous deal and for instanced:10000 clamp 2 under LPT. Each
+   rung's deal and row tables those this process makes from the cost
+   model counted here, each band's launches exactly (1 + 3) x frames of
+   K1r and K2 (K5r and K6), band_s the best sample's device time (the
+   profiler's kernels of the sample), each sample's device time inside
+   its CUDA-event window, the record's efficiency from them and the
+   ladder in SCALE_OUT; the measured efficiency printed beside the
+   (8, 128)-tile model's for the same deal; the 8-shard rung's slowest
+   band's scalar bitwise the training renderer's called directly on its
+   table. Then the wall ladder over the machine's world of one (scene4
+   fwdbwd, one rung): 1 + 4 K1r and 4 K2 launches, every step's loss the
+   same (the params restored), its record.
 
 The CLI phases (3, 11) pass `--backend pallas`: `cli render` defaults to
 the differentiable renderer, as the JAX package's does.
@@ -340,7 +358,8 @@ beside their walk twins' `walk_ms`, lol_rg_shadow for light 0 sorted
 beside `unsorted_ms` and, under `lights`, each light's times and bound;
 lol_rg_shade's entry carries the frame, the glue, K5's time, the exact
 frame's and the fallback shares of its searches);
-K1r / K2 / K5r / K6 also carry `rowtab`: their launches with the row table
+K1r / K2 / K5r / K6 also carry `scaling` (phase 40: each ladder's rungs,
+band_s, measured and modelled efficiency; K1r the wall rung) and `rowtab`: their launches with the row table
 on the main path (phases 8 and 15), `ms` / `nullptr_ms` at 1080p in turns
 (phase 31) and `bitwise`; K1r and K5r `deal` (phase 31) and `two_ranks`
 (phase 32: each rank's fwd + bwd ms alone and their balance);
@@ -3645,6 +3664,226 @@ def bench_phase(dev, card) -> dict:
     return records
 
 
+
+SCALE_ROWS = 128  # phase 40: rows a device (bench_scaling.py's default)
+SCALE_REPS = 3
+SCALE_LADDERS = (  # (tag, SCALE_SCENE, SCALE_ASSIGN) of phase 40's device-time ladders
+    ("scene4 lpt", "examples/scene4.lol", "lpt"),
+    ("scene4 contiguous", "examples/scene4.lol", "contiguous"),
+    ("instanced:10000 lpt", "instanced:10000", "lpt"),
+)
+
+
+def build_scaling_libraries(dev) -> float:
+    """The libraries of phase 40, built together: the training pairs of
+    scene4 and of instanced scenes at clamp 2 with envelope shadows, and K7
+    without a clamp (the instanced cost model). Returns the seconds."""
+    from loltracer_tpu_torch.config import RenderConfig
+    from loltracer_tpu_torch.lol import parse_scene_file
+    from loltracer_tpu_torch.render import fused_train, instanced_train, march_kernels
+    from loltracer_tpu_torch.scene import build_scene
+    from loltracer_tpu_torch.scenes import instanced_spheres
+
+    s4 = build_scene(parse_scene_file(str(EXAMPLES / "scene4.lol")), device=dev).structure
+    inst = instanced_spheres(n=10, device=dev).structure
+    env = RenderConfig(shadow_grad="envelope")
+    jobs = [(fused_train.library, s4, env),
+            (instanced_train.library, env.replace(step_clamp=2.0), inst),
+            (march_kernels.eval_library, inst, RenderConfig(step_clamp=None))]
+    t = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        for f in [pool.submit(*job) for job in jobs]:
+            f.result()
+    return time.perf_counter() - t
+
+
+def scaling_only() -> int:
+    """`chip_smoke.py --scaling`: phase 40 alone, its libraries built first."""
+    import torch
+
+    require(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    sys.path.insert(0, str(ROOT))
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    print(card)
+    print(f"[40] the ladders' libraries built or loaded in {build_scaling_libraries(dev):.1f} s")
+    scaling_phase(dev, card)
+    return 0
+
+
+def run_scaling(env: dict, out: str):
+    """`python -m loltracer_tpu_torch.bench_scaling` in a child with `env`
+    (SCALE_* and SCALE_OUT=out): ([(detail, record)] of its rungs, the
+    file's ladders, its wall seconds)."""
+    import os
+
+    import torch
+
+    torch.cuda.empty_cache()  # the child needs the memory this process keeps cached
+    base = {k: v for k, v in os.environ.items() if not k.startswith("SCALE_")}
+    t = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "loltracer_tpu_torch.bench_scaling"],
+                         env={**base, **env, "SCALE_OUT": out}, cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    wall = time.perf_counter() - t
+    require(res.returncode == 0, f"bench_scaling {env} exited {res.returncode}: "
+                                 f"{res.stderr[-2000:]}")
+    lines = [json.loads(line) for line in res.stdout.strip().splitlines()]
+    with open(out) as f:
+        ladders = json.load(f)["ladders"]
+    return list(zip(lines[0::2], lines[1::2])), ladders, wall
+
+
+def modelled_deal(structure, per_row, height, n, assign):
+    """(perm, modelled balance) of the deal `assign` over n shards on the
+    worst-lane (8, 128) tile model (utils/profiling.py; `per_row` its cost
+    of each 8-row tile row, counted on the card): LPT over the block costs
+    block_row_costs gives, or contiguous bands; each shard costs the tile
+    rows its rows fall in (shard_balance's and band_balance's rule)."""
+    import numpy as np
+
+    from loltracer_tpu_torch.parallel.sharded import interleave_rows, row_granularity
+
+    G = row_granularity(structure)
+    if assign == "lpt":
+        perm = interleave_rows(height, n, G, per_row.reshape(height // G, G // 8).sum(axis=1))[0]
+    else:
+        perm = np.arange(height)
+    rows = height // n
+    costs = np.array([per_row[np.unique(perm[i * rows:(i + 1) * rows] // 8)].sum()
+                      for i in range(n)])
+    return perm, float(costs.sum() / (n * costs.max()))
+
+
+def scaling_phase(dev, card) -> dict:
+    """Phase 40: the weak-scaling harness (loltracer_tpu_torch/bench_scaling.py)
+    on the card. The device-time ladder of each of SCALE_LADDERS at
+    SCALE_ROWS x MAIN_W, a child process each: every rung's deal and row
+    tables those this process makes from the cost model counted here,
+    each band's launch counts exactly (1 + reps) x frames of its pair,
+    band_s the best sample's device time, each sample's device time
+    inside its CUDA-event window, the record's efficiency from those, the
+    ladder merged into SCALE_OUT, the measured efficiency printed beside
+    the modelled one; one band of the 8-shard rung's scalar bitwise the
+    training renderer's called directly on that table. Then the wall
+    ladder over this machine's world of one (scene4 fwdbwd at SCALE_ROWS x
+    MAIN_W, one rung). Returns {kernel: its `scaling` entry}."""
+    import numpy as np
+    import torch
+
+    from loltracer_tpu_torch import bench, bench_scaling
+    from loltracer_tpu_torch.render.fused_train import make_training_renderer
+    from loltracer_tpu_torch.render.instanced_train import make_instanced_training_renderer
+    from loltracer_tpu_torch.utils.profiling import _tile_row_costs
+
+    t_phase = time.perf_counter()
+    w, reps = MAIN_W, SCALE_REPS
+    scenes, ladders, tmp = {}, {}, tempfile.mkdtemp(prefix="scaling-")
+    costs = {}  # (scene, height) -> the tile model's cost a tile row
+    keys = {"devices", "height", "assignment", "band_s", "efficiency_device_time", "mode"}
+    for tag, scene_name, assign in SCALE_LADDERS:
+        out = str(Path(tmp) / f"{tag.replace(' ', '_').replace(':', '')}.json")
+        rungs, file_ladders, wall = run_scaling(
+            {"SCALE_DEVICE_TIME": "1", "SCALE_W": str(w), "SCALE_ROWS": str(SCALE_ROWS),
+             "SCALE_SCENE": scene_name, "SCALE_ASSIGN": assign, "SCALE_REPS": str(reps)}, out)
+        if scene_name not in scenes:
+            scenes[scene_name] = bench.load_scene(scene_name, dev)
+        sc = scenes[scene_name]
+        st = sc.structure
+        cfg = bench_scaling.RenderConfig(shadow_grad="envelope",
+                                         step_clamp=2.0 if st.instanced else None)
+        G = bench_scaling.row_granularity(st)
+        pair = [f"{fam}.{k}" for fam, k in bench_scaling.band_kernels(st)]
+        frames = 1 if st.instanced else 32
+        require([d["devices"] for d, _ in rungs] == list(bench_scaling.DEVICE_TIME_COUNTS),
+                 f"{tag}: rungs {[d['devices'] for d, _ in rungs]}")
+        summary = []
+        for detail, rec in rungs:
+            n, h = detail["devices"], SCALE_ROWS * detail["devices"]
+            require(set(rec) == keys and rec["height"] == h and rec["mode"] == "fwdbwd",
+                    f"{tag} n={n}: record {rec}")
+            require(rec["assignment"] == detail["deal"] == assign and detail["card"] == card,
+                    f"{tag} n={n}: deal {detail['deal']}, card {detail['card']!r}")
+            if (scene_name, h) not in costs:
+                costs[scene_name, h] = _tile_row_costs(st, sc.params, h, w, cfg, (8, 128))
+            perm, model = modelled_deal(st, costs[scene_name, h], h, n, assign)
+            want_tabs = [perm[i * SCALE_ROWS:(i + 1) * SCALE_ROWS][::G].tolist() for i in range(n)]
+            require(detail["tables"] == want_tabs, f"{tag} n={n}: the row tables differ from "
+                                                   "the deal of the costs counted here")
+            want_n = {k: (1 + reps) * frames for k in pair}
+            require(detail["launches"] == [want_n] * n,
+                    f"{tag} n={n}: launches {detail['launches']}, want {want_n} a band")
+            dev_ms, win_ms = detail["band_device_ms"], detail["band_window_ms"]
+            require(all(len(d) == len(wi) == reps for d, wi in zip(dev_ms, win_ms)),
+                    f"{tag} n={n}: samples")
+            require(all(0 < d <= wi for ds, ws in zip(dev_ms, win_ms) for d, wi in zip(ds, ws)),
+                    f"{tag} n={n}: a sample's device time outside its window: {dev_ms} vs "
+                    f"{win_ms}")
+            band_s = [min(d) / 1e3 for d in dev_ms]
+            require(rec["band_s"] == [round(t, 5) for t in band_s]
+                    and rec["efficiency_device_time"] == round(sum(band_s) / (n * max(band_s)), 4),
+                    f"{tag} n={n}: the record {rec} is not its samples'")
+            summary.append({"n": n, "band_s": rec["band_s"],
+                            "efficiency_device_time": rec["efficiency_device_time"],
+                            "model": model, "window_ms_best": [min(x) for x in win_ms]})
+            print(f"[40] {tag} n={n} ({h}x{w}, deal {detail['deal']}) on {card}: band device "
+                  f"ms (best of {reps} x {frames} frames) {[round(t * 1e3, 3) for t in band_s]}, "
+                  f"efficiency {rec['efficiency_device_time']} measured vs {model:.4f} modelled; "
+                  f"event windows {[round(min(x), 2) for x in win_ms]} ms; launches {want_n} a "
+                  f"band; the profile's stop / reading {detail['profiler_s']} s")
+        lad = [x for x in file_ladders if x["platform"] == f"device_time-{assign}"]
+        require(len(lad) == 1 and lad[0]["records"] == [r for _, r in rungs]
+                and lad[0]["backend"] == "pallas" and lad[0]["width"] == w,
+                f"{tag}: SCALE_OUT holds {file_ladders}")
+
+        # one band of the 8-shard rung: the harness's frame and the training
+        # renderer called directly on the same table
+        n, h = 8, 8 * SCALE_ROWS
+        detail = rungs[-1][0]
+        i = int(np.argmax([min(d) for d in detail["band_device_ms"]]))
+        tab = torch.tensor(detail["tables"][i], dtype=torch.float32, device=dev)
+        band = bench_scaling.band_renderer(st, SCALE_ROWS, w, h, cfg, dev)
+        got = bench.fwdbwd_frame(lambda p: band(p, tab), sc.params)[1]()
+        make = make_instanced_training_renderer if st.instanced else make_training_renderer
+        direct = make(st, SCALE_ROWS, w, cfg, device=dev, full_height=h, with_row_table=True)
+        want = route_scalar(lambda p: direct(p, tab), sc.params, "fwdbwd")
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"{tag}: band {i}'s scalar {got.item()!r} != the "
+                                        f"renderer's {want.item()!r}")
+        ladders[tag] = {"rungs": summary, "wall_s": wall}
+        print(f"[40] {tag}: n=8 band {i} (the slowest) scalar {got.item():.9g} bitwise the "
+              f"training renderer's on its table; the child took {wall:.1f} s")
+
+    out = str(Path(tmp) / "wall.json")
+    rungs, file_ladders, wall = run_scaling(
+        {"SCALE_W": str(w), "SCALE_ROWS": str(SCALE_ROWS), "SCALE_REPS": str(reps)}, out)
+    require(len(rungs) == 1, f"the wall ladder on one card has {len(rungs)} rungs")
+    detail, rec = rungs[0]
+    require(set(rec) == {"devices", "height", "rays_per_s", "efficiency", "mode"}
+            and rec["devices"] == 1 and rec["height"] == SCALE_ROWS and rec["efficiency"] == 1.0
+            and rec["mode"] == "fwdbwd", f"wall: record {rec}")
+    steps = 1 + reps
+    want_n = {"fused_train.lol_train_fwd": 1 + steps, "fused_train.lol_train_bwd": steps}
+    require(detail["launches"] == want_n, f"wall: launches {detail['launches']}, want {want_n}")
+    require(len(set(detail["loss"])) == 1, f"wall: the steps' losses {detail['loss']} differ")
+    require(rec["rays_per_s"] == round(SCALE_ROWS * w / min(detail["samples_s"]), 1),
+            f"wall: {rec} vs {detail['samples_s']}")
+    require(file_ladders[-1]["platform"] == "cuda" and file_ladders[-1]["records"] == [rec],
+            f"wall: SCALE_OUT holds {file_ladders}")
+    wall_entry = {"rays_per_s": rec["rays_per_s"], "samples_s": detail["samples_s"],
+                  "wall_s": wall}
+    print(f"[40] wall ladder (world of one, scene4 fwdbwd {SCALE_ROWS}x{w}, Adam step from "
+          f"the same params each time) on {card}: {json.dumps(rec)}; steps "
+          f"{[round(t * 1e3, 3) for t in detail['samples_s']]} ms; launches {want_n}; the child "
+          f"took {wall:.1f} s")
+    print(f"[40] bench_scaling: {len(SCALE_LADDERS)} device-time ladders and the wall ladder "
+          f"in {time.perf_counter() - t_phase:.1f} s")
+    s4 = {k: ladders[k] for k in ("scene4 lpt", "scene4 contiguous")}
+    inst = {"instanced:10000 lpt": ladders["instanced:10000 lpt"]}
+    return {"lol_train_fwd": dict(s4, wall=wall_entry), "lol_train_bwd": s4,
+            "lol_instanced_fwd": inst, "lol_instanced_bwd": inst}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4590,6 +4829,8 @@ def main() -> int:
     native_phase(card)
     build_bench_libraries(dev)
     bench_phase(dev, card)
+    build_scaling_libraries(dev)
+    scaling = scaling_phase(dev, card)
 
     print(json.dumps({"kernels": [
         dict(entry("lol_render_fused", "loltracer_tpu_torch/csrc/fused_fwd.cuh",
@@ -4607,13 +4848,14 @@ def main() -> int:
              device_ms=dev_ms["fused_fwd_kernel"], twin_ms=k1r_twin_ms,
              bound_sqrt_ms=k1r_bound_sqrt[0], culled_share=aa_shares,
              rowtab=rowtab["lol_train_fwd"], deal=deal["scene4 AA"],
-             two_ranks=ranks2["scene4"]),
+             two_ranks=ranks2["scene4"], scaling=scaling["lol_train_fwd"]),
         dict(entry("lol_train_bwd", "loltracer_tpu_torch/csrc/fused_bwd.cuh",
                    "loltracer_tpu/render/pallas_train.py:469", bwd_launches, bwd_err,
                    k2_ms, pb_ms, k2_bound),
              device_ms=dev_ms["fused_bwd_kernel"], reduce_device_ms=dev_ms["bwd_reduce_kernel"],
              bound_sqrt_ms=k2_bound_sqrt[0], ptxas=bwd_ptxas, warps_per_sm=bwd_warps,
-             step_ms=step_ms, fit_step_ms=fit_ab, rowtab=rowtab["lol_train_bwd"]),
+             step_ms=step_ms, fit_step_ms=fit_ab, rowtab=rowtab["lol_train_bwd"],
+             scaling=scaling["lol_train_bwd"]),
         dict(entry("lol_instanced_render", "loltracer_tpu_torch/csrc/grid_scene.cuh",
                    "loltracer_tpu/render/pallas_train.py:840", inst_launches, inst_err,
                    inst_ms, inst_plain_ms, k5_bound),
@@ -4624,13 +4866,13 @@ def main() -> int:
                    k5r_ms, it_pf_ms, k5r_bound),
              plain_ms_rows=BAND, step_ms=it_step_ms, grid_build_ms=it_build_ms,
              rowtab=rowtab["lol_instanced_fwd"], deal=deal["instanced:10000 clamp 2"],
-             two_ranks=ranks2["instanced"]),
+             two_ranks=ranks2["instanced"], scaling=scaling["lol_instanced_fwd"]),
         dict(entry("lol_instanced_bwd", "loltracer_tpu_torch/csrc/instanced_bwd.cuh",
                    "loltracer_tpu/render/pallas_train.py:1314", it_bwd_launches, it_bwd_err,
                    k6_ms, it_pb_ms, k6_bound),
              plain_ms_rows=BAND, walk_ms=k6_walk_ms, grid_build_ms=it_build_ms,
              fallback_share=k6_stats[0], entries_per_search=k6_stats[1],
-             rowtab=rowtab["lol_instanced_bwd"]),
+             rowtab=rowtab["lol_instanced_bwd"], scaling=scaling["lol_instanced_bwd"]),
         *march_entries,
         *regroup_entries,
         *peak_entries,
@@ -4651,6 +4893,8 @@ if __name__ == "__main__":
         sys.exit(march_ab())
     if sys.argv[1:] == ["--bench"]:
         sys.exit(bench_only())
+    if sys.argv[1:] == ["--scaling"]:
+        sys.exit(scaling_only())
     if sys.argv[1:] == ["--profile-regroup"]:
         sys.exit(profile_regroup())
     if sys.argv[1:2] == ["--profile-peak"]:

@@ -237,6 +237,30 @@ def _march_family(structure: SceneStructure, cfg: RenderConfig):
     return tuple(out)
 
 
+def fwdbwd_frame(render: Callable[[SceneParams], torch.Tensor],
+                 params: SceneParams) -> Tuple[SceneParams, Callable[[], torch.Tensor]]:
+    """(leaves, fn): fresh leaves of params that require grad, and `fn()`
+    one fwdbwd frame of `render` at them, returning bench.py's scalar:
+    loss + the sum over every SceneParams leaf of sum(g * g), loss =
+    mean(image * image), the gradients zeroed and the scalar built inside
+    the frame."""
+    leaves = SceneParams(**{f: getattr(params, f).detach().clone().requires_grad_(True)
+                            for f in FIELDS})
+    tensors = [getattr(leaves, f) for f in FIELDS]
+
+    def fn():
+        for v in tensors:
+            v.grad = None
+        img = render(leaves)
+        loss = torch.mean(img * img)
+        loss.backward()
+        # a leaf the image does not read has no .grad: JAX's zeros add 0
+        return loss.detach() + sum(torch.sum(v.grad * v.grad) for v in tensors
+                                   if v.grad is not None)
+
+    return leaves, fn
+
+
 def build(s: Settings, device="cuda", scene: Optional[Scene] = None) -> Bench:
     """The route bench.py:99-197 picks for `s`, on the port's renderers
     (module docstring). `scene` replaces `load_scene(s.scene)`; its
@@ -293,19 +317,7 @@ def build(s: Settings, device="cuda", scene: Optional[Scene] = None) -> Bench:
             with torch.no_grad():
                 return torch.sum(render(params))
     else:
-        params = SceneParams(**{f: getattr(params, f).detach().clone().requires_grad_(True)
-                                for f in FIELDS})
-        leaves = [getattr(params, f) for f in FIELDS]
-
-        def fn():
-            for v in leaves:
-                v.grad = None
-            img = render(params)
-            loss = torch.mean(img * img)
-            loss.backward()
-            # a leaf the image does not read has no .grad: JAX's zeros add 0
-            return loss.detach() + sum(torch.sum(v.grad * v.grad) for v in leaves
-                                       if v.grad is not None)
+        params, fn = fwdbwd_frame(render, params)
 
     frames = s.frames if s.frames is not None else (1 if st.instanced else 8)
     if frames < 1 or s.reps < 1:
