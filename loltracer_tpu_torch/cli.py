@@ -36,7 +36,10 @@ the port (bench.py in this package) and prints bench.py's record last.
 `roofline` times the fused kernels (fwd: K1, or K5 for instanced scenes;
 fwdbwd: the training pair with envelope shadows, one backward of
 mean(img ** 2)) and prints utils/roofline.roofline_estimate's record. The
-render flags are those of the JAX package's CLI.
+render flags are those of the JAX package's CLI. `render` and `fit` take
+`--trace DIR`: the command runs under utils/profiling.trace(DIR), whose
+Chrome trace shows the spans of utils/tracing.py over the kernels, and
+DIR/spans.json gets the spans, their summary and the counters.
 """
 
 from __future__ import annotations
@@ -115,6 +118,12 @@ def _add_device_flag(p):
     )
 
 
+def _add_trace_flag(p):
+    p.add_argument("--trace", metavar="DIR",
+                   help="write a Chrome trace with the spans over the kernels, and "
+                   "DIR/spans.json (utils/tracing.py)")
+
+
 def cmd_render(args):
     import numpy as np
     import torch
@@ -155,6 +164,25 @@ def cmd_render(args):
         write_png(out, img)
     print(f"rendered {args.scene} {w}x{h} on {where} in {dt:.2f}s -> {out}")
     return 0
+
+
+def _traced(args):
+    """args.fn(args) under utils/profiling.trace(args.trace); the spans,
+    their summary and the counters to args.trace/spans.json."""
+    import os
+
+    from loltracer_tpu_torch.utils import tracing
+    from loltracer_tpu_torch.utils.profiling import trace
+
+    os.makedirs(args.trace, exist_ok=True)
+    tracing.snapshot(reset=True)
+    with trace(args.trace):
+        rc = args.fn(args)
+    snap = tracing.snapshot()
+    with open(os.path.join(args.trace, "spans.json"), "w") as f:
+        json.dump({"summary": tracing.summary(), "counters": snap["counters"],
+                   "dropped": snap["dropped"], "spans": snap["spans"]}, f, indent=1)
+    return rc
 
 
 def cmd_view(args):
@@ -361,6 +389,7 @@ def main(argv=None):
     )
     _add_device_flag(p)
     _add_render_flags(p)
+    _add_trace_flag(p)
     p.set_defaults(fn=cmd_render)
 
     p = sub.add_parser("view", help="interactive terminal preview")
@@ -379,6 +408,7 @@ def main(argv=None):
     p.add_argument("-o", "--output", help="write fitted render")
     _add_device_flag(p)
     _add_render_flags(p)
+    _add_trace_flag(p)
     p.set_defaults(fn=cmd_fit, aa=True)
 
     p = sub.add_parser("stats", help="march-step histogram / tile occupancy diagnostics")
@@ -415,6 +445,8 @@ def main(argv=None):
     p.set_defaults(fn=cmd_info)
 
     args = parser.parse_args(argv)
+    if getattr(args, "trace", None):
+        return _traced(args)
     return args.fn(args)
 
 

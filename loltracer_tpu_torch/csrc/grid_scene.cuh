@@ -81,7 +81,9 @@
 // for `winner`'s tie test. With
 // kStats (the `_stats` entries only), each thread counts its searches, its
 // fallbacks and the list entries it read, and flush() adds them to
-// grid.stats at the end of the thread.
+// grid.stats at the end of the thread: summed over the warp's threads that
+// flush together, then one atomicAdd a counter by the first of them (the
+// sums are exact: warp_sum adds 16-bit limbs).
 //
 // The device functions also compile as host C++ (tests/test_torch_grid_host.py).
 
@@ -215,13 +217,34 @@ struct GridScene : InstancedScene<L, C, GridScene<L, C, kCount>> {
                                                              : best_row;
   }
 
-  // the kStats counts into grid.stats (once per thread)
+#ifdef __CUDACC__
+  // the sum of v over the threads of `mask`, exact in 64 bits: a 16-bit
+  // limb summed over 32 threads fits the 32 bits of __reduce_add_sync
+  static __device__ __forceinline__ unsigned long long warp_sum(unsigned mask,
+                                                                unsigned long long v) {
+    unsigned long long s = 0;
+#pragma unroll
+    for (int k = 0; k < 64; k += 16)
+      s += (unsigned long long)__reduce_add_sync(mask, (unsigned)(v >> k) & 0xffffu) << k;
+    return s;
+  }
+#endif
+
+  // the kStats counts into grid.stats (once per warp of flushing threads)
   __device__ __forceinline__ void flush() const {
 #ifdef __CUDACC__
     if constexpr (kStats) {
-      atomicAdd(grid.stats, n_search);
-      atomicAdd(grid.stats + 1, n_fallback);
-      atomicAdd(grid.stats + 2, n_read);
+      const unsigned mask = __activemask();
+      const unsigned long long s = warp_sum(mask, n_search);
+      const unsigned long long f = warp_sum(mask, n_fallback);
+      const unsigned long long r = warp_sum(mask, n_read);
+      unsigned lane;
+      asm("mov.u32 %0, %%laneid;" : "=r"(lane));
+      if (lane == (unsigned)(__ffs(mask) - 1)) {
+        atomicAdd(grid.stats, s);
+        atomicAdd(grid.stats + 1, f);
+        atomicAdd(grid.stats + 2, r);
+      }
     }
 #endif
   }

@@ -25,6 +25,14 @@ package's crc32 of the structure's repr) and a file of the JAX package
 (whose state is optax's, in its own classes) are refused with a
 ValueError. The file is read with an unpickler that admits numpy's
 arrays and nothing else.
+
+Spans (utils/tracing.py), their unit the job (`jobs` counts the calls of
+fit_scene) and their index the step: `fit_scene.setup` from the entry to
+the first step (the target's upload, the world and mesh, the trainable
+leaves, Adam, the train step's set-up, the checkpoint's load), then a
+`fit_scene.step` a step over the train step's `step.forward`,
+`step.backward` and `step.update` (parallel/sharded.py), the loss's read
+on the host `fit_scene.loss_read` and each save `fit_scene.checkpoint`.
 """
 
 from __future__ import annotations
@@ -52,6 +60,7 @@ from loltracer_tpu_torch.scene import (
     params_to,
     params_to_numpy,
 )
+from loltracer_tpu_torch.utils import tracing
 
 # Parameter families it usually makes sense to optimize; the camera is
 # excluded (optimizing it against a fixed-camera target is degenerate).
@@ -144,6 +153,9 @@ class FitResult(NamedTuple):
     losses: np.ndarray  # [steps]
 
 
+jobs = 0
+
+
 def _default_mesh(height: int, device: torch.device):
     """A mesh over the most ranks of the world that divide `height`."""
     ensure_world(device)
@@ -177,26 +189,41 @@ def fit_scene(
     `log_every`, prints `[fit] step i loss l` every that many steps and at
     the last, as the JAX package's fit_scene. Raises if `device` is a CUDA
     device and CUDA is not available (it never falls back to the CPU)."""
-    device = resolve_device(device, "fit_scene")
-    target = torch.as_tensor(target).to(device=device, dtype=torch.float32)
-    height, width = int(target.shape[0]), int(target.shape[1])
-    if mesh is not None or dist.is_initialized():
-        return _fit(structure, params, target, steps, learning_rate, trainable, cfg,
-                    mesh or _default_mesh(height, device), project, checkpoint_path,
-                    checkpoint_every, log_every, device)
+    global jobs
+    job, jobs = jobs, jobs + 1
     # the world this call starts (a lone process's world of one) ends with it
+    owns_world = mesh is None and not dist.is_initialized()
     try:
-        return _fit(structure, params, target, steps, learning_rate, trainable, cfg,
-                    _default_mesh(height, device), project, checkpoint_path,
-                    checkpoint_every, log_every, device)
+        with tracing.span("fit_scene.setup", job):
+            device = resolve_device(device, "fit_scene")
+            target = torch.as_tensor(target).to(device=device, dtype=torch.float32)
+            height, width = int(target.shape[0]), int(target.shape[1])
+            params, optimizer, step_fn, start = _setup(
+                structure, params, target, learning_rate, trainable, cfg,
+                mesh or _default_mesh(height, device), project, checkpoint_path, device)
+        losses = []
+        for i in range(start, steps):
+            with tracing.span("fit_scene.step", job, i):
+                loss = step_fn(params, target)
+                with tracing.span("fit_scene.loss_read"):
+                    losses.append(loss.item())
+                if log_every and (i % log_every == 0 or i == steps - 1):
+                    print(f"[fit] step {i} loss {losses[-1]:.6g}")
+                if checkpoint_path is not None and (i + 1) % checkpoint_every == 0:
+                    with tracing.span("fit_scene.checkpoint"):
+                        save_checkpoint(checkpoint_path, i + 1, params,
+                                        optimizer.state_dict()["state"], structure)
+        fitted = SceneParams(**{f: getattr(params, f).detach() for f in FIELDS})
+        return FitResult(params=fitted, losses=np.asarray(losses))
     finally:
-        if dist.is_initialized():
+        if owns_world and dist.is_initialized():
             dist.destroy_process_group()
 
 
-def _fit(structure, params, target, steps, learning_rate, trainable, cfg, mesh, project,
-         checkpoint_path, checkpoint_every, log_every, device) -> FitResult:
-    """fit_scene over `mesh`, target on `device`."""
+def _setup(structure, params, target, learning_rate, trainable, cfg, mesh, project,
+           checkpoint_path, device):
+    """(params, optimizer, step_fn, first step) of fit_scene over `mesh`,
+    target on `device`."""
     height, width = int(target.shape[0]), int(target.shape[1])
     params = trainable_leaves(params_to(params, device=device, dtype=torch.float32), trainable)
     optimizer = masked_optimizer(params, trainable, lr=learning_rate)
@@ -216,17 +243,7 @@ def _fit(structure, params, target, steps, learning_rate, trainable, cfg, mesh, 
                     getattr(params, f).copy_(getattr(restored, f))
             optimizer.load_state_dict({"state": _tree(opt_state, torch.from_numpy),
                                        "param_groups": optimizer.state_dict()["param_groups"]})
-
-    losses = []
-    for i in range(start, steps):
-        losses.append(step_fn(params, target).item())
-        if log_every and (i % log_every == 0 or i == steps - 1):
-            print(f"[fit] step {i} loss {losses[-1]:.6g}")
-        if checkpoint_path is not None and (i + 1) % checkpoint_every == 0:
-            save_checkpoint(checkpoint_path, i + 1, params, optimizer.state_dict()["state"],
-                            structure)
-    fitted = SceneParams(**{f: getattr(params, f).detach() for f in FIELDS})
-    return FitResult(params=fitted, losses=np.asarray(losses))
+    return params, optimizer, step_fn, start
 
 
 CKPT_VERSION = 1

@@ -54,6 +54,7 @@ from loltracer_tpu_torch.render.cuda_scene import PATCH_ROW_BLOCK, TRAIN_ROW_BLO
 from loltracer_tpu_torch.render.torch_renderer import pixel_radius, render_rays
 from loltracer_tpu_torch.render.vecmath import true_div
 from loltracer_tpu_torch.scene import FIELDS, SceneParams, SceneStructure, params_to
+from loltracer_tpu_torch.utils import tracing
 
 # Rows of an instanced patch (`loltracer_tpu/render/pallas_march.py:148` P_H):
 # the row-table block of the instanced training kernels (csrc/fused_fwd.cuh
@@ -388,21 +389,26 @@ def make_sharded_train_step(
     `project`, in place. params are the optimizer's own tensors
     (opt.trainable_leaves and opt.masked_optimizer, whose state each rank
     keeps, replicated); every rank ends the step with the same params,
-    bitwise. Returns the loss before the update (detached)."""
+    bitwise. Returns the loss before the update (detached). Its phases
+    are the spans `step.forward`, `step.backward` and `step.update`
+    (utils/tracing.py)."""
     loss_fn = make_sharded_loss(structure, mesh, height, width, cfg, dtype, fused=fused,
                                 interleave=interleave, balance_params=balance_params,
                                 device=device)
 
     def step(params: SceneParams, target: torch.Tensor) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(params, target)
-        loss.backward()
-        optimizer.step()
-        if project is not None:
-            with torch.no_grad():
-                projected = project(params)
-                for f in FIELDS:
-                    getattr(params, f).copy_(getattr(projected, f))
+        with tracing.span("step.forward"):
+            loss = loss_fn(params, target)
+        with tracing.span("step.backward"):
+            loss.backward()
+        with tracing.span("step.update"):
+            optimizer.step()
+            if project is not None:
+                with torch.no_grad():
+                    projected = project(params)
+                    for f in FIELDS:
+                        getattr(params, f).copy_(getattr(projected, f))
         return loss.detach()
 
     return step

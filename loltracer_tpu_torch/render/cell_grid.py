@@ -23,7 +23,11 @@ then one sort of the unique keys cell * Ns + row and a search for each
 cell's first entry. No atomics: two builds are bitwise equal. It syncs with
 the host a few times (the box, the pairs' count), so it is set-up work, not
 a kernel: this table has no TPU kernel to port. `builds` counts the calls
-of `build_cell_grid` (one a training step, one a regrouped frame).
+of `build_cell_grid` (one a training step, one a regrouped frame),
+`entries` the list entries they built (known on the host once the box
+test's mask has synced). `grid_for` is the span `cell_grid.build`, and
+each read of the card's values on the host a `cell_grid.sync` inside it
+(utils/tracing.py).
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import numpy as np
 import torch
 
 from loltracer_tpu_torch.render.instanced_pack import BOUND_MARGIN, real_sphere_bbox
+from loltracer_tpu_torch.utils import tracing
 
 # The cell size in scene units (the card's sweep of 0.5, 1 and 2 units at
 # instanced:10000, PERF.md, kept the fastest).
@@ -55,6 +60,10 @@ MAX_CELLS = 1 << 24
 CHUNK = 1 << 24
 
 builds = 0
+entries = 0
+
+tracing.register_counters(
+    "cell_grid", lambda: {"cell_grid.builds": builds, "cell_grid.entries": entries})
 
 
 class CellGrid(NamedTuple):
@@ -96,7 +105,11 @@ def reach_for(tables, clamp) -> float:
     BOUND_MARGIN, a float32 value. Inside the AABB a clamped search ends at
     or below the clamp, so it is always certified when clamp <= GRID_CLAMP."""
     rad = tables.spheres[:, 3].detach()
-    r_max = float(torch.where(rad > -1e29, rad, 0.0).amax()) if rad.numel() else 0.0
+    r_max = 0.0
+    if rad.numel():
+        r_max = torch.where(rad > -1e29, rad, 0.0).amax()
+        with tracing.span("cell_grid.sync"):
+            r_max = float(r_max)
     base = GRID_CLAMP if clamp is None else min(float(clamp), GRID_CLAMP)
     return float(np.float32(np.float32(base) + np.float32(r_max) + np.float32(BOUND_MARGIN)))
 
@@ -104,14 +117,15 @@ def reach_for(tables, clamp) -> float:
 def grid_for(tables, clamp) -> CellGrid:
     """The grid of a search under the primary step clamp `clamp` (None:
     exact), at the default cell size: what K5, K5r and K7 search."""
-    return build_cell_grid(tables, reach_for(tables, clamp))
+    with tracing.span("cell_grid.build"):
+        return build_cell_grid(tables, reach_for(tables, clamp))
 
 
 def build_cell_grid(tables, reach: float, cell: float = CELL) -> CellGrid:
     """The CellGrid of `tables.spheres` ([Ns, 4] f32 x y z r, Morton-sorted;
     InstancedTables or march_kernels.EvalTables) for `reach`, on its device
     (module docstring)."""
-    global builds
+    global builds, entries
     builds += 1
     sph = tables.spheres.detach()
     dev, ns = sph.device, sph.shape[0]
@@ -122,7 +136,9 @@ def build_cell_grid(tables, reach: float, cell: float = CELL) -> CellGrid:
     box = tables.bbox.detach().to(torch.float32)
     r_max = torch.where(real, rad, 0.0).amax() if ns else rad.new_zeros(())
     coord = torch.where(torch.isfinite(box), box.abs(), 0.0).amax()
-    bounds = torch.cat([lo - reach32, hi + reach32, r_max[None], coord[None]]).tolist()
+    bounds = torch.cat([lo - reach32, hi + reach32, r_max[None], coord[None]])
+    with tracing.span("cell_grid.sync"):
+        bounds = bounds.tolist()
     r_max, coord = bounds[6], bounds[7]
     tilt = float(np.nextafter(np.float32((math.sqrt(3.0) - 1.0) * r_max), np.float32(np.inf)))
     if not all(map(math.isfinite, bounds[:6])):  # no real sphere
@@ -148,7 +164,8 @@ def build_cell_grid(tables, reach: float, cell: float = CELL) -> CellGrid:
     cum = torch.cumsum(count, 0)
     thr = float(np.float32(reach32 + BOUND_MARGIN))
     keys, s0 = [], 0
-    cum_host = cum.tolist()
+    with tracing.span("cell_grid.sync"):
+        cum_host = cum.tolist()
     while s0 < ns:
         base = cum_host[s0 - 1] if s0 else 0
         s1 = max(s0 + 1, bisect.bisect_right(cum_host, base + CHUNK, lo=s0))
@@ -165,10 +182,11 @@ def build_cell_grid(tables, reach: float, cell: float = CELL) -> CellGrid:
     rows = flat - cells * ns
     # sph[rows], gathered as one 16-byte element a row: on the card the 2-D
     # row gather of 2.4 M rows took 1.4 ms (chip_smoke.py phase 12's profile)
-    entries = sph.contiguous().view(torch.complex128).view(-1)[rows]
+    entries += rows.numel()
+    listed = sph.contiguous().view(torch.complex128).view(-1)[rows]
     return CellGrid(tuple(origin), tuple(dims), cell, reach32, r_max, tilt, coord,
                     starts.to(torch.int32), rows.to(torch.int32),
-                    entries.view(torch.float32).view(-1, 4))
+                    listed.view(torch.float32).view(-1, 4))
 
 
 def _cell_keys(pos, rad, lo_c, span, count, cum, o, cell, dims, thr, s0, s1, total):
@@ -188,8 +206,9 @@ def _cell_keys(pos, rad, lo_c, span, count, cum, o, cell, dims, thr, s0, s1, tot
     q = torch.clamp_min(torch.maximum(blo - c, c - (blo + cell)), 0.0)
     dist = torch.sqrt((q[:, 0] * q[:, 0] + q[:, 1] * q[:, 1]) + q[:, 2] * q[:, 2]) - rad[row]
     keep = dist <= thr
-    cell_id = (iz * dims[1] + iy) * dims[0] + ix
-    return (cell_id * ns + row)[keep]
+    keys = ((iz * dims[1] + iy) * dims[0] + ix) * ns + row
+    with tracing.span("cell_grid.sync"):  # the mask's count
+        return keys[keep]
 
 
 

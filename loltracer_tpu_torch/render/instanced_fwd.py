@@ -24,6 +24,10 @@ on, of an image `full_height` rows tall.
   the tables in SoA order.
 
 `launches` counts kernel launches; the plain version never adds to it.
+`grid_counts(device, rays)` is the accumulator of the counting twin's
+launches that make_instanced_renderer makes on the first recorded frame
+of a recording (utils/tracing.py): int64 [3] on the card, read only by
+`tracing.snapshot()` (`instanced_render.*`), with the rays they covered.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ from loltracer_tpu_torch.render.fused_fwd import _check
 from loltracer_tpu_torch.render.instanced_pack import GROUP, InstancedTables, soa_spheres
 from loltracer_tpu_torch.render.torch_renderer import render_rays
 from loltracer_tpu_torch.scene import SceneParams, SceneStructure, require_instanced
+from loltracer_tpu_torch.utils import tracing
 
 __all__ = [
     "instanced_forward",
@@ -61,6 +66,45 @@ __all__ = [
 ]
 
 launches = 0
+
+# the counting twin's searches, fallbacks and entries read per device, and
+# the rays of the launches that added to them (grid_counts)
+_counts: Dict[torch.device, torch.Tensor] = {}
+_count_rays = 0
+
+
+def grid_counts(device: torch.device, rays: int) -> torch.Tensor:
+    """The accumulator that a counting launch of `rays` rays on `device`
+    adds to (the `stats` of instanced_forward)."""
+    global _count_rays
+    if device not in _counts:
+        _counts[device] = torch.zeros(3, dtype=torch.int64, device=device)
+    _count_rays += rays
+    return _counts[device]
+
+
+def _read_counts() -> Dict[str, float]:
+    if not _counts:
+        return {}
+    searches, fallbacks, read = (sum(v) for v in zip(*(c.tolist() for c in _counts.values())))
+    return {
+        "instanced_render.rays": _count_rays,
+        "instanced_render.searches": searches,
+        "instanced_render.fallbacks": fallbacks,
+        "instanced_render.entries_read": read,
+        "instanced_render.searches_per_ray": searches / max(_count_rays, 1),
+        "instanced_render.entries_per_search": read / max(searches, 1),
+        "instanced_render.fallback_share": fallbacks / max(searches, 1),
+    }
+
+
+def _reset_counts() -> None:
+    global _count_rays
+    _counts.clear()
+    _count_rays = 0
+
+
+tracing.register_counters("instanced_render", _read_counts, _reset_counts)
 
 
 def instanced_forward_reference(

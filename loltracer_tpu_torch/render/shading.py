@@ -24,12 +24,12 @@ import functools
 from typing import Callable, Dict, List, Optional
 
 import torch
-from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from loltracer_tpu_torch.config import RenderConfig
 from loltracer_tpu_torch.render.vecmath import clip, dot, maximum, normalize
 from loltracer_tpu_torch.scene import SceneParams, SceneStructure
+from loltracer_tpu_torch.utils import tracing
 
 _NORMAL_KS = ((1.0, -1.0, -1.0), (-1.0, -1.0, 1.0), (-1.0, 1.0, -1.0), (1.0, 1.0, 1.0))
 
@@ -86,7 +86,9 @@ def shadow_march(
     remat = torch.is_grad_enabled()
     for _ in range(cfg.shadow_steps):
         done = carry[3]
-        if bool(done.all()):
+        with tracing.span("shading.sync"):  # the exit test waits for the card
+            finished = bool(done.all())
+        if finished:
             break
         if live is not None:
             live.append(int((~done).sum()))
@@ -201,12 +203,12 @@ def soft_shadow(
     live = live or {}
     counts = (live.get("shadow"), live.get("probe"))
     if cfg.shadow_grad == "exact":
-        with record_function("lol_shadow_march"):
+        with tracing.span("lol_shadow_march"):
             res, _ = shadow_march(sdf, params, ro, rd, max_dist, cfg, *counts)
         return maximum(res, 0.0)
     if cfg.shadow_grad != "envelope":
         raise ValueError(f"unknown shadow_grad {cfg.shadow_grad!r}")
-    with torch.no_grad(), record_function("lol_shadow_march"):
+    with torch.no_grad(), tracing.span("lol_shadow_march"):
         if shadow_march_fn is not None:
             res, t_star = shadow_march_fn(params, ro, rd, max_dist)
         else:

@@ -31,7 +31,6 @@ import functools
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
-from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from loltracer_tpu_torch.config import DEFAULT_CONFIG, RenderConfig
@@ -42,6 +41,7 @@ from loltracer_tpu_torch.render.sdf import make_scene_sdf, make_scene_sdf_with_i
 from loltracer_tpu_torch.render.shading import get_normal, shade
 from loltracer_tpu_torch.render.vecmath import clip, true_div
 from loltracer_tpu_torch.scene import Scene, SceneParams, SceneStructure, params_to
+from loltracer_tpu_torch.utils import tracing
 
 
 def pixel_radius(params: SceneParams, height: int, cfg: RenderConfig):
@@ -134,16 +134,16 @@ def render_rays(
     if not override:
         march_fn, shadow_fn = _march_kernels(structure, params, rd, cfg, live, march_scene)
     use_aa = cfg.antialias and pixel_rad is not None
-    # the stages' names in a profile (utils/profiling.trace), as the JAX
-    # package's jax.named_scope
-    with record_function("lol_march"):
+    # the stages' spans (utils/tracing.py), named as the JAX package's
+    # jax.named_scope
+    with tracing.span("lol_march"):
         t, obj_id, alpha, _ = intersect_aa(
             sdf, sdf_id, params, ro, rd, cfg, pixel_rad if use_aa else None, live, march_fn
         )
     p = ro + t[..., None] * rd
-    with record_function("lol_normal"):
+    with tracing.span("lol_normal"):
         n = get_normal(sdf, params, p, t, cfg)
-    with record_function("lol_shade"):
+    with tracing.span("lol_shade"):
         color = shade(structure, params, shadow_sdf, p, n, obj_id, cfg, live, shadow_fn)
     if use_aa:
         # blend toward the background (material 0 ambient) in linear space

@@ -1,9 +1,12 @@
 """Profiling and the row-sharding cost model (`loltracer_tpu/utils/profiling.py`).
 
 - `trace(logdir)`: a torch.profiler context whose trace (Chrome JSON, for
-  tensorboard or Perfetto) goes to `logdir`; the differentiable renderer's
-  stages carry the JAX package's scope names (lol_march, lol_normal,
-  lol_shade, lol_shadow_march) and the kernels their own;
+  tensorboard or Perfetto) goes to `logdir` (`cli render` / `cli fit
+  --trace DIR`); while it runs the spans of utils/tracing.py are on, so the
+  trace shows them over the kernels: the differentiable renderer's stages
+  under the JAX package's scope names (lol_march, lol_normal, lol_shade,
+  lol_shadow_march), fit_scene's set-up and step phases, the frame's pack,
+  grid build, host syncs and launch;
 - `march_step_counts` / `shadow_step_counts`: per-pixel march and, at the
   primary hit, per-light shadow-march iteration counts, integer planes
   [H, W] and [L, H, W] (int32);
@@ -12,9 +15,7 @@
 - `band_balance`, `block_row_costs`, `shard_balance`: the deterministic
   cost model of row sharding (a tile costs its worst lane's march steps
   plus each light's worst shadow steps) that drives the LPT deal of
-  parallel/sharded.py;
-- `frame_timer`: running frame-time statistics (the JAX package's copy of
-  the reference's per-frame log); nothing in the package calls it.
+  parallel/sharded.py.
 
 The counts run the plain loops with their own `counts=` hooks
 (render/march.py `march`, render/shading.py `shadow_march`, without the
@@ -41,7 +42,6 @@ its own rows fall in, as the dealt assignments are costed.
 from __future__ import annotations
 
 import contextlib
-import time
 from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
@@ -269,35 +269,3 @@ def shard_balance(
         "efficiency_balance": float(costs.sum() / (n_shards * costs.max())),
     }
 
-
-class frame_timer:
-    """Running frame-time stats in the spirit of main.c:196-204."""
-
-    def __init__(self) -> None:
-        self.frames = 0
-        self.total = 0.0
-        self.min = float("inf")
-        self.max = 0.0
-        self._t0 = 0.0
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        dt = time.perf_counter() - self._t0
-        self.frames += 1
-        self.total += dt
-        self.min = min(self.min, dt)
-        self.max = max(self.max, dt)
-        return False
-
-    @property
-    def avg(self) -> float:
-        return self.total / max(self.frames, 1)
-
-    def log(self) -> str:
-        return (
-            f"frame {self.frames} min {self.min*1e3:.1f}ms "
-            f"max {self.max*1e3:.1f}ms avg {self.avg*1e3:.1f}ms"
-        )

@@ -12,9 +12,7 @@ CPU:
   that do not split into equal tile-row bands): each shard costs the tile
   rows its own rows fall in, worked out from `block_row_costs`;
 - `trace` names the renderer's stages, and `cli stats` prints
-  `march_step_stats`;
-- `frame_timer` keeps JAX's frame count, min, max and avg and logs JAX's
-  line, both timed by one fake clock."""
+  `march_step_stats`."""
 
 import json
 from pathlib import Path
@@ -203,33 +201,3 @@ def test_cli_stats_prints_march_step_stats(capsys):
     assert printed == march_step_stats(scene.structure, scene.params, 24, 40)
     assert printed["tile_waste"] is None  # narrower than a tile: null, not NaN
 
-
-def test_frame_timer_matches_jax(monkeypatch):
-    """The same frames under one fake `time.perf_counter` (both modules
-    read the `time` module's): equal frames, min, max, avg and log line,
-    before the first frame too."""
-    import time
-
-    from loltracer_tpu.utils import profiling as jax_profiling
-    from loltracer_tpu_torch.utils import profiling
-
-    durations = [0.0125, 0.0031, 0.25, 0.0, 0.0417]
-
-    def timed(timer_cls):
-        # enter at t, exit at t + d, the next frame 0.5 s later
-        ticks = iter(np.cumsum([0.0] + [x for d in durations for x in (d, 0.5)]).tolist())
-        monkeypatch.setattr(time, "perf_counter", lambda: next(ticks))
-        timer = timer_cls()
-        states = [(timer.frames, timer.min, timer.max, timer.avg, timer.log())]
-        for _ in durations:
-            with timer as t:
-                assert t is timer
-            states.append((timer.frames, timer.min, timer.max, timer.avg, timer.log()))
-        return states
-
-    ours, ref = timed(profiling.frame_timer), timed(jax_profiling.frame_timer)
-    assert ours == ref
-    frames, lo, hi, avg, log = ours[-1]
-    assert frames == len(durations) and log.startswith(f"frame {frames} ")
-    assert (lo, hi, avg) == pytest.approx((min(durations), max(durations), np.mean(durations)))
-    assert "frame_timer" not in __import__("loltracer_tpu_torch.utils").utils.__all__
