@@ -51,8 +51,13 @@ Phases, one line each:
    and envelope shadows, sphere points trainable, 5 Adam steps, against the
    port's render of scene4 with its sphere points moved, through the
    row-sharded step of parallel/sharded.py on a mesh of one rank (a world
-   of one, made by fit_scene); it must launch each training kernel once a
-   step, each with its row table, and lower the loss. Then one fwd+bwd step of
+   of one, made by fit_scene), under a CUDA-only torch.profiler in a
+   process of its own (`chip_smoke.py --profile-fit`): the device trace
+   must show each training kernel once a step; the step must run its first
+   call eagerly, capture on the second and replay the graph on it and on
+   the other three (`train_step.*`), the wrappers count the eager step's
+   launches, each with its row table (the capture launches nothing, a replay
+   launches without them), and the loss must fall. Then one fwd+bwd step of
    `make_training_renderer` timed (median of 10, CUDA events), its two
    kernels timed apart (lol_train_fwd in turns with its twin), the plain
    versions (once, warm), peak memory; device time by kernel over 5 steps
@@ -327,8 +332,11 @@ Phases, one line each:
    (8, 128)-tile model's for the same deal; the 8-shard rung's slowest
    band's scalar bitwise the training renderer's called directly on its
    table. Then the wall ladder over the machine's world of one (scene4
-   fwdbwd, one rung): 1 + 4 K1r and 4 K2 launches, every step's loss the
-   same (the params restored), its record.
+   fwdbwd, one rung, whose train step is one CUDA graph from its second
+   call): the wrappers count 2 K1r launches (the target and the eager
+   warm-up step) and 1 K2 (the capture launches nothing, the timed steps
+   replay the graph), every step's loss the same (the params restored),
+   its record.
 
 The CLI phases (3, 11) pass `--backend pallas`: `cli render` defaults to
 the differentiable renderer, as the JAX package's does.
@@ -1708,6 +1716,64 @@ def peak_phase(dev, card, peak_built):
                    bound(8.0 * sqrt_lanes, sqrt_ops, ceiling)),
              ms_iters=its["sqrt"], plain_ms_iters=iters, device_ms=dev_ms["sqrt"]),
     ], ceiling, rec["transcendental_weight"]
+
+
+def fit_target(s4, cfg, dev):
+    """Phase 8's target: the port's render of scene4 at MAIN_W x MAIN_H
+    with its sphere points moved by a seeded draw in [-0.1, 0.1]."""
+    import numpy as np
+    import torch
+
+    from loltracer_tpu_torch.render.cuda_renderer import make_cuda_renderer
+
+    gen = np.random.default_rng(0)
+    moved = s4.params.sphere_point + torch.from_numpy(
+        gen.uniform(-0.1, 0.1, tuple(s4.params.sphere_point.shape)).astype(np.float32)).to(dev)
+    return make_cuda_renderer(s4.structure, MAIN_H, MAIN_W, cfg, device=dev)(
+        dataclasses.replace(s4.params, sphere_point=moved))
+
+
+def profile_fit() -> int:
+    """`chip_smoke.py --profile-fit`: phase 8's fit_scene (scene4 AA at
+    MAIN_W x MAIN_H, 5 Adam steps on sphere_point toward fit_target) under
+    a CUDA-only torch.profiler; one JSON line on stdout: the runs of K1r
+    and K2 on the device trace, the wrappers' launch counts, the
+    `train_step` counters and the losses. A process of its own, as
+    --profile-fused: phase 8's profile_steps is the main process's one
+    profiling session."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    require(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    sys.path.insert(0, str(ROOT))
+    from loltracer_tpu_torch.config import RenderConfig
+    from loltracer_tpu_torch.lol import parse_scene_file
+    from loltracer_tpu_torch.opt import fit_scene
+    from loltracer_tpu_torch.render import fused_train
+    from loltracer_tpu_torch.scene import build_scene
+    from loltracer_tpu_torch.utils import tracing
+
+    dev = torch.device("cuda", 0)
+    s4 = build_scene(parse_scene_file(str(EXAMPLES / "scene4.lol")), device=dev)
+    cfg = RenderConfig(shadow_grad="envelope", antialias=True)
+    target = fit_target(s4, cfg, dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fit = fit_scene(s4.structure, s4.params, target, steps=5, learning_rate=3e-2,
+                        trainable=("sphere_point",), cfg=cfg, device=dev)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA and "lol::" in e.name]
+    counts = tracing.counters()
+    print(json.dumps({
+        "ran": {k: sum(k in n for n in names) for k in ("fused_fwd_kernel", "fused_bwd_kernel")},
+        "wrappers": {"lol_train_fwd": fused_train.launches_fwd,
+                     "lol_train_bwd": fused_train.launches_bwd,
+                     "table": fused_train.launches_table},
+        "train_step": {k: counts[f"train_step.{k}"] for k in ("captures", "replays", "eager")},
+        "losses": [float(v) for v in fit.losses]}))
+    return 0
 
 
 def profile_fused() -> int:
@@ -3862,8 +3928,9 @@ def scaling_phase(dev, card) -> dict:
     require(set(rec) == {"devices", "height", "rays_per_s", "efficiency", "mode"}
             and rec["devices"] == 1 and rec["height"] == SCALE_ROWS and rec["efficiency"] == 1.0
             and rec["mode"] == "fwdbwd", f"wall: record {rec}")
-    steps = 1 + reps
-    want_n = {"fused_train.lol_train_fwd": 1 + steps, "fused_train.lol_train_bwd": steps}
+    # the target's K1r and the eager warm-up step's K1r and K2; the step
+    # captures on the first timed call and replays on every timed call
+    want_n = {"fused_train.lol_train_fwd": 2, "fused_train.lol_train_bwd": 1}
     require(detail["launches"] == want_n, f"wall: launches {detail['launches']}, want {want_n}")
     require(len(set(detail["loss"])) == 1, f"wall: the steps' losses {detail['loss']} differ")
     require(rec["rays_per_s"] == round(SCALE_ROWS * w / min(detail["samples_s"]), 1),
@@ -4207,26 +4274,27 @@ def main() -> int:
           f"dcam max |diff| {cam_err:.3g}; two launches bitwise equal")
 
     # --- 8. the training path ------------------------------------------------------
-    gen = np.random.default_rng(0)
-    moved = s4.params.sphere_point + torch.from_numpy(
-        gen.uniform(-0.1, 0.1, tuple(s4.params.sphere_point.shape)).astype(np.float32)).to(dev)
-    target = make_cuda_renderer(s4.structure, MAIN_H, MAIN_W, c_aa, device=dev)(
-        dataclasses.replace(s4.params, sphere_point=moved))
-    fused_fwd.launches = fused_train.launches_fwd = fused_train.launches_bwd = 0
-    fused_train.launches_table = 0
-    fit = fit_scene(s4.structure, s4.params, target, steps=5, learning_rate=3e-2,
-                    trainable=("sphere_point",), cfg=c_aa, device=dev)
-    fwd_launches, bwd_launches = fused_train.launches_fwd, fused_train.launches_bwd
-    fit_table = fused_train.launches_table
-    require(fwd_launches == 5 and bwd_launches == 5 and fit_table == 10,
-            f"fit_scene (5 steps) launched lol_train_fwd {fwd_launches}, lol_train_bwd "
-            f"{bwd_launches} times, {fit_table} of them with a row table")
-    losses = [float(v) for v in fit.losses]
+    target = fit_target(s4, c_aa, dev)
+    fit8 = json.loads(run_profile("--profile-fit"))
+    ran, graph, wrapped = fit8["ran"], fit8["train_step"], fit8["wrappers"]
+    fwd_launches, bwd_launches = ran["fused_fwd_kernel"], ran["fused_bwd_kernel"]
+    fit_table = wrapped["table"]
+    require(fwd_launches == 5 and bwd_launches == 5,
+            f"fit_scene (5 steps): the device trace ran lol_train_fwd {fwd_launches}, "
+            f"lol_train_bwd {bwd_launches} times")
+    require(graph == {"captures": 1, "replays": 4, "eager": 1},
+            f"fit_scene (5 steps): train_step counted {graph}")
+    require(wrapped["lol_train_fwd"] == wrapped["lol_train_bwd"] == 1 and fit_table == 2,
+            f"fit_scene (5 steps): the wrappers counted {wrapped} launches")
+    losses = fit8["losses"]
     require(all(map(math.isfinite, losses)), f"non-finite loss: {losses}")
     require(losses[-1] < losses[0], f"the loss did not fall: {losses}")
     print(f"[8] main path: fit_scene scene4 AA {MAIN_W}x{MAIN_H}, 5 Adam steps on "
-          f"sphere_point through the sharded step on a mesh of one rank -> lol_train_fwd "
-          f"x{fwd_launches}, lol_train_bwd x{bwd_launches}, each with the row table; "
+          f"sphere_point through the sharded step on a mesh of one rank -> the device trace "
+          f"ran lol_train_fwd x{fwd_launches}, lol_train_bwd x{bwd_launches}; train_step "
+          f"captures {graph['captures']}, replays {graph['replays']}, eager {graph['eager']}; "
+          f"the wrappers launched lol_train_fwd x{wrapped['lol_train_fwd']}, lol_train_bwd "
+          f"x{wrapped['lol_train_bwd']} (the eager step), {fit_table} with the row table; "
           f"losses {losses}")
 
     render = fused_train.make_training_renderer(s4.structure, MAIN_H, MAIN_W, c_aa, device=dev)
@@ -4901,6 +4969,8 @@ if __name__ == "__main__":
         sys.exit(profile_peak(sys.argv[2:]))
     if sys.argv[1:] == ["--profile-fused"]:
         sys.exit(profile_fused())
+    if sys.argv[1:] == ["--profile-fit"]:
+        sys.exit(profile_fit())
     if sys.argv[1:] == ["--profile-objects"]:
         sys.exit(profile_objects())
     if sys.argv[1:2] == ["--objects-rank"]:

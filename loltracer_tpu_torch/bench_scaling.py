@@ -69,7 +69,10 @@ inside); `efficiency = rays/s / (rays/s at one device * n)`. Rank 0
 prints and writes. Nothing falls back: on the card without CUDA it
 raises, one card gives one rung, and a kernel of the path that did not
 launch fails the run; the CPU (gloo, the kernels' plain twins through
-`fused="interpret"`) runs only under SCALE_PLATFORM=cpu.
+`fused="interpret"`) runs only under SCALE_PLATFORM=cpu. On one card the
+fwdbwd step is one CUDA graph from its second call (parallel/sharded.py):
+its `launches` are the wrappers' counts, the target's K1r and the
+warm-up step's K1r and K2, and the timed steps replay the graph.
 """
 
 from __future__ import annotations

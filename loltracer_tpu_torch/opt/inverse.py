@@ -30,9 +30,11 @@ Spans (utils/tracing.py), their unit the job (`jobs` counts the calls of
 fit_scene) and their index the step: `fit_scene.setup` from the entry to
 the first step (the target's upload, the world and mesh, the trainable
 leaves, Adam, the train step's set-up, the checkpoint's load), then a
-`fit_scene.step` a step over the train step's `step.forward`,
-`step.backward` and `step.update` (parallel/sharded.py), the loss's read
-on the host `fit_scene.loss_read` and each save `fit_scene.checkpoint`.
+`fit_scene.step` a step over the train step's `step.forward` and
+`step.backward` (an eager step), or `step.capture` and `step.replay` (the
+step as one CUDA graph), and `step.update` (parallel/sharded.py), the
+loss's read on the host `fit_scene.loss_read` and each save
+`fit_scene.checkpoint`.
 """
 
 from __future__ import annotations

@@ -34,12 +34,41 @@ on the rank's rows; instanced structures in checkpointed 16-row bands).
 takes the kernels' plain twins, which run on CPU tensors (the counterpart
 of Pallas interpret mode); "off" the differentiable renderer. On CUDA
 tensors a kernel that fails to build or launch raises: nothing falls back.
+
+The train step as one CUDA graph (`graphed_step`): where the rank renders
+through K1r / K2 (a compiled structure, envelope shadows, the fused tier)
+on the card and the mesh has one rank, the step runs its first call with
+given params and target eagerly, captures the loss and its backward on the
+second and replays that graph on every later call, so the host launches
+one graph in place of the forward's and backward's glue. The graph is
+keyed on the address, shape, strides, dtype and requires_grad of every
+params field and of the target: a call with other tensors runs eagerly
+once and then captures anew. The optimizer's step and `project` stay
+eager after the replay (their hooks fire once a step). Everything else
+(instanced structures, whose step builds a cell grid on the host; the
+differentiable renderer; CPU tensors; meshes of more than one rank) runs
+every step eagerly. The counters `train_step.captures`, `.replays` and
+`.eager` (utils/tracing.py) count the steps of each kind. K1r's and K2's
+wrappers count the launches they make (render/fused_train.py): an eager
+step's, not the capture's, which launches nothing; a replay launches the
+captured kernels without them, so a device trace, not those counts, shows
+each replay's K1r and K2.
+
+Two things differ from an eager step for the caller. From the capture on,
+each leaf's `.grad` is the graph's output, one tensor that every replay
+overwrites: a caller who keeps a step's gradient clones it. And the last
+graph captured on a device, with its memory pool (its forward's and
+backward's tensors), stays alive after its train step is gone, until the
+process ends or the next capture there takes the pool over
+(`_last_graph`): 0.82 GB reserved in all after five scene4 fits at
+1920x1080 on an H100 (chip_tests/test_train_graph_chip.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple, Optional
+import weakref
+from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -60,6 +89,16 @@ from loltracer_tpu_torch.utils import tracing
 # the row-table block of the instanced training kernels (csrc/fused_fwd.cuh
 # kPatchRowBlock), as TRAIN_ROW_BLOCK (8) is the compiled ones'.
 P_H = PATCH_ROW_BLOCK
+
+# the train steps of each kind, since the process started (module docstring)
+graph_captures = 0
+graph_replays = 0
+eager_steps = 0
+
+tracing.register_counters(
+    "train_step", lambda: {"train_step.captures": graph_captures,
+                           "train_step.replays": graph_replays,
+                           "train_step.eager": eager_steps})
 
 
 class _Shard(NamedTuple):
@@ -171,21 +210,38 @@ def _row_permutation(structure, height, width, n, cfg, interleave, balance_param
     return interleave_rows(height, n, G, block_costs=bc)
 
 
+def _fused_tier(cfg, fused, device) -> bool:
+    """Whether a rank renders through the fused training tier (module
+    docstring); cfg.march_backend resolved for `device`."""
+    if fused == "off" or cfg.shadow_grad != "envelope":
+        return False
+    if fused == "auto":
+        return cfg.march_backend == "pallas"
+    if fused == "interpret":
+        if device.type != "cpu":
+            raise ValueError("fused='interpret' runs the kernels' plain twins on CPU tensors; "
+                             "on the card 'auto' launches the kernels")
+        return True
+    raise ValueError(f"unknown fused mode {fused!r}")
+
+
+def graphed_step(structure: SceneStructure, cfg: RenderConfig, fused: str, device, ranks: int
+                 ) -> bool:
+    """Whether make_sharded_train_step replays its forward and backward as
+    one CUDA graph (module docstring): on a CUDA device, over a mesh of one
+    rank, for a compiled structure through the fused tier (K1r / K2).
+    cfg.march_backend resolved for `device`, as the step resolves it."""
+    device = torch.device(device)
+    return (device.type == "cuda" and ranks == 1 and not structure.instanced
+            and _fused_tier(cfg, fused, device))
+
+
 def _fused_row_renderer(structure, cfg, n, height, width, fused, device):
     """`(params, rows) -> [len(rows), W, 3]` through the fused training
     tier, or None for the differentiable renderer (module docstring). The
     row table is the rank's rows[::G]."""
-    if fused == "off" or cfg.shadow_grad != "envelope":
+    if not _fused_tier(cfg, fused, device):
         return None
-    if fused == "auto":
-        if resolve_march_backend(cfg.march_backend, torch.empty(0, device=device)) != "pallas":
-            return None
-    elif fused == "interpret":
-        if device.type != "cpu":
-            raise ValueError("fused='interpret' runs the kernels' plain twins on CPU tensors; "
-                             "on the card 'auto' launches the kernels")
-    else:
-        raise ValueError(f"unknown fused mode {fused!r}")
     G = row_granularity(structure)
     if structure.instanced:
         from loltracer_tpu_torch.render.instanced_train import (
@@ -278,13 +334,15 @@ def _replicated(params: SceneParams, shard: _Shard) -> SceneParams:
 
 class _Sharding(NamedTuple):
     """What a sharded function needs: the shard, the device, this rank's
-    rows, the inverse of the deal (None: no deal), and the row renderer."""
+    rows, the inverse of the deal (None: no deal), the row renderer, and
+    the config with its march backend resolved."""
 
     shard: _Shard
     device: torch.device
     rows: torch.Tensor
     inv: Optional[torch.Tensor]
     render_rows: Callable
+    cfg: RenderConfig
 
 
 def _sharding(structure, mesh, height, width, cfg, dtype, fused, interleave, balance_params,
@@ -304,7 +362,8 @@ def _sharding(structure, mesh, height, width, cfg, dtype, fused, interleave, bal
     r = height // shard.size
     rows = torch.as_tensor(perm[shard.index * r:(shard.index + 1) * r], device=device)
     return _Sharding(shard, device, rows,
-                     None if inv is None else torch.as_tensor(inv, device=device), render_rows)
+                     None if inv is None else torch.as_tensor(inv, device=device), render_rows,
+                     cfg)
 
 
 def make_sharded_renderer(
@@ -358,6 +417,11 @@ def make_sharded_loss(
     (module docstring)."""
     sh = _sharding(structure, mesh, height, width, cfg, dtype, fused, interleave, balance_params,
                    device, "make_sharded_loss")
+    return _sharded_loss(sh, height, width)
+
+
+def _sharded_loss(sh: _Sharding, height: int, width: int) -> Callable:
+    """make_sharded_loss's function over the sharding `sh`."""
 
     def loss(params: SceneParams, target: torch.Tensor) -> torch.Tensor:
         params = _replicated(params_to(params, device=sh.device, dtype=torch.float32), sh.shard)
@@ -389,19 +453,46 @@ def make_sharded_train_step(
     `project`, in place. params are the optimizer's own tensors
     (opt.trainable_leaves and opt.masked_optimizer, whose state each rank
     keeps, replicated); every rank ends the step with the same params,
-    bitwise. Returns the loss before the update (detached). Its phases
-    are the spans `step.forward`, `step.backward` and `step.update`
-    (utils/tracing.py)."""
-    loss_fn = make_sharded_loss(structure, mesh, height, width, cfg, dtype, fused=fused,
-                                interleave=interleave, balance_params=balance_params,
-                                device=device)
+    bitwise. Returns the loss before the update (detached; a tensor of its
+    own, which later steps do not overwrite). Where `graphed_step` holds,
+    the forward and backward run as one CUDA graph from the second call
+    on (module docstring): from then on the leaves' `.grad` are buffers
+    that each step overwrites (clone one to keep it). Its phases are the
+    spans `step.forward` and `step.backward` (an eager step),
+    `step.capture` (the graph's capture) or `step.replay`, and
+    `step.update` (utils/tracing.py)."""
+    sh = _sharding(structure, mesh, height, width, cfg, dtype, fused, interleave, balance_params,
+                   device, "make_sharded_train_step")
+    loss_fn = _sharded_loss(sh, height, width)
+    graphs = graphed_step(structure, sh.cfg, fused, sh.device, sh.shard.size)
+    device = sh.device
+    if graphs and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    graph: Optional[_StepGraph] = None
+    warm = None  # the key of the last eager step
 
-    def step(params: SceneParams, target: torch.Tensor) -> torch.Tensor:
+    def eager(params: SceneParams, target: torch.Tensor) -> torch.Tensor:
+        global eager_steps
+        eager_steps += 1
         optimizer.zero_grad(set_to_none=True)
         with tracing.span("step.forward"):
             loss = loss_fn(params, target)
         with tracing.span("step.backward"):
             loss.backward()
+        return loss.detach()
+
+    def step(params: SceneParams, target: torch.Tensor) -> torch.Tensor:
+        nonlocal graph, warm
+        key = _graph_key(params, target, device) if graphs else None
+        if key is not None and graph is not None and graph.key == key:
+            loss = graph.replay(params)
+        elif key is not None and key == warm:
+            graph = None  # the next capture may share its pool
+            graph = _StepGraph(key, loss_fn, optimizer, params, target, device)
+            loss = graph.replay(params)
+        else:
+            warm = key
+            loss = eager(params, target)
         with tracing.span("step.update"):
             optimizer.step()
             if project is not None:
@@ -409,6 +500,77 @@ def make_sharded_train_step(
                     projected = project(params)
                     for f in FIELDS:
                         getattr(params, f).copy_(getattr(projected, f))
-        return loss.detach()
+        return loss
 
     return step
+
+
+def _graph_key(params: SceneParams, target, device: torch.device) -> Optional[tuple]:
+    """What a captured step reads: the address, shape, strides, dtype and
+    requires_grad of every params field and of the target; None when one
+    is not a tensor on `device` (its copy there cannot be captured)."""
+    key = []
+    for t in [getattr(params, f) for f in FIELDS] + [target]:
+        if not isinstance(t, torch.Tensor) or t.device != device:
+            return None
+        key.append((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype, t.requires_grad))
+    return tuple(key)
+
+
+# Per device, the last graph captured there, a weak reference to the
+# _StepGraph that replays it, and the stream it was captured on. Once that
+# _StepGraph is gone (its train step died or dropped it) the graph never
+# runs again, and the next capture shares its memory pool, on the same
+# stream (the allocator reuses a free block only on the stream that
+# allocated it): fit_scene's jobs, one graph each, capture into the blocks
+# their predecessor freed and neither free nor allocate device memory (a
+# torch.cuda.empty_cache() a job stalled jobs by 0.1–0.3 s at times). A
+# pool whose graph can still replay is never shared: its replays write its
+# free blocks.
+_last_graph: Dict[torch.device, tuple] = {}
+
+
+class _StepGraph:
+    """The loss and its backward of one train step, captured as a CUDA
+    graph. Its static outputs are the loss and the `.grad` of each params
+    leaf that got one; every replay overwrites them, and no step zeroes
+    them in between. Its memory pool is its own, or a dead graph's
+    (`_last_graph`)."""
+
+    def __init__(self, key, loss_fn, optimizer, params, target, device):
+        global graph_captures
+        optimizer.zero_grad(set_to_none=True)  # backward then allocates them in the graph
+        last = _last_graph.get(device)
+        if last is not None and last[1]() is None:
+            pool, stream = last[0].pool(), last[2]
+        else:
+            pool, stream = None, torch.cuda.Stream(device)
+        self.graph = torch.cuda.CUDAGraph()
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with tracing.span("step.capture"), torch.cuda.stream(stream):
+            self.graph.capture_begin(pool=pool)
+            try:
+                loss = loss_fn(params, target)
+                loss.backward()
+            finally:
+                self.graph.capture_end()
+        torch.cuda.current_stream(device).wait_stream(stream)
+        self.key = key
+        self.loss = loss.detach()
+        self.grads = [(f, getattr(params, f).grad) for f in FIELDS
+                      if getattr(params, f).grad is not None]
+        _last_graph[device] = (self.graph, weakref.ref(self), stream)
+        graph_captures += 1
+
+    def replay(self, params: SceneParams) -> torch.Tensor:
+        """One step's loss and gradients: the graph launched, the leaves'
+        `.grad` its outputs again (a caller may have set them to None)."""
+        global graph_replays
+        with tracing.span("step.replay"):
+            self.graph.replay()
+        for f, g in self.grads:
+            leaf = getattr(params, f)
+            if leaf.grad is not g:
+                leaf.grad = g
+        graph_replays += 1
+        return self.loss.clone()

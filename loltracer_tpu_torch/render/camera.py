@@ -31,8 +31,7 @@ def camera_pack(
     camera-derived scalars the kernel consumes. `row0` is the first image
     row the call renders."""
     d = normalize(params.cam_direction.to(dtype))
-    upg = torch.tensor([0.0, 1.0, 0.0], dtype=dtype, device=d.device)
-    rt = normalize(cross(d, upg))
+    rt = normalize(_cross_world_up(d))
     up = cross(rt, d)
     half = params.cam_fov.to(dtype) / 2.0
     hh = torch.atan(half) if cfg.atan_fov else torch.tan(half)
@@ -40,6 +39,18 @@ def camera_pack(
     pixel_rad = true_div(cfg.aa_width * hh, height)
     tail = torch.stack([hw, hh, pixel_rad, torch.full_like(hh, float(row0))])
     return torch.cat([params.cam_point.to(dtype), rt, up, d, tail]).contiguous()
+
+
+def _cross_world_up(d: torch.Tensor) -> torch.Tensor:
+    """cross(d, (0, 1, 0)): vecmath.cross's terms with the up vector's
+    entries as Python numbers, so the same products and differences,
+    bitwise, with no tensor copied from the host (which a CUDA graph
+    cannot capture)."""
+    return torch.stack([
+        d[..., 1] * 0.0 - d[..., 2] * 1.0,
+        d[..., 2] * 0.0 - d[..., 0] * 0.0,
+        d[..., 0] * 1.0 - d[..., 1] * 0.0,
+    ], dim=-1)
 
 
 def launch_rows(

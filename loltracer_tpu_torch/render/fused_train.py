@@ -30,7 +30,10 @@ launches of either kernel that read a row table.
 
 A wrapper given CUDA tensors launches its kernel or raises; nothing falls
 back to the plain version or to the CPU. `launches_fwd` and `launches_bwd`
-count kernel launches (the reduce is part of the backward's one count).
+count kernel launches (the reduce is part of the backward's one count). A
+call inside a CUDA graph's capture launches nothing and is not counted; the
+graph's replays launch the captured kernels without a wrapper call, and
+parallel/sharded.py counts them as `train_step.replays`.
 """
 
 from __future__ import annotations
@@ -372,11 +375,13 @@ def train_forward(
             cam.data_ptr(), fields.data_ptr(), img.data_ptr(), res.data_ptr(),
             height, full_height, width, tab, stream,
         )
+        captured = torch.cuda.is_current_stream_capturing()
     if rc != 0:
         raise RuntimeError(f"{TRAIN_FWD} launch failed: cudaError {rc}")
-    global launches_fwd, launches_table
-    launches_fwd += 1
-    launches_table += rowtab is not None
+    if not captured:
+        global launches_fwd, launches_table
+        launches_fwd += 1
+        launches_table += rowtab is not None
     return img, res
 
 
@@ -422,9 +427,11 @@ def train_backward(
         rc = getattr(lib, TRAIN_REDUCE)(partials.data_ptr(), blocks, grads.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(f"{TRAIN_REDUCE} launch failed: cudaError {rc}")
-    global launches_bwd, launches_table
-    launches_bwd += 1
-    launches_table += rowtab is not None
+        captured = torch.cuda.is_current_stream_capturing()
+    if not captured:
+        global launches_bwd, launches_table
+        launches_bwd += 1
+        launches_table += rowtab is not None
     return grads[:CAM_SIZE], grads[CAM_SIZE:]
 
 
