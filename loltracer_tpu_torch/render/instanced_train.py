@@ -93,6 +93,7 @@ from loltracer_tpu_torch.render.sdf import (
     sphere_argmin,
 )
 from loltracer_tpu_torch.scene import SceneParams, SceneStructure, params_to, require_instanced
+from loltracer_tpu_torch.utils import tracing
 
 __all__ = [
     "InstancedTrainRender",
@@ -418,15 +419,18 @@ class InstancedTrainRender(torch.autograd.Function):
     grid that forward builds from the step's tables (the plain versions,
     on CPU tensors, ignore it). ids, groups and bbox are the tables'
     search structures, and rowtab the row table: not differentiated (a
-    zero cotangent)."""
+    zero cotangent). Its forward is the span `instanced_train.forward`
+    (the grid's build and K5r's launch), its backward
+    `instanced_train.backward` (K6's launch; utils/tracing.py)."""
 
     @staticmethod
     def forward(ctx, cam, fields, spheres, ids, groups, bbox, structure, cfg, height, width,
                 full_height=None, rowtab=None):
-        tables = InstancedTables(spheres, ids, groups, bbox)
-        grid = grid_for(tables, cfg.step_clamp)  # one grid a step, for K5r and K6
-        img, res = instanced_train_forward(structure, cfg, cam, fields, tables, height, width,
-                                           full_height, grid=grid, rowtab=rowtab)
+        with tracing.span("instanced_train.forward"):
+            tables = InstancedTables(spheres, ids, groups, bbox)
+            grid = grid_for(tables, cfg.step_clamp)  # one grid a step, for K5r and K6
+            img, res = instanced_train_forward(structure, cfg, cam, fields, tables, height,
+                                               width, full_height, grid=grid, rowtab=rowtab)
         ctx.save_for_backward(cam, fields, spheres, ids, groups, bbox, res, *_opt(rowtab))
         ctx.structure, ctx.cfg, ctx.grid, ctx.full_height = structure, cfg, grid, full_height
         return img
@@ -434,11 +438,12 @@ class InstancedTrainRender(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         cam, fields, spheres, ids, groups, bbox, res, *rowtab = ctx.saved_tensors
-        dcam, dfields, dsph = instanced_train_backward(
-            ctx.structure, ctx.cfg, cam, fields, InstancedTables(spheres, ids, groups, bbox),
-            res, ct.contiguous(), ctx.full_height, grid=ctx.grid,
-            rowtab=rowtab[0] if rowtab else None,
-        )
+        with tracing.span("instanced_train.backward"):
+            dcam, dfields, dsph = instanced_train_backward(
+                ctx.structure, ctx.cfg, cam, fields, InstancedTables(spheres, ids, groups, bbox),
+                res, ct.contiguous(), ctx.full_height, grid=ctx.grid,
+                rowtab=rowtab[0] if rowtab else None,
+            )
         ctx.grid = None  # the step's grid goes with its backward
         return (dcam, dfields, dsph) + (None,) * 9
 

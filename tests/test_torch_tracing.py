@@ -13,6 +13,10 @@ the CPU at tiny sizes:
   each over `step.forward`, `step.backward`, `step.update` and
   `fit_scene.loss_read`, and a save's `fit_scene.checkpoint`; path A's
   stages and the shadow loop's `shading.sync`s inside the forward;
+- an instanced fit step through K5r / K6's plain twins (`fused="interpret"`):
+  `instanced_train.forward` inside `step.forward`, `instanced_train.backward`
+  inside `step.backward`, and the loss and gradients bitwise the same step's
+  with spans off;
 - `cell_grid.grid_for`: one `cell_grid.build` over its `cell_grid.sync`s,
   and `cell_grid.entries` grows by the grid's entries;
 - K5's grid counts read out (`instanced_render.*`) and reset;
@@ -22,6 +26,7 @@ the CPU at tiny sizes:
 The card's facts (a CUDA-only session, `render.launch` over its kernel's
 launch, the counting twin) are chip_tests/test_tracing_chip.py's."""
 
+import contextlib
 import json
 import threading
 import time
@@ -202,6 +207,51 @@ def test_fit_scene_spans(tmp_path):
     assert by["shading.sync"] and all(s["parent"] in shadow_ids for s in by["shading.sync"])
     summ = tracing.summary()
     assert summ["fit_scene.step"]["count"] == 3 and summ["fit_scene.checkpoint"]["count"] == 1
+
+
+def test_instanced_fit_step_spans(monkeypatch):
+    import functools
+
+    from torch.optim.optimizer import register_optimizer_step_pre_hook
+
+    from loltracer_tpu_torch.config import RenderConfig
+    from loltracer_tpu_torch.opt import fit_scene, inverse
+    from loltracer_tpu_torch.scenes import instanced_spheres
+
+    monkeypatch.setattr(inverse, "make_sharded_train_step",
+                        functools.partial(inverse.make_sharded_train_step, fused="interpret"))
+    sc = instanced_spheres(n=24, seed=3, extent=6.0, device="cpu")
+    cfg = RenderConfig(shadow_grad="envelope", step_clamp=2.0, **TINY)
+    target = torch.full((16, 8, 3), 0.3)
+
+    def step(record: bool):
+        grads = []
+        hook = register_optimizer_step_pre_hook(
+            lambda opt, *_: grads.append([None if p.grad is None else p.grad.clone()
+                                          for p in opt.param_groups[0]["params"]]))
+        try:
+            with tracing.recording() if record else contextlib.nullcontext():
+                r = fit_scene(sc.structure, sc.params, target, steps=1, cfg=cfg, device="cpu")
+        finally:
+            hook.remove()
+        return r, grads[0]
+
+    plain, plain_grads = step(False)
+    assert tracing.snapshot()["spans"] == []
+    traced, traced_grads = step(True)
+    assert plain.losses == traced.losses
+    assert len(plain_grads) == len(traced_grads)
+    for a, b in zip(plain_grads, traced_grads):
+        assert (a is None and b is None) or torch.equal(a, b)
+    assert any(g is not None and g.abs().sum() > 0 for g in traced_grads)
+    for f in ("sphere_point", "sphere_radius", "light_point"):
+        assert torch.equal(getattr(plain.params, f), getattr(traced.params, f))
+    by = _by_name(tracing.snapshot()["spans"])
+    (fwd,), (bwd,) = by["step.forward"], by["step.backward"]
+    (ifwd,), (ibwd,) = by["instanced_train.forward"], by["instanced_train.backward"]
+    assert ifwd["parent"] == fwd["id"] and ibwd["parent"] == bwd["id"]
+    assert fwd["start_ns"] <= ifwd["start_ns"] <= ifwd["end_ns"] <= fwd["end_ns"]
+    assert bwd["start_ns"] <= ibwd["start_ns"] <= ibwd["end_ns"] <= bwd["end_ns"]
 
 
 def test_grid_build_spans_and_entries():
