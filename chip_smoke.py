@@ -143,7 +143,16 @@ Phases, one line each:
    T.npy --steps 3 -o ...` (AA, exact shadows; sphere points trainable,
    lr 3e-2) against scene4 with its sphere points moved, rendered by
    lol_render_fused at 1920x1080: exactly one K3 launch per step and one
-   for `-o`, no K4; the three losses fall; peak memory;
+   for `-o`, one K4x a light in each and one K4xb a light a step (the
+   exact shadow's kernels), no K4; the three losses fall; peak memory.
+   Then K4x / K4xb against their plain versions on each light's shadow
+   rays of scene4 AA at 960x540 and 1920x1080 (`exact_checks`): K4x's res
+   bitwise the loop's, K4's and its twin's; K4xb's g_ro / g_rd within
+   1e-4 of the largest on all but 4 rays, its summed g_fields within 4e-6
+   of the float64 total of the plain version's float32 terms in units of
+   their magnitudes (a launch missing one tile's rays outside it), two
+   launches bitwise; CUDA events, the plain versions once, SDF evaluations a ray,
+   the bounds and ptxas; their `kernels` entries take phase 19's launches;
 20. main path B: `render_image` of scene4 @1920x1080 with AA and envelope
    shadows under autograd: one K3 and two K4 launches; the image within
    the phase-2 rule of lol_render_fused's; MSE gradients, the penumbra band
@@ -1003,6 +1012,209 @@ def march_ab() -> int:
     return 0
 
 
+def adjoint_ops(structure) -> int:
+    """FP32 operations of one generated Scene::dist_bwd past its forward
+    (which sdf_ops counts), as sdf_ops counts them: a sphere's reverse 17,
+    a box's 46, a plane's 2, a smooth-min's 36 on top of its children's,
+    and 7 for each min over objects (its forward and min_bwd)."""
+    def node(n):
+        kind = n[0]
+        if kind == "smin":
+            return 36 + node(n[2]) + node(n[3])
+        return {"sphere": 17, "box": 46, "plane": 2}[kind]
+
+    return sum(node(n) for n in structure.objects) + 7 * (len(structure.objects) - 1)
+
+
+EXACT_W, EXACT_H = 960, 540  # the scene4-fit-exact-540p cell's frame
+# K4xb against its plain version: each ray's g_ro, g_rd within 1e-4 of the
+# largest on all but EXACT_RAYS_OFF rays; the summed g_fields within
+# EXACT_FIELDS_TOL of the float64 total of the plain version's float32
+# terms, in units of their magnitudes, at least EXACT_MASS_FLOOR of the
+# largest (chip_tests/test_exact_shadow_chip.py's limits and why)
+EXACT_RAYS_OFF, EXACT_FIELDS_TOL, EXACT_MASS_FLOOR = 4, 4e-6, 1e-6
+
+
+def exact_checks(s4, cfg, ceiling, sqrt_slots):
+    """Phase 19's check of the exact soft shadow's kernels K4x
+    (`lol_exact_shadow`) and K4xb (`lol_exact_shadow_bwd` with K2's
+    reduce) on scene4 AA, per light on the shadow rays of K3's shading
+    points at the exact cell's 960x540 and at MAIN_W x MAIN_H: K4x's res
+    bitwise the plain loop's, K4's and its shadow_cull=False twin's; for a
+    seeded signed cotangent, K4xb's g_ro and g_rd within 1e-4 of the
+    largest of exact_shadow_reference's on all but EXACT_RAYS_OFF rays, its
+    summed g_fields within EXACT_FIELDS_TOL of the reference's float64
+    total in units of its terms' magnitudes (beside it the float32
+    reference's own sums, and a launch with the 32 x 4 tile of the largest
+    g_ro left out, which must fail the limit), two launches bitwise equal; CUDA
+    events (median of
+    10) of K4, K4x and K4xb, the plain loop's forward and the float32
+    reference sweep once; SDF evaluations a ray (the plain loop's counts,
+    culled rays started done); the bounds by operations (K4x as K4:
+    segment_lit on every ray, E + 17 a step; K4xb segment_lit, the march
+    again, E + 17, and the sweep, E + adjoint_ops + 30, a step) and
+    sqrt-weighted; ptxas' registers and spills. Returns {"build_s",
+    "ptxas", "sizes": {"WxH": [one dict a light]}}."""
+    import torch
+
+    from loltracer_tpu_torch.render import march_kernels as mk
+    from loltracer_tpu_torch.render.camera import camera_rays
+    from loltracer_tpu_torch.render.cuda_scene import packed_size
+
+    st = s4.structure
+    twin = cfg.replace(shadow_cull=False)
+    t0 = time.perf_counter()
+    lib = mk.exact_library(st, cfg)
+    out = {"build_s": time.perf_counter() - t0, "sizes": {}}
+    out["ptxas"] = [
+        f"{'exact_shadow_bwd_kernel' if 'bwd' in m.group(1) else 'exact_shadow_kernel'}: "
+        f"{m.group(3)}, {m.group(2)}" for m in re.finditer(
+            r"Compiling entry function '(\w*exact_shadow\w*)'.*?"
+            r"(\d+ bytes stack frame[^\n]*).*?(Used \d+ registers)", lib.log, re.S)]
+    E, S, A = sdf_ops(st), sdf_sqrts(st), adjoint_ops(st)
+    seg_ops, seg_sqrts = seg_cost(st)
+    small = 4 * packed_size(st)
+    scene = mk.pack_march_scene(st, s4.params)
+    entry_x, entry_twin = mk._exact_entry(st, cfg), mk._exact_entry(st, twin)
+    for w, h in ((EXACT_W, EXACT_H), (MAIN_W, MAIN_H)):
+        ro, rd = camera_rays(s4.params, h, w, cfg)
+        m = mk.march_values(st, cfg, ro, rd, scene)
+        t_sh = torch.where(m.t < cfg.max_dist, m.t, m.t_close)
+        lights, rays = [], h * w
+        for li, (so, ld, dist) in enumerate(shadow_rays(s4.params, ro, rd, t_sh, cfg)):
+            live = []
+            loop = mk.shadow_values_reference(st, cfg, so, ld, dist, scene, live=live)[0]
+            k4x = mk._launch(entry_x, st, scene, so, ld, dist, 1)[0]
+            require(torch.equal(k4x, loop), f"K4x light {li} at {w}x{h}: not bitwise the loop "
+                                            f"({int((k4x != loop).sum())} rays differ)")
+            require(torch.equal(k4x, mk.shadow_values(st, cfg, so, ld, dist, scene)[0]),
+                    f"K4x light {li} at {w}x{h}: not bitwise K4's res")
+            require(torch.equal(k4x, mk._launch(entry_twin, st, scene, so, ld, dist, 1)[0]),
+                    f"K4x light {li} at {w}x{h}: not bitwise its shadow_cull=False twin")
+            g = torch.randn(dist.shape, device=dist.device,
+                            generator=torch.Generator(device=dist.device).manual_seed(li))
+
+            def bwd(so=so, ld=ld, dist=dist, g=g):
+                return mk._launch_exact_bwd(lib.lib, st, so, ld, dist, scene.fields, g)
+
+            got, again = bwd(), bwd()
+            require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                    f"K4xb light {li} at {w}x{h}: two launches differ")
+            ref = mk.exact_shadow_reference(st, cfg, so, ld, dist, scene.fields, g)
+            mass = []
+            total = mk.exact_shadow_reference(st, cfg, so, ld, dist, scene.fields, g,
+                                              sum_dtype=torch.float64, mass=mass)[2]
+            has = mass[0] > 0
+            unit = mass[0][has].clamp(min=EXACT_MASS_FLOOR * float(mass[0].max()))
+
+            def of_mass(v):  # worst |v - total| in units of the terms' magnitudes
+                return float(((v.double() - total).abs()[has] / unit).max())
+
+            errs, off = [], []
+            for what, a, b in zip(("g_ro", "g_rd"), got, ref):
+                scale = max(float(b.abs().max()), 1e-6)
+                bad = ((a - b).abs() > 1e-4 * scale).any(dim=-1)
+                errs.append(float((a - b).abs()[~bad].max()) / scale)
+                off.append(int(bad.sum()))
+                require(off[-1] <= EXACT_RAYS_OFF,
+                        f"K4xb light {li} at {w}x{h} {what}: {off[-1]} rays off by > 1e-4 of max")
+            fields_abs = float((got[2].double() - total).abs().max())
+            errs.append(of_mass(got[2]))
+            control = of_mass(ref[2])
+            y, x = divmod(int(got[0].norm(dim=-1).argmax()), w)
+            lost = g.clone()  # a lost tile: the rays of the largest g_ro's left out
+            lost[y // 4 * 4:y // 4 * 4 + 4, x // 32 * 32:x // 32 * 32 + 32] = 0
+            lost_err = of_mass(bwd(g=lost)[2])
+            require(not got[2][~has].any(), f"K4xb light {li} at {w}x{h}: a field gradient "
+                                            f"where no term reaches")
+            require(errs[-1] <= EXACT_FIELDS_TOL < lost_err,
+                    f"K4xb light {li} at {w}x{h} g_fields: {errs[-1]:.3g} of the terms' "
+                    f"magnitudes off the float64 total, a lost tile {lost_err:.3g} (the float32 "
+                    f"reference {control:.3g})")
+            evals = float(sum(live))
+            culled = float(mk.segment_lit(st, s4.params, so, ld, dist, cfg.shadow_w)
+                           .float().mean())
+            k4_ms = time_ms(lambda: mk.shadow_values(st, cfg, so, ld, dist, scene), 10)
+            x_ms = time_ms(lambda: mk._launch(entry_x, st, scene, so, ld, dist, 1), 10)
+            xb_ms = time_ms(bwd, 10)
+            loop_ms = time_ms(lambda: mk.shadow_values_reference(st, cfg, so, ld, dist, scene), 1)
+            ref_ms = time_ms(lambda: mk.exact_shadow_reference(st, cfg, so, ld, dist,
+                                                               scene.fields, g), 1)
+            fwd_ops = rays * seg_ops + evals * (E + 17)
+            bwd_ops = rays * seg_ops + evals * (E + 17) + evals * (E + A + 30)
+            fwd_sqrts = rays * seg_sqrts + evals * S
+            bwd_sqrts = rays * seg_sqrts + evals * 3 * S
+            d = {"culled": culled, "evals_per_ray": evals / rays, "grad_err": errs,
+                 "grad_rays_off": off, "fields_abs_err": fields_abs,
+                 "fields_of_max": fields_abs / max(float(total.abs().max()), 1e-12),
+                 "fields_ref32_err": control, "fields_lost_tile_err": lost_err,
+                 "mass_over_max": float(mass[0].max()) / max(float(total.abs().max()), 1e-12),
+                 "k4_ms": k4_ms, "k4x_ms": x_ms,
+                 "k4xb_ms": xb_ms, "loop_fwd_ms": loop_ms, "ref_bwd_ms": ref_ms,
+                 "k4x_bound": bound(small + 32 * rays, fwd_ops, ceiling),
+                 "k4x_bound_sqrt": bound(small + 32 * rays,
+                                         fwd_ops + (sqrt_slots - 1) * fwd_sqrts, ceiling),
+                 "k4xb_bound": bound(small + 56 * rays, bwd_ops, ceiling),
+                 "k4xb_bound_sqrt": bound(small + 56 * rays,
+                                          bwd_ops + (sqrt_slots - 1) * bwd_sqrts, ceiling)}
+            lights.append(d)
+            d_max = d["fields_of_max"]
+            print(f"[19] {w}x{h} light {li}: K4x bitwise the loop, K4 and its twin; K4xb "
+                  f"launches bitwise, g_ro / g_rd within {errs[0]:.2e} / {errs[1]:.2e} of max "
+                  f"({off} rays off), g_fields {errs[2]:.2e} of its terms' magnitudes off the "
+                  f"float64 total ({d_max:.2e} of its largest; the float32 reference "
+                  f"{control:.2e}, a lost tile {lost_err:.2e}); culled "
+                  f"{culled:.3f}, {evals / rays:.2f} evaluations a ray; K4 {k4_ms:.4f} ms, "
+                  f"K4x {x_ms:.4f}, K4xb {xb_ms:.4f}; plain loop {loop_ms:.1f}, reference "
+                  f"sweep {ref_ms:.1f}; bounds K4x {d['k4x_bound'][0]:.4f} (sqrt "
+                  f"{d['k4x_bound_sqrt'][0]:.4f}), K4xb {d['k4xb_bound'][0]:.4f} (sqrt "
+                  f"{d['k4xb_bound_sqrt'][0]:.4f})", flush=True)
+            del ref, total, got, again, mass
+        out["sizes"][f"{w}x{h}"] = lights
+    print(f"[19] K4x / K4xb library built in {out['build_s']:.1f} s; ptxas "
+          + " | ".join(out["ptxas"]), flush=True)
+    return out
+
+
+def exact_entries(exact, a_counts):
+    """The `kernels` entries of K4x and K4xb from exact_checks' record (the
+    numbers of the main shape, averaged over the lights) and phase 19's
+    launches."""
+    x_main = exact["sizes"][f"{MAIN_W}x{MAIN_H}"]
+
+    def per_light(key):
+        return statistics.mean(d[key][0] if isinstance(d[key], tuple) else d[key]
+                               for d in x_main)
+
+    def sizes(keys):
+        return {size: [{k: d[k] for k in keys} for d in lights]
+                for size, lights in exact["sizes"].items()}
+
+    return [
+        dict(entry("lol_exact_shadow", "loltracer_tpu_torch/csrc/exact_shadow.cuh",
+                   "loltracer_tpu/render/shading.py:59", a_counts["lol_exact_shadow"], 0.0,
+                   per_light("k4x_ms"), per_light("loop_fwd_ms"),
+                   (per_light("k4x_bound"), x_main[0]["k4x_bound"][1])),
+             ms_is="the mean of the two lights' launches",
+             bound_sqrt_ms=per_light("k4x_bound_sqrt"), k4_ms=per_light("k4_ms"),
+             ptxas=exact["ptxas"], build_s=exact["build_s"],
+             sizes=sizes(("k4x_ms", "k4_ms", "loop_fwd_ms", "culled", "evals_per_ray",
+                          "k4x_bound", "k4x_bound_sqrt"))),
+        dict(entry("lol_exact_shadow_bwd", "loltracer_tpu_torch/csrc/exact_shadow.cuh",
+                   "loltracer_tpu/render/shading.py:59", a_counts["lol_exact_shadow_bwd"],
+                   max(d["fields_abs_err"] for ls in exact["sizes"].values() for d in ls),
+                   per_light("k4xb_ms"), per_light("ref_bwd_ms"),
+                   (per_light("k4xb_bound"), x_main[0]["k4xb_bound"][1])),
+             ms_is="the mean of the two lights' launches, kernel, reduce and wrapper",
+             err_is="g_fields against the float64 total of the plain version's terms",
+             bound_sqrt_ms=per_light("k4xb_bound_sqrt"),
+             sizes=sizes(("k4xb_ms", "ref_bwd_ms", "grad_err", "grad_rays_off",
+                          "fields_abs_err", "fields_of_max", "fields_ref32_err",
+                          "fields_lost_tile_err", "mass_over_max", "k4xb_bound",
+                          "k4xb_bound_sqrt"))),
+    ]
+
+
 def shadow_rays(params, ro, rd, t_sh, cfg):
     """Per light, the rays shading.phong hands the shadow march from the
     shading points at t_sh: (origin, direction, distance to the light)."""
@@ -1052,9 +1264,9 @@ def check_grads(got, want, what: str) -> float:
 
 def march_phases(dev, card, scenes, inst, march_built, t0, e_inst, it_target, ceiling,
                  sqrt_slots):
-    """Phases 17-21: the value march kernels K3 / K4 and the three paths
-    that run them (module docstring). Returns their four `kernels`
-    entries."""
+    """Phases 17-21: the value march kernels K3 / K4, the exact shadow's
+    K4x / K4xb and the three paths that run them (module docstring).
+    Returns their six `kernels` entries."""
     import numpy as np
     import torch
 
@@ -1220,9 +1432,10 @@ def march_phases(dev, card, scenes, inst, march_built, t0, e_inst, it_target, ce
         png = read_png(str(out))
     a_losses = [float(v) for v in re.findall(r"^\[fit\] step \d+ loss (\S+)$",
                                              printed.getvalue(), re.M)]
-    require(a_counts == {"lol_march": fit_steps + 1},
-            f"cli fit ({fit_steps} steps and -o) launched {a_counts}, not lol_march "
-            f"{fit_steps + 1} times and nothing else")
+    a_want = {"lol_march": fit_steps + 1, "lol_exact_shadow": st4.num_lights * (fit_steps + 1),
+              "lol_exact_shadow_bwd": st4.num_lights * fit_steps}
+    require(a_counts == a_want,
+            f"cli fit ({fit_steps} steps and -o) launched {a_counts}, not {a_want}")
     require(other == (0, 0, 0), f"cli fit launched a fused kernel: {other}")
     require(len(a_losses) == fit_steps and all(map(math.isfinite, a_losses)),
             f"cli fit printed losses {a_losses}")
@@ -1240,6 +1453,7 @@ def march_phases(dev, card, scenes, inst, march_built, t0, e_inst, it_target, ce
 
     step_a()
     a_step_ms = time_ms(step_a, 1)
+    exact = exact_checks(s4, a_cfg, ceiling, sqrt_slots)
 
     # --- 20. path B: render_image with envelope shadows under autograd -------------------
     b_cfg = RenderConfig(antialias=True, shadow_grad="envelope")
@@ -1619,6 +1833,7 @@ def march_phases(dev, card, scenes, inst, march_built, t0, e_inst, it_target, ce
                    k4i_ms, p4i_ms, k4i_bound), plain_ms_rows=BAND, ms_rows=BAND,
              lanes=band_lanes["k4"], frame_ms=k4f_ms, frame_lanes=frame_lanes["k4"],
              sweep_ms={w: [t["band_k4"], t["half_k4"], t["frame_k4"]] for w, t in sweep.items()}),
+        *exact_entries(exact, a_counts),
     ]
 
 

@@ -227,13 +227,16 @@ def metric(s: Settings, label: str, frames: int, instanced: bool, device_type: s
 def _march_family(structure: SceneStructure, cfg: RenderConfig):
     """What the differentiable routes launch on the card: K3 and, for
     envelope shadows, K4 (their instanced twins for an instanced
-    structure); nothing under march_backend "jnp"."""
+    structure), for a compiled structure's exact shadows K4x; nothing under
+    march_backend "jnp"."""
     if cfg.march_backend == "jnp":
         return ()
     inst = structure.instanced
     out = [("march_kernels", cs.MARCH_INSTANCED if inst else cs.MARCH)]
     if cfg.shadow_grad == "envelope":
         out.append(("march_kernels", cs.SHADOW_MARCH_INSTANCED if inst else cs.SHADOW_MARCH))
+    elif not inst:
+        out.append(("march_kernels", cs.EXACT_SHADOW))
     return tuple(out)
 
 

@@ -162,6 +162,13 @@ def packed_size(structure: SceneStructure) -> int:
     return sum(math.prod(field_shape(structure, f)) for f in packed_fields(structure))
 
 
+def geom_size(structure: SceneStructure) -> int:
+    """Length of the packed buffer's geometry prefix (the compiled
+    `Scene::kNumGeom`): the slots the SDF reads and its adjoint writes."""
+    off = field_offsets(structure)
+    return max(off[f] + math.prod(field_shape(structure, f)) for f in GEOM_FIELDS if f in off)
+
+
 def pack_fields(structure: SceneStructure, params: SceneParams) -> torch.Tensor:
     """The kernel's scene buffer: every packed field flattened, f32, in
     PARAM_FIELDS order, on the params' device."""
@@ -483,11 +490,7 @@ def _scene_source(structure: SceneStructure, residuals: bool, cull: bool = False
     if not structure.objects:
         raise ValueError("a scene needs at least one object")
     off = field_offsets(structure)
-    n_geom = max(
-        off[f] + math.prod(field_shape(structure, f))
-        for f in GEOM_FIELDS
-        if f in off
-    )
+    n_geom = geom_size(structure)
 
     def at(field):
         return off.get(field, 0)  # absent fields are never read
@@ -982,6 +985,79 @@ def generate_march_source(structure: SceneStructure, cfg: RenderConfig) -> str:
             "",
             "#ifdef __CUDACC__",
             entries,
+            "#endif  // __CUDACC__",
+            "",
+        ]
+    )
+
+
+EXACT_SHADOW = "lol_exact_shadow"
+EXACT_SHADOW_BWD = "lol_exact_shadow_bwd"
+EXACT_SHADOW_BLOCKS = "lol_exact_shadow_bwd_blocks"
+EXACT_SHADOW_SCRATCH = "lol_exact_shadow_bwd_scratch"
+
+_EXACT_ENTRIES = f"""\
+extern "C" int {EXACT_SHADOW}(const void* so, int so_stride, const void* l,
+                                 const void* max_dist, const void* fields, void* res, int rows,
+                                 int width, void* stream) {{
+  const lol::MarchArgs a{{static_cast<const float*>(so), so_stride,
+                         static_cast<const float*>(l), static_cast<const float*>(max_dist),
+                         static_cast<float*>(res)}};
+  return lol::launch_exact_shadow<lol_gen::Cfg, lol_gen::Scene>(
+      static_cast<const float*>(fields), a, rows, width, static_cast<cudaStream_t>(stream));
+}}
+
+extern "C" int {EXACT_SHADOW_BLOCKS}(int rows, int width) {{
+  return lol::exact_bwd_blocks<lol_gen::Scene::kNumGeom>(rows, width);
+}}
+
+extern "C" long long {EXACT_SHADOW_SCRATCH}(int rows, int width) {{
+  return lol::exact_bwd_scratch<lol_gen::Scene::kNumGeom>(rows, width);
+}}
+
+extern "C" int {EXACT_SHADOW_BWD}(const void* so, const void* l, const void* max_dist,
+                                     const void* fields, const void* g_res, void* g_so,
+                                     void* g_l, void* scratch, void* partials, void* grads,
+                                     int rows, int width, void* stream) {{
+  const lol::ExactArgs a{{static_cast<const float*>(so), static_cast<const float*>(l),
+                         static_cast<const float*>(max_dist), static_cast<const float*>(g_res),
+                         static_cast<float*>(g_so), static_cast<float*>(g_l)}};
+  return lol::launch_exact_shadow_bwd<lol_gen::Cfg, lol_gen::Scene>(
+      static_cast<const float*>(fields), a, static_cast<float*>(scratch),
+      static_cast<float*>(partials), static_cast<float*>(grads), rows, width,
+      static_cast<cudaStream_t>(stream));
+}}"""
+
+
+def generate_exact_shadow_source(structure: SceneStructure, cfg: RenderConfig) -> str:
+    """The CUDA translation unit of the exact soft shadow's kernels K4x
+    (`lol_exact_shadow`) and K4xb (`lol_exact_shadow_bwd`, with K2's
+    reduce; `lol_exact_shadow_bwd_blocks` its block count and
+    `lol_exact_shadow_bwd_scratch` the floats of its global accumulators,
+    0 where they fit in shared memory) for this
+    compiled structure and config: csrc/fused_fwd.cuh, csrc/fused_bwd.cuh,
+    csrc/instanced_scene.cuh, csrc/march.cuh and csrc/exact_shadow.cuh,
+    then the Cfg and the compiled `Scene` with `Scene::dist_bwd` and, under
+    cfg.shadow_cull where the structure allows it, `Scene::segment_lit`.
+    A library of its own, apart from K3 / K4's. Deterministic; holds no
+    scene numbers. The device functions also compile as host C++."""
+    require_compiled(structure)
+    bodies = ["fused_fwd.cuh", "fused_bwd.cuh", "instanced_scene.cuh", "march.cuh",
+              "exact_shadow.cuh"]
+    return "\n".join(
+        [
+            "// Generated by loltracer_tpu_torch.render.cuda_scene: the kernel",
+            "// bodies of csrc/, then this structure's Cfg and Scene.",
+            *[(CSRC / b).read_text() for b in bodies],
+            "namespace lol_gen {",
+            "using namespace lol;",
+            _cfg_source(cfg, residuals=False),
+            "",
+            _scene_source(structure, residuals=True, cull=cfg.shadow_cull),
+            "}  // namespace lol_gen",
+            "",
+            "#ifdef __CUDACC__",
+            _EXACT_ENTRIES,
             "#endif  // __CUDACC__",
             "",
         ]

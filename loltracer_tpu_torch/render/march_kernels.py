@@ -27,7 +27,16 @@ So the two loops are value functions, and on CUDA tensors they run here:
   cuda_scene.MARCH_LANES instead (to sweep and check the widths);
 - `make_cuda_march` / `make_cuda_shadow_march` return the `march_fn` /
   `shadow_fn` that render/torch_renderer.py hands to the renderer (the
-  counterparts of `make_pallas_march` / `make_pallas_shadow_march`).
+  counterparts of `make_pallas_march` / `make_pallas_shadow_march`);
+- `make_cuda_exact_shadow(structure, cfg)` returns the `shadow_fn` of the
+  "exact" estimator on a compiled structure, differentiable: `ExactShadow`,
+  whose forward is K4x (`lol_exact_shadow`: K4's march and cull, res alone,
+  bitwise the plain loop's) and whose backward is K4xb
+  (`lol_exact_shadow_bwd`: the march again and the reverse sweep, with K2's
+  fixed-order reduce of the geometry's gradient), csrc/exact_shadow.cuh, a
+  library of its own (`exact_library`) built at the first exact call on
+  CUDA. Its plain versions: `shadow_values_reference`'s res, and
+  `exact_shadow_reference`, the same reverse sweep in torch ops.
 
 - `make_instanced_eval(structure, cfg)` -> `eval_fn(tables, plane_y, p,
   grid=None)`: K7, `lol_instanced_eval` (csrc/march.cuh), the instanced
@@ -49,7 +58,8 @@ shape, one device) in one pass, launches its kernel or raises; nothing
 falls back. The library entry and the packed size it checks against are
 resolved once per structure and config (`_entry`; `make_cuda_march` and
 `make_cuda_shadow_march` hold theirs), not per call. CPU tensors take the
-plain versions, `march_values_reference` and `shadow_values_reference`:
+plain versions, `march_values_reference`, `shadow_values_reference` and
+`exact_shadow_reference`:
 render/march.py `march` and render/shading.py `shadow_march` (started
 done where shading.segment_lit culls, as the kernel skips) under
 `no_grad`; `instanced_eval_reference` for K7. `launches` counts kernel
@@ -73,6 +83,10 @@ from loltracer_tpu_torch.config import RenderConfig
 from loltracer_tpu_torch.render.backend import resolve_backend
 from loltracer_tpu_torch.render.cell_grid import CellGrid, check_grid, grid_args, grid_for
 from loltracer_tpu_torch.render.cuda_scene import (
+    EXACT_SHADOW,
+    EXACT_SHADOW_BLOCKS,
+    EXACT_SHADOW_BWD,
+    EXACT_SHADOW_SCRATCH,
     GRID_ARGTYPES,
     INSTANCED_EVAL,
     INSTANCED_EVAL_STATS,
@@ -86,7 +100,9 @@ from loltracer_tpu_torch.render.cuda_scene import (
     SHADOW_MARCH_INSTANCED,
     SHADOW_MARCH_TILE,
     generate_eval_source,
+    generate_exact_shadow_source,
     generate_march_source,
+    geom_size,
     pack_fields,
     packed_size,
     unpack_fields,
@@ -105,16 +121,25 @@ from loltracer_tpu_torch.render.instanced_pack import (
 from loltracer_tpu_torch.render.march import MarchResult, march
 from loltracer_tpu_torch.render.sdf import bbox_cut, make_scene_sdf
 from loltracer_tpu_torch.render.shading import segment_lit, shadow_march
-from loltracer_tpu_torch.scene import SceneParams, SceneStructure, require_instanced
+from loltracer_tpu_torch.scene import (
+    SceneParams,
+    SceneStructure,
+    require_compiled,
+    require_instanced,
+)
 
 __all__ = [
     "EvalTables",
+    "ExactShadow",
     "MarchScene",
     "eval_library",
+    "exact_library",
+    "exact_shadow_reference",
     "instanced_eval_reference",
     "lanes_for",
     "launches",
     "library",
+    "make_cuda_exact_shadow",
     "make_cuda_march",
     "make_cuda_shadow_march",
     "make_instanced_eval",
@@ -127,7 +152,7 @@ __all__ = [
 ]
 
 launches = {MARCH: 0, SHADOW_MARCH: 0, MARCH_INSTANCED: 0, SHADOW_MARCH_INSTANCED: 0,
-            INSTANCED_EVAL: 0}
+            INSTANCED_EVAL: 0, EXACT_SHADOW: 0, EXACT_SHADOW_BWD: 0}
 
 # the most rows of a 2-D launch grid (grid.y < 65536 blocks of up to 16 rows)
 _MAX_ROWS = 65535 * 8
@@ -194,6 +219,96 @@ def shadow_values_reference(
             lit = segment_lit(structure, params, ro, rd, max_dist, cfg.shadow_w)
         return shadow_march(make_scene_sdf(structure, clamp), params, ro, rd, max_dist, cfg,
                             live, init_done=lit, counts=counts)
+
+
+def exact_shadow_reference(
+    structure: SceneStructure, cfg: RenderConfig, ro, rd, max_dist, fields, g_res,
+    sum_dtype: Optional[torch.dtype] = None, mass: Optional[list] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of K4xb: (g_ro [..., 3], g_rd [..., 3], g_fields
+    [packed_size]), the cotangents of the exact shadow's res for g_res
+    [...] (rays ro, rd [..., 3] up to max_dist [...], one batch shape,
+    through the packed buffer `fields`), by the kernel's reverse sweep in
+    torch ops: the march
+    again without autograd, keeping each step's live rays, t, running
+    minimum and value, then from the last step back to step 0 torch.minimum's
+    rule (a tie splits), the quotient's two terms where t > 0, each step's
+    SDF adjoint (a vector-Jacobian product of one evaluation, for the rays
+    whose distance gets a nonzero cotangent) and the point's cotangent to
+    ro, rd and t. Rays with g_res == 0 and, under cfg.shadow_cull, the rays
+    shading.segment_lit marks start done and get zeros, as the kernel skips
+    them. With `sum_dtype` (torch.float64), g_fields is each ray's term of
+    each step, computed alone in the rays' precision (torch.func.vmap of
+    the adjoint), summed over rays and steps in sum_dtype: a total to hold
+    the kernel's float32 sums against; `mass`, a list, then gets the sum
+    of those terms' magnitudes [packed_size], the scale of their float32
+    rounding."""
+    require_compiled(structure)
+    sdf = make_scene_sdf(structure)
+    w = cfg.shadow_w
+    inf = float("inf")
+    with torch.no_grad():
+        ro, rd, max_dist, fields, g_res = (x.detach() for x in (ro, rd, max_dist, fields, g_res))
+        params = _scene_params(structure, MarchScene(fields, None))
+        done = g_res == 0
+        if cfg.shadow_cull:
+            done = done | segment_lit(structure, params, ro, rd, max_dist, cfg.shadow_w)
+        res = torch.ones_like(max_dist)
+        t = torch.zeros_like(res)
+        steps = []
+        for _ in range(cfg.shadow_steps):
+            if bool(done.all()):
+                break
+            d = sdf(params, ro + t[..., None] * rd)
+            safe_t = torch.where(t > 0, t, 1.0)
+            val = torch.where(t > 0, w * d / safe_t, torch.where(d < 0, -inf, inf))
+            steps.append((~done, t, res, val))
+            res = torch.where(done, res, torch.minimum(res, val))
+            t = torch.where(done, t, t + d)
+            done = done | (res < -1) | (t > max_dist)
+
+        g_ro, g_rd = torch.zeros_like(ro), torch.zeros_like(rd)
+        g_fields = torch.zeros_like(fields, dtype=sum_dtype)
+        g_mass = torch.zeros_like(g_fields)
+        g_min, g_t = g_res.clone(), torch.zeros_like(res)
+
+        def adjoint(f, p, gd):  # one evaluation's g_d-weighted distance
+            return sdf(_scene_params(structure, MarchScene(f, None)), p) * gd
+
+        for live, t, r, val in reversed(steps):
+            half = torch.where(r == val, 0.5 * g_min, 0.0)
+            g_prev = torch.where(r < val, g_min, half)
+            g_val = torch.where(val < r, g_min, half)
+            pos = live & (t > 0)
+            safe_t = torch.where(t > 0, t, 1.0)
+            g_d = torch.where(live, g_t + torch.where(pos, g_val / safe_t * w, 0.0), 0.0)
+            g_tk = g_t + torch.where(pos, -g_val * (val / safe_t), 0.0)
+            sel = g_d != 0
+            g_p = torch.zeros_like(rd)
+            if bool(sel.any()):
+                p = (ro + t[..., None] * rd)[sel]
+                if sum_dtype is None:
+                    with torch.enable_grad():
+                        f = fields.clone().requires_grad_(True)
+                        p = p.requires_grad_(True)
+                        d = sdf(_scene_params(structure, MarchScene(f, None)), p)
+                        gp_sel, gf = torch.autograd.grad(d, (p, f), g_d[sel])
+                else:
+                    gf, gp_sel = torch.func.vmap(torch.func.grad(adjoint, argnums=(0, 1)),
+                                                 in_dims=(None, 0, 0))(fields, p, g_d[sel])
+                    gf = gf.to(sum_dtype)
+                    g_mass += gf.abs().sum(0)
+                    gf = gf.sum(0)
+                g_p[sel] = gp_sel
+                g_fields += gf
+            g_ro += g_p
+            g_rd += t[..., None] * g_p
+            g_tk = g_tk + (g_p * rd).sum(-1)
+            g_min = torch.where(live, g_prev, g_min)
+            g_t = torch.where(live, g_tk, g_t)
+    if mass is not None:
+        mass.append(g_mass)
+    return g_ro, g_rd, g_fields
 
 
 def kernel_config(structure: SceneStructure, cfg: RenderConfig) -> RenderConfig:
@@ -458,6 +573,119 @@ def make_cuda_shadow_march(structure: SceneStructure, cfg: RenderConfig) -> Call
         if scene is None:
             scene = pack_march_scene(structure, params)
         return launch(scene, *_ray_batch(ro, rd, max_dist))
+
+    return shadow_fn
+
+
+@functools.lru_cache(maxsize=None)
+def _exact_library(structure: SceneStructure, cfg: RenderConfig) -> _build.Library:
+    built = _build.build(generate_exact_shadow_source(structure, cfg), "exact_shadow")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for name, args in ((EXACT_SHADOW, [ptr, i32] + [ptr] * 4 + [i32] * 2 + [ptr]),
+                       (EXACT_SHADOW_BWD, [ptr] * 10 + [i32] * 2 + [ptr]),
+                       (EXACT_SHADOW_BLOCKS, [i32, i32]),
+                       (EXACT_SHADOW_SCRATCH, [i32, i32])):
+        fn = getattr(built.lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_longlong if name == EXACT_SHADOW_SCRATCH else ctypes.c_int
+    return built
+
+
+def exact_library(structure: SceneStructure, cfg: RenderConfig) -> _build.Library:
+    """The built K4x / K4xb library for this compiled structure and config
+    (compiled at first use, then loaded from the build cache), keyed as
+    K3 / K4's (kernel_config) but a library of its own."""
+    return _exact_library(structure, kernel_config(structure, cfg))
+
+
+@functools.lru_cache(maxsize=None)
+def _exact_entry(structure: SceneStructure, cfg: RenderConfig) -> _Entry:
+    """K4x's entry for this structure and cfg, resolved once."""
+    return _Entry(getattr(exact_library(structure, cfg).lib, EXACT_SHADOW), EXACT_SHADOW,
+                  packed_size(structure))
+
+
+def _launch_exact_bwd(lib, structure: SceneStructure, ro, rd, max_dist, fields, g_res):
+    """K4xb and its reduce over the ray batch: (g_ro, g_rd, g_fields), the
+    geometry prefix of g_fields the reduce's, the rest zeros. Its
+    accumulators take shared memory, or, for a geometry prefix too long
+    for it, a scratch buffer of the size the library gives."""
+    _check("g_res", g_res, tuple(rd.shape[:-1]))
+    if g_res.device != rd.device:
+        raise ValueError("g_res must be on the rays' device")
+    dev = rd.device
+    g_ro, g_rd = torch.empty_like(rd), torch.empty_like(rd)
+    g_fields = torch.zeros_like(fields)
+    n = rd.numel() // 3
+    if n == 0:
+        return g_ro, g_rd, g_fields
+    rows, width = _layout(tuple(rd.shape[:-1]))
+    blocks = getattr(lib, EXACT_SHADOW_BLOCKS)(rows, width)
+    partials = torch.empty((blocks, geom_size(structure)), dtype=torch.float32, device=dev)
+    scratch = torch.empty(getattr(lib, EXACT_SHADOW_SCRATCH)(rows, width), dtype=torch.float32,
+                          device=dev)
+    with torch.cuda.device(dev):
+        rc = getattr(lib, EXACT_SHADOW_BWD)(
+            ro.data_ptr(), rd.data_ptr(), max_dist.data_ptr(), fields.data_ptr(),
+            g_res.data_ptr(), g_ro.data_ptr(), g_rd.data_ptr(), scratch.data_ptr(),
+            partials.data_ptr(), g_fields.data_ptr(), rows, width,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{EXACT_SHADOW_BWD} launch failed: cudaError {rc}")
+    launches[EXACT_SHADOW_BWD] += 1
+    return g_ro, g_rd, g_fields
+
+
+class ExactShadow(torch.autograd.Function):
+    """res = the exact shadow march of rays ro, rd [..., 3] (contiguous,
+    one shape) up to max_dist [...] through the packed buffer `fields`:
+    K4x in forward and K4xb in backward on CUDA tensors,
+    shadow_values_reference's res and exact_shadow_reference on CPU
+    tensors. The cotangents reach ro, rd and fields (max_dist only ends the
+    loop); `fields` keeps its graph, so they reach the SceneParams leaves
+    through pack_fields' cat."""
+
+    @staticmethod
+    def forward(ctx, ro, rd, max_dist, fields, structure, cfg):
+        scene = MarchScene(fields.detach(), None)
+        if resolve_backend(ro, rd, max_dist, fields) == "torch":
+            res = shadow_values_reference(structure, cfg, ro, rd, max_dist, scene)[0]
+        else:
+            res = _launch(_exact_entry(structure, cfg), structure, scene, ro, rd, max_dist,
+                          1)[0]
+        ctx.save_for_backward(ro, rd, max_dist, fields)
+        ctx.structure, ctx.cfg = structure, cfg
+        return res
+
+    @staticmethod
+    def backward(ctx, g_res):
+        ro, rd, max_dist, fields = ctx.saved_tensors
+        structure, cfg = ctx.structure, ctx.cfg
+        g_res = g_res.contiguous()
+        if resolve_backend(ro, rd, max_dist, fields, g_res) == "torch":
+            g_ro, g_rd, g_fields = exact_shadow_reference(structure, cfg, ro, rd, max_dist,
+                                                          fields, g_res)
+        else:
+            g_ro, g_rd, g_fields = _launch_exact_bwd(exact_library(structure, cfg).lib,
+                                                     structure, ro, rd, max_dist, fields, g_res)
+        return g_ro, g_rd, None, g_fields, None, None
+
+
+def make_cuda_exact_shadow(structure: SceneStructure, cfg: RenderConfig) -> Callable:
+    """`shadow_fn(params, ro, rd, max_dist, fields=None) -> (res, None)`: the
+    "exact" estimator's shadow march through K4x / K4xb (`ExactShadow`) on
+    a compiled structure, differentiable in ro, rd and the params (through
+    `fields`, pack_fields(structure, params) with its graph: packed here
+    when None). The batch is broadcast and made contiguous first."""
+    require_compiled(structure)
+
+    def shadow_fn(params: SceneParams, ro, rd, max_dist, fields=None):
+        if fields is None:
+            fields = pack_fields(structure, params)
+        batch = torch.broadcast_shapes(ro.shape[:-1], rd.shape[:-1], max_dist.shape)
+        ro, rd = (t.expand(batch + (3,)).contiguous() for t in (ro, rd))
+        max_dist = max_dist.detach().expand(batch).contiguous()
+        return ExactShadow.apply(ro, rd, max_dist, fields.contiguous(), structure, cfg), None
 
     return shadow_fn
 

@@ -15,7 +15,11 @@ the loop frozen, records the first-wins argmin t* of the running minimum,
 and re-attaches the gradient with one differentiable SDF evaluation at t*
 (Danskin's theorem), only where t* > 0 and 0 < res < 1. The frozen loop may
 come from `shadow_march_fn` (the shadow march kernel K4,
-render/march_kernels.py).
+render/march_kernels.py); for "exact" a `shadow_march_fn` is the loop and
+its adjoint in two kernels (K4x / K4xb, `make_cuda_exact_shadow`), the
+plain loop under autograd everywhere else. The counters
+`shading.exact_kernel` and `shading.exact_loop` count the exact shadow
+marches of each route (always on).
 """
 
 from __future__ import annotations
@@ -32,6 +36,12 @@ from loltracer_tpu_torch.scene import SceneParams, SceneStructure
 from loltracer_tpu_torch.utils import tracing
 
 _NORMAL_KS = ((1.0, -1.0, -1.0), (-1.0, -1.0, 1.0), (-1.0, 1.0, -1.0), (1.0, 1.0, 1.0))
+
+# the exact shadow marches of each route since the process started
+exact_marches = {"kernel": 0, "loop": 0}
+
+tracing.register_counters(
+    "shading", lambda: {f"shading.exact_{k}": v for k, v in exact_marches.items()})
 
 
 def _shadow_step(sdf: Callable, params, ro, rd, max_dist, cfg: RenderConfig,
@@ -199,12 +209,19 @@ def soft_shadow(
     callable}, both optional) is handed to the march.
     `shadow_march_fn(params, ro, rd, max_dist) -> (res, t*)`, when given,
     replaces the frozen march of "envelope" (the JAX package's
-    soft_shadow); "exact" differentiates through the plain loop."""
+    soft_shadow); for "exact" it is the differentiable march (its res
+    carries the gradient, t* is None), else "exact" differentiates through
+    the plain loop."""
     live = live or {}
     counts = (live.get("shadow"), live.get("probe"))
     if cfg.shadow_grad == "exact":
+        route = "loop" if shadow_march_fn is None else "kernel"
+        exact_marches[route] += 1
         with tracing.span("lol_shadow_march"):
-            res, _ = shadow_march(sdf, params, ro, rd, max_dist, cfg, *counts)
+            if shadow_march_fn is None:
+                res, _ = shadow_march(sdf, params, ro, rd, max_dist, cfg, *counts)
+            else:
+                res, _ = shadow_march_fn(params, ro, rd, max_dist)
         return maximum(res, 0.0)
     if cfg.shadow_grad != "envelope":
         raise ValueError(f"unknown shadow_grad {cfg.shadow_grad!r}")

@@ -20,9 +20,12 @@ blocks at every SDF call).
 The frozen marches run where cfg.march_backend resolves them
 (render/backend.py `resolve_march_backend`), as the JAX package's
 `_select_march` / `_select_shadow_march` do: on CUDA tensors under "auto"
-the march kernel K3 for any estimator and the shadow march kernel K4 for
-"envelope" (render/march_kernels.py); the plain loops on CPU tensors or
-under "jnp". The plain versions of the earlier kernels pin "jnp".
+the march kernel K3 for any estimator, the shadow march kernel K4 for
+"envelope" and, on compiled structures, K4x / K4xb for "exact" (the
+march and its adjoint, render/march_kernels.py `make_cuda_exact_shadow`);
+the plain loops on CPU tensors or under "jnp", and for instanced
+structures' exact shadows. The plain versions of the earlier kernels pin
+"jnp".
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from torch.utils.checkpoint import checkpoint
 from loltracer_tpu_torch.config import DEFAULT_CONFIG, RenderConfig
 from loltracer_tpu_torch.render.backend import resolve_device, resolve_march_backend
 from loltracer_tpu_torch.render.camera import camera_rays, camera_rays_for_rows
+from loltracer_tpu_torch.render.cuda_scene import pack_fields
 from loltracer_tpu_torch.render.march import intersect_aa
 from loltracer_tpu_torch.render.sdf import make_scene_sdf, make_scene_sdf_with_id
 from loltracer_tpu_torch.render.shading import get_normal, shade
@@ -62,8 +66,10 @@ def _march_kernels(structure: SceneStructure, params: SceneParams, rd, cfg: Rend
                    live: Optional[Dict], scene) -> Tuple[Optional[Callable], Optional[Callable]]:
     """(march_fn, shadow_march_fn) of this call: None each for the plain
     loops, or, where cfg.march_backend resolves to the kernels for rd, K3
-    for any estimator and K4 for "envelope" shadows over `scene` (the
-    MarchScene of params, packed here when None)."""
+    for any estimator over `scene` (the MarchScene of params, packed here
+    when None), K4 for "envelope" shadows and, on a compiled structure,
+    K4x / K4xb for "exact" ones over the packed buffer with its graph (the
+    plain loop for an instanced structure's)."""
     if resolve_march_backend(cfg.march_backend, rd) == "jnp":
         return None, None
     if live is not None:
@@ -72,6 +78,11 @@ def _march_kernels(structure: SceneStructure, params: SceneParams, rd, cfg: Rend
         )
     from loltracer_tpu_torch.render import march_kernels
 
+    fields = None
+    if cfg.shadow_grad == "exact" and not structure.instanced:
+        fields = pack_fields(structure, params)
+        if scene is None:
+            scene = march_kernels.MarchScene(fields.detach(), None)
     if scene is None:
         scene = march_kernels.pack_march_scene(structure, params)
     march_fn = functools.partial(march_kernels.make_cuda_march(structure, cfg), scene=scene)
@@ -79,6 +90,9 @@ def _march_kernels(structure: SceneStructure, params: SceneParams, rd, cfg: Rend
     if cfg.shadow_grad == "envelope":
         shadow_fn = functools.partial(
             march_kernels.make_cuda_shadow_march(structure, cfg), scene=scene)
+    elif fields is not None:
+        shadow_fn = functools.partial(
+            march_kernels.make_cuda_exact_shadow(structure, cfg), fields=fields)
     return march_fn, shadow_fn
 
 

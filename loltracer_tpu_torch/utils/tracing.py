@@ -19,8 +19,10 @@ or a frame, on the clock of the device trace.
   thread, that named one (a fit's job and step, a renderer's frame). The
   store keeps at most `MAX_SPANS` spans and counts those dropped.
 - Counters: sources that the modules register (`register_counters`);
-  `snapshot()` reads them. `cell_grid.entries` and `cell_grid.builds` are
-  module counts, always on; the counts of K5's counting twin
+  `snapshot()` reads them. `cell_grid.entries` and `cell_grid.builds`,
+  and `shading.exact_kernel` / `shading.exact_loop` (the exact shadow
+  marches of each route, render/shading.py), are module counts, always
+  on; the counts of K5's counting twin
   (`instanced_render.*`, launched on the first recorded frame of a
   recording, render/cuda_renderer.py) are kept on the card and read only
   here.

@@ -179,7 +179,8 @@ ROUTES = [
      [("instanced_fwd", "lol_instanced_render")]),
     ("fwd-lol-jnp-exact-shadows", dict(BENCH_SCENE=LOL, BENCH_MODE="fwd",
                                        BENCH_SHADOW_GRAD="exact"),
-     "jnp", "render_image", [("march_kernels", "lol_march")]),
+     "jnp", "render_image", [("march_kernels", "lol_march"),
+                             ("march_kernels", "lol_exact_shadow")]),
     ("fwd-lol-jnp-plain-march", dict(BENCH_SCENE=LOL, BENCH_MODE="fwd", BENCH_MARCH="jnp"),
      "jnp", "render_image", []),
 ]
