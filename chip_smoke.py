@@ -1,9 +1,13 @@
 #!/usr/bin/env python3
 """Smoke check of the PyTorch / CUDA port (`loltracer_tpu_torch`) on one
-NVIDIA GPU.
+NVIDIA GPU: every kernel against its plain version and its twins, every
+entry point's launches, every kernel's bound and device time, and the
+CUDA-event timing of the kernels that no benchmark cell runs
+(BENCHMARK.json's cells time K1, K1r / K2, K3 / K4x / K4xb, K5 and K5r /
+K6 end to end on their paths).
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --march-ab   # K3 / K4 alone: checks, times, host time
+    python3 chip_smoke.py --march-ab   # K3 / K4 alone: checks, K4's times, host time
     python3 chip_smoke.py --bench      # phase 39 alone: cli bench on every route
     python3 chip_smoke.py --scaling    # phase 40 alone: the weak-scaling harness
 
@@ -22,13 +26,9 @@ Phases, one line each:
    --size 1920x1080`, which must launch the kernel; its image must be
    finite, in [0, 1], bitwise the twin's and match the plain version at
    1920x1080 to the tolerance of phase 2;
-4. frame times at scene4 @1920x1080: the kernel in turns with its
-   shadow_cull=False twin (twin, kernel, kernel, twin; median of 10 warm
-   frames each) and the plain version (once, warm), CUDA events; the
-   culled share of lanes per light, the plain loops' SDF evaluations a
-   ray with the cull (culled lanes started done) and without; each warp
-   tile shape of `cuda_scene.FWD_TILES` timed (twice, in turns) beside the
-   warp efficiency the per-ray counts give it;
+4. the segment cull at scene4 @1920x1080: the culled share of lanes per
+   light, the plain loops' SDF evaluations a ray with the cull (culled
+   lanes started done) and without (K1's bound from them);
 5. build the training kernels (lol_train_fwd, lol_train_bwd and its reduce)
    for the four example structures with envelope shadows and for scene4
    with antialiasing, and their shadow_cull=False twins; all builds start
@@ -57,14 +57,10 @@ Phases, one line each:
    call eagerly, capture on the second and replay the graph on it and on
    the other three (`train_step.*`), the wrappers count the eager step's
    launches, each with its row table (the capture launches nothing, a replay
-   launches without them), and the loss must fall. Then one fwd+bwd step of
-   `make_training_renderer` timed (median of 10, CUDA events), its two
-   kernels timed apart (lol_train_fwd in turns with its twin), the plain
-   versions (once, warm), peak memory; device time by kernel over 5 steps
-   (lol_train_fwd, lol_train_bwd and its reduce apart) and over one
-   lol_render_fused frame (`chip_smoke.py --profile-fused`, a process of
-   its own); the bounds by the operation model and with each IEEE sqrtf
-   at the FMA slots phase 25 measures;
+   launches without them), and the loss must fall; from that trace the
+   device ms a launch of K1r, K2 and K2's reduce; K1's device ms over one
+   frame (`chip_smoke.py --profile-fused`, a process of its own); the
+   bounds of K1, K1r and K2 by operations and sqrt-weighted;
 9. build lol_instanced_render (the instanced tier, started with the other
    builds in phase 1; its search the cell grid of csrc/grid_scene.cuh, with
    the run walk alone and the counting grid as check entries) for clamp 2,
@@ -80,14 +76,11 @@ Phases, one line each:
    middle, bottom), each rendered through the camera pack's row0; the plain
    loops count SDF evaluations and, per evaluated point on those bands, the
    spheres within its cut and the runs whose bounding ball reaches within
-   it;
-12. kernel frame times (CUDA events; median of 3 warm frames at 1920x1080,
-   of 2 at 3840x2160; each call builds its cell grid, timed apart), the run
-   walk's in turns around them (walk, grid, walk), its 1080p image bitwise
-   the grid's at clamp 2 and exact, the share of grid searches that fell
-   back to the walk (the counting twin); device time (torch.profiler, in a
-   process of its own: `chip_smoke.py --profile-instanced`), the plain
-   version's time on one band, and the bound;
+   it (the work model of the instanced bounds of phases 21, 24 and 29);
+12. the 1080p image bitwise the run walk's at clamp 2 and exact, and bitwise
+   the counting twin's, with the share of grid searches that fell back to
+   the walk; device time by kernel over one frame (`chip_smoke.py
+   --profile-instanced`, a process of its own); K5's bound;
 13. build lol_instanced_fwd and lol_instanced_bwd (the instanced training
    pair, both over the cell grid, with lol_instanced_bwd's run-walk and
    counting twins; started with the other builds in phase 1) for clamp 2,
@@ -112,28 +105,23 @@ Phases, one line each:
    lol_instanced_bwd's full-frame launch, held as in phase 14 against its
    walk twin and its records, and against the plain version run on every
    16-row band of the frame and summed, by the phase-7 rule;
-16. one fwd+bwd step of `make_instanced_training_renderer` (one grid
-   built in it) timed (median of 3, CUDA events); over a built grid its
-   two kernels timed apart, lol_instanced_bwd_walk in turns around them,
-   the grid build apart; lol_instanced_bwd's grid searches (its counting
-   twin: searches, fallbacks, entries read), the records per sphere-table
-   row, its ptxas lines; device time (`chip_smoke.py
-   --profile-instanced-train`, a process of its own, with the kernel's and
-   the scatter's device time apart), peak memory, the plain versions on
-   one band, and the bounds;
-17. build the value march kernels (K3 `lol_march` and K4 `lol_shadow_march`,
-   with their `_tile` sweeps over `cuda_scene.MARCH_TILES`, for the four
-   examples and their `shadow_cull=False` twins; `lol_march_instanced` and
-   `lol_shadow_march_instanced` for clamp 2, exact and shadow clamp 8, at
-   every lane-group width of `cuda_scene.MARCH_LANES`; all started with
-   the other builds in phase 1); ptxas registers and spills per tile
-   width (scene4 and its twin) and per lane width (a lane group must not
-   spill);
+16. one fwd+bwd step of `make_instanced_training_renderer` builds one
+   cell grid; lol_instanced_bwd's grid searches (its counting twin, bitwise
+   the kernel: searches, fallbacks, entries read), the records per
+   sphere-table row, its ptxas lines; device time by kernel over one step
+   (`chip_smoke.py --profile-instanced-train`, a process of its own); the
+   bounds of K5r and K6;
+17. build the value march kernels (K3 `lol_march` and K4 `lol_shadow_march`
+   for the four examples and their `shadow_cull=False` twins;
+   `lol_march_instanced` and `lol_shadow_march_instanced` for clamp 2,
+   exact and shadow clamp 8, at every lane-group width of
+   `cuda_scene.MARCH_LANES`; all started with the other builds in phase 1);
+   ptxas registers and spills of scene4's pair and its twin's and per lane
+   width (a lane group must not spill);
 18. at 97x161 (instanced:10000 at 49x81), K3 vs its plain version
    (`march_values_reference`) on the camera rays and K4 vs its plain
    version (`shadow_values_reference`) on the real shadow rays of each
-   light: the four examples and scene4 AA bitwise, K3 and K4 at
-   lol_march's tile width and every swept one, K4 also its
+   light: the four examples and scene4 AA bitwise, K4 also its
    shadow_cull=False twin, the culled plain loops bitwise the unculled,
    with the share of lanes culled per light; instanced:10000 at clamp 2,
    exact and shadow clamp 8, instanced:300 and :1 at clamp 2 at every
@@ -151,25 +139,28 @@ Phases, one line each:
    1e-4 of the largest on all but 4 rays, its summed g_fields within 4e-6
    of the float64 total of the plain version's float32 terms in units of
    their magnitudes (a launch missing one tile's rays outside it), two
-   launches bitwise; CUDA events, the plain versions once, SDF evaluations a ray,
-   the bounds and ptxas; their `kernels` entries take phase 19's launches;
+   launches bitwise; SDF evaluations a ray, the bounds by operations (K4x
+   as K4: the segment bound on every ray, E + 17 a step; K4xb that, and
+   the sweep, E + adjoint_ops + 30, a step) and sqrt-weighted, and ptxas;
+   their `kernels` entries take phase 19's launches and phase 20's device
+   times;
 20. main path B: `render_image` of scene4 @1920x1080 with AA and envelope
    shadows under autograd: one K3 and two K4 launches; the image within
    the phase-2 rule of lol_render_fused's; MSE gradients, the penumbra band
    masked out of the loss (tests/_penumbra.py), within 2e-2 * max|grad|
-   per field of make_training_renderer's (K1r/K2). Then path A's step
-   (once) and path B's (median of 2) timed; K3 and, per light, K4 at path
-   B's rays held bitwise against their plain versions at every tile width
-   (K4 also its shadow_cull=False twin), the plain loops counting each
-   ray's SDF evaluations with the cull and without (the culled share and
-   the warp efficiency per tile width from them); CUDA events (median of
-   10): K3 twice, each light's K4 in turns with its twin (twin, kernel,
-   kernel, twin), the tile sweep (each width twice, in turns), the plain
-   versions once; the host time per call of march_values, shadow_values
-   and the renderer's march and shadow functions (`host_us`, 100 calls);
-   device time of K3 and of each light's K4 and twin (`chip_smoke.py
-   --profile-march`, a process of its own); their bounds by operations
-   and sqrt-weighted (K4's counting the segment bound on every lane);
+   per field of make_training_renderer's (K1r/K2). Then path B's step
+   (median of 2) timed; K3 and, per light, K4 at path B's rays held
+   bitwise against their plain versions (K4 also its shadow_cull=False
+   twin), the plain loops counting each ray's SDF evaluations with the
+   cull and without (K3's evaluations, K4's culled share and both warp
+   efficiencies from them); CUDA events (median of 10): each light's K4 in
+   turns with its twin (twin, kernel, kernel, twin), its plain version
+   once; the host time per call of shadow_values and the renderer's shadow
+   function (`host_us`, 100 calls); device time of K3, of each light's K4
+   and twin, and of each light's K4x and K4xb call on the same rays
+   (`chip_smoke.py --profile-march`, a process of its own); K3's and K4's
+   bounds by operations and sqrt-weighted (counting K4's segment bound on
+   every lane);
 21. main path C: `render_image_banded` of instanced:10000, clamp 2, envelope
    @1920x1080 in 16-row bands without autograd: 68 lol_march_instanced and
    136 lol_shadow_march_instanced launches, the image within the phase-2
@@ -185,8 +176,8 @@ Phases, one line each:
    rays; held against width 1), timed (band median of 5, the others of 3),
    with the width the rule picks at each size; device time by kernel
    (the `--profile-march` process of phase 20) over one path B step, one
-   round of the four march kernels and path C's middle band, and one path
-   B step's peak memory by allocating line.
+   round of K3, K4 and the instanced pair and path C's middle band, and one
+   path B step's peak memory by allocating line.
 
 22. build the regrouped instanced forward K9 (`lol_rg_march`,
    `lol_rg_shadow` and `lol_rg_shade` over the cell grid, their run-walk
@@ -271,8 +262,7 @@ Phases, one line each:
    deal of scene4 AA and of instanced:10000 clamp 2 at 1920x1088 over 2
    shards (the cost model run on the card) rendered as two launches, one a
    shard's table: each launch's rows bitwise the full frame's, the summed
-   gradients within the phase-7 rule of the full frame's; each table
-   launch at 1080p timed beside its twin (CUDA events, in turns);
+   gradients within the phase-7 rule of the full frame's;
 32. two ranks on the one card (`chip_smoke.py --sharded-rank`, two
    processes, gloo: a correctness phase, NCCL refuses two ranks on one
    device): `make_sharded_renderer` and 3 (scene4 AA envelope) / 2
@@ -351,34 +341,36 @@ The CLI phases (3, 11) pass `--backend pallas`: `cli render` defaults to
 the differentiable renderer, as the JAX package's does.
 
 Then a JSON line with each kernel's launches on its main path, error,
-times and bound (K1 / K1r / K2 also with their device times, twins' times,
-culled shares, sqrt-weighted bounds, tile sweep and K2's ptxas line and
-warps a SM), and last the line {"ok": true, "device": {...}}. Any
-failure raises: the traceback is printed, the exit code is not 0 and the
-last line is not printed. Without CUDA, or without the package beside this
-file, it fails the same way.
+bound and device time, and, for the kernels no benchmark cell runs, its
+CUDA-event times (an entry of a kernel a cell times names the cell under
+`timed_by` and has no `ms`), and last the line {"ok": true, "device":
+{...}}. Any failure
+raises: the traceback is printed, the exit code is not 0 and the last line
+is not printed. Without CUDA, or without the package beside this file, it
+fails the same way.
 
 The march kernels' launches in the `kernels` line are those of their main
-paths: lol_march in path A, lol_shadow_march in path B (its `ms`,
+paths: lol_march in path A (its device time and bound at path B's rays),
+lol_exact_shadow and lol_exact_shadow_bwd in path A (their device times
+and bounds the mean of the two lights' at 1920x1080, each size's bounds
+under `sizes`), lol_shadow_march in path B (its `ms`,
 `plain_ms`, `device_ms` and bounds the mean of the two lights' launches,
 each light's under `lights`, with its twin's times, culled share,
-evaluations a ray and warp efficiency; both with their device times,
-sqrt-weighted bounds, tile sweeps and wrapper host times), the instanced pair
-in path C's frame (their `ms` per 16-row band at the rule's `lanes`,
-`frame_ms` one full-frame launch at the rule's `frame_lanes`, `sweep_ms`
-[band, half frame, frame] per width); the instanced training pair's those
-of phase 15's `fit_scene` (their `ms` over a built grid, `grid_build_ms`
-beside; lol_instanced_bwd's walk twin's under `walk_ms`, before and
-after, with its fallback share and entries per search); the K9 kernels'
+evaluations a ray and warp efficiency; its sqrt-weighted bound and
+wrapper host times), the instanced pair in path C's frame (their `ms` per
+16-row band at the rule's `lanes`, `frame_ms` one full-frame launch at the
+rule's `frame_lanes`, `sweep_ms` [band, half frame, frame] per width);
+the instanced training pair's those of phase 15's `fit_scene` (lol_instanced_bwd
+with its fallback share and entries per search); the K9 kernels'
 those of path D's clamp-2 frame (their `ms` per launch over the grid
 beside their walk twins' `walk_ms`, lol_rg_shadow for light 0 sorted
 beside `unsorted_ms` and, under `lights`, each light's times and bound;
 lol_rg_shade's entry carries the frame, the glue, K5's time, the exact
 frame's and the fallback shares of its searches);
 K1r / K2 / K5r / K6 also carry `scaling` (phase 40: each ladder's rungs,
-band_s, measured and modelled efficiency; K1r the wall rung) and `rowtab`: their launches with the row table
-on the main path (phases 8 and 15), `ms` / `nullptr_ms` at 1080p in turns
-(phase 31) and `bitwise`; K1r and K5r `deal` (phase 31) and `two_ranks`
+band_s, measured and modelled efficiency; K1r the wall rung) and `rowtab`:
+their launches with the row table on the main path (phases 8 and 15) and
+`bitwise` (phase 31); K1r and K5r `deal` (phase 31) and `two_ranks`
 (phase 32: each rank's fwd + bwd ms alone and their balance);
 K8's those of `cli peak` (its `ms` the best full-size call, `device_ms`
 the profiler's, `plain_ms` at `plain_ms_iters` iterations); K7's those of
@@ -419,7 +411,6 @@ EXAMPLES = ROOT / "examples"
 SCENES = ["scene.lol", "scene2.lol", "scene3.lol", "scene4.lol"]
 ATOL = 5e-5
 MAIN_W, MAIN_H = 1920, 1080
-UHD_W, UHD_H = 3840, 2160
 BAND = 16  # rows of each 1080p band held against the plain version
 HBM_BYTES_PER_MS = 3.35e12 / 1e3  # H100 SXM
 PEAK_LOW, PEAK_HIGH = 0.95, 1.05  # the measured FMA rate over the modelled ceiling
@@ -711,10 +702,10 @@ def profile_instanced(train: bool) -> int:
             instanced_fwd.instanced_forward(sc.structure, cfg, cam, fields, tab, MAIN_H, MAIN_W)
 
     frame()
-    # lol_instanced_bwd's kernel apart from its scatter's (rec_*, and the
-    # memset of its counts)
-    print(profile_steps(frame, 1, split=("instanced_bwd_kernel", "rec_", "Memset")
-                        if train else ()))
+    # the forward kernel, and lol_instanced_bwd's kernel apart from its
+    # scatter's (rec_*, and the memset of its counts)
+    print(profile_steps(frame, 1, split=("instanced_fwd_kernel",) + (
+        ("instanced_bwd_kernel", "rec_", "Memset") if train else ())))
     return 0
 
 
@@ -757,11 +748,13 @@ def profile_march() -> int:
     lol_shadow_march_instanced for light 0 on the middle 16-row band of
     instanced:10000 at clamp 2); then one path B step under the allocator's
     history (peak_breakdown); then path C's band body (`render_rays`, no
-    autograd) on that middle band; then, a session each (3 calls; a
-    session that records no device event is run again, at most three
-    times), the device ms of lol_march and of lol_shadow_march on each
-    light of path B's rays, with the cull and its shadow_cull=False twin,
-    as a JSON object. One line on stdout, the five joined by " || "."""
+    autograd) on that middle band; then, a session each (3 calls; a session
+    that records no device event is run again, at most three times), the
+    device ms of lol_march on path B's rays and, on each light's, of
+    lol_shadow_march with the cull and its shadow_cull=False twin, of
+    lol_exact_shadow and of a lol_exact_shadow_bwd call (its kernel, reduce
+    and gradient fill, a seeded cotangent), as a JSON object. One line on stdout, the five
+    joined by " || "."""
     import torch
 
     require(torch.cuda.is_available(), "torch.cuda.is_available() is false")
@@ -822,11 +815,27 @@ def profile_march() -> int:
     def k4(li, c):
         return lambda: mk.shadow_values(s4.structure, c, *lights[li], scene4)
 
+    # path A's exact shadow (cli fit's config) on the same rays
+    x_cfg = RenderConfig(antialias=True)
+    x_lib, x_entry = mk.exact_library(s4.structure, x_cfg), mk._exact_entry(s4.structure, x_cfg)
+
+    def k4x(li):
+        return lambda: mk._launch(x_entry, s4.structure, scene4, *lights[li], 1)
+
+    def k4xb(li):
+        so, ld, dist = lights[li]
+        g = torch.randn(dist.shape, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(li))
+        return lambda: mk._launch_exact_bwd(x_lib.lib, s4.structure, so, ld, dist,
+                                            scene4.fields, g)
+
     step(), band(), band_c()
     parts = [profile_steps(step, 1), profile_steps(band, 1), peak_breakdown(step),
              profile_steps(band_c, 1)]
     parts.append(json.dumps({
         "k3": busy(lambda: mk.march_values(s4.structure, b_cfg, ro4, rd4, scene4)),
+        "k4x": [busy(k4x(li)) for li in range(len(lights))],
+        "k4xb": [busy(k4xb(li)) for li in range(len(lights))],
         "k4": [busy(k4(li, b_cfg)) for li in range(len(lights))],
         "k4_twin": [busy(k4(li, twin)) for li in range(len(lights))]}))
     print(" || ".join(parts))
@@ -834,7 +843,7 @@ def profile_march() -> int:
 
 
 def run_profile(*args: str) -> str:
-    """A profiling line (profile_instanced's and the like), from a child
+    """A profiling line (profile_march's and the like), from a child
     process run with `args` (it loads the kernels the parent built from the
     build cache)."""
     import torch
@@ -856,11 +865,14 @@ def bound(nbytes: float, ops: float, fp32_ops_per_ms: float):
     return (b, "bytes") if b > o else (o, "operations")
 
 
-def entry(name, source, replaces, launches, err, ms, plain, bnd):
-    """One kernel's object of the `kernels` line."""
+def entry(name, source, replaces, launches, err, ms=None, plain=None, bnd=(None, None),
+          timed_by=None):
+    """One kernel's object of the `kernels` line; a kernel that a benchmark
+    cell times names the cell (`timed_by`) in place of its CUDA-event
+    times."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None, "timed_by": timed_by}
 
 
 def penumbra_keep(res, num_lights: int):
@@ -947,65 +959,44 @@ def march_inputs(dev):
 def march_ab() -> int:
     """`chip_smoke.py --march-ab`: K3 and K4 (each light) of the package
     beside this file at path B's rays, held bitwise against their plain
-    versions (and, where the package has them, every warp tile width and
-    K4's shadow_cull=False twin), timed with CUDA events (median of 10, in
-    turns) and by the host clock per call (host_us) through march_values /
-    shadow_values and through make_cuda_march / make_cuda_shadow_march's
-    functions. One JSON line on stdout. Run from a checkout of another
-    commit with this file copied into it, it times that commit's wrappers
-    and kernels the same way (the before / after of PERF.md)."""
+    versions (K4 also its shadow_cull=False twin); K4 timed with CUDA
+    events (median of 10, in turns) and by the host clock per call
+    (host_us) through shadow_values and through make_cuda_shadow_march's
+    function (K3's time is the `scene4-fit-exact-540p` cell's). One JSON
+    line on stdout. Run from a checkout of another commit with this file
+    copied into it, it times that commit's wrapper and kernel the same way
+    (the before / after of PERF.md)."""
     import torch
 
     require(torch.cuda.is_available(), "torch.cuda.is_available() is false")
     sys.path.insert(0, str(ROOT))
-    from loltracer_tpu_torch.render import cuda_scene
     from loltracer_tpu_torch.render import march_kernels as mk
 
     dev = torch.device("cuda", 0)
     s4, cfg, scene, ro, rd, m, lights = march_inputs(dev)
     st = s4.structure
-    tiles = getattr(cuda_scene, "MARCH_TILES", ())
     twin = cfg.replace(shadow_cull=False)
     same_planes(m, mk.march_values_reference(st, cfg, ro, rd, scene), "lol_march")
-    for tw in tiles:
-        same_planes(mk.march_values(st, cfg, ro, rd, scene, tile_w=tw),
-                    mk.march_values_reference(st, cfg, ro, rd, scene), f"lol_march @{tw}")
     for li, (so, ld, dist) in enumerate(lights):
         want = mk.shadow_values_reference(st, cfg, so, ld, dist, scene)
         same_planes(mk.shadow_values(st, cfg, so, ld, dist, scene), want,
                     f"lol_shadow_march light {li}")
-        if tiles:
-            same_planes(mk.shadow_values(st, twin, so, ld, dist, scene), want,
-                        f"lol_shadow_march twin light {li}")
-        for tw in tiles:
-            same_planes(mk.shadow_values(st, cfg, so, ld, dist, scene, tile_w=tw), want,
-                        f"lol_shadow_march @{tw} light {li}")
-    out = {"card": card_line(), "tiles": list(tiles)}
+        same_planes(mk.shadow_values(st, twin, so, ld, dist, scene), want,
+                    f"lol_shadow_march twin light {li}")
+    out = {"card": card_line()}
 
-    def k3():
-        mk.march_values(st, cfg, ro, rd, scene)
+    def k4(li, c=cfg):
+        return lambda: mk.shadow_values(st, c, *lights[li], scene)
 
-    def k4(li, c=cfg, **kw):
-        return lambda: mk.shadow_values(st, c, *lights[li], scene, **kw)
-
-    k3(), k4(0)(), k4(1)()
-    k3_ms = [time_ms(k3, 10)]
+    k4(0)(), k4(1)()
     k4_ms = {li: [time_ms(k4(li), 10)] for li in (0, 1)}
     k4_ms = {li: v + [time_ms(k4(li), 10)] for li, v in k4_ms.items()}
-    k3_ms.append(time_ms(k3, 10))
-    out.update(k3_ms=k3_ms, k4_ms=[k4_ms[0], k4_ms[1]])
-    if tiles:
-        out["k4_twin_ms"] = [[time_ms(k4(li, twin), 10) for _ in range(2)] for li in (0, 1)]
-        out["tile_ms"] = {tw: {"k3": time_ms(lambda: mk.march_values(st, cfg, ro, rd, scene,
-                                                                     tile_w=tw), 10),
-                               "k4": [time_ms(k4(li, tile_w=tw), 10) for li in (0, 1)]}
-                          for tw in tiles}
-    march_fn = functools.partial(mk.make_cuda_march(st, cfg), scene=scene)
+    out["k4_ms"] = [k4_ms[0], k4_ms[1]]
+    out["k4_twin_ms"] = [[time_ms(k4(li, twin), 10) for _ in range(2)] for li in (0, 1)]
     shadow_fn = functools.partial(mk.make_cuda_shadow_march(st, cfg), scene=scene)
-    march_fn(s4.params, ro, rd), shadow_fn(s4.params, *lights[0])
+    shadow_fn(s4.params, *lights[0])
     out["host_us"] = {
-        "march_values": host_us(k3), "shadow_values": host_us(k4(0)),
-        "march_fn": host_us(lambda: march_fn(s4.params, ro, rd)),
+        "shadow_values": host_us(k4(0)),
         "shadow_fn": host_us(lambda: shadow_fn(s4.params, *lights[0])),
     }
     print(json.dumps(out))
@@ -1046,15 +1037,13 @@ def exact_checks(s4, cfg, ceiling, sqrt_slots):
     summed g_fields within EXACT_FIELDS_TOL of the reference's float64
     total in units of its terms' magnitudes (beside it the float32
     reference's own sums, and a launch with the 32 x 4 tile of the largest
-    g_ro left out, which must fail the limit), two launches bitwise equal; CUDA
-    events (median of
-    10) of K4, K4x and K4xb, the plain loop's forward and the float32
-    reference sweep once; SDF evaluations a ray (the plain loop's counts,
-    culled rays started done); the bounds by operations (K4x as K4:
-    segment_lit on every ray, E + 17 a step; K4xb segment_lit, the march
-    again, E + 17, and the sweep, E + adjoint_ops + 30, a step) and
-    sqrt-weighted; ptxas' registers and spills. Returns {"build_s",
-    "ptxas", "sizes": {"WxH": [one dict a light]}}."""
+    g_ro left out, which must fail the limit), two launches bitwise equal;
+    SDF evaluations a ray (the plain loop's counts, culled rays started
+    done); the bounds by operations (K4x as K4: segment_lit on every ray,
+    E + 17 a step; K4xb segment_lit, the march again, E + 17, and the
+    sweep, E + adjoint_ops + 30, a step) and sqrt-weighted; ptxas'
+    registers and spills. Returns {"build_s", "ptxas", "sizes": {"WxH":
+    [one dict a light]}}."""
     import torch
 
     from loltracer_tpu_torch.render import march_kernels as mk
@@ -1134,12 +1123,6 @@ def exact_checks(s4, cfg, ceiling, sqrt_slots):
             evals = float(sum(live))
             culled = float(mk.segment_lit(st, s4.params, so, ld, dist, cfg.shadow_w)
                            .float().mean())
-            k4_ms = time_ms(lambda: mk.shadow_values(st, cfg, so, ld, dist, scene), 10)
-            x_ms = time_ms(lambda: mk._launch(entry_x, st, scene, so, ld, dist, 1), 10)
-            xb_ms = time_ms(bwd, 10)
-            loop_ms = time_ms(lambda: mk.shadow_values_reference(st, cfg, so, ld, dist, scene), 1)
-            ref_ms = time_ms(lambda: mk.exact_shadow_reference(st, cfg, so, ld, dist,
-                                                               scene.fields, g), 1)
             fwd_ops = rays * seg_ops + evals * (E + 17)
             bwd_ops = rays * seg_ops + evals * (E + 17) + evals * (E + A + 30)
             fwd_sqrts = rays * seg_sqrts + evals * S
@@ -1149,8 +1132,6 @@ def exact_checks(s4, cfg, ceiling, sqrt_slots):
                  "fields_of_max": fields_abs / max(float(total.abs().max()), 1e-12),
                  "fields_ref32_err": control, "fields_lost_tile_err": lost_err,
                  "mass_over_max": float(mass[0].max()) / max(float(total.abs().max()), 1e-12),
-                 "k4_ms": k4_ms, "k4x_ms": x_ms,
-                 "k4xb_ms": xb_ms, "loop_fwd_ms": loop_ms, "ref_bwd_ms": ref_ms,
                  "k4x_bound": bound(small + 32 * rays, fwd_ops, ceiling),
                  "k4x_bound_sqrt": bound(small + 32 * rays,
                                          fwd_ops + (sqrt_slots - 1) * fwd_sqrts, ceiling),
@@ -1164,11 +1145,9 @@ def exact_checks(s4, cfg, ceiling, sqrt_slots):
                   f"({off} rays off), g_fields {errs[2]:.2e} of its terms' magnitudes off the "
                   f"float64 total ({d_max:.2e} of its largest; the float32 reference "
                   f"{control:.2e}, a lost tile {lost_err:.2e}); culled "
-                  f"{culled:.3f}, {evals / rays:.2f} evaluations a ray; K4 {k4_ms:.4f} ms, "
-                  f"K4x {x_ms:.4f}, K4xb {xb_ms:.4f}; plain loop {loop_ms:.1f}, reference "
-                  f"sweep {ref_ms:.1f}; bounds K4x {d['k4x_bound'][0]:.4f} (sqrt "
-                  f"{d['k4x_bound_sqrt'][0]:.4f}), K4xb {d['k4xb_bound'][0]:.4f} (sqrt "
-                  f"{d['k4xb_bound_sqrt'][0]:.4f})", flush=True)
+                  f"{culled:.3f}, {evals / rays:.2f} evaluations a ray; bounds K4x "
+                  f"{d['k4x_bound'][0]:.4f} (sqrt {d['k4x_bound_sqrt'][0]:.4f}), K4xb "
+                  f"{d['k4xb_bound'][0]:.4f} (sqrt {d['k4xb_bound_sqrt'][0]:.4f})", flush=True)
             del ref, total, got, again, mass
         out["sizes"][f"{w}x{h}"] = lights
     print(f"[19] K4x / K4xb library built in {out['build_s']:.1f} s; ptxas "
@@ -1176,42 +1155,41 @@ def exact_checks(s4, cfg, ceiling, sqrt_slots):
     return out
 
 
-def exact_entries(exact, a_counts):
+def exact_entries(exact, a_counts, dev_ms):
     """The `kernels` entries of K4x and K4xb from exact_checks' record (the
-    numbers of the main shape, averaged over the lights) and phase 19's
-    launches."""
+    bounds of the main shape, averaged over the lights), phase 19's
+    launches and phase 20's device times (`--profile-march`, the same
+    rays, averaged over the lights)."""
     x_main = exact["sizes"][f"{MAIN_W}x{MAIN_H}"]
 
     def per_light(key):
-        return statistics.mean(d[key][0] if isinstance(d[key], tuple) else d[key]
-                               for d in x_main)
+        return statistics.mean(d[key][0] for d in x_main)
 
     def sizes(keys):
         return {size: [{k: d[k] for k in keys} for d in lights]
                 for size, lights in exact["sizes"].items()}
 
+    cell = "scene4-fit-exact-540p"
     return [
         dict(entry("lol_exact_shadow", "loltracer_tpu_torch/csrc/exact_shadow.cuh",
                    "loltracer_tpu/render/shading.py:59", a_counts["lol_exact_shadow"], 0.0,
-                   per_light("k4x_ms"), per_light("loop_fwd_ms"),
-                   (per_light("k4x_bound"), x_main[0]["k4x_bound"][1])),
-             ms_is="the mean of the two lights' launches",
-             bound_sqrt_ms=per_light("k4x_bound_sqrt"), k4_ms=per_light("k4_ms"),
-             ptxas=exact["ptxas"], build_s=exact["build_s"],
-             sizes=sizes(("k4x_ms", "k4_ms", "loop_fwd_ms", "culled", "evals_per_ray",
-                          "k4x_bound", "k4x_bound_sqrt"))),
+                   bnd=(per_light("k4x_bound"), x_main[0]["k4x_bound"][1]), timed_by=cell),
+             device_ms=statistics.mean(dev_ms["k4x"]),
+             device_ms_is="the mean of the two lights' launches at 1920x1080",
+             bound_sqrt_ms=per_light("k4x_bound_sqrt"), ptxas=exact["ptxas"],
+             build_s=exact["build_s"],
+             sizes=sizes(("culled", "evals_per_ray", "k4x_bound", "k4x_bound_sqrt"))),
         dict(entry("lol_exact_shadow_bwd", "loltracer_tpu_torch/csrc/exact_shadow.cuh",
                    "loltracer_tpu/render/shading.py:59", a_counts["lol_exact_shadow_bwd"],
                    max(d["fields_abs_err"] for ls in exact["sizes"].values() for d in ls),
-                   per_light("k4xb_ms"), per_light("ref_bwd_ms"),
-                   (per_light("k4xb_bound"), x_main[0]["k4xb_bound"][1])),
-             ms_is="the mean of the two lights' launches, kernel, reduce and wrapper",
+                   bnd=(per_light("k4xb_bound"), x_main[0]["k4xb_bound"][1]), timed_by=cell),
+             device_ms=statistics.mean(dev_ms["k4xb"]),
+             device_ms_is="the mean of the two lights' calls at 1920x1080: kernel, reduce, fill",
              err_is="g_fields against the float64 total of the plain version's terms",
              bound_sqrt_ms=per_light("k4xb_bound_sqrt"),
-             sizes=sizes(("k4xb_ms", "ref_bwd_ms", "grad_err", "grad_rays_off",
-                          "fields_abs_err", "fields_of_max", "fields_ref32_err",
-                          "fields_lost_tile_err", "mass_over_max", "k4xb_bound",
-                          "k4xb_bound_sqrt"))),
+             sizes=sizes(("grad_err", "grad_rays_off", "fields_abs_err", "fields_of_max",
+                          "fields_ref32_err", "fields_lost_tile_err", "mass_over_max",
+                          "k4xb_bound", "k4xb_bound_sqrt"))),
     ]
 
 
@@ -1280,7 +1258,6 @@ def march_phases(dev, card, scenes, inst, march_built, t0, e_inst, it_target, ce
     from loltracer_tpu_torch.render.cuda_scene import (
         MARCH_LANES,
         MARCH_TILE_W,
-        MARCH_TILES,
         pack_fields,
         packed_size,
     )
@@ -1306,18 +1283,15 @@ def march_phases(dev, card, scenes, inst, march_built, t0, e_inst, it_target, ce
     clamp2 = RenderConfig(step_clamp=2.0)
 
     def compiled_case(what, sc, c, h=97, w=161):
-        """Phase 18 on a compiled structure: K3 at lol_march's tile and
-        every swept width bitwise its plain version; per light K4 (with the
-        segment cull) at every width, its shadow_cull=False twin and its
-        plain version (culled rays started done) all bitwise the plain
+        """Phase 18 on a compiled structure: K3 bitwise its plain version;
+        per light K4 (with the segment cull), its shadow_cull=False twin and
+        its plain version (culled rays started done) all bitwise the plain
         loops without the cull; prints the culled share per light."""
         st, twin = sc.structure, c.replace(shadow_cull=False)
         scene = mk.pack_march_scene(st, sc.params)
         ro, rd = camera_rays(sc.params, h, w, c)
         want = mk.march_values_reference(st, c, ro, rd, scene)
-        for tw in (None,) + MARCH_TILES:
-            same_planes(mk.march_values(st, c, ro, rd, scene, tile_w=tw), want,
-                        f"{what} lol_march tile {tw}")
+        same_planes(mk.march_values(st, c, ro, rd, scene), want, f"{what} lol_march")
         t_sh = torch.where(want.t < c.max_dist, want.t, want.t_close) if c.antialias else want.t
         shares = []
         for li, (so, ld, dist) in enumerate(shadow_rays(sc.params, ro, rd, t_sh, c)):
@@ -1326,28 +1300,25 @@ def march_phases(dev, card, scenes, inst, march_built, t0, e_inst, it_target, ce
                         f"{what} light {li}: the culled plain loops vs the unculled")
             same_planes(mk.shadow_values(st, twin, so, ld, dist, scene), plain,
                         f"{what} light {li}: the shadow_cull=False twin")
-            for tw in (None,) + MARCH_TILES:
-                same_planes(mk.shadow_values(st, c, so, ld, dist, scene, tile_w=tw), plain,
-                            f"{what} light {li}: lol_shadow_march tile {tw}")
+            same_planes(mk.shadow_values(st, c, so, ld, dist, scene), plain,
+                        f"{what} light {li}: lol_shadow_march")
             shares.append(float(segment_lit(st, sc.params, so, ld, dist,
                                             c.shadow_w).float().mean()))
-        print(f"[18] {what} {h}x{w}: lol_march (tile width {MARCH_TILE_W}) and lol_march_tile "
-              f"at {MARCH_TILES} bitwise the plain version; per light lol_shadow_march with "
-              f"the segment cull at every width, its shadow_cull=False twin and the culled "
-              f"plain loops bitwise the plain loops; lanes culled per light "
+        print(f"[18] {what} {h}x{w}: lol_march bitwise the plain version; per light "
+              f"lol_shadow_march with the segment cull, its shadow_cull=False twin and the "
+              f"culled plain loops bitwise the plain loops; lanes culled per light "
               f"{[round(v, 4) for v in shares]}")
 
     # --- 17. build ----------------------------------------------------------------
     built = [f.result() for f in march_built]
     k34_ptxas = {"cull": ptxas_lines(built[3].log), "twin": ptxas_lines(built[7 + 3].log)}
-    require(all(len(v) == 2 * len(MARCH_TILES) for v in k34_ptxas.values()),
+    require(all(len(v) == 2 for v in k34_ptxas.values()),
             f"scene4's march libraries: ptxas reported {k34_ptxas}")
-    print(f"[17] build: {len(built)} march libraries (lol_march + lol_shadow_march and their "
-          f"_tile sweeps over {MARCH_TILES} for the 4 examples and their shadow_cull=False twins; "
-          f"lol_march_instanced + lol_shadow_march_instanced for clamp 2, exact, "
-          f"shadow clamp 8, each at lane widths {MARCH_LANES}) done "
-          f"{time.perf_counter() - t0:.1f} s after the builds started; "
-          f"ptxas scene4, per tile width: " + " | ".join(k34_ptxas["cull"])
+    print(f"[17] build: {len(built)} march libraries (lol_march + lol_shadow_march for the 4 "
+          f"examples and their shadow_cull=False twins; lol_march_instanced + "
+          f"lol_shadow_march_instanced for clamp 2, exact, shadow clamp 8, each at lane widths "
+          f"{MARCH_LANES}) done {time.perf_counter() - t0:.1f} s after the builds started; "
+          f"ptxas scene4: " + " | ".join(k34_ptxas["cull"])
           + "; its twin: " + " | ".join(k34_ptxas["twin"]))
     for tag, lib in zip(("clamp 2", "exact", "shadow clamp 8"), built[4:7]):
         lines = ptxas_lines(lib.log)
@@ -1419,13 +1390,11 @@ def march_phases(dev, card, scenes, inst, march_built, t0, e_inst, it_target, ce
         a_base = torch.cuda.memory_allocated()
         reset_counts()
         printed = io.StringIO()
-        t_fit = time.perf_counter()
         with contextlib.redirect_stdout(printed):
             cli.main(["fit", str(EXAMPLES / "scene4.lol"), "--target", str(tgt), "--steps",
                       str(fit_steps), "--trainable", "sphere_point", "--lr", "3e-2",
                       "-o", str(out)])
         torch.cuda.synchronize()
-        t_fit = time.perf_counter() - t_fit
         a_peak = torch.cuda.max_memory_allocated() - a_base
         a_counts = counts()
         other = (fused_fwd.launches, fused_train.launches_fwd, fused_train.launches_bwd)
@@ -1443,16 +1412,8 @@ def march_phases(dev, card, scenes, inst, march_built, t0, e_inst, it_target, ce
     require(png.shape == (MAIN_H, MAIN_W, 3), f"fitted render {png.shape}")
     print(f"[19] main path A: cli fit scene4 {MAIN_W}x{MAIN_H} (AA, exact shadows, "
           f"{fit_steps} Adam steps on sphere_point, -o) -> {a_counts}; losses {a_losses}; "
-          f"{t_fit:.1f} s with the -o render; peak {a_peak / 2**20:.0f} MiB allocated above the "
-          f"{a_base / 2**20:.0f} MiB live before it")
-
-    a_leaves = grad_leaves(s4.params)
-
-    def step_a():
-        ((render_image(st4, a_leaves, MAIN_H, MAIN_W, a_cfg) - target) ** 2).mean().backward()
-
-    step_a()
-    a_step_ms = time_ms(step_a, 1)
+          f"peak {a_peak / 2**20:.0f} MiB allocated above the {a_base / 2**20:.0f} MiB live "
+          f"before it")
     exact = exact_checks(s4, a_cfg, ceiling, sqrt_slots)
 
     # --- 20. path B: render_image with envelope shadows under autograd -------------------
@@ -1489,10 +1450,10 @@ def march_phases(dev, card, scenes, inst, march_built, t0, e_inst, it_target, ce
 
     b_step_ms = time_ms(step_b, 2)
 
-    # K3 and K4 at the main shape (path B's rays): every swept tile width and
-    # K4's shadow_cull=False twin held bitwise against the plain versions,
-    # per light, the plain loops counting each ray's SDF evaluations (with
-    # the cull and without); then the times
+    # K3 and K4 at the main shape (path B's rays): K3 and, per light, K4 and
+    # its shadow_cull=False twin held bitwise against the plain versions,
+    # the plain loops counting each ray's SDF evaluations (K4's with the
+    # cull and without); then K4's times
     ro, rd = camera_rays(s4.params, MAIN_H, MAIN_W, b_cfg)
     scene_b = mk.pack_march_scene(st4, s4.params)
     twin_b = b_cfg.replace(shadow_cull=False)
@@ -1503,19 +1464,14 @@ def march_phases(dev, card, scenes, inst, march_built, t0, e_inst, it_target, ce
 
     k3_live, k3_counts = [], ray_counts()
     k3 = mk.march_values(st4, b_cfg, ro, rd, scene_b)
-    p3 = mk.march_values_reference(st4, b_cfg, ro, rd, scene_b, k3_live, counts=k3_counts)
-    for tw in (None,) + MARCH_TILES:
-        same_planes(mk.march_values(st4, b_cfg, ro, rd, scene_b, tile_w=tw), p3,
-                    f"lol_march 1080p tile {tw}")
+    same_planes(k3, mk.march_values_reference(st4, b_cfg, ro, rd, scene_b, k3_live,
+                                              counts=k3_counts), "lol_march 1080p")
     t_sh = torch.where(k3.t < b_cfg.max_dist, k3.t, k3.t_close)
     b_rays = shadow_rays(s4.params, ro, rd, t_sh, b_cfg)
-    del k3, p3, t_sh
+    del k3, t_sh
 
-    def k3_call(tw=None):
-        return lambda: mk.march_values(st4, b_cfg, ro, rd, scene_b, tile_w=tw)
-
-    def k4_call(li, c=b_cfg, tw=None):
-        return lambda: mk.shadow_values(st4, c, *b_rays[li], scene_b, tile_w=tw)
+    def k4_call(li, c=b_cfg):
+        return lambda: mk.shadow_values(st4, c, *b_rays[li], scene_b)
 
     k4_lights = []
     for li, (so, ld, dist) in enumerate(b_rays):
@@ -1526,44 +1482,30 @@ def march_phases(dev, card, scenes, inst, march_built, t0, e_inst, it_target, ce
         same_planes(p4, p4t, f"light {li} 1080p: the culled plain loops vs the unculled")
         same_planes(mk.shadow_values(st4, twin_b, so, ld, dist, scene_b), p4t,
                     f"light {li} 1080p: the shadow_cull=False twin")
-        for tw in (None,) + MARCH_TILES:
-            same_planes(mk.shadow_values(st4, b_cfg, so, ld, dist, scene_b, tile_w=tw), p4t,
-                        f"light {li} 1080p: lol_shadow_march tile {tw}")
+        same_planes(mk.shadow_values(st4, b_cfg, so, ld, dist, scene_b), p4t,
+                    f"light {li} 1080p: lol_shadow_march")
         del p4, p4t
         share = float(segment_lit(st4, s4.params, so, ld, dist, b_cfg.shadow_w).float().mean())
         k4_lights.append(dict(culled_share=share, evals=sum(live_c) / rays,
                               twin_evals=sum(live_t) / rays, live=sum(live_c),
-                              warp_efficiency={tw: warp_efficiency(cnt_c, tw) for tw in MARCH_TILES},
-                              twin_warp_efficiency={tw: warp_efficiency(cnt_t, tw)
-                                                    for tw in MARCH_TILES}))
+                              warp_efficiency=warp_efficiency(cnt_c, MARCH_TILE_W),
+                              twin_warp_efficiency=warp_efficiency(cnt_t, MARCH_TILE_W)))
     # times: each light's K4 in turns with its twin (twin, kernel, kernel,
-    # twin; median of 10 each), then the tile sweep (each width twice, in
-    # turns), then the plain versions (once, warm)
-    for fn in (k3_call(), k4_call(0), k4_call(1), k4_call(0, twin_b), k4_call(1, twin_b)):
+    # twin; median of 10 each), then the plain versions (once, warm)
+    for fn in (k4_call(0), k4_call(1), k4_call(0, twin_b), k4_call(1, twin_b)):
         fn()
-    k3_runs = [time_ms(k3_call(), 10), time_ms(k3_call(), 10)]
-    k3_ms = statistics.median(k3_runs)
     for li, d in enumerate(k4_lights):
         d["twin_ms"] = [time_ms(k4_call(li, twin_b), 10)]
         d["runs"] = [time_ms(k4_call(li), 10), time_ms(k4_call(li), 10)]
         d["twin_ms"].append(time_ms(k4_call(li, twin_b), 10))
         d["ms"] = statistics.median(d["runs"])
-    tile_ms = {tw: {"k3": [], "k4": [[], []]} for tw in MARCH_TILES}
-    for tw in MARCH_TILES + MARCH_TILES[::-1]:
-        tile_ms[tw]["k3"].append(time_ms(k3_call(tw), 10))
-        for li in (0, 1):
-            tile_ms[tw]["k4"][li].append(time_ms(k4_call(li, tw=tw), 10))
-    k3_eff = {tw: warp_efficiency(k3_counts, tw) for tw in MARCH_TILES}
-    p3_ms = time_ms(lambda: mk.march_values_reference(st4, b_cfg, ro, rd, scene_b), 1)
     for li, d in enumerate(k4_lights):
         d["plain_ms"] = time_ms(lambda: mk.shadow_values_reference(st4, b_cfg, *b_rays[li],
                                                                    scene_b), 1)
-    # host time per call (host_us): the helpers and the renderer's functions
-    march_fn = functools.partial(mk.make_cuda_march(st4, b_cfg), scene=scene_b)
+    # host time per call (host_us): the helper and the renderer's function
     shadow_fn = functools.partial(mk.make_cuda_shadow_march(st4, b_cfg), scene=scene_b)
-    march_fn(s4.params, ro, rd), shadow_fn(s4.params, *b_rays[0])
-    wrapper_us = {"march_values": host_us(k3_call()), "shadow_values": host_us(k4_call(0)),
-                  "march_fn": host_us(lambda: march_fn(s4.params, ro, rd)),
+    shadow_fn(s4.params, *b_rays[0])
+    wrapper_us = {"shadow_values": host_us(k4_call(0)),
                   "shadow_fn": host_us(lambda: shadow_fn(s4.params, *b_rays[0]))}
     # Operation model (csrc/march.cuh over the generated Scene): per march
     # step E + 15 (the step and the closest-approach tracking), per shadow
@@ -1579,6 +1521,7 @@ def march_phases(dev, card, scenes, inst, march_built, t0, e_inst, it_target, ce
     k3_bound = bound(small + 28 * rays, k3_evals * (E + 15), ceiling)
     k3_bound_sqrt = bound(small + 28 * rays,
                           k3_evals * (E + 15) + (sqrt_slots - 1.0) * k3_evals * S, ceiling)
+    k3_eff = warp_efficiency(k3_counts, MARCH_TILE_W)
     for d in k4_lights:
         ops = rays * seg_ops + d["live"] * (E + 17)
         sqrts = rays * seg_sqrts + d["live"] * S
@@ -1587,35 +1530,30 @@ def march_phases(dev, card, scenes, inst, march_built, t0, e_inst, it_target, ce
         d["bound_ms"], d["bound_sqrt_ms"] = d["bound"][0], d["bound_sqrt"][0]
     march_prof = run_profile("--profile-march").split(" || ")
     dev_ms = json.loads(march_prof[4])
-    require(dev_ms["k3"] > 0 and all(v > 0 for v in dev_ms["k4"] + dev_ms["k4_twin"]),
-            f"the profile saw no device time of K3 / K4: {dev_ms}")
+    require(all(v > 0 for k in ("k4", "k4_twin", "k4x", "k4xb") for v in dev_ms[k])
+            and dev_ms["k3"] > 0, f"the profile saw no device time of K3 / K4 / K4x / K4xb: "
+            f"{dev_ms}")
     for li, d in enumerate(k4_lights):
         d.update(device_ms=dev_ms["k4"][li], twin_device_ms=dev_ms["k4_twin"][li])
-    print(f"[20] scene4 AA {MAIN_W}x{MAIN_H} on {card}: path A step (exact) {a_step_ms:.1f} ms, "
-          f"path B fwd+bwd (envelope) {b_step_ms:.1f} ms; lol_march {k3_ms:.4f} ms (runs "
-          f"{k3_runs}; device {dev_ms['k3']:.4f}; plain {p3_ms:.1f} ms; bound {k3_bound[0]:.4f} "
-          f"ms by {k3_bound[1]}, sqrt-weighted {k3_bound_sqrt[0]:.4f}; "
-          f"{k3_evals / rays:.2f} evaluations per ray); lol_march and lol_shadow_march at every "
-          f"tile width bitwise the plain versions, lol_shadow_march bitwise its "
-          f"shadow_cull=False twin on both lights")
+    print(f"[20] scene4 AA {MAIN_W}x{MAIN_H} on {card}: path B fwd+bwd (envelope) "
+          f"{b_step_ms:.1f} ms; lol_march and lol_shadow_march bitwise the plain versions, "
+          f"lol_shadow_march bitwise its shadow_cull=False twin on both lights; lol_march "
+          f"device {dev_ms['k3']:.4f} ms, bound {k3_bound[0]:.4f} ms by {k3_bound[1]}, "
+          f"sqrt-weighted {k3_bound_sqrt[0]:.4f}, {k3_evals / rays:.2f} evaluations per ray, "
+          f"warp efficiency {k3_eff:.4f}; per light on the same rays lol_exact_shadow device "
+          f"{dev_ms['k4x']} ms, lol_exact_shadow_bwd (kernel, reduce, fill) {dev_ms['k4xb']} ms")
     for li, d in enumerate(k4_lights):
         print(f"[20] lol_shadow_march light {li}: {d['ms']:.4f} ms (runs {d['runs']}; device "
               f"{d['device_ms']:.4f}), its shadow_cull=False twin {d['twin_ms']} in turns "
               f"around it (device {d['twin_device_ms']:.4f}); plain {d['plain_ms']:.1f} ms; "
               f"lanes culled {d['culled_share']:.4f}; SDF evaluations a ray {d['evals']:.2f} "
               f"with the cull, {d['twin_evals']:.2f} without; bound {d['bound'][0]:.4f} ms by "
-              f"{d['bound'][1]}, sqrt-weighted {d['bound_sqrt'][0]:.4f}; warp efficiency per "
-              f"tile width " + ", ".join(
-                  f"{tw}x{32 // tw} {d['warp_efficiency'][tw]:.4f} (twin "
-                  f"{d['twin_warp_efficiency'][tw]:.4f})" for tw in MARCH_TILES))
-    print(f"[20] tile sweep (each width twice, in turns; lol_march / lol_shadow_march launch "
-          f"{MARCH_TILE_W}x{32 // MARCH_TILE_W}): " + "; ".join(
-              f"{tw}x{32 // tw}: K3 {tile_ms[tw]['k3']} ms (warp efficiency {k3_eff[tw]:.4f}), "
-              f"K4 light 0 {tile_ms[tw]['k4'][0]}, light 1 {tile_ms[tw]['k4'][1]}"
-              for tw in MARCH_TILES))
+              f"{d['bound'][1]}, sqrt-weighted {d['bound_sqrt'][0]:.4f}; warp efficiency "
+              f"({MARCH_TILE_W}x{32 // MARCH_TILE_W} tiles) {d['warp_efficiency']:.4f} (twin "
+              f"{d['twin_warp_efficiency']:.4f})")
     print(f"[20] host time per call (host clock over 100 calls, no sync inside): "
           + ", ".join(f"{k} {v:.1f} us" for k, v in wrapper_us.items()))
-    del a_leaves, b_leaves, k_leaves, img_b
+    del b_leaves, k_leaves, img_b
 
     # --- 21. path C: render_image_banded over instanced:10000 ---------------------------
     big = inst[10_000]
@@ -1800,25 +1738,20 @@ def march_phases(dev, card, scenes, inst, march_built, t0, e_inst, it_target, ce
     return [
         dict(entry("lol_march", "loltracer_tpu_torch/csrc/march.cuh",
                    "loltracer_tpu/render/pallas_march.py:94", a_counts["lol_march"],
-                   errs["lol_march"], k3_ms, p3_ms, k3_bound),
+                   errs["lol_march"], bnd=k3_bound, timed_by="scene4-fit-exact-540p"),
              device_ms=dev_ms["k3"], bound_sqrt_ms=k3_bound_sqrt[0], tile_w=MARCH_TILE_W,
-             tile_ms={str(tw): v["k3"] for tw, v in tile_ms.items()},
-             warp_efficiency={str(tw): v for tw, v in k3_eff.items()},
-             evals_per_ray=k3_evals / (MAIN_W * MAIN_H), host_us=wrapper_us),
+             warp_efficiency=k3_eff, evals_per_ray=k3_evals / (MAIN_W * MAIN_H)),
         dict(entry("lol_shadow_march", "loltracer_tpu_torch/csrc/march.cuh",
                    "loltracer_tpu/render/pallas_march.py:111", b_counts["lol_shadow_march"],
                    errs["lol_shadow_march"], per_launch("ms"), per_launch("plain_ms"),
                    k4_mean_bound),
              ms_is="the mean of the two lights' launches", device_ms=per_launch("device_ms"),
              bound_sqrt_ms=per_launch("bound_sqrt_ms"), tile_w=MARCH_TILE_W,
-             tile_ms={str(tw): v["k4"] for tw, v in tile_ms.items()},
              culled_share_per_light=[d["culled_share"] for d in k4_lights],
              lights=[{k: d[k] for k in ("ms", "runs", "twin_ms", "device_ms", "twin_device_ms",
                                          "plain_ms", "culled_share", "evals", "twin_evals",
-                                         "bound_ms", "bound_sqrt_ms")}
-                     | {"warp_efficiency": {str(tw): v for tw, v in d["warp_efficiency"].items()},
-                        "twin_warp_efficiency": {str(tw): v for tw, v in
-                                                 d["twin_warp_efficiency"].items()}}
+                                         "bound_ms", "bound_sqrt_ms", "warp_efficiency",
+                                         "twin_warp_efficiency")}
                      for d in k4_lights],
              host_us=wrapper_us),
         dict(entry("lol_march_instanced", "loltracer_tpu_torch/csrc/coop_march.cuh",
@@ -1833,7 +1766,7 @@ def march_phases(dev, card, scenes, inst, march_built, t0, e_inst, it_target, ce
                    k4i_ms, p4i_ms, k4i_bound), plain_ms_rows=BAND, ms_rows=BAND,
              lanes=band_lanes["k4"], frame_ms=k4f_ms, frame_lanes=frame_lanes["k4"],
              sweep_ms={w: [t["band_k4"], t["half_k4"], t["frame_k4"]] for w, t in sweep.items()}),
-        *exact_entries(exact, a_counts),
+        *exact_entries(exact, a_counts, dev_ms),
     ]
 
 
@@ -1951,11 +1884,12 @@ def fit_target(s4, cfg, dev):
 def profile_fit() -> int:
     """`chip_smoke.py --profile-fit`: phase 8's fit_scene (scene4 AA at
     MAIN_W x MAIN_H, 5 Adam steps on sphere_point toward fit_target) under
-    a CUDA-only torch.profiler; one JSON line on stdout: the runs of K1r
-    and K2 on the device trace, the wrappers' launch counts, the
-    `train_step` counters and the losses. A process of its own, as
-    --profile-fused: phase 8's profile_steps is the main process's one
-    profiling session."""
+    a CUDA-only torch.profiler; one JSON line on stdout: the runs of K1r,
+    K2 and K2's reduce on the device trace and their device ms a launch,
+    the wrappers' launch counts, the `train_step` counters and the
+    losses. A process of its own, as every profile here: a second
+    torch.profiler session in one process saw no device events (torch
+    2.11 on an H100 machine)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1978,11 +1912,14 @@ def profile_fit() -> int:
         fit = fit_scene(s4.structure, s4.params, target, steps=5, learning_rate=3e-2,
                         trainable=("sphere_point",), cfg=cfg, device=dev)
         torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == DeviceType.CUDA and "lol::" in e.name]
+    runs = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == DeviceType.CUDA and "lol::" in e.name]
+    kernels = ("fused_fwd_kernel", "fused_bwd_kernel", "bwd_reduce_kernel")
+    ran = {k: [us for n, us in runs if k in n] for k in kernels}
     counts = tracing.counters()
     print(json.dumps({
-        "ran": {k: sum(k in n for n in names) for k in ("fused_fwd_kernel", "fused_bwd_kernel")},
+        "ran": {k: len(v) for k, v in ran.items()},
+        "device_ms": {k: sum(v) / len(v) / 1e3 if v else 0.0 for k, v in ran.items()},
         "wrappers": {"lol_train_fwd": fused_train.launches_fwd,
                      "lol_train_bwd": fused_train.launches_bwd,
                      "table": fused_train.launches_table},
@@ -1994,8 +1931,9 @@ def profile_fit() -> int:
 def profile_fused() -> int:
     """`chip_smoke.py --profile-fused`: torch.profiler over one frame of
     lol_render_fused (scene4, MAIN_W x MAIN_H), one line on stdout. Phase 8
-    runs it as a process of its own (its own profile covers the training
-    step, whose lol_train_fwd shares lol_render_fused's kernel name)."""
+    runs it as a process of its own, apart from `--profile-fit`'s trace of
+    the training step, whose lol_train_fwd shares lol_render_fused's
+    kernel name."""
     import torch
 
     require(torch.cuda.is_available(), "torch.cuda.is_available() is false")
@@ -2871,52 +2809,6 @@ DEAL_H = 1088  # rows of the dealt frames (phases 31-32): 1088 = 2 x 16 x 34 dea
 DEAL_SPHERES = 10_000  # the instanced scene of phase 32
 
 
-def fit_step_ab(dev, s4, cfg, target, reps: int = 10):
-    """The step fit_scene takes since PR 14 (the sharded train step on a
-    mesh of one rank: the row table, the loss over H * W * 3) against the
-    step it took before (one renderer over the frame, a mean loss), each
-    with zero_grad, Adam on sphere_point and default_project, in turns
-    (old, new, new, old; CUDA events, median of `reps`). Returns
-    {"old": [ms, ms], "sharded": [ms, ms]}."""
-    import torch
-    import torch.distributed as dist
-
-    from loltracer_tpu_torch.opt import default_project, masked_optimizer, trainable_leaves
-    from loltracer_tpu_torch.parallel import make_mesh, make_sharded_train_step
-    from loltracer_tpu_torch.render import fused_train
-    from loltracer_tpu_torch.scene import FIELDS
-
-    h, w = target.shape[0], target.shape[1]
-    leaves = trainable_leaves(s4.params, ("sphere_point",))
-    opt = masked_optimizer(leaves, ("sphere_point",), lr=3e-2)
-    sharded = make_sharded_train_step(s4.structure, make_mesh(device=dev.type), h, w, opt, cfg,
-                                      project=default_project, device=dev)
-    render = fused_train.make_training_renderer(s4.structure, h, w, cfg, device=dev)
-
-    def old():
-        opt.zero_grad(set_to_none=True)
-        ((render(leaves) - target) ** 2).mean().backward()
-        opt.step()
-        with torch.no_grad():
-            projected = default_project(leaves)
-            for f in FIELDS:
-                getattr(leaves, f).copy_(getattr(projected, f))
-
-    out = turns_ms({"old": old, "sharded": lambda: sharded(leaves, target)}, reps)
-    dist.destroy_process_group()
-    return out
-
-
-def turns_ms(fns, reps: int = 10):
-    """Each of `fns` (name -> fn) timed in turns, twice: a, b, ..., b, a
-    (median of `reps` CUDA-event calls each); name -> [two medians]."""
-    order = list(fns) + list(fns)[::-1]
-    out = {k: [] for k in fns}
-    for k in order:
-        out[k].append(time_ms(fns[k], reps))
-    return out
-
-
 def check_sum_grads(got, want, names, what: str) -> float:
     """The phase-7 rule: each gradient in `got` within 1e-4 * max|want| of
     `want` (per field of `names`, a dict name -> (got, want)), dcam within
@@ -2935,11 +2827,10 @@ def check_sum_grads(got, want, names, what: str) -> float:
     return worst
 
 
-def rowtab_phase(dev, card, scenes, inst, train_cases, h, w):
+def rowtab_phase(dev, scenes, inst, train_cases, h, w):
     """Phase 31: the row table of K1r / K2 / K5r / K6 against cam[15]
-    (`nullptr`), the two-launch LPT frames at DEAL_H x MAIN_W, and the
-    table launches timed beside their twins. Returns name -> the
-    `rowtab` part of the kernel's entry (without its main-path launches)."""
+    (`nullptr`) and the two-launch LPT frames at DEAL_H x MAIN_W. Returns
+    the deal of each (`deal`'s part of the kernels' entries)."""
     import numpy as np
     import torch
 
@@ -2972,8 +2863,7 @@ def rowtab_phase(dev, card, scenes, inst, train_cases, h, w):
         g = fused_train.train_backward(st, c, cam, fields, res, ct)
         t_g = fused_train.train_backward(st, c, cam, fields, t_res, ct, rowtab=tab)
         torch.cuda.synchronize()
-        return (same_bits(img, t_img) and same_bits(res, t_res) and same_grads(g, t_g)), \
-            tab, res, ct
+        return same_bits(img, t_img) and same_bits(res, t_res) and same_grads(g, t_g)
 
     def k5r_k6(sc, c, cam, fields, tab_i, hh, ww, grid):
         """(nullptr, 16k) launches of K5r and K6 (records included): bitwise."""
@@ -2994,28 +2884,28 @@ def rowtab_phase(dev, card, scenes, inst, train_cases, h, w):
                    and all(same_bits(a[r >= 0], b[r >= 0])
                            for a, b, r in zip(g[4:5], t_g[4:5], g[3:4])))
         return (same_bits(img, t_img) and same_bits(res, t_res) and same_grads(g, t_g)
-                and records), tab, res, ct
+                and records)
 
     # --- the five phase-6 cases at h x w, and scene4 AA at MAIN_W x MAIN_H
     for name, c in train_cases:
         s = scenes[name]
-        ok, *_ = k1r_k2(s.structure, c, camera_pack(s.params, h, w, c),
-                        pack_fields(s.structure, s.params), h, w)
+        ok = k1r_k2(s.structure, c, camera_pack(s.params, h, w, c),
+                    pack_fields(s.structure, s.params), h, w)
         require(ok, f"{name} antialias={c.antialias} {h}x{w}: a K1r / K2 launch with the row "
                     "table 8k differs from its nullptr launch")
     s4, c_aa = scenes["scene4.lol"], train_cases[-1][1]
     cam4, fields4 = camera_pack(s4.params, MAIN_H, MAIN_W, c_aa), pack_fields(s4.structure,
                                                                             s4.params)
-    ok, tab4, res4, ct4 = k1r_k2(s4.structure, c_aa, cam4, fields4, MAIN_H, MAIN_W)
-    require(ok, f"scene4 AA {MAIN_W}x{MAIN_H}: K1r / K2 with the row table 8k differ from "
-                "their nullptr launches")
+    require(k1r_k2(s4.structure, c_aa, cam4, fields4, MAIN_H, MAIN_W),
+            f"scene4 AA {MAIN_W}x{MAIN_H}: K1r / K2 with the row table 8k differ from their "
+            "nullptr launches")
     big, clamp2_env = inst[10_000], RenderConfig(step_clamp=2.0, shadow_grad="envelope")
     st10 = big.structure
     fields_i, tab_i = pack_fields(st10, big.params), pack_instanced(st10, big.params)
     grid = grid_for(tab_i, clamp2_env.step_clamp)
     for hh, ww in ((h, w), (MAIN_H, MAIN_W)):
         cam_i = camera_pack(big.params, hh, ww, clamp2_env)
-        ok, tab16, res_i, ct_i = k5r_k6(big, clamp2_env, cam_i, fields_i, tab_i, hh, ww, grid)
+        ok = k5r_k6(big, clamp2_env, cam_i, fields_i, tab_i, hh, ww, grid)
         require(ok, f"instanced:10000 clamp 2 {hh}x{ww}: a K5r / K6 launch with the row table "
                     "16k differs from its nullptr launch (image, residuals, records, grads, "
                     "dsph)")
@@ -3082,49 +2972,7 @@ def rowtab_phase(dev, card, scenes, inst, train_cases, h, w):
               f"with their row tables: each shard's image and residual planes bitwise the full "
               f"frame's rows; the summed gradients within the phase-7 rule of the full frame's "
               f"(max |diff| / max|grad| {worst:.3g})")
-
-    # --- the table launches timed beside their twins (CUDA events, in turns) -
-    cam_i = camera_pack(big.params, MAIN_H, MAIN_W, clamp2_env)
-    tab16 = table(range(MAIN_H), 16)
-    _, res_i = instanced_train.instanced_train_forward(st10, clamp2_env, cam_i, fields_i, tab_i,
-                                                       MAIN_H, MAIN_W, grid=grid)
-    ct_i = seeded_ct(MAIN_H, MAIN_W)
-    fns = {
-        "lol_train_fwd": {
-            "nullptr": lambda: fused_train.train_forward(s4.structure, c_aa, cam4, fields4,
-                                                         MAIN_H, MAIN_W),
-            "rowtab": lambda: fused_train.train_forward(s4.structure, c_aa, cam4, fields4,
-                                                        MAIN_H, MAIN_W, rowtab=tab4)},
-        "lol_train_bwd": {
-            "nullptr": lambda: fused_train.train_backward(s4.structure, c_aa, cam4, fields4,
-                                                          res4, ct4),
-            "rowtab": lambda: fused_train.train_backward(s4.structure, c_aa, cam4, fields4,
-                                                         res4, ct4, rowtab=tab4)},
-        "lol_instanced_fwd": {
-            "nullptr": lambda: instanced_train.instanced_train_forward(
-                st10, clamp2_env, cam_i, fields_i, tab_i, MAIN_H, MAIN_W, grid=grid),
-            "rowtab": lambda: instanced_train.instanced_train_forward(
-                st10, clamp2_env, cam_i, fields_i, tab_i, MAIN_H, MAIN_W, grid=grid,
-                rowtab=tab16)},
-        "lol_instanced_bwd": {
-            "nullptr": lambda: instanced_train.instanced_train_backward(
-                st10, clamp2_env, cam_i, fields_i, tab_i, res_i, ct_i, grid=grid),
-            "rowtab": lambda: instanced_train.instanced_train_backward(
-                st10, clamp2_env, cam_i, fields_i, tab_i, res_i, ct_i, grid=grid,
-                rowtab=tab16)},
-    }
-    out = {}
-    for name, pair in fns.items():
-        reps = 10 if name.startswith("lol_train") else 3
-        for f in pair.values():
-            f()
-        times = turns_ms(pair, reps)
-        ms, null_ms = statistics.median(times["rowtab"]), statistics.median(times["nullptr"])
-        out[name] = {"ms": ms, "nullptr_ms": null_ms, "runs": times, "bitwise": True}
-        print(f"[31] {name} {MAIN_W}x{MAIN_H} on {card}: with the row table {ms:.4f} ms, "
-              f"nullptr {null_ms:.4f} ms ({ms / null_ms - 1:+.2%}; in turns nullptr, rowtab, "
-              f"rowtab, nullptr: {times})")
-    return out, deal
+    return deal
 
 
 def sharded_cases():
@@ -3945,7 +3793,6 @@ def bench_phase(dev, card) -> dict:
     return records
 
 
-
 SCALE_ROWS = 128  # phase 40: rows a device (bench_scaling.py's default)
 SCALE_REPS = 3
 SCALE_LADDERS = (  # (tag, SCALE_SCENE, SCALE_ASSIGN) of phase 40's device-time ladders
@@ -4193,12 +4040,7 @@ def main() -> int:
     from loltracer_tpu_torch.scenes import instanced_spheres
     from loltracer_tpu_torch.render.camera import camera_pack
     from loltracer_tpu_torch.render.cuda_renderer import make_cuda_renderer
-    from loltracer_tpu_torch.render.cuda_scene import (
-        FWD_TILES,
-        pack_fields,
-        packed_size,
-        unpack_fields,
-    )
+    from loltracer_tpu_torch.render.cuda_scene import pack_fields, packed_size, unpack_fields
     from loltracer_tpu_torch.scene import build_scene
     from loltracer_tpu_torch.utils.image import image_to_u8, read_png
 
@@ -4337,56 +4179,22 @@ def main() -> int:
           f", {main_over} px over {ATOL}")
     del t_img
 
-    # --- 4. frame times ------------------------------------------------------
-    def kernel():
-        fused_fwd.fused_forward(s4.structure, cfg, cam, fields, MAIN_H, MAIN_W)
-
-    def plain():
-        fused_fwd.fused_forward_reference(s4.structure, cfg, cam, fields, MAIN_H, MAIN_W)
-
-    def twin():
-        fused_fwd.fused_forward(s4.structure, no_cull(cfg), cam, fields, MAIN_H, MAIN_W)
-
-    for _ in range(3):
-        kernel(), twin()
-    # in turns: twin, kernel, kernel, twin
-    twin_ms = [time_ms(twin, 10)]
-    k_runs = [time_ms(kernel, 10), time_ms(kernel, 10)]
-    twin_ms.append(time_ms(twin, 10))
-    k_ms = statistics.median(k_runs)
-    plain()
-    p_ms = time_ms(plain, 1)
-    rays = MAIN_W * MAIN_H
-    print(f"[4] scene4 {MAIN_W}x{MAIN_H} on {card}: kernel {k_ms:.3f} ms/frame "
-          f"({rays / k_ms / 1e3:.1f} M rays/s; runs {k_runs}), its shadow_cull=False twin "
-          f"{twin_ms} in turns around it, plain {p_ms:.1f} ms/frame "
-          f"({rays / p_ms / 1e3:.2f} M rays/s), kernel {p_ms / k_ms:.0f}x faster")
+    # --- 4. the segment cull ------------------------------------------------------
     # the plain loops' SDF evaluations with the cull (culled lanes started
     # done, as the kernel skips them) and without, per ray
-    live_main, live_twin = ({"march": [], "shadow": [], "rays": torch.zeros(
-        (MAIN_H, MAIN_W), dtype=torch.int32, device=dev)} for _ in range(2))
+    rays = MAIN_W * MAIN_H
+    live_main, live_twin = ({"march": [], "shadow": []} for _ in range(2))
     _, res_main = fused_train.train_forward_reference(s4.structure, cfg, cam, fields, MAIN_H,
                                                       MAIN_W, live=live_main)
     fused_train.train_forward_reference(s4.structure, no_cull(cfg), cam, fields, MAIN_H,
                                         MAIN_W, live=live_twin)
     main_shares = culled_shares(s4.structure, cam, fields, res_main, cfg)
     del res_main
-    tile_ms = {}
-    for tw in FWD_TILES:
-        fused_fwd.fused_forward(s4.structure, cfg, cam, fields, MAIN_H, MAIN_W, tile_w=tw)
-    for tw in FWD_TILES + FWD_TILES[::-1]:
-        tile_ms.setdefault(tw, []).append(time_ms(
-            lambda tw=tw: fused_fwd.fused_forward(s4.structure, cfg, cam, fields, MAIN_H, MAIN_W,
-                                                  tile_w=tw), 10))
-    tile_eff = {tw: warp_efficiency(live_main["rays"], tw) for tw in FWD_TILES}
-    print(f"[4] the segment cull: lanes culled per light {[round(v, 4) for v in main_shares]}; "
-          f"SDF evaluations a ray, march + shadow: {sum(live_main['march']) / rays:.2f} + "
-          f"{sum(live_main['shadow']) / rays:.2f} with the cull, "
-          f"{sum(live_twin['march']) / rays:.2f} + {sum(live_twin['shadow']) / rays:.2f} "
-          f"without; warp tiles (tile_w x 32 / tile_w): "
-          + "; ".join(f"{tw}x{32 // tw} {tile_ms[tw]} ms, warp efficiency {tile_eff[tw]:.4f} "
-                      f"(without the cull {warp_efficiency(live_twin['rays'], tw):.4f})"
-                      for tw in FWD_TILES))
+    print(f"[4] the segment cull at scene4 {MAIN_W}x{MAIN_H}: lanes culled per light "
+          f"{[round(v, 4) for v in main_shares]}; SDF evaluations a ray, march + shadow: "
+          f"{sum(live_main['march']) / rays:.2f} + {sum(live_main['shadow']) / rays:.2f} with "
+          f"the cull, {sum(live_twin['march']) / rays:.2f} + "
+          f"{sum(live_twin['shadow']) / rays:.2f} without")
 
     # --- 5. build the training kernels ------------------------------------------
     train_built = [f.result() for f in train_built]
@@ -4482,21 +4290,20 @@ def main() -> int:
           f"{over} px over {ATOL}; residual planes: {res_over}"
           f"{' (all bitwise)' if res_bitwise else ''}; lanes culled per light "
           f"{[round(v, 4) for v in aa_shares]}")
-    worst, bwd_err, cam_err, ct4 = check_bwd(s4, c_aa, cam4, fields4, res4, MAIN_H, MAIN_W,
-                                             "scene4 AA 1920x1080")
+    worst, bwd_err, cam_err, _ = check_bwd(s4, c_aa, cam4, fields4, res4, MAIN_H, MAIN_W,
+                                           "scene4 AA 1920x1080")
     print(f"[7] scene4 AA {MAIN_W}x{MAIN_H}: fields max |diff| / max|grad| {worst:.3g}, "
           f"max |diff| {bwd_err:.3g}, "
           f"dcam max |diff| {cam_err:.3g}; two launches bitwise equal")
 
     # --- 8. the training path ------------------------------------------------------
-    target = fit_target(s4, c_aa, dev)
     fit8 = json.loads(run_profile("--profile-fit"))
     ran, graph, wrapped = fit8["ran"], fit8["train_step"], fit8["wrappers"]
     fwd_launches, bwd_launches = ran["fused_fwd_kernel"], ran["fused_bwd_kernel"]
-    fit_table = wrapped["table"]
-    require(fwd_launches == 5 and bwd_launches == 5,
+    fit_table, dev_ms = wrapped["table"], fit8["device_ms"]
+    require(fwd_launches == bwd_launches == ran["bwd_reduce_kernel"] == 5,
             f"fit_scene (5 steps): the device trace ran lol_train_fwd {fwd_launches}, "
-            f"lol_train_bwd {bwd_launches} times")
+            f"lol_train_bwd {bwd_launches}, its reduce {ran['bwd_reduce_kernel']} times")
     require(graph == {"captures": 1, "replays": 4, "eager": 1},
             f"fit_scene (5 steps): train_step counted {graph}")
     require(wrapped["lol_train_fwd"] == wrapped["lol_train_bwd"] == 1 and fit_table == 2,
@@ -4510,65 +4317,12 @@ def main() -> int:
           f"captures {graph['captures']}, replays {graph['replays']}, eager {graph['eager']}; "
           f"the wrappers launched lol_train_fwd x{wrapped['lol_train_fwd']}, lol_train_bwd "
           f"x{wrapped['lol_train_bwd']} (the eager step), {fit_table} with the row table; "
-          f"losses {losses}")
-
-    render = fused_train.make_training_renderer(s4.structure, MAIN_H, MAIN_W, c_aa, device=dev)
-    leaves = dataclasses.replace(
-        s4.params, sphere_point=s4.params.sphere_point.clone().requires_grad_(True))
-
-    def step():
-        loss = ((render(leaves) - target) ** 2).mean()
-        loss.backward()
-
-    def k1r():
-        fused_train.train_forward(s4.structure, c_aa, cam4, fields4, MAIN_H, MAIN_W)
-
-    def k1r_twin():
-        fused_train.train_forward(s4.structure, no_cull(c_aa), cam4, fields4, MAIN_H, MAIN_W)
-
-    def k2():
-        fused_train.train_backward(s4.structure, c_aa, cam4, fields4, res4, ct4)
-
-    def plain_fwd():
-        fused_train.train_forward_reference(s4.structure, c_aa, cam4, fields4, MAIN_H, MAIN_W)
-
-    def plain_bwd():
-        fused_train.train_backward_reference(s4.structure, c_aa, cam4, fields4, res4, ct4)
-
-    for _ in range(3):
-        step(), k1r(), k1r_twin(), k2()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    step_ms = time_ms(step, 10)
-    peak = torch.cuda.max_memory_allocated()
-    # lol_train_fwd in turns with its shadow_cull=False twin: twin, K1r, K1r, twin
-    k1r_twin_ms = [time_ms(k1r_twin, 10)]
-    k1r_runs = [time_ms(k1r, 10), time_ms(k1r, 10)]
-    k1r_twin_ms.append(time_ms(k1r_twin, 10))
-    k1r_ms, k2_ms = statistics.median(k1r_runs), time_ms(k2, 10)
-    plain_fwd()
-    pf_ms = time_ms(plain_fwd, 1)
-    plain_bwd()
-    pb_ms = time_ms(plain_bwd, 1)
-    fit_ab = fit_step_ab(dev, s4, c_aa, target)
-    split = ("fused_fwd_kernel", "fused_bwd_kernel", "bwd_reduce_kernel")
-    breakdown = profile_steps(step, 5, split=split)
-    dev_ms = {k: float(v) for k, v in re.findall(r"; (\w+): ([\d.]+) ms in", breakdown)}
-    require(set(dev_ms) == set(split), f"no device time of K1r, K2 and its reduce in: {breakdown}")
-    k1_prof = run_profile("--profile-fused")
-    k1_dev = float(re.search(r"device busy ([\d.]+) ms/step", k1_prof).group(1))
-    print(f"[8] scene4 AA {MAIN_W}x{MAIN_H} on {card}: fwd+bwd step {step_ms:.3f} ms "
-          f"(peak {peak / 2**20:.0f} MiB allocated); lol_train_fwd {k1r_ms:.3f} ms (runs "
-          f"{k1r_runs}; its shadow_cull=False twin {k1r_twin_ms} in turns around it), "
-          f"lol_train_bwd {k2_ms:.3f} ms (kernel + reduce, with the wrapper); plain fwd "
-          f"{pf_ms:.1f} ms, plain bwd {pb_ms:.1f} ms")
-    print(f"[8] fit_scene's step (zero_grad, fwd+bwd, Adam, project) in turns, old, new, new, "
-          f"old (median of 10 each): before PR 14 one renderer over the frame "
-          f"{fit_ab['old']} ms, now the sharded step on a mesh of one rank "
-          f"{fit_ab['sharded']} ms")
-    print(f"[8] torch.profiler over 5 steps: {breakdown}; device ms a step: lol_train_fwd "
+          f"losses {losses}; device ms a launch: lol_train_fwd "
           f"{dev_ms['fused_fwd_kernel']:.4f}, lol_train_bwd {dev_ms['fused_bwd_kernel']:.4f} and "
           f"its reduce {dev_ms['bwd_reduce_kernel']:.4f}")
+    k1_prof = run_profile("--profile-fused")
+    k1_dev = float(re.search(r"device busy ([\d.]+) ms/step", k1_prof).group(1))
+    require(k1_dev > 0, f"the profile saw no device time of K1: {k1_prof}")
     print(f"[8] torch.profiler over one lol_render_fused frame (`chip_smoke.py "
           f"--profile-fused`): {k1_prof}")
 
@@ -4718,14 +4472,11 @@ def main() -> int:
 
     bands = {"top": 0, "middle": (MAIN_H - BAND) // 2, "bottom": MAIN_H - BAND}
     live_inst = {"march": [], "shadow": [], "probe": probe}
-    inst_err, band_ms = 0.0, None
+    inst_err = 0.0
     for name, r0 in bands.items():
         bcam = camera_pack(big.params, MAIN_H, MAIN_W, clamp2, row0=r0)
-        t_band = time.perf_counter()
         p_band = instanced_fwd.instanced_forward_reference(
             big.structure, clamp2, bcam, fields, tab, BAND, MAIN_W, MAIN_H, live=live_inst)
-        torch.cuda.synchronize()
-        t_band = (time.perf_counter() - t_band) * 1e3
         k_band = instanced_fwd.instanced_forward(big.structure, clamp2, bcam, fields, tab,
                                                  BAND, MAIN_W, MAIN_H)
         torch.cuda.synchronize()
@@ -4734,7 +4485,7 @@ def main() -> int:
         err, over = compare(k_img[r0:r0 + BAND], p_band, f"instanced:10000 {name} band")
         inst_err = max(inst_err, err)
         print(f"[11] {name} band (rows {r0}-{r0 + BAND - 1}): max |diff| {err:.3g}, {over} px "
-              f"over {ATOL}; plain {t_band:.0f} ms with counting")
+              f"over {ATOL}")
     band_px = BAND * MAIN_W * len(bands)
     m_inst, sh_inst = sum(live_inst["march"]), sum(live_inst["shadow"])
     evals = m_inst + sh_inst
@@ -4744,41 +4495,7 @@ def main() -> int:
           f"{near_total[0] / evals:.1f} spheres within the cut per evaluation, "
           f"{runs_total[0] / evals:.1f} runs of {GROUP} whose ball reaches within it")
 
-    # --- 12. frame times -----------------------------------------------------------
-    def inst_kernel():
-        instanced_fwd.instanced_forward(big.structure, clamp2, cam, fields, tab, MAIN_H, MAIN_W)
-
-    cam_uhd, fields_uhd, tab_uhd = inst_inputs(big, clamp2, UHD_H, UHD_W)
-
-    def inst_kernel_uhd():
-        instanced_fwd.instanced_forward(big.structure, clamp2, cam_uhd, fields_uhd, tab_uhd,
-                                        UHD_H, UHD_W)
-
-    bcam = camera_pack(big.params, MAIN_H, MAIN_W, clamp2, row0=bands["middle"])
-
-    def inst_plain_band():
-        instanced_fwd.instanced_forward_reference(big.structure, clamp2, bcam, fields, tab,
-                                                  BAND, MAIN_W, MAIN_H)
-
-    def inst_walk():
-        instanced_fwd.instanced_forward(big.structure, clamp2, cam, fields, tab, MAIN_H, MAIN_W,
-                                        walk=True)
-
-    def inst_walk_uhd():
-        instanced_fwd.instanced_forward(big.structure, clamp2, cam_uhd, fields_uhd, tab_uhd,
-                                        UHD_H, UHD_W, walk=True)
-
-    def grid_build():
-        grid_for(tab, 2.0)
-
-    inst_kernel(), inst_kernel_uhd(), inst_walk()
-    # parent-style turns: walk, grid, grid, walk (one card, one call)
-    walk_ms = [time_ms(inst_walk, 2)]
-    inst_ms = time_ms(inst_kernel, 3)
-    uhd_ms = time_ms(inst_kernel_uhd, 2)
-    walk_ms.append(time_ms(inst_walk, 2))
-    walk_uhd_ms = time_ms(inst_walk_uhd, 1)
-    build_ms = time_ms(grid_build, 5)
+    # --- 12. the grid against the run walk and the counting twin ---------------------
     w_img = instanced_fwd.instanced_forward(big.structure, clamp2, cam, fields, tab, MAIN_H,
                                             MAIN_W, walk=True)
     require(torch.equal(k_img, w_img), "the 1080p grid image != the run walk's image")
@@ -4798,18 +4515,12 @@ def main() -> int:
         n_search, n_fall, n_read = counts.tolist()
         inst_stats[name] = (n_fall / n_search, n_read / n_search, n_search / (MAIN_W * MAIN_H))
         del s_img
-    inst_plain_ms = time_ms(inst_plain_band, 1)
+    print(f"[12] instanced:10000 {MAIN_W}x{MAIN_H}: the grid's image bitwise the run walk's at "
+          f"clamp 2 and exact; grid searches (the counting twin, its image bitwise the "
+          f"kernel's): " + "; ".join(f"{k}: {v[2]:.1f} searches a pixel, {v[0]:.4%} fell back "
+                                     f"to the walk, {v[1]:.2f} list entries read a search"
+                                     for k, v in inst_stats.items()))
     inst_profile = run_profile("--profile-instanced")
-    print(f"[12] instanced:10000 clamp 2 on {card}: kernel (cell grid) {inst_ms:.3f} ms/frame "
-          f"at {MAIN_W}x{MAIN_H} ({MAIN_W * MAIN_H / inst_ms / 1e3:.3f} M rays/s; the grid "
-          f"build {build_ms:.3f} ms of it), {uhd_ms:.3f} ms/frame at {UHD_W}x{UHD_H} "
-          f"({UHD_W * UHD_H / uhd_ms / 1e3:.3f} M rays/s); the run walk {walk_ms[0]:.3f} / "
-          f"{walk_ms[1]:.3f} ms at {MAIN_W}x{MAIN_H} (before / after), {walk_uhd_ms:.3f} ms "
-          f"at {UHD_W}x{UHD_H}; the 1080p image bitwise the walk's; plain "
-          f"{inst_plain_ms:.1f} ms for one {BAND}-row band")
-    print("[12] grid searches at 1080p (the counting twin, its image bitwise the kernel's): "
-          + "; ".join(f"{k}: {v[2]:.1f} searches a pixel, {v[0]:.4%} fell back to the walk, "
-                      f"{v[1]:.2f} list entries read a search" for k, v in inst_stats.items()))
     print(f"[12] torch.profiler over one frame at {MAIN_W}x{MAIN_H}: {inst_profile}")
 
     # K5 work model (independent of the kernel's traversal): per evaluation
@@ -4826,6 +4537,8 @@ def main() -> int:
     inst_bytes = (4 * (16 + fields.numel() + tab.spheres.numel() + tab.ids.numel()
                        + tab.groups.numel() + 6) + 12 * MAIN_W * MAIN_H)
     k5_bound = bound(inst_bytes, inst_ops, ceiling)
+    inst_dev = float(re.search(r"instanced_fwd_kernel: ([\d.]+) ms in", inst_profile).group(1))
+    require(inst_dev > 0, f"the profile saw no device time of K5: {inst_profile}")
     print(f"[12] bound: lol_instanced_render {k5_bound[0]:.4f} ms by {k5_bound[1]} "
           f"({inst_ops:.4g} operations per 1080p frame, scaled from the bands)")
 
@@ -4979,7 +4692,7 @@ def main() -> int:
           f"max |diff| / max|grad| {worst:.3g} (max |diff| {werr:.3g}), dcam max |diff| "
           f"{cam_err:.3g}; two launches bitwise equal ({time.perf_counter() - t_full:.1f} s)")
 
-    # --- 16. the instanced training step: times, memory, bounds ----------------------
+    # --- 16. the instanced training step: one grid, the counting twin ----------------
     it_render = instanced_train.make_instanced_training_renderer(st10, MAIN_H, MAIN_W,
                                                                  clamp2_env, device=dev)
     it_leaves = dataclasses.replace(
@@ -4989,45 +4702,15 @@ def main() -> int:
         loss = ((it_render(it_leaves) - it_target) ** 2).mean()
         loss.backward()
 
-    ct_it = torch.from_numpy(np.random.default_rng(0).uniform(
-        -1e-3, 1e-3, (MAIN_H, MAIN_W, 3)).astype(np.float32)).to(dev)
-
-    grid_it = grid_for(tab_it, 2.0)
-
-    def k5r():
-        instanced_train.instanced_train_forward(st10, clamp2_env, cam_it, fields_it, tab_it,
-                                                MAIN_H, MAIN_W, grid=grid_it)
-
-    def k6(walk=False):
-        instanced_train.instanced_train_backward(st10, clamp2_env, cam_it, fields_it, tab_it,
-                                                 res_it, ct_it, grid=grid_it, walk=walk)
-
-    bcam = camera_pack(big.params, MAIN_H, MAIN_W, clamp2_env, row0=bands["middle"])
-    _, bres = instanced_train.instanced_train_forward(st10, clamp2_env, bcam, fields_it, tab_it,
-                                                      BAND, MAIN_W, MAIN_H)
-    ct_band = ct_it[:BAND]
-
-    def it_plain_fwd():
-        instanced_train.instanced_train_forward_reference(
-            st10, clamp2_env, bcam, fields_it, tab_it, BAND, MAIN_W, MAIN_H)
-
-    def it_plain_bwd():
-        instanced_train.instanced_train_backward_reference(
-            st10, clamp2_env, bcam, fields_it, tab_it, bres, ct_band, MAIN_H)
-
-    it_step(), k6(), k6(walk=True)
+    it_step()
     torch.cuda.synchronize()
     cell_grid.builds = 0
     it_step()
     require(cell_grid.builds == 1, f"one training step built {cell_grid.builds} cell grids")
-    torch.cuda.reset_peak_memory_stats()
-    it_step_ms = time_ms(it_step, 3)
-    it_peak = torch.cuda.max_memory_allocated()
-    # turns: walk, grid, grid, walk (one card, one call)
-    k6_walk_ms = [time_ms(lambda: k6(walk=True), 2)]
-    k5r_ms, k6_ms = time_ms(k5r, 3), time_ms(k6, 3)
-    k6_walk_ms.append(time_ms(lambda: k6(walk=True), 2))
-    it_build_ms = time_ms(lambda: grid_for(tab_it, 2.0), 3)
+    del it_render, it_leaves
+    ct_it = torch.from_numpy(np.random.default_rng(0).uniform(
+        -1e-3, 1e-3, (MAIN_H, MAIN_W, 3)).astype(np.float32)).to(dev)
+    grid_it = grid_for(tab_it, 2.0)
     counts = torch.zeros(3, dtype=torch.int64, device=dev)
     s_out = instanced_train.instanced_train_backward(st10, clamp2_env, cam_it, fields_it,
                                                      tab_it, res_it, ct_it, grid=grid_it,
@@ -5041,21 +4724,19 @@ def main() -> int:
     k6_stats = (n_fall / n_search, n_read / n_search, n_search / (MAIN_W * MAIN_H))
     row_recs = torch.bincount(k_out[3][k_out[3] >= 0].long(), minlength=st10.num_spheres)
     del s_out, k_out
-    it_pf_ms, it_pb_ms = time_ms(it_plain_fwd, 1), time_ms(it_plain_bwd, 1)
-    it_profile = run_profile("--profile-instanced-train")
-    print(f"[16] instanced:10000 clamp 2 envelope {MAIN_W}x{MAIN_H} on {card}: fwd+bwd step "
-          f"{it_step_ms:.3f} ms with one cell grid built (peak {it_peak / 2**20:.0f} MiB "
-          f"allocated); over a built grid lol_instanced_fwd {k5r_ms:.3f} ms, lol_instanced_bwd "
-          f"{k6_ms:.3f} ms (its walk twin {k6_walk_ms[0]:.3f} / {k6_walk_ms[1]:.3f} ms before / "
-          f"after); the grid build {it_build_ms:.3f} ms; plain fwd {it_pf_ms:.1f} ms, plain bwd "
-          f"{it_pb_ms:.1f} ms for one {BAND}-row band")
-    print(f"[16] lol_instanced_bwd's grid searches (the counting twin, bitwise the kernel): "
-          f"{k6_stats[2]:.2f} searches a pixel, {k6_stats[0]:.4%} fell back to the walk, "
-          f"{k6_stats[1]:.2f} list entries read a search; records per sphere-table row: "
-          f"max {int(row_recs.max())}, mean {float(row_recs.float().mean()):.1f} (the sum's "
-          f"longest chain); ptxas (clamp 2): "
+    print(f"[16] instanced:10000 clamp 2 envelope {MAIN_W}x{MAIN_H}: a fwd+bwd step of "
+          f"make_instanced_training_renderer builds one cell grid; lol_instanced_bwd's grid "
+          f"searches (the counting twin, bitwise the kernel): {k6_stats[2]:.2f} searches a "
+          f"pixel, {k6_stats[0]:.4%} fell back to the walk, {k6_stats[1]:.2f} list entries read "
+          f"a search; records per sphere-table row: max {int(row_recs.max())}, mean "
+          f"{float(row_recs.float().mean()):.1f} (the sum's longest chain); ptxas (clamp 2): "
           + " | ".join(l for l in ptxas_lines(inst_train_built[0].log)
                        if "instanced_bwd" in l or "rec_" in l))
+
+    it_profile = run_profile("--profile-instanced-train")
+    it_dev = {k: float(v) for k, v in re.findall(r"; (\w+): ([\d.]+) ms in", it_profile)}
+    require(all(it_dev.get(k, 0) > 0 for k in ("instanced_fwd_kernel", "instanced_bwd_kernel")),
+            f"the profile saw no device time of K5r / K6: {it_profile}")
     print(f"[16] torch.profiler over one step: {it_profile}")
 
     # Bounds on K5's work model (phase 12): an evaluation costs 9 operations
@@ -5072,7 +4753,8 @@ def main() -> int:
     px_main = MAIN_W * MAIN_H
     e_inst = 9 * near_total[0] / evals + 22
     n_res_i = instanced_train.num_residuals(st10)
-    k5r_bound = bound(inst_bytes + 4 * n_res_i * px_main, inst_ops + px_main * (e_inst + 15), ceiling)
+    k5r_bound = bound(inst_bytes + 4 * n_res_i * px_main, inst_ops + px_main * (e_inst + 15),
+                      ceiling)
     Li = st10.num_lights
     hit_it = res_it[1] > 0.5
     fat_it = int((hit_it | (res_it[0] > 0)).sum())
@@ -5099,10 +4781,11 @@ def main() -> int:
                                      m_inst / band_px, ceiling)
     objects_entry, hit_pts = objects_phases(dev, card, inst, eval_built, t0, ceiling)
     grid_phase(dev, card, inst, hit_pts)
-    rowtab, deal = rowtab_phase(dev, card, scenes, inst, train_cases, h, w)
-    rowtab["lol_train_fwd"]["launches"] = rowtab["lol_train_bwd"]["launches"] = fit_table // 2
-    rowtab["lol_instanced_fwd"]["launches"] = it_table // 2
-    rowtab["lol_instanced_bwd"]["launches"] = it_table // 2
+    deal = rowtab_phase(dev, scenes, inst, train_cases, h, w)
+    # the main paths' launches with the row table (phases 8 and 15), bitwise
+    # their launches without one (phase 31)
+    rowtab = {"fit": {"launches": fit_table // 2, "bitwise": True},
+              "instanced_fit": {"launches": it_table // 2, "bitwise": True}}
     ranks2 = sharded_phase(dev, card)
     checkpoint_phase(dev, card, s4)
     stats_phase(dev, card)
@@ -5118,44 +4801,39 @@ def main() -> int:
     print(json.dumps({"kernels": [
         dict(entry("lol_render_fused", "loltracer_tpu_torch/csrc/fused_fwd.cuh",
                    "loltracer_tpu/render/pallas_train.py:346", main_launches, main_err,
-                   k_ms, p_ms, k1_bound),
-             device_ms=k1_dev, twin_ms=twin_ms, bound_sqrt_ms=k1_bound_sqrt[0],
-             culled_share=main_shares,
+                   bnd=k1_bound, timed_by="scene4-frames-1080p"),
+             device_ms=k1_dev, bound_sqrt_ms=k1_bound_sqrt[0], culled_share=main_shares,
              shadow_evals_per_ray={"cull": sum(live_main["shadow"]) / rays,
-                                   "twin": sum(live_twin["shadow"]) / rays},
-             tile_ms={str(tw): v for tw, v in tile_ms.items()},
-             warp_efficiency={str(tw): v for tw, v in tile_eff.items()}),
+                                   "twin": sum(live_twin["shadow"]) / rays}),
         dict(entry("lol_train_fwd", "loltracer_tpu_torch/csrc/fused_fwd.cuh",
                    "loltracer_tpu/render/pallas_train.py:346", fwd_launches, fwd_err,
-                   k1r_ms, pf_ms, k1r_bound),
-             device_ms=dev_ms["fused_fwd_kernel"], twin_ms=k1r_twin_ms,
-             bound_sqrt_ms=k1r_bound_sqrt[0], culled_share=aa_shares,
-             rowtab=rowtab["lol_train_fwd"], deal=deal["scene4 AA"],
+                   bnd=k1r_bound, timed_by="scene4-fit-1080p"),
+             device_ms=dev_ms["fused_fwd_kernel"], bound_sqrt_ms=k1r_bound_sqrt[0],
+             culled_share=aa_shares, rowtab=rowtab["fit"], deal=deal["scene4 AA"],
              two_ranks=ranks2["scene4"], scaling=scaling["lol_train_fwd"]),
         dict(entry("lol_train_bwd", "loltracer_tpu_torch/csrc/fused_bwd.cuh",
                    "loltracer_tpu/render/pallas_train.py:469", bwd_launches, bwd_err,
-                   k2_ms, pb_ms, k2_bound),
+                   bnd=k2_bound, timed_by="scene4-fit-1080p"),
              device_ms=dev_ms["fused_bwd_kernel"], reduce_device_ms=dev_ms["bwd_reduce_kernel"],
              bound_sqrt_ms=k2_bound_sqrt[0], ptxas=bwd_ptxas, warps_per_sm=bwd_warps,
-             step_ms=step_ms, fit_step_ms=fit_ab, rowtab=rowtab["lol_train_bwd"],
-             scaling=scaling["lol_train_bwd"]),
+             rowtab=rowtab["fit"], scaling=scaling["lol_train_bwd"]),
         dict(entry("lol_instanced_render", "loltracer_tpu_torch/csrc/grid_scene.cuh",
                    "loltracer_tpu/render/pallas_train.py:840", inst_launches, inst_err,
-                   inst_ms, inst_plain_ms, k5_bound),
-             plain_ms_rows=BAND, uhd_ms=uhd_ms, walk_ms=walk_ms, walk_uhd_ms=walk_uhd_ms,
-             grid_build_ms=build_ms, fallback_share={k: v[0] for k, v in inst_stats.items()}),
+                   bnd=k5_bound, timed_by="instanced10k-frames-4k"),
+             device_ms=inst_dev, fallback_share={k: v[0] for k, v in inst_stats.items()}),
         dict(entry("lol_instanced_fwd", "loltracer_tpu_torch/csrc/grid_scene.cuh",
                    "loltracer_tpu/render/pallas_train.py:840", it_fwd_launches, it_fwd_err,
-                   k5r_ms, it_pf_ms, k5r_bound),
-             plain_ms_rows=BAND, step_ms=it_step_ms, grid_build_ms=it_build_ms,
-             rowtab=rowtab["lol_instanced_fwd"], deal=deal["instanced:10000 clamp 2"],
-             two_ranks=ranks2["instanced"], scaling=scaling["lol_instanced_fwd"]),
+                   bnd=k5r_bound, timed_by="instanced10k-fit-1080p"),
+             device_ms=it_dev["instanced_fwd_kernel"], rowtab=rowtab["instanced_fit"],
+             deal=deal["instanced:10000 clamp 2"], two_ranks=ranks2["instanced"],
+             scaling=scaling["lol_instanced_fwd"]),
         dict(entry("lol_instanced_bwd", "loltracer_tpu_torch/csrc/instanced_bwd.cuh",
                    "loltracer_tpu/render/pallas_train.py:1314", it_bwd_launches, it_bwd_err,
-                   k6_ms, it_pb_ms, k6_bound),
-             plain_ms_rows=BAND, walk_ms=k6_walk_ms, grid_build_ms=it_build_ms,
-             fallback_share=k6_stats[0], entries_per_search=k6_stats[1],
-             rowtab=rowtab["lol_instanced_bwd"], scaling=scaling["lol_instanced_bwd"]),
+                   bnd=k6_bound, timed_by="instanced10k-fit-1080p"),
+             device_ms=it_dev["instanced_bwd_kernel"],
+             scatter_device_ms=it_dev.get("rec_", 0.0) + it_dev.get("Memset", 0.0),
+             record_bytes=rec_bytes, fallback_share=k6_stats[0], entries_per_search=k6_stats[1],
+             rowtab=rowtab["instanced_fit"], scaling=scaling["lol_instanced_bwd"]),
         *march_entries,
         *regroup_entries,
         *peak_entries,

@@ -354,27 +354,28 @@ def reset_counts() -> None:
             counter[k] = 0
 
 
+def window_ms(fn: Callable, frames: int, device: torch.device) -> float:
+    """One sample: `frames` calls of fn between two CUDA events and a
+    synchronize on the card, the host clock on the CPU, in ms."""
+    if device.type == "cuda":
+        with torch.cuda.device(device):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(frames):
+                fn()
+            end.record()
+            torch.cuda.synchronize(device)
+        return start.elapsed_time(end)
+    t0 = time.perf_counter()
+    for _ in range(frames):
+        fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
 def samples_ms(b: Bench, reps: int) -> list:
-    """`reps` samples of `b.frames` frames each, in ms: CUDA events and a
-    synchronize on the card, the host clock on the CPU."""
-    samples = []
-    for _ in range(reps):
-        if b.device.type == "cuda":
-            with torch.cuda.device(b.device):
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                for _ in range(b.frames):
-                    b.fn()
-                end.record()
-                torch.cuda.synchronize(b.device)
-            samples.append(start.elapsed_time(end))
-        else:
-            t0 = time.perf_counter()
-            for _ in range(b.frames):
-                b.fn()
-            samples.append((time.perf_counter() - t0) * 1e3)
-    return samples
+    """`reps` samples of `b.frames` frames each, in ms (`window_ms`)."""
+    return [window_ms(b.fn, b.frames, b.device) for _ in range(reps)]
 
 
 def card_line() -> str:

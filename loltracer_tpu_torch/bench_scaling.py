@@ -356,25 +356,6 @@ def build_rungs(s: Settings, scene: Scene, device) -> Tuple[List[Rung], RenderCo
     return rungs, cfg, 1 if st.instanced else 32
 
 
-def _window_ms(frame: Callable, frames: int, device: torch.device) -> float:
-    """One sample: `frames` frames between two CUDA events and a
-    synchronize on the card, the host clock on the CPU."""
-    if device.type == "cuda":
-        with torch.cuda.device(device):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(frames):
-                frame()
-            end.record()
-            torch.cuda.synchronize(device)
-        return start.elapsed_time(end)
-    t0 = time.perf_counter()
-    for _ in range(frames):
-        frame()
-    return (time.perf_counter() - t0) * 1e3
-
-
 def measure_rungs(rungs: List[Rung], frames: int, reps: int, device: torch.device,
                   kernels) -> Dict[str, float]:
     """Every band of every rung: one untimed sample, then `reps` samples
@@ -385,7 +366,7 @@ def measure_rungs(rungs: List[Rung], frames: int, reps: int, device: torch.devic
     for r in rungs:
         for frame in r.frames:
             bench.reset_counts()
-            _window_ms(frame, frames, device)  # builds the kernels at first use
+            bench.window_ms(frame, frames, device)  # builds the kernels at first use
             r.launches.append(_counts(kernels))
     clock = KernelClock(device) if device.type == "cuda" else None
     with clock or contextlib.nullcontext():
@@ -396,7 +377,7 @@ def measure_rungs(rungs: List[Rung], frames: int, reps: int, device: torch.devic
                 for _ in range(reps):
                     if clock is not None:
                         clock.mark()
-                    w.append(_window_ms(frame, frames, device))
+                    w.append(bench.window_ms(frame, frames, device))
                 r.windows_ms.append(w)
                 c = _counts(kernels)
                 r.launches[i] = {k: v + c[k] for k, v in r.launches[i].items()}

@@ -433,8 +433,7 @@ __device__ __forceinline__ void render_pixel(const float* cam, const Scene& scn,
 
 // A block is 256 threads over 32 x 8 pixels; each warp of it takes a tile
 // of kTileW x (32 / kTileW) pixels: kTileW = 32 is a row of 32, 8 a tile of
-// 8 x 4 (K5's warp). kFwdTileW is the shape the entries launch, FWD_TILES in
-// render/cuda_scene.py the shapes `lol_render_fused_tile` sweeps.
+// 8 x 4 (K5's warp). kFwdTileW is the shape the entries launch.
 constexpr int kBlockX = 32;
 constexpr int kBlockY = 8;
 constexpr int kFwdTileW = 8;

@@ -34,11 +34,10 @@
 // compiled block is 32 x 8 rays and each warp of it a tile of kTileW x
 // (32 / kTileW) of them, K1's mapping (tile_pixel): kMarchTileW = 8, a tile
 // of 8 x 4, so a warp's rays and shadow rays stay closer together than a
-// row of 32's; `lol_march_tile` / `lol_shadow_march_tile` launch each width
-// of MARCH_TILES (render/cuda_scene.py) for the sweep. A batch of one row
-// takes 1-D blocks of 256 rays (march_ray_xy). Instanced blocks are 8 x 16
-// rays as K5's; the instanced entries take a lane-group width: at more than
-// one lane a group of a warp's lanes marches each ray (csrc/coop_march.cuh).
+// row of 32's. A batch of one row takes 1-D blocks of 256 rays
+// (march_ray_xy). Instanced blocks are 8 x 16 rays as K5's; the instanced
+// entries take a lane-group width: at more than one lane a group of a
+// warp's lanes marches each ray (csrc/coop_march.cuh).
 // The ragged edge is masked; nothing is padded. The TPU's (8, 128) tiles,
 // lane-packed 16x32 patches and edge padding are not carried over.
 //
@@ -152,9 +151,8 @@ __device__ __forceinline__ void eval_at(const Scene& scn, const float* __restric
   out[i] = scn.dist(__ldg(q), __ldg(q + 1), __ldg(q + 2));
 }
 
-// The warp tile width of lol_march / lol_shadow_march (8 x 4 rays a warp);
-// MARCH_TILES in render/cuda_scene.py are the widths the `_tile` entries
-// sweep.
+// The warp tile width of lol_march / lol_shadow_march (8 x 4 rays a warp),
+// MARCH_TILE_W in render/cuda_scene.py.
 constexpr int kMarchTileW = 8;
 
 // The launch shape of a [rows, width] batch in blocks of bx x by threads: a

@@ -44,11 +44,10 @@ as the backward's check entries. K3i / K4i still walk the runs.
 
 `generate_march_source(structure, cfg)` is the source of the value march
 kernels K3 and K4 (csrc/march.cuh) on the compiled `Scene` (K4 with its
-segment cull under cfg.shadow_cull; each warp an 8 x 4 tile of rays, the
-`_tile` entries at each width of MARCH_TILES) or, for an instanced
-structure, on the `InstancedScene`, one thread a ray, or a lane group a ray
-(csrc/coop_march.cuh, each width of MARCH_LANES): one library per
-structure and config holds both. `generate_regroup_source(structure,
+segment cull under cfg.shadow_cull; each warp an 8 x 4 tile of rays) or,
+for an instanced structure, on the `InstancedScene`, one thread a ray, or
+a lane group a ray (csrc/coop_march.cuh, each width of MARCH_LANES): one
+library per structure and config holds both. `generate_regroup_source(structure,
 cfg)` is the source of the regrouped instanced forward K9 (csrc/regroup.cuh: lol_rg_march,
 lol_rg_shadow and lol_rg_shade over the cell grid, with run-walk twins and
 counting entries), one text for every sphere count too.
@@ -616,23 +615,6 @@ TRAIN_BLOCKS_PER_SM = "lol_train_bwd_blocks_per_sm"
 # ones (`loltracer_tpu/render/pallas_march.py:149` P_H).
 TRAIN_ROW_BLOCK = 8
 PATCH_ROW_BLOCK = 16
-FWD_TILE = "lol_render_fused_tile"
-
-# The warp tile widths `lol_render_fused_tile` is compiled for (a warp of 32
-# lanes over kTileW x 32 / kTileW pixels, csrc/fused_fwd.cuh tile_pixel);
-# the entries launch kFwdTileW. Another width is refused
-# (cudaErrorInvalidValue).
-FWD_TILES = (32, 16, 8)
-
-
-def _fwd_tile_case(w: int) -> str:
-    return f"""\
-    case {w}:
-      return lol::launch_fused_fwd<lol_gen::Cfg, lol_gen::Scene, {w}>(
-          static_cast<const float*>(cam), static_cast<const float*>(fields),
-          static_cast<float*>(img), nullptr, height, height, width, nullptr,
-          static_cast<cudaStream_t>(stream));"""
-
 
 _FWD_ENTRY = f"""\
 extern "C" int {ENTRY}(const void* cam, const void* fields, void* img,
@@ -641,15 +623,6 @@ extern "C" int {ENTRY}(const void* cam, const void* fields, void* img,
       static_cast<const float*>(cam), static_cast<const float*>(fields),
       static_cast<float*>(img), nullptr, height, height, width, nullptr,
       static_cast<cudaStream_t>(stream));
-}}
-
-extern "C" int {FWD_TILE}(const void* cam, const void* fields, void* img, int height,
-                                     int width, int tile_w, void* stream) {{
-  switch (tile_w) {{
-{chr(10).join(_fwd_tile_case(w) for w in FWD_TILES)}
-    default:
-      return (int)cudaErrorInvalidValue;
-  }}
 }}"""
 
 _TRAIN_ENTRIES = f"""\
@@ -835,17 +808,12 @@ def generate_instanced_source(
 
 MARCH = "lol_march"
 SHADOW_MARCH = "lol_shadow_march"
-MARCH_TILE = "lol_march_tile"
-SHADOW_MARCH_TILE = "lol_shadow_march_tile"
 MARCH_INSTANCED = "lol_march_instanced"
 SHADOW_MARCH_INSTANCED = "lol_shadow_march_instanced"
 
-# The warp tile widths the compiled `_tile` entries are compiled for (a warp
-# of 32 rays over kTileW x 32 / kTileW of the [rows, width] batch,
-# csrc/march.cuh march_ray_xy); lol_march / lol_shadow_march launch
-# MARCH_TILE_W (csrc/march.cuh kMarchTileW). Another width is refused
-# (cudaErrorInvalidValue).
-MARCH_TILES = (32, 16, 8)
+# The warp tile width of the compiled march entries (a warp of 32 rays over
+# 8 x 4 of the [rows, width] batch, csrc/march.cuh march_ray_xy): csrc's
+# kMarchTileW.
 MARCH_TILE_W = 8
 
 _MARCH_ARGS = """\
@@ -854,17 +822,10 @@ _MARCH_ARGS = """\
                          static_cast<float*>(out)};"""
 
 
-def _march_launch(shadow: bool, tile: str = "") -> str:
+def _march_launch(shadow: bool) -> str:
     k = "true" if shadow else "false"
-    return f"""lol::launch_march<{k}, lol_gen::Cfg, lol_gen::Scene{tile}>(
+    return f"""lol::launch_march<{k}, lol_gen::Cfg, lol_gen::Scene>(
           static_cast<const float*>(fields), a, rows, width, static_cast<cudaStream_t>(stream));"""
-
-
-def _tile_switch(shadow: bool) -> str:
-    """A `_tile` entry's dispatch on its `tile_w` argument."""
-    cases = [f"    case {w}:\n      return {_march_launch(shadow, f', {w}')}" for w in MARCH_TILES]
-    return "\n".join(["  switch (tile_w) {", *cases, "    default:",
-                      "      return (int)cudaErrorInvalidValue;", "  }"])
 
 
 _MARCH_ENTRIES = f"""\
@@ -880,20 +841,6 @@ extern "C" int {SHADOW_MARCH}(const void* ro, int ro_stride, const void* rd,
                                  int width, void* stream) {{
 {_MARCH_ARGS}
   return {_march_launch(True)}
-}}
-
-extern "C" int {MARCH_TILE}(const void* ro, int ro_stride, const void* rd, const void* fields,
-                               void* out, int rows, int width, int tile_w, void* stream) {{
-  const void* max_dist = nullptr;
-{_MARCH_ARGS}
-{_tile_switch(False)}
-}}
-
-extern "C" int {SHADOW_MARCH_TILE}(const void* ro, int ro_stride, const void* rd,
-                                      const void* max_dist, const void* fields, void* out,
-                                      int rows, int width, int tile_w, void* stream) {{
-{_MARCH_ARGS}
-{_tile_switch(True)}
 }}"""
 
 # The lane-group widths the instanced march entries are compiled for: 1 is
@@ -953,11 +900,10 @@ def generate_march_source(structure: SceneStructure, cfg: RenderConfig) -> str:
     """The CUDA translation unit of the value march kernels K3 and K4 for
     this structure and config: csrc/fused_fwd.cuh (whose `march_ray` and
     `shadow_ray` they run), csrc/instanced_scene.cuh, csrc/march.cuh, then
-    the Cfg and the compiled `Scene` (entries `lol_march`,
-    `lol_shadow_march` and their `_tile` sweeps over MARCH_TILES; under
-    cfg.shadow_cull, and where the structure allows it, with
-    `Scene::segment_lit`, which K4 culls by) or, for an instanced
-    structure, the layout of the `InstancedScene` (`lol_march_instanced`,
+    the Cfg and the compiled `Scene` (entries `lol_march` and
+    `lol_shadow_march`; under cfg.shadow_cull, and where the structure
+    allows it, with `Scene::segment_lit`, which K4 culls by) or, for an
+    instanced structure, the layout of the `InstancedScene` (`lol_march_instanced`,
     `lol_shadow_march_instanced`; one text for every sphere count), whose
     entries take a lane-group width of MARCH_LANES (csrc/coop_march.cuh).
     Deterministic; holds no scene numbers. The device functions also

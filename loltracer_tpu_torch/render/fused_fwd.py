@@ -20,7 +20,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
 
 import torch
 
@@ -32,8 +31,6 @@ from loltracer_tpu_torch.render.backend import resolve_backend
 from loltracer_tpu_torch.render.camera import CAM_SIZE, camera_pack, rays_from_pack
 from loltracer_tpu_torch.render.cuda_scene import (
     ENTRY,
-    FWD_TILE,
-    FWD_TILES,
     generate_source,
     packed_size,
     unpack_fields,
@@ -85,10 +82,9 @@ def library(structure: SceneStructure, cfg: RenderConfig) -> _build.Library:
     """The built kernel for this structure and config (compiled at first
     use, then loaded from the build cache)."""
     built = _build.build(generate_source(structure, cfg), "fused_fwd")
-    for name, ints in ((ENTRY, 2), (FWD_TILE, 3)):
-        fn = getattr(built.lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * ints + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    fn = getattr(built.lib, ENTRY)
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     return built
 
 
@@ -110,15 +106,9 @@ def fused_forward(
     fields: torch.Tensor,
     height: int,
     width: int,
-    tile_w: Optional[int] = None,
 ) -> torch.Tensor:
     """Render [H, W, 3] f32: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors (render/backend.py). `tile_w`, one of
-    cuda_scene.FWD_TILES, launches the kernel with warps of that tile width
-    (`lol_render_fused_tile`, for sweeps and checks); None launches the
-    entry's own shape. The image does not depend on it."""
-    if tile_w is not None and tile_w not in FWD_TILES:
-        raise ValueError(f"tile_w {tile_w} is not one of the compiled {FWD_TILES}")
+    version for CPU tensors (render/backend.py)."""
     if resolve_backend(cam, fields) == "torch":
         return fused_forward_reference(structure, cfg, cam, fields, height, width)
     _check("cam", cam, (CAM_SIZE,))
@@ -129,13 +119,12 @@ def fused_forward(
         raise ValueError(f"bad image size {height}x{width}")
     lib = library(structure, cfg).lib
     img = torch.empty((height, width, 3), dtype=torch.float32, device=cam.device)
-    name, tile = (ENTRY, ()) if tile_w is None else (FWD_TILE, (tile_w,))
     with torch.cuda.device(cam.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, name)(cam.data_ptr(), fields.data_ptr(), img.data_ptr(), height,
-                                width, *tile, stream)
+        rc = getattr(lib, ENTRY)(cam.data_ptr(), fields.data_ptr(), img.data_ptr(), height,
+                                 width, stream)
     if rc != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+        raise RuntimeError(f"{ENTRY} launch failed: cudaError {rc}")
     global launches
     launches += 1
     return img

@@ -17,8 +17,7 @@ So the two loops are value functions, and on CUDA tensors they run here:
   init_done lanes), and `shadow_cull=False` launches its twin without the
   cull (a library of its own: the bitwise check);
 - the compiled pair runs each warp over an 8 x 4 tile of the caller's
-  [rows, width] batch; `tile_w=` of march_values / shadow_values launches
-  the `_tile` entry at one of cuda_scene.MARCH_TILES instead (the sweep);
+  [rows, width] batch;
 - the instanced pair marches each ray with a group of `lanes_for(n,
   SMs, shadow)` lanes of a warp (csrc/coop_march.cuh; 1 is one thread a
   ray), a width chosen per launch from the kernel, its ray count and the
@@ -63,10 +62,9 @@ plain versions, `march_values_reference`, `shadow_values_reference` and
 render/march.py `march` and render/shading.py `shadow_march` (started
 done where shading.segment_lit culls, as the kernel skips) under
 `no_grad`; `instanced_eval_reference` for K7. `launches` counts kernel
-launches per entry point (the `_tile` entries under their kernel's name);
-the plain versions never add to it. K3 and K4 share one library per
-structure and march config, built at first use; K7 has one per step
-clamp and plane count.
+launches per entry point; the plain versions never add to it. K3 and K4
+share one library per structure and march config, built at first use; K7
+has one per step clamp and plane count.
 """
 
 from __future__ import annotations
@@ -94,11 +92,8 @@ from loltracer_tpu_torch.render.cuda_scene import (
     MARCH,
     MARCH_INSTANCED,
     MARCH_LANES,
-    MARCH_TILE,
-    MARCH_TILES,
     SHADOW_MARCH,
     SHADOW_MARCH_INSTANCED,
-    SHADOW_MARCH_TILE,
     generate_eval_source,
     generate_exact_shadow_source,
     generate_march_source,
@@ -334,9 +329,7 @@ def _library(structure: SceneStructure, cfg: RenderConfig) -> _build.Library:
                    + [i32] * 3 + [ptr]}
     else:
         entries = {MARCH: [ptr, i32, ptr, ptr, ptr, i32, i32, ptr],
-                   SHADOW_MARCH: [ptr, i32] + [ptr] * 4 + [i32] * 2 + [ptr],
-                   MARCH_TILE: [ptr, i32, ptr, ptr, ptr, i32, i32, i32, ptr],
-                   SHADOW_MARCH_TILE: [ptr, i32] + [ptr] * 4 + [i32] * 3 + [ptr]}
+                   SHADOW_MARCH: [ptr, i32] + [ptr] * 4 + [i32] * 2 + [ptr]}
     for name, args in entries.items():
         fn = getattr(built.lib, name)
         fn.argtypes = args
@@ -388,18 +381,12 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _check_options(structure: SceneStructure, lanes: Optional[int],
-                   tile_w: Optional[int]) -> None:
+def _check_options(structure: SceneStructure, lanes: Optional[int]) -> None:
     if lanes is not None:
         if not structure.instanced:
             raise ValueError("lanes= applies to instanced structures only")
         if lanes not in MARCH_LANES:
             raise ValueError(f"lanes={lanes}: the instanced marches are built for {MARCH_LANES}")
-    if tile_w is not None:
-        if structure.instanced:
-            raise ValueError("tile_w= applies to compiled structures only")
-        if tile_w not in MARCH_TILES:
-            raise ValueError(f"tile_w={tile_w}: the compiled marches are built for {MARCH_TILES}")
 
 
 class _Entry(NamedTuple):
@@ -413,17 +400,14 @@ class _Entry(NamedTuple):
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(structure: SceneStructure, cfg: RenderConfig, shadow: bool,
-           tiled: bool = False) -> _Entry:
+def _entry(structure: SceneStructure, cfg: RenderConfig, shadow: bool) -> _Entry:
     """K4's entry (`shadow`) or K3's for this structure and cfg, resolved
-    once: from library(structure, cfg), built at first use; a compiled
-    structure's `_tile` entry if `tiled`."""
+    once: from library(structure, cfg), built at first use."""
     if structure.instanced:
-        name = symbol = SHADOW_MARCH_INSTANCED if shadow else MARCH_INSTANCED
+        name = SHADOW_MARCH_INSTANCED if shadow else MARCH_INSTANCED
     else:
         name = SHADOW_MARCH if shadow else MARCH
-        symbol = (SHADOW_MARCH_TILE if shadow else MARCH_TILE) if tiled else name
-    return _Entry(getattr(library(structure, cfg).lib, symbol), name, packed_size(structure))
+    return _Entry(getattr(library(structure, cfg).lib, name), name, packed_size(structure))
 
 
 def _check_rays(entry: _Entry, structure: SceneStructure, scene: MarchScene, ro, rd,
@@ -450,10 +434,10 @@ def _check_rays(entry: _Entry, structure: SceneStructure, scene: MarchScene, ro,
 
 
 def _launch(entry: _Entry, structure: SceneStructure, scene: MarchScene, ro, rd, max_dist,
-            planes: int, lanes: Optional[int] = None, tile_w: Optional[int] = None):
+            planes: int, lanes: Optional[int] = None):
     """Checks the inputs, launches `entry` and returns its [planes, ...]
     output over rd's batch; instanced entries at `lanes` lanes a ray, or
-    lanes_for's width; a `_tile` entry (_entry's `tiled`) at tile_w."""
+    lanes_for's width."""
     _check_rays(entry, structure, scene, ro, rd, max_dist)
     batch = tuple(rd.shape[:-1])
     dev = rd.device
@@ -473,8 +457,6 @@ def _launch(entry: _Entry, structure: SceneStructure, scene: MarchScene, ro, rd,
     args += [out.data_ptr(), rows, width]
     if tab is not None:
         args.append(lanes or lanes_for(n, _sm_count(dev.index), max_dist is not None))
-    elif tile_w is not None:
-        args.append(tile_w)
     if dev.index == torch.cuda.current_device():
         rc = entry.fn(*args, torch.cuda.current_stream().cuda_stream)
     else:
@@ -488,32 +470,30 @@ def _launch(entry: _Entry, structure: SceneStructure, scene: MarchScene, ro, rd,
 
 def march_values(
     structure: SceneStructure, cfg: RenderConfig, ro, rd, scene: MarchScene,
-    *, lanes: Optional[int] = None, tile_w: Optional[int] = None,
+    *, lanes: Optional[int] = None,
 ) -> MarchResult:
     """K3 for CUDA tensors, march_values_reference for CPU tensors: the
     frozen march of rays ro [3] or [..., 3] along rd [..., 3]. `lanes`
-    (instanced only): the kernel's lane-group width, else lanes_for's;
-    `tile_w` (compiled only): the warp tile width of `lol_march_tile`,
-    else lol_march's 8."""
-    _check_options(structure, lanes, tile_w)
+    (instanced only): the kernel's lane-group width, else lanes_for's."""
+    _check_options(structure, lanes)
     if resolve_backend(ro, rd, scene.fields) == "torch":
         return march_values_reference(structure, cfg, ro, rd, scene)
-    entry = _entry(structure, cfg, False, tile_w is not None)
-    return MarchResult(*_launch(entry, structure, scene, ro, rd, None, 4, lanes, tile_w).unbind())
+    entry = _entry(structure, cfg, False)
+    return MarchResult(*_launch(entry, structure, scene, ro, rd, None, 4, lanes).unbind())
 
 
 def shadow_values(
     structure: SceneStructure, cfg: RenderConfig, ro, rd, max_dist, scene: MarchScene,
-    *, lanes: Optional[int] = None, tile_w: Optional[int] = None,
+    *, lanes: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4 for CUDA tensors, shadow_values_reference for CPU tensors: (res,
     t*) of the shadow marches from ro [..., 3] along rd [..., 3] up to
-    max_dist [...]. `lanes` and `tile_w` as for march_values."""
-    _check_options(structure, lanes, tile_w)
+    max_dist [...]. `lanes` as for march_values."""
+    _check_options(structure, lanes)
     if resolve_backend(ro, rd, max_dist, scene.fields) == "torch":
         return shadow_values_reference(structure, cfg, ro, rd, max_dist, scene)
-    entry = _entry(structure, cfg, True, tile_w is not None)
-    return tuple(_launch(entry, structure, scene, ro, rd, max_dist, 2, lanes, tile_w).unbind())
+    entry = _entry(structure, cfg, True)
+    return tuple(_launch(entry, structure, scene, ro, rd, max_dist, 2, lanes).unbind())
 
 
 def _ray_batch(ro, rd, *per_ray):

@@ -3,10 +3,10 @@
 `lol_shadow_march_instanced`), on a machine without CUDA:
 
 - the generated march source: deterministic, one text for every sphere
-  count, the entry points where they belong (the compiled `_tile` sweep
-  entries too), `Scene::segment_lit` under cfg.shadow_cull only where the
-  structure allows it, and a library key that separates shadow_cull for
-  compiled structures only;
+  count, the entry points where they belong (one launch shape a compiled
+  kernel, no `_tile` entry), `Scene::segment_lit` under cfg.shadow_cull
+  only where the structure allows it, and a library key that separates
+  shadow_cull for compiled structures only;
 - csrc/march.cuh's per-ray functions over the compiled and the instanced
   `Scene`, compiled for the host with g++ through the shim of
   tests/test_torch_train_host.py, ray by ray against the plain loops
@@ -18,7 +18,8 @@
   scene2, scene3, scene4 (AA) and a structure with a box;
 - the compiled launch's ray mapping (`march_shape`, `march_ray_xy`) over
   ragged [rows, width] batches: each ray taken by exactly one thread at
-  each warp tile width of MARCH_TILES, each warp one tile;
+  warp tile widths 32, 16 and 8 (the entries launch MARCH_TILE_W), each
+  warp one tile;
 - K7's per-point function `eval_at` (`lol_instanced_eval`) over the
   InstancedScene of its generated source, point by point against its
   plain version (`instanced_eval_reference`): instanced:300 whole at clamp
@@ -266,12 +267,10 @@ def test_march_source_entries_and_determinism(scene4):
     src = generate_march_source(scene4.structure, cfg)
     assert src == generate_march_source(scene4.structure, cfg)
     entries = src.rsplit("#ifdef __CUDACC__", 1)[1]
-    for name in ("lol_march", "lol_shadow_march", "lol_march_tile", "lol_shadow_march_tile"):
+    for name in ("lol_march", "lol_shadow_march"):
         assert f"int {name}(" in entries
-    for w in cuda_scene.MARCH_TILES:
-        assert entries.count(f"case {w}:") == 2
-    # lol_march / lol_shadow_march launch the width the wrapper names
-    assert cuda_scene.MARCH_TILE_W in cuda_scene.MARCH_TILES
+    # one launch shape a kernel: no `_tile` entry, no dispatch on a width
+    assert "_tile" not in entries and "switch" not in entries
     assert f"constexpr int kMarchTileW = {cuda_scene.MARCH_TILE_W};" in src
     assert "instanced" not in entries
     assert (cuda_scene.CSRC / "march.cuh").read_text() in src
@@ -476,6 +475,10 @@ def test_march_source_emits_no_bound_over_a_smooth_min_on_a_plane(tmp_path):
                                       _host_values(off, st, scene_m, so, ld, dist))
 
 
+# the warp tile widths march_ray_xy<kTileW> is held to; the entries launch
+# cuda_scene.MARCH_TILE_W
+_COVER_WIDTHS = (32, 16, 8)
+
 # every thread of a compiled launch over a [rows, width] batch: its ray
 # (x, y), or -1 where the kernel masks it
 _COVER_ENTRY = r"""
@@ -498,7 +501,7 @@ extern "C" long long host_cover(int rows, int width, int tile_w, int* xs, int* y
   return k;
 }
 """ % "\n".join(f"          case {w}: lol::march_ray_xy<{w}>(rows, bx, by, tid, x, y); break;"
-                for w in cuda_scene.MARCH_TILES)
+                for w in _COVER_WIDTHS)
 
 
 @pytest.fixture(scope="module")
@@ -508,7 +511,7 @@ def cover_lib(scene4, tmp_path_factory):
 
 
 @pytest.mark.parametrize("rows,width", [(13, 37), (1, 97), (40, 8), (8, 256), (1, 1), (33, 1)])
-@pytest.mark.parametrize("tile_w", cuda_scene.MARCH_TILES)
+@pytest.mark.parametrize("tile_w", _COVER_WIDTHS)
 def test_march_tile_covers_each_ray_once(cover_lib, rows, width, tile_w):
     """The compiled launch (march_shape's grid, march_ray_xy's mapping) over
     a ragged [rows, width] batch: each ray taken by exactly one thread, the
@@ -532,9 +535,9 @@ def test_march_tile_covers_each_ray_once(cover_lib, rows, width, tile_w):
 
 
 def test_march_wrappers_check_their_options_and_inputs(scene4):
-    """tile_w names a compiled width of MARCH_TILES and lanes an instanced
-    width, else the wrappers raise, on any device; on CPU tensors a tile
-    width takes the plain version (bitwise) and launches nothing; a launch
+    """lanes names an instanced width of MARCH_LANES on an instanced
+    structure, else the wrappers raise, on any device; on CPU tensors the
+    wrappers take the plain version (bitwise) and launch nothing; a launch
     refuses tensors off the card or of another shape before it starts."""
     from loltracer_tpu_torch.render.march_kernels import march_values, shadow_values
 
@@ -544,18 +547,17 @@ def test_march_wrappers_check_their_options_and_inputs(scene4):
     ro, rd = camera_rays(scene4.params, 4, 6, cfg)
     dist = torch.full(rd.shape[:-1], 5.0)
     before = dict(march_kernels.launches)
-    for w in cuda_scene.MARCH_TILES:
-        for a, b in zip(march_values(st, cfg, ro, rd, scene, tile_w=w),
-                        march_values_reference(st, cfg, ro, rd, scene)):
-            assert torch.equal(a, b)
-        for a, b in zip(shadow_values(st, cfg, ro + rd, rd, dist, scene, tile_w=w),
-                        shadow_values_reference(st, cfg, ro + rd, rd, dist, scene)):
-            assert torch.equal(a, b)
+    for a, b in zip(march_values(st, cfg, ro, rd, scene),
+                    march_values_reference(st, cfg, ro, rd, scene)):
+        assert torch.equal(a, b)
+    for a, b in zip(shadow_values(st, cfg, ro + rd, rd, dist, scene),
+                    shadow_values_reference(st, cfg, ro + rd, rd, dist, scene)):
+        assert torch.equal(a, b)
     assert march_kernels.launches == before
     inst_scene = pack_march_scene(inst.structure, inst.params)
-    for call in (lambda: march_values(st, cfg, ro, rd, scene, tile_w=4),
+    for call in (lambda: march_values(st, cfg, ro, rd, scene, lanes=32),
                  lambda: shadow_values(st, cfg, ro + rd, rd, dist, scene, lanes=1),
-                 lambda: march_values(inst.structure, cfg, ro, rd, inst_scene, tile_w=8)):
+                 lambda: march_values(inst.structure, cfg, ro, rd, inst_scene, lanes=4)):
         with pytest.raises(ValueError):
             call()
     entry = march_kernels._Entry(None, "lol_march", cuda_scene.packed_size(st))
